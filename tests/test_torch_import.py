@@ -1,0 +1,57 @@
+"""The port imports with JAX blocked and loads nothing of `ceph_tpu`."""
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = textwrap.dedent("""
+    import importlib, json, pkgutil, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    import ceph_tpu_torch
+    names = sorted(m.name for m in pkgutil.walk_packages(
+        ceph_tpu_torch.__path__, "ceph_tpu_torch."))
+    for name in names:
+        importlib.import_module(name)
+    leaked = sorted(n for n in sys.modules
+                    if n == "ceph_tpu" or n.startswith("ceph_tpu."))
+    print(json.dumps({"modules": names, "leaked": leaked}))
+""")
+
+
+def test_port_imports_without_jax_or_reference():
+    import json
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for name in ("ceph_tpu_torch.ec.gf", "ceph_tpu_torch.ec.interface",
+                 "ceph_tpu_torch.ec.registry",
+                 "ceph_tpu_torch.ec.matrix_code",
+                 "ceph_tpu_torch.ec.kernels.bitmatmul",
+                 "ceph_tpu_torch.ec.kernels._build",
+                 "ceph_tpu_torch.ec.plugins.tpu",
+                 "ceph_tpu_torch.osd.ecutil", "ceph_tpu_torch.device"):
+        assert name in out["modules"], name
+
+
+def test_port_sources_name_no_jax_import():
+    """Static half: no module of the port, and not chip_smoke.py, has an
+    import statement for jax or the reference package."""
+    import ast
+    files = sorted((ROOT / "ceph_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for path in files:
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                assert top not in ("jax", "jaxlib", "ceph_tpu"), (path, mod)
