@@ -3,8 +3,10 @@
 Each source under `csrc/` is compiled with `nvcc` into a shared library
 with a plain C interface and loaded with ctypes: no PyTorch headers, so a
 build takes seconds.  Libraries go to `ceph_tpu_torch/_build/`, named by
-a digest of the source and flags, and are built at first use.  A failed
-build raises; nothing falls back to the plain versions.
+a digest of the source and flags, and are built at first use.  The
+compiler's output (ptxas's register and stack-frame report) is kept
+beside each library, so it can be read back for a cached build too.  A
+failed build raises; nothing falls back to the plain versions.
 """
 from __future__ import annotations
 
@@ -39,10 +41,16 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """Where the compiler output of `name`'s current library is kept."""
+    return lib_path(name).with_suffix(".log")
+
+
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
-    """Start nvcc for `name` unless its library is already built."""
+    """Start nvcc for `name` unless its library and log are already
+    built."""
     out = lib_path(name)
-    if out.exists():
+    if out.exists() and log_path(name).exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -54,10 +62,9 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
 
 def build(*names: str) -> dict[str, str]:
     """Compile every named source that is not built yet, all nvcc
-    processes at once.  Returns {name: compiler output} for the ones
-    compiled (ptxas register/shared-memory report included)."""
+    processes at once.  Returns {name: compiler output} for every name,
+    read back from the kept log where the library was already built."""
     started = {n: _start(n) for n in names}
-    logs = {}
     for name, job in started.items():
         if job is None:
             continue
@@ -66,9 +73,11 @@ def build(*names: str) -> dict[str, str]:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        log_tmp = log_path(name).with_suffix(f".{os.getpid()}.logtmp")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, log_path(name))
         os.replace(tmp, out)
-        logs[name] = log
-    return logs
+    return {n: log_path(n).read_text() for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,9 +8,12 @@ CUDA C++ in `csrc/gf_matmul.cu`:
 
 * K1 `gf_matmul_cuda`: (S, k, N) stripes -> (S, r, N); encode and staged
   decode.  Counterpart of `_gf_kernel_planar` in the reference package.
+  Takes `packed_nibble_tables`: one entry per (input row, nibble) holds
+  the products for every output row, so a byte costs two lookups.
 * K2 `gf_decode_select_cuda`: the same product on the survivor rows `sel`
   of a full-width (S, n, N) arrival block; erased slots, whatever they
   hold, are never read.  Counterpart of `_gf_kernel_planar_select`.
+  Takes `nibble_tables`, one 32-byte pair per (output row, input row).
 
 Beside each kernel is its plain PyTorch version (`gf_matmul_plain`,
 `gf_decode_select_plain`): a `mul_table` gather and an XOR over k,
@@ -61,6 +64,28 @@ def nibble_tables(mat: np.ndarray) -> np.ndarray:
     lo = MUL[mat[:, :, None], x[None, None, :]]
     hi = MUL[mat[:, :, None], (x << 4)[None, None, :]]
     return np.ascontiguousarray(np.concatenate([lo, hi], axis=2))
+
+
+def packed_shape(r: int, k: int) -> tuple[int, ...]:
+    """Shape of `packed_nibble_tables` for an (r x k) matrix."""
+    return (-(-r // 8), k, 2, 16, 4 if r <= 4 else 8)
+
+
+def packed_nibble_tables(mat: np.ndarray) -> np.ndarray:
+    """(g, k, 2, 16, W) uint8 row-packed split-nibble tables for K1, one
+    block per launch of up to 8 output rows (g = ceil(r / 8)).  Entry
+    [G, j, h, x] holds in its byte i the product of mat[8G + i, j] with
+    x (h = 0) or x << 4 (h = 1), 0 past the last row; W = 4 bytes when
+    r <= 4, else 8.  So one lookup per nibble serves every output row:
+    byte i of t[G, j, 0, b & 15] ^ t[G, j, 1, b >> 4] is
+    mat[8G + i, j] * b."""
+    mat = np.asarray(mat, dtype=np.uint8)
+    r, k = mat.shape
+    g, _, _, _, w = packed_shape(r, k)
+    rows = np.zeros((g * w, k, 2, 16), dtype=np.uint8)
+    rows[:r] = nibble_tables(mat).reshape(r, k, 2, 16)
+    return np.ascontiguousarray(
+        rows.reshape(g, w, k, 2, 16).transpose(0, 2, 3, 4, 1))
 
 
 def _survivor_runs(idx: list[int]) -> list[tuple[int, int]]:
@@ -144,16 +169,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(tables: torch.Tensor, data: torch.Tensor) -> None:
+def _check_cuda(tables: torch.Tensor, data: torch.Tensor,
+                table_shape: tuple[int, ...], what: str) -> None:
     if data.device.type != "cuda" or tables.device != data.device:
         raise ValueError(f"kernel needs data and tables on one cuda device, "
                          f"got {data.device} and {tables.device}")
     if data.dtype != torch.uint8 or data.dim() != 3 or \
             not data.is_contiguous():
         raise ValueError("data must be a contiguous (S, rows, N) uint8 tensor")
-    if tables.dtype != torch.uint8 or tables.dim() != 3 or \
-            tables.shape[2] != 32 or not tables.is_contiguous():
-        raise ValueError("tables must be a contiguous (r, k, 32) uint8 tensor")
+    if tables.dtype != torch.uint8 or tuple(tables.shape) != table_shape or \
+            not tables.is_contiguous() or tables.data_ptr() % 16:
+        raise ValueError(f"tables must be a contiguous, 16-byte aligned "
+                         f"{table_shape} uint8 tensor of {what}, got "
+                         f"{tuple(tables.shape)}")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -162,14 +190,14 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
-def gf_matmul_cuda(tables: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """K1: tables (r, k, 32) of nibble_tables, data (S, k, N) -> (S, r, N),
-    launched on the current stream."""
-    _check_cuda(tables, data)
-    r, k, _ = tables.shape
-    s, k_, n = data.shape
-    if k_ != k:
-        raise ValueError(f"expected {k} input rows, got {k_}")
+def gf_matmul_cuda(tables: torch.Tensor, data: torch.Tensor,
+                   r: int) -> torch.Tensor:
+    """K1: tables of packed_nibble_tables for an (r x k) matrix, data
+    (S, k, N) -> (S, r, N), launched on the current stream."""
+    if data.dim() != 3:
+        raise ValueError("data must be a contiguous (S, rows, N) uint8 tensor")
+    s, k, n = data.shape
+    _check_cuda(tables, data, packed_shape(r, k), "packed_nibble_tables")
     out = torch.empty((s, r, n), dtype=torch.uint8, device=data.device)
     if s and n:
         stream = torch.cuda.current_stream(data.device).cuda_stream
@@ -184,8 +212,8 @@ def gf_decode_select_cuda(tables: torch.Tensor, sel: torch.Tensor,
                           data: torch.Tensor) -> torch.Tensor:
     """K2: tables (r, k, 32), sel (k,) int32 row indexes into the n rows
     of each stripe of data (S, n, N) -> (S, r, N)."""
-    _check_cuda(tables, data)
-    r, k, _ = tables.shape
+    r, k = tables.shape[:2]
+    _check_cuda(tables, data, (r, k, 32), "nibble_tables")
     s, n, nbytes = data.shape
     if sel.dtype != torch.int32 or sel.shape != (k,) or \
             sel.device != data.device:
@@ -205,7 +233,7 @@ def gf_matmul(tables: torch.Tensor, mat: torch.Tensor,
               data: torch.Tensor) -> torch.Tensor:
     """K1 on a cuda tensor, its plain version on a cpu tensor."""
     if data.device.type == "cuda":
-        return gf_matmul_cuda(tables, data)
+        return gf_matmul_cuda(tables, data, mat.shape[0])
     if data.device.type == "cpu":
         return gf_matmul_plain(mat, data)
     raise ValueError(f"unsupported device {data.device}")
@@ -234,7 +262,8 @@ class GFMatmul:
         self.mat = np.ascontiguousarray(mat, dtype=np.uint8)
         self.r, self.k = self.mat.shape
         self.mat_t = torch.from_numpy(self.mat.copy()).to(self.device)
-        self.tables = torch.from_numpy(nibble_tables(self.mat)).to(self.device)
+        self.tables = torch.from_numpy(
+            packed_nibble_tables(self.mat)).to(self.device)
 
     def __call__(self, data) -> torch.Tensor:
         """data: (..., k, N) uint8, numpy or tensor -> (..., r, N) on the

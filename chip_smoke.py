@@ -6,10 +6,13 @@
 Phases, each failing the run (non-zero exit) on any error or mismatch:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ceph_tpu_torch/ec/kernels/csrc;
+2. build the CUDA kernels from ceph_tpu_torch/ec/kernels/csrc and print
+   ptxas's registers and stack frame for each (from the log kept beside
+   the library, so a cached build is checked too); a kernel with a stack
+   frame (accumulators pushed to local memory) fails the run;
 3. K1 (gf_matmul_cuda) against its plain PyTorch version over
-   S x N x (r, k) sweeps with random matrices, ragged and unaligned
-   inputs included;
+   S x N x (r, k) sweeps with random matrices, r = 1 .. 8 and 10 rows,
+   ragged and unaligned inputs included;
 4. K2 (gf_decode_select_cuda) against its plain version over every 1-
    and 2-erasure pattern of k=8 m=4, with garbage in the erased slots;
 5. the main path at full width through the user entry points: the `tpu`
@@ -20,7 +23,8 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    Kernel launch counts are zeroed before and read after; a kernel that
    the path did not launch fails the run;
 6. time encode, staged decode and full-width decode (CUDA events, warmup,
-   median of 7) and each kernel beside its plain version and its bound.
+   median of 7) and each kernel beside its plain version and its bound;
+   K1 at both of its main-path shapes (encode r=4, staged decode r=2).
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -30,6 +34,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -94,16 +99,18 @@ def check_k1(bm, gen: torch.Generator, dev) -> int:
     worst = 0
     cases = 0
     for (r, k), s, n in itertools.product(
-            [(4, 8), (2, 8), (3, 5), (4, 20), (10, 6)], [1, 3, 4, 7],
+            [(4, 8), (2, 8), (3, 5), (4, 20), (10, 6), (1, 8), (5, 8),
+             (6, 8), (7, 8), (8, 8)], [1, 3, 4, 7],
             [1, 31, 4096, CHUNK + 17]):
         mat = torch.randint(0, 256, (r, k), generator=gen, device=dev,
                             dtype=torch.uint8)
-        tables = torch.from_numpy(bm.nibble_tables(mat.cpu().numpy())).to(dev)
+        tables = torch.from_numpy(
+            bm.packed_nibble_tables(mat.cpu().numpy())).to(dev)
         data = torch.randint(0, 256, (s, k, n), generator=gen, device=dev,
                              dtype=torch.uint8)
         want = bm.gf_matmul_plain(mat, data)
         for d in (data, unaligned_copy(data)) if n == 4096 else (data,):
-            err = max_err(bm.gf_matmul_cuda(tables, d), want)
+            err = max_err(bm.gf_matmul_cuda(tables, d, r), want)
             if err:
                 raise AssertionError(f"K1 differs at r={r} k={k} S={s} "
                                      f"N={n} ptr%16={d.data_ptr() % 16}")
@@ -225,11 +232,16 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     t0 = time.monotonic()
-    logs = _build.build("gf_matmul")
+    log = _build.build("gf_matmul")["gf_matmul"]
     print(f"phase 2: built gf_matmul in {time.monotonic() - t0:.1f} s")
-    for line in logs.get("gf_matmul", "").splitlines():
+    if "stack frame" not in log:
+        raise AssertionError("no ptxas report for gf_matmul")
+    for line in log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.replace("ptxas info    :", "").strip())
+        frame = re.search(r"(\d+) bytes stack frame", line)
+        if frame and int(frame.group(1)):
+            raise AssertionError(f"a kernel has a stack frame: {line.strip()}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -283,10 +295,11 @@ def main() -> int:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    k1_ms = time_ms(lambda: bm.gf_matmul_cuda(enc_op.tables, data))
+    k1_ms = time_ms(lambda: bm.gf_matmul_cuda(enc_op.tables, data, M))
     k1_plain = time_ms(lambda: bm.gf_matmul_plain(enc_op.mat_t, data),
                        reps=2, repeats=5)
-    k1_dec_ms = time_ms(lambda: bm.gf_matmul_cuda(dec_op.tables, survivors))
+    k1_dec_ms = time_ms(lambda: bm.gf_matmul_cuda(dec_op.tables, survivors,
+                                                  len(ERASURES)))
     k2_ms = time_ms(lambda: bm.gf_decode_select_cuda(
         full_op.tables, full_op.sel_t, arrival))
     k2_plain = time_ms(lambda: bm.gf_decode_select_plain(
@@ -308,7 +321,9 @@ def main() -> int:
          "replaces": "ceph_tpu/ec/kernels/bitmatmul.py:185",
          "launches": launches["gf_matmul"], "max_abs_err": err_k1,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "bound_by": k1_by, "library_ms": None,
+         "staged_decode_ms": k1_dec_ms,
+         "staged_decode_bound_ms": k1_dec_bound},
         {"name": "gf_decode_select", "route": "cuda",
          "source": "ceph_tpu_torch/ec/kernels/csrc/gf_matmul.cu",
          "replaces": "ceph_tpu/ec/kernels/bitmatmul.py:302",

@@ -112,12 +112,13 @@ def test_selection_validity_contract():
 
 def test_dispatch_takes_plain_version_only_for_cpu_tensors():
     mat = torch.from_numpy(gf.isa_rs_matrix(4, 2)[4:].copy())
-    tables = torch.from_numpy(bm.nibble_tables(mat.numpy()))
+    tables = torch.from_numpy(bm.packed_nibble_tables(mat.numpy()))
     meta = torch.empty((1, 4, 16), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         bm.gf_matmul(tables, mat, meta)
     with pytest.raises(ValueError, match="cuda"):
-        bm.gf_matmul_cuda(tables, torch.zeros((1, 4, 16), dtype=torch.uint8))
+        bm.gf_matmul_cuda(tables, torch.zeros((1, 4, 16), dtype=torch.uint8),
+                          2)
     before = dict(bm.LAUNCHES)
     bm.gf_matmul(tables, mat, torch.zeros((1, 4, 16), dtype=torch.uint8))
     assert bm.LAUNCHES == before        # the plain version counts nothing

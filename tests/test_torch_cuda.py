@@ -27,22 +27,49 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("r,k,s,n", [
-    (4, 8, 4, 131072), (2, 8, 3, 4096), (3, 5, 7, 31), (4, 20, 1, 4113),
-    (10, 6, 2, 1000), (1, 2, 5, 1),
-])
-def test_k1_matches_plain(dev, r, k, s, n):
+def k1_against_plain(dev, r, k, s, n, ptr_offset=0):
     rng = np.random.default_rng(r * 1000 + k * 10 + s)
     mat = rng.integers(0, 256, (r, k), dtype=np.uint8)
     data = torch.from_numpy(
         rng.integers(0, 256, (s, k, n), dtype=np.uint8)).to(dev)
-    tables = torch.from_numpy(bm.nibble_tables(mat)).to(dev)
+    if ptr_offset:
+        buf = torch.empty(data.numel() + 32, dtype=torch.uint8, device=dev)
+        start = (-buf.data_ptr()) % 16 + ptr_offset
+        data = buf[start:start + data.numel()].view(data.shape).copy_(data)
+        assert data.data_ptr() % 16 == ptr_offset
+    tables = torch.from_numpy(bm.packed_nibble_tables(mat)).to(dev)
     before = bm.LAUNCHES["gf_matmul"]
-    got = bm.gf_matmul_cuda(tables, data)
+    got = bm.gf_matmul_cuda(tables, data, r)
     assert bm.LAUNCHES["gf_matmul"] == before + 1
     want = bm.gf_matmul_plain(torch.from_numpy(mat).to(dev), data)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r,k,s,n", [
+    (4, 8, 4, 131072), (2, 8, 3, 4096), (3, 5, 7, 31), (4, 20, 1, 4113),
+    (10, 6, 2, 1000), (1, 2, 5, 1),
+] + [(r, 8, 3, 4096 + 17) for r in (1, 2, 3, 4, 5, 6, 7, 8, 12)]
+  + [(4, k, 2, 8192) for k in (2, 5, 20)])
+def test_k1_matches_plain(dev, r, k, s, n):
+    k1_against_plain(dev, r, k, s, n)
+
+
+def test_k1_splits_stripes_over_grid_y(dev):
+    """65539 stripes: more than grid.y takes, so two launches."""
+    k1_against_plain(dev, 1, 2, 65539, 17)
+
+
+def test_k1_unaligned_pointer(dev):
+    k1_against_plain(dev, 4, 8, 3, 4096, ptr_offset=1)
+
+
+def test_k1_refuses_tables_of_another_layout(dev):
+    mat = gf.isa_rs_matrix(8, 4)[8:]
+    data = torch.zeros((1, 8, 16), dtype=torch.uint8, device=dev)
+    tables = torch.from_numpy(bm.nibble_tables(mat)).to(dev)
+    with pytest.raises(ValueError, match="packed_nibble_tables"):
+        bm.gf_matmul_cuda(tables, data, 4)
 
 
 def test_k2_matches_plain_all_double_erasures(dev):
