@@ -1,7 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-Each source under `csrc/` is compiled with `nvcc` into a shared library
-with a plain C interface and loaded with ctypes: no PyTorch headers, so a
+Each source under a `kernels/csrc/` directory of the port (`ec/` and
+`crush/`; a name resolves to the one source of that name) is compiled with
+`nvcc` into a shared library with a plain C interface and loaded with
+ctypes: no PyTorch headers, so a
 build takes seconds.  Libraries go to `ceph_tpu_torch/_build/`, named by
 a digest of the source and flags, and are built at first use.  The
 compiler's output (ptxas's register and stack-frame report) is kept
@@ -18,8 +20,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+PORT = Path(__file__).resolve().parents[2]
+CSRC = PORT / "ec" / "kernels" / "csrc"
+CSRC_DIRS = (CSRC, PORT / "crush" / "kernels" / "csrc")
+BUILD_DIR = PORT / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,8 +39,17 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
+def source(name: str) -> Path:
+    """The one `{name}.cu` under the port's source directories."""
+    found = [d / f"{name}.cu" for d in CSRC_DIRS if (d / f"{name}.cu").is_file()]
+    if len(found) != 1:
+        raise FileNotFoundError(
+            f"{name}.cu: expected one source under {CSRC_DIRS}, found {found}")
+    return found[0]
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = source(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -55,7 +68,7 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
 

@@ -24,7 +24,29 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    the path did not launch fails the run;
 6. time encode, staged decode and full-width decode (CUDA events, warmup,
    median of 7) and each kernel beside its plain version and its bound;
-   K1 at both of its main-path shapes (encode r=4, staged decode r=2).
+   K1 at both of its main-path shapes (encode r=4, staged decode r=2);
+7. K3 (crush_do_rule_cuda) against its plain PyTorch version: every rule
+   shape of the batch engine's tests on small straw2 hierarchies under
+   jewel and firefly tunables, all-in and 15 % out / 15 % partial
+   weights, a choose_args weight set with id remaps, tie-heavy and
+   many-weight flat buckets, and the 10,000-OSD map for the first 65,536
+   seeds of both pools below; ptxas's registers and stack frame of K3;
+8. CRUSH placement at full width through the user entry point:
+   `osdmaptool --createsimple 10000 --test-map-pgs` (10,000 OSDs, 500
+   straw2 hosts of 20, jewel tunables, 1,048,576 PGs of size 3) plus an
+   EC k=8 m=4 pool (chooseleaf_indep 12 type host, 65,536 PGs), mapped by
+   OSDMapMapping(device=cuda).update(); then a failure epoch (100 OSDs
+   out, 100 reweighted to 0x8000, 50 down) and update() again.  Each
+   epoch: 256 sampled PGs of each pool against the scalar
+   pg_to_up_acting_osds, and the PGs per OSD.  K3's launch count is
+   zeroed before and read after (it must be above 0); the count of pools
+   that took the scalar engine must stay 0;
+9. time K3 over 1,048,576 seeds (CUDA events), update() on the host
+   clock and split into its pieces, and the plain version at 65,536
+   seeds; K3's bound from the
+   straw2 item evaluations the plain version counts over all 1,048,576
+   seeds, the integer instructions of one hash in K3's SASS and the SM
+   clock read during the timing.
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -35,6 +57,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,6 +74,12 @@ STRIPES = 256                    # stripes per launch, as bench.py
 ERASURES = [1, 9]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 peak
+SMS, INT32_LANES = 132, 64       # H100 SXM: SMs, INT32 lanes per SM
+N_OSD, OSDS_PER_HOST = 10_000, 20
+PG_NUM, EC_PG_NUM = 1 << 20, 1 << 16
+EC_K, EC_M = 8, 4
+SAMPLE = 256                     # identity sample per pool, as placement_bench
+PLAIN_SEEDS = 1 << 16
 
 
 def card() -> str:
@@ -213,6 +242,349 @@ def main_path(ec, ecutil, gf, gen: torch.Generator, dev) -> dict:
             "staged": staged, "rebuilt": rebuilt}
 
 
+# ---------------------------------------------------------------------------
+# CRUSH placement: phases 7-9
+
+def max_err32(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) \
+        if a.numel() else 0
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """Registers, stack frame and spills of `kernel` from ptxas -v."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" not in line or kernel not in line:
+            continue
+        rest = lines[i + 1:]
+        end = next((j for j, ln in enumerate(rest) if "Compiling entry" in ln),
+                   len(rest))
+        block = " ".join(rest[:end])
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        if frame and regs:
+            return {"registers": int(regs.group(1)),
+                    "stack_frame_bytes": int(frame.group(1)),
+                    "spill_store_bytes": int(frame.group(2)),
+                    "spill_load_bytes": int(frame.group(3))}
+    raise AssertionError(f"no ptxas report for {kernel}")
+
+
+def sass_instructions(lib_path, function: str) -> int:
+    """Instructions (NOPs aside) of one kernel in the library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if name == function:
+            ops = [m.group(1) for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)]
+            return sum(1 for op in ops if not op.startswith("NOP"))
+    raise AssertionError(f"{function} not in the SASS of {lib_path}")
+
+
+class ClockSampler:
+    """The SM clock (MHz) read by nvidia-smi every 100 ms while the
+    block runs; the process is stopped on exit."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        self.mhz = [int(v) for v in out.split() if v.strip().isdigit()]
+        return False
+
+
+def placement_map():
+    """`osdmaptool --createsimple 10000`: 500 straw2 hosts of 20 OSDs
+    under a straw2 root, jewel tunables, pool 0 of 1,048,576 PGs x 3;
+    plus pool 1, EC k=8 m=4 (chooseleaf_indep 12 type host), 65,536 PGs."""
+    from ceph_tpu_torch.crush.types import (CRUSH_RULE_CHOOSELEAF_INDEP,
+                                            CRUSH_RULE_EMIT, CRUSH_RULE_TAKE,
+                                            CrushRule, CrushRuleMask,
+                                            CrushRuleStep)
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.osd.types import POOL_TYPE_ERASURE, PGPool
+    m = OSDMap()
+    m.build_simple(N_OSD, osds_per_host=OSDS_PER_HOST,
+                   pg_pool=PGPool(pg_num=PG_NUM, pgp_num=PG_NUM, size=3))
+    root = next(b.id for b in m.crush.buckets
+                if b is not None and b.type == 10)
+    size = EC_K + EC_M
+    m.crush.rules.append(CrushRule(
+        steps=[CrushRuleStep(CRUSH_RULE_TAKE, root),
+               CrushRuleStep(CRUSH_RULE_CHOOSELEAF_INDEP, size, 1),
+               CrushRuleStep(CRUSH_RULE_EMIT)],
+        mask=CrushRuleMask(ruleset=1, type=POOL_TYPE_ERASURE, min_size=1,
+                           max_size=16)))
+    m.pools[1] = PGPool(type=POOL_TYPE_ERASURE, size=size,
+                        min_size=EC_K + 1, crush_rule=1, pg_num=EC_PG_NUM,
+                        pgp_num=EC_PG_NUM)
+    m.pool_names[1] = "ecpool"
+    return m
+
+
+def check_k3(cb, ct, placement, dev) -> tuple[int, int]:
+    """Phase 7: K3 against the plain version, exactly.  Returns
+    (cases, max_abs_err)."""
+    from ceph_tpu_torch.crush.types import ChooseArg, CrushRule
+    rng = np.random.default_rng(SEED)
+    worst = 0
+    cases = 0
+
+    def one(m, result_max, weight, xs, label, ruleno=0, choose_args=None,
+            class_path=None):
+        nonlocal worst, cases
+        cc = cb.compile_map(m, choose_args=choose_args,
+                            class_path=class_path, device=dev)
+        cfg = cc.rule_cfg(ruleno, result_max)
+        xs = torch.as_tensor(np.asarray(xs, dtype=np.int64), device=dev)
+        weight = torch.as_tensor(np.asarray(weight, dtype=np.int64),
+                                 device=dev)
+        got, got_n = cb.crush_do_rule_cuda(cc, cfg, xs, weight)
+        want, want_n = cb.map_batch_plain(cc, cfg, xs, weight)
+        err = max(max_err32(got, want), max_err32(got_n, want_n))
+        if err:
+            raise AssertionError(f"K3 differs from plain: {label}")
+        worst = max(worst, err)
+        cases += 1
+
+    seeds = rng.integers(0, 1 << 32, 4000, dtype=np.int64)
+    for rule in ("replicated_firstn", "ec_indep", "two_level_firstn",
+                 "direct_osd_indep", "direct_osd_firstn"):
+        for tunables in ("jewel", "firefly"):
+            m, root = ct.build_hierarchy(seed=cases, tunables=tunables)
+            steps, result_max = ct.rule_shapes(root)[rule]
+            m.rules.append(CrushRule(steps=steps))
+            for weight in (np.full(m.max_devices, 0x10000),
+                           ct.make_weight(m.max_devices, seed=cases)):
+                one(m, result_max, weight, seeds, f"{rule} {tunables}")
+    m, root = ct.build_hierarchy(seed=11)
+    m.rules.append(CrushRule(steps=ct.rule_shapes(root)["ec_indep"][0]))
+    rb = m.bucket(root)
+    ca = {root: ChooseArg(
+        ids=[i - 1000 for i in rb.items],
+        weight_set=[[int(rng.integers(1, 8) * 0x10000) for _ in rb.items]
+                    for _ in range(3)])}
+    for class_path in (True, False):
+        one(m, 6, ct.make_weight(m.max_devices, seed=5), seeds,
+            "choose_args weight set", choose_args=ca, class_path=class_path)
+        one(ct.build_flat([0xFFFF0000] * 20), 3, np.full(20, 0x10000),
+            np.arange(20_000), "tie-heavy flat", class_path=class_path)
+        n = cb.CLASS_PATH_MAX + 8
+        one(ct.build_flat([0x10000 + i * 0x100 for i in range(n)]), 3,
+            ct.make_weight(n, seed=3), seeds, "many weights",
+            class_path=class_path)
+    for pool_id, pool in placement.pools.items():
+        ruleno = placement.crush.find_rule(pool.crush_rule, pool.type,
+                                           pool.size)
+        pps = pool.raw_pg_to_pps_batch(np.arange(PLAIN_SEEDS), pool_id)
+        one(placement.crush, pool.size, placement.osd_weight, pps,
+            f"10k map pool {pool_id}", ruleno=ruleno)
+    torch.cuda.synchronize()
+    print(f"phase 7: K3 == plain on {cases} cases (max_abs_err {worst})")
+    return cases, worst
+
+
+def failure_epoch(osdmap):
+    """100 OSDs out, 100 others reweighted to 0x8000, 50 others down."""
+    from ceph_tpu_torch.osd.osdmap import Incremental
+    order = np.random.default_rng(SEED).permutation(N_OSD)
+    out, part, down = order[:100], order[100:200], order[200:250]
+    inc = Incremental(epoch=osdmap.epoch + 1)
+    inc.new_weight.update({int(o): 0 for o in out})
+    inc.new_weight.update({int(o): 0x8000 for o in part})
+    inc.new_down_osds.extend(int(o) for o in down)
+    return inc, out, down
+
+
+def drive_placement(om, placement) -> dict:
+    """Phase 8: OSDMapMapping.update on the card, before and after the
+    failure epoch, each checked against the scalar pipeline."""
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osd.types import PG
+    rng = np.random.default_rng(SEED + 1)
+    mapping = om.OSDMapMapping()            # device None: the card
+    times = []
+    for epoch in (1, 2):
+        if epoch == 2:
+            inc, out, down = failure_epoch(placement)
+            placement.apply_incremental(inc)
+        t0 = time.monotonic()
+        mapping.update(placement)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        for pool_id, pool in placement.pools.items():
+            pm = mapping.pools[pool_id]
+            if pm.up.shape != (pool.pg_num, pool.size):
+                raise AssertionError(f"pool {pool_id}: up {pm.up.shape}")
+            vals = pm.up[pm.up != CRUSH_ITEM_NONE]
+            if vals.size == 0 or vals.min() < 0 or vals.max() >= N_OSD:
+                raise AssertionError(f"pool {pool_id}: OSD ids out of range")
+            for ps in rng.choice(pool.pg_num, SAMPLE, replace=False):
+                pg = PG(pool_id, int(ps))
+                if mapping.get(pg) != placement.pg_to_up_acting_osds(pg):
+                    raise AssertionError(f"epoch {epoch}: {pg} differs from "
+                                         "the scalar pipeline")
+        counts = mapping.osd_pg_counts(N_OSD)
+        if epoch == 1 and counts.min() == 0:
+            raise AssertionError("an OSD carries no PG on the all-in map")
+        if epoch == 2 and (counts[out].any() or counts[down].any()):
+            raise AssertionError("an out or down OSD still carries PGs")
+        holes = int((mapping.pools[1].up == CRUSH_ITEM_NONE).sum())
+        print(f"phase 8: epoch {epoch}: update() {times[-1]:.3f} s on the "
+              f"host clock; {SAMPLE} sampled PGs of each pool == scalar "
+              f"pg_to_up_acting_osds; PGs per OSD (acting, both pools) min "
+              f"{int(counts.min())} max {int(counts.max())} mean "
+              f"{float(counts.mean()):.2f}; EC holes {holes}")
+    return {"mapping": mapping, "update_s": times}
+
+
+def update_split(cb, om, placement, dev) -> dict:
+    """Host-clock split of one OSDMapMapping.update() of the current map:
+    the pieces timed one by one with the calls update() makes (table
+    staging by compile_map; per pool, the seed hashing and map_batch with
+    the copy back); the rest of update() is the numpy epilogue (filters,
+    compaction, primary affinity, temp rows)."""
+    weights = np.asarray(placement.osd_weight, dtype=np.int64)
+    t0 = time.monotonic()
+    om.OSDMapMapping().update(placement)
+    torch.cuda.synchronize()
+    split = {"update": time.monotonic() - t0, "pps": 0.0, "map_batch": 0.0}
+    t0 = time.monotonic()
+    cc = cb.compile_map(placement.crush, device=dev)
+    split["compile_map"] = time.monotonic() - t0
+    for pool_id, pool in placement.pools.items():
+        t0 = time.monotonic()
+        pps = pool.raw_pg_to_pps_batch(np.arange(pool.pg_num), pool_id)
+        t1 = time.monotonic()
+        res, cnt = cc.map_batch(pps, weights, ruleno=placement.crush.find_rule(
+            pool.crush_rule, pool.type, pool.size), result_max=pool.size,
+            return_counts=True)
+        res.cpu().numpy(), cnt.cpu().numpy()
+        split["pps"] += t1 - t0
+        split["map_batch"] += time.monotonic() - t1
+    split["epilogue"] = split["update"] - split["compile_map"] - \
+        split["pps"] - split["map_batch"]
+    return split
+
+
+def crush_phases(log: str, name_power: str, dev) -> dict:
+    """Phases 7-9; returns K3's entry of the kernels line."""
+    from ceph_tpu_torch.crush import batch as cb
+    from ceph_tpu_torch.crush import testing as ct
+    from ceph_tpu_torch.ec.kernels import _build
+    from ceph_tpu_torch.osd import mapping as om
+
+    ptx = ptxas_report(log, "crush_do_rule_kernel")
+    print(f"phase 7: K3 ptxas: {ptx['registers']} registers, "
+          f"{ptx['stack_frame_bytes']} bytes stack frame, "
+          f"{ptx['spill_store_bytes']} bytes spill stores, "
+          f"{ptx['spill_load_bytes']} bytes spill loads")
+    placement = placement_map()
+    w_all_in = np.asarray(placement.osd_weight, dtype=np.int64)
+    cases, err = check_k3(cb, ct, placement, dev)
+
+    cb.reset_launches()
+    om.reset_fallbacks()
+    state = drive_placement(om, placement)
+    launches = cb.LAUNCHES["crush_do_rule"]
+    fallbacks = om.FALLBACKS["batch_unsupported"]
+    print(f"phase 8: launches crush_do_rule {launches}, pools through the "
+          f"scalar engine {fallbacks}")
+    if launches == 0 or fallbacks:
+        raise AssertionError("the placement path did not run through K3")
+
+    # -- phase 9: timing and the bound ----------------------------------
+    pool = placement.pools[0]
+    ruleno = placement.crush.find_rule(pool.crush_rule, pool.type, pool.size)
+    cc = cb.compile_map(placement.crush, device=dev)
+    cfg = cc.rule_cfg(ruleno, pool.size)
+    pps = torch.from_numpy(pool.raw_pg_to_pps_batch(
+        np.arange(PG_NUM), 0)).to(dev)
+    weight = torch.from_numpy(w_all_in).to(dev)
+    with ClockSampler() as clock:
+        k3_ms = time_ms(lambda: cb.crush_do_rule_cuda(cc, cfg, pps, weight),
+                        reps=3, repeats=5)
+    k3_part_ms = time_ms(lambda: cb.crush_do_rule_cuda(
+        cc, cfg, pps[:PLAIN_SEEDS], weight), reps=3, repeats=5)
+    plain_ms = time_ms(lambda: cb.map_batch_plain(
+        cc, cfg, pps[:PLAIN_SEEDS], weight), reps=1, repeats=3)
+    ec = placement.pools[1]
+    ec_cfg = cc.rule_cfg(placement.crush.find_rule(
+        ec.crush_rule, ec.type, ec.size), ec.size)
+    ec_pps = torch.from_numpy(ec.raw_pg_to_pps_batch(
+        np.arange(EC_PG_NUM), 1)).to(dev)
+    k3_ec_ms = time_ms(lambda: cb.crush_do_rule_cuda(cc, ec_cfg, ec_pps,
+                                                     weight), reps=3,
+                       repeats=5)
+    # the work of this run's seeds, counted by the plain version, which
+    # also holds K3 to it over all 1,048,576 seeds
+    stats = {}
+    want, want_n = cb.map_batch_plain(cc, cfg, pps, weight, stats=stats)
+    got, got_n = cb.crush_do_rule_cuda(cc, cfg, pps, weight)
+    err = max(err, max_err32(got, want), max_err32(got_n, want_n))
+    if err:
+        raise AssertionError("K3 differs from plain over the 1M seeds")
+    lib = _build.lib_path("crush_rule")
+    hash_instr = sass_instructions(lib, "crush_jhash3_probe") - \
+        sass_instructions(lib, "crush_xor3_probe")
+    mhz = max(clock.mhz) if clock.mhz else int(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.split()[0])
+    evals = stats["straw2_evals"]
+    ops_ms = evals * hash_instr / (SMS * INT32_LANES * mhz * 1e6) * 1e3
+    table_bytes = sum(t.numel() * t.element_size() for t in (
+        cc.items, cc.ids, cc.weights, cc.sizes, cc.btypes, cc.valid)) + \
+        65536 * 8 + weight.numel() * 8
+    nbytes = PG_NUM * (8 + 4 * pool.size + 4) + table_bytes
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+    update_s = state["update_s"]
+    split = update_split(cb, om, placement, dev)
+    print("phase 9: update() split on the host clock (failure-epoch map): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+    print(f"phase 9: K3 {k3_ms:.4f} ms per {PG_NUM} seeds "
+          f"({PG_NUM / k3_ms * 1e3:.1f} mappings/s), {k3_part_ms:.4f} ms per "
+          f"{PLAIN_SEEDS}; plain {plain_ms:.4f} ms per {PLAIN_SEEDS}; "
+          f"update() of both pools {update_s[0]:.3f} s then "
+          f"{update_s[1]:.3f} s on the host clock "
+          f"({(PG_NUM + EC_PG_NUM) / update_s[0]:.1f} and "
+          f"{(PG_NUM + EC_PG_NUM) / update_s[1]:.1f} mappings/s); K3 on "
+          f"the EC pool's {EC_PG_NUM} seeds {k3_ec_ms:.4f} ms, so K3 is "
+          f"{(k3_ms + k3_ec_ms) / 1e3 / update_s[0]:.3f} of the first "
+          f"update() on {name_power}")
+    print(f"phase 9: K3 bound {bound_ms:.4f} ms by {bound_by}: {evals} "
+          f"straw2 item evaluations ({evals / PG_NUM:.2f} per seed) x "
+          f"{hash_instr} SASS instructions per hash / ({SMS} SMs x "
+          f"{INT32_LANES} INT32 lanes x {mhz} MHz, SM clock read "
+          f"{min(clock.mhz or [0])}-{max(clock.mhz or [0])} MHz); bytes "
+          f"{nbytes} -> {bytes_ms:.4f} ms")
+    return {"name": "crush_do_rule", "route": "cuda",
+            "source": "ceph_tpu_torch/crush/kernels/csrc/crush_rule.cu",
+            "replaces": "ceph_tpu/crush/batch.py:885",
+            "launches": launches, "max_abs_err": err, "ms": k3_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "seeds": PG_NUM, "plain_seeds": PLAIN_SEEDS,
+            "ms_at_plain_seeds": k3_part_ms, "ec_pool_ms": k3_ec_ms,
+            "cases": cases,
+            "straw2_evals": evals, "hash_sass_instructions": hash_instr,
+            "sm_clock_mhz": mhz, "bytes": nbytes, "bytes_ms": bytes_ms,
+            "update_s": update_s, "update_split_s": split, **ptx}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -232,8 +604,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     t0 = time.monotonic()
-    log = _build.build("gf_matmul")["gf_matmul"]
-    print(f"phase 2: built gf_matmul in {time.monotonic() - t0:.1f} s")
+    logs = _build.build("gf_matmul", "crush_rule")   # both nvcc at once
+    print(f"phase 2: built gf_matmul and crush_rule in "
+          f"{time.monotonic() - t0:.1f} s")
+    log = logs["gf_matmul"]
     if "stack frame" not in log:
         raise AssertionError("no ptxas report for gf_matmul")
     for line in log.splitlines():
@@ -331,6 +705,7 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
     ]
+    kernels.append(crush_phases(logs["crush_rule"], name_power, dev))
     print(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+K1/K2 (GF(2^8) products) and K3 (CRUSH do_rule over a batch of seeds).
+
 Marked `cuda`: each test skips without a CUDA device.  On a machine with
 one (no JAX needed, so the repository conftest is left out):
 
@@ -13,9 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from ceph_tpu_torch.crush import batch as crush_batch
+from ceph_tpu_torch.crush import testing as crush_testing
+from ceph_tpu_torch.crush.types import CrushRule
 from ceph_tpu_torch.ec import gf, registry
 from ceph_tpu_torch.ec.kernels import bitmatmul as bm
 from ceph_tpu_torch.ec.matrix_code import make_decode_matrix_full
+from ceph_tpu_torch.osd import mapping as osd_mapping
+from ceph_tpu_torch.osd.osdmap import OSDMap
+from ceph_tpu_torch.osd.types import PGPool
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +115,76 @@ def test_plugin_on_card_matches_cpu(dev):
     outs = list(card.decode_batches_full([1, 9], [full, full[::-1].copy()]))
     assert np.array_equal(outs[0].cpu().numpy(), full[:, [1, 9]])
     assert np.array_equal(outs[1].cpu().numpy(), full[::-1][:, [1, 9]])
+
+
+# -- K3: CRUSH do_rule -------------------------------------------------------
+
+def k3_against_plain(dev, m, result_max, weight, xs, ruleno=0):
+    cc = crush_batch.compile_map(m, device=dev)
+    cfg = cc.rule_cfg(ruleno, result_max)
+    xs = torch.as_tensor(np.asarray(xs, dtype=np.int64), device=dev)
+    weight = torch.as_tensor(np.asarray(weight, dtype=np.int64), device=dev)
+    before = crush_batch.LAUNCHES["crush_do_rule"]
+    got, got_n = crush_batch.crush_do_rule_cuda(cc, cfg, xs, weight)
+    assert crush_batch.LAUNCHES["crush_do_rule"] == before + 1
+    want, want_n = crush_batch.map_batch_plain(cc, cfg, xs, weight)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_n, want_n)
+
+
+@pytest.mark.parametrize("tunables", ["jewel", "firefly"])
+@pytest.mark.parametrize("rule", ["replicated_firstn", "ec_indep",
+                                  "two_level_firstn", "direct_osd_indep",
+                                  "direct_osd_firstn"])
+def test_k3_matches_plain(dev, rule, tunables):
+    m, root = crush_testing.build_hierarchy(seed=len(rule), tunables=tunables)
+    steps, result_max = crush_testing.rule_shapes(root)[rule]
+    m.rules.append(CrushRule(steps=steps))
+    weight = crush_testing.make_weight(m.max_devices, seed=1)
+    k3_against_plain(dev, m, result_max, weight, range(3000))
+
+
+def test_k3_more_seeds_than_one_grid_row(dev):
+    m, root = crush_testing.build_hierarchy(seed=3)
+    steps, result_max = crush_testing.rule_shapes(root)["ec_indep"]
+    m.rules.append(CrushRule(steps=steps))
+    k3_against_plain(dev, m, result_max,
+                     crush_testing.make_weight(m.max_devices, seed=2),
+                     np.arange(70_000) * 7919)
+
+
+def test_k3_result_max_at_the_cap(dev):
+    cap = crush_batch.CRUSH_MAX_RESULT
+    m = crush_testing.build_flat([0x10000] * (2 * cap), numrep=0)
+    k3_against_plain(dev, m, cap, crush_testing.make_weight(
+        2 * cap, seed=8, frac_out=0.05), range(500))
+
+
+def test_k3_refuses_result_max_above_the_cap(dev):
+    cap = crush_batch.CRUSH_MAX_RESULT
+    m = crush_testing.build_flat([0x10000] * (2 * cap), numrep=0)
+    cc = crush_batch.compile_map(m, device=dev)
+    with pytest.raises(crush_batch.BatchUnsupported, match="result_max"):
+        cc.map_batch([1, 2], np.full(2 * cap, 0x10000), result_max=cap + 1)
+    cfg = crush_batch._RuleCfg(**{**vars(cc.rule_cfg(0, cap)),
+                                  "result_max": cap + 1})
+    xs = torch.arange(4, device=dev)
+    with pytest.raises(ValueError, match="result_max"):
+        crush_batch.crush_do_rule_cuda(
+            cc, cfg, xs, torch.full((2 * cap,), 0x10000, device=dev))
+
+
+def test_mapping_on_card_matches_cpu(dev):
+    m = OSDMap()
+    m.build_simple(120, PGPool(pg_num=2048, pgp_num=2048), osds_per_host=6)
+    m.osd_weight[4] = 0
+    m.osd_weight[9] = 0x9000
+    card = osd_mapping.OSDMapMapping()
+    cpu = osd_mapping.OSDMapMapping(device="cpu")
+    card.update(m)
+    cpu.update(m)
+    for name in ("up", "up_len", "up_primary", "acting", "acting_len",
+                 "acting_primary"):
+        assert np.array_equal(getattr(card.pools[0], name),
+                              getattr(cpu.pools[0], name)), name

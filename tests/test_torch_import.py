@@ -33,7 +33,13 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.ec.kernels.bitmatmul",
                  "ceph_tpu_torch.ec.kernels._build",
                  "ceph_tpu_torch.ec.plugins.tpu",
-                 "ceph_tpu_torch.osd.ecutil", "ceph_tpu_torch.device"):
+                 "ceph_tpu_torch.osd.ecutil", "ceph_tpu_torch.device",
+                 "ceph_tpu_torch.crush._ln_tables",
+                 "ceph_tpu_torch.crush.types", "ceph_tpu_torch.crush.hashes",
+                 "ceph_tpu_torch.crush.mapper",
+                 "ceph_tpu_torch.crush.testing",
+                 "ceph_tpu_torch.crush.batch", "ceph_tpu_torch.osd.types",
+                 "ceph_tpu_torch.osd.osdmap", "ceph_tpu_torch.osd.mapping"):
         assert name in out["modules"], name
 
 
