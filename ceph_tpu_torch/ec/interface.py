@@ -18,8 +18,9 @@ and the shared base-class behavior of `ErasureCode`
 
 Buffers are numpy uint8 arrays internally; `bytes` at the outer API.
 
-The port's own copy of `ceph_tpu.ec.interface` (the repair-schedule
-hook waits for the port of the repair compiler).
+The port's own copy of `ceph_tpu.ec.interface`.  Every plugin holds the
+device its kernels run on (`self.device`, None -> cuda); the plugins'
+own math (encode, interpreted decode) stays host numpy.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ import abc
 from typing import Iterable, Mapping
 
 import numpy as np
+
+from .. import device as _device
 
 ErasureCodeProfile = dict  # str -> str, like Ceph's ErasureCodeProfile
 
@@ -96,6 +99,15 @@ class ErasureCodeInterface(abc.ABC):
     def minimum_to_decode_with_cost(self, want_to_read: set,
                                     available: Mapping[int, int]) -> set: ...
 
+    def repair_schedule(self, erasures: set, available: set):
+        """RepairPlan (ceph_tpu_torch.ec.repairc) for rebuilding
+        `erasures` whole from partial helper reads, or None when this
+        code has no better schedule than wholesale full-chunk recovery
+        for the signature.  Plans feed the repair-schedule compiler: the
+        OSD recovery paths lower a returned plan to one fused
+        gather/matmul/scatter program, cached per signature."""
+        return None
+
     @abc.abstractmethod
     def encode(self, want_to_encode: Iterable[int], data: bytes
                ) -> dict[int, np.ndarray]: ...
@@ -139,7 +151,8 @@ def _as_chunk(buf, blocksize: int) -> np.ndarray:
 class ErasureCode(ErasureCodeInterface):
     """Shared plumbing mirroring src/erasure-code/ErasureCode.{h,cc}."""
 
-    def __init__(self) -> None:
+    def __init__(self, device=None) -> None:
+        self.device = _device.resolve(device)
         self._profile: ErasureCodeProfile = {}
         self.chunk_mapping: list[int] = []
         self.rule_root = "default"

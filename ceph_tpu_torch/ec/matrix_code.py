@@ -14,7 +14,8 @@ src/erasure-code/jerasure/ErasureCodeJerasure.cc jerasure_encode/decode):
   table cache (ref: src/erasure-code/isa/ErasureCodeIsaTableCache.cc).
 
 The byte matmul itself is pluggable (`matmul`), so the same orchestration
-drives the numpy oracle and the port's CUDA kernels.  GF(2^8) only.
+drives the numpy oracle and the port's CUDA kernels.  GF(2^8) by default;
+jerasure's w=16/32 techniques set a wide-word field (gfw.GF2w).
 """
 from __future__ import annotations
 
@@ -119,30 +120,76 @@ def make_decode_matrix_full(encode_matrix: np.ndarray, k: int, n: int,
 
 
 class MatrixErasureCode(ErasureCode):
-    """Systematic MDS matrix code over GF(2^8) with pluggable matmul."""
+    """Systematic MDS matrix code with pluggable matmul.
 
-    def __init__(self) -> None:
-        super().__init__()
+    Default field is GF(2^8) (the byte fast path in gf.py); setting
+    `self.field` to a gfw.GF2w switches the matmul and decode-matrix
+    construction to that wide-word field (jerasure's w=16/32 matrix
+    techniques)."""
+
+    def __init__(self, device=None) -> None:
+        super().__init__(device)
         self.k = 0
         self.m = 0
         self.encode_matrix: np.ndarray | None = None  # (k+m) x k, identity top
+        self.field = None                             # None = GF(2^8)
         self.table_cache = DecodeTableCache()
 
     # subclasses set self.k/self.m and call _prepare with the full matrix
     def _prepare(self, encode_matrix: np.ndarray) -> None:
         assert encode_matrix.shape == (self.k + self.m, self.k)
+        dtype = np.uint8 if self.field is None else np.int64
         self.encode_matrix = np.ascontiguousarray(encode_matrix,
-                                                  dtype=np.uint8)
+                                                  dtype=dtype)
 
     # the matmul backend; the tpu plugin overrides it with the kernels
     def matmul(self, mat: np.ndarray, data: np.ndarray) -> np.ndarray:
+        if self.field is not None:
+            return self.field.matmul_bytes(mat, data)
         return gf.gf_matmul_bytes(mat, data)
+
+    def _make_decode_matrix(self, decode_index: list[int],
+                            erasures: list[int]) -> np.ndarray:
+        if self.field is None:
+            return make_decode_matrix(self.encode_matrix, self.k,
+                                      decode_index, erasures)
+        f = self.field
+        b = [list(self.encode_matrix[i]) for i in decode_index]
+        inv_b = f.invert_matrix(b)
+        if inv_b is None:
+            raise ErasureCodeError("EIO: singular survivor matrix")
+        rows = []
+        for e in erasures:
+            if e < self.k:
+                rows.append(inv_b[e])
+            else:
+                rows.append(f.matmul_small(
+                    [list(self.encode_matrix[e])], inv_b)[0])
+        return np.array(rows, dtype=np.int64)
 
     def get_chunk_count(self) -> int:
         return self.k + self.m
 
     def get_data_chunk_count(self) -> int:
         return self.k
+
+    def repair_schedule(self, erasures: set, available: set):
+        """MDS fallback plan: k full survivor chunks (the same
+        first-k-in-index-order selection as decode_chunks, so the
+        compiled matrix IS the cached decode matrix) rebuilding every
+        lost shard directly, with no decode-to-logical + re-encode round
+        trip.  Wide-word fields (gfw w=16/32) are not byte-linear, so
+        they stay on the interpreted path."""
+        if self.field is not None:
+            return None
+        erasures = set(erasures)
+        avail = sorted(set(available) - erasures)
+        if not erasures or len(erasures) > self.m or len(avail) < self.k:
+            return None
+        from .repairc import RepairPlan
+        return RepairPlan.make(
+            erasures, {h: [(0, 1)] for h in avail[:self.k]},
+            sub_chunk_no=1)
 
     # -- math --------------------------------------------------------------
     def encode_chunks(self, want_to_encode: Iterable[int],
@@ -168,8 +215,7 @@ class MatrixErasureCode(ErasureCode):
         sig = erasure_signature(decode_index, erasures)
         dmat = self.table_cache.get(sig)
         if dmat is None:
-            dmat = make_decode_matrix(self.encode_matrix, self.k,
-                                      decode_index, erasures)
+            dmat = self._make_decode_matrix(decode_index, erasures)
             self.table_cache.put(sig, dmat)
         survivors = np.stack([decoded[i] for i in decode_index])
         out = self.matmul(dmat, survivors)

@@ -66,8 +66,7 @@ class ErasureCodeTpu(MatrixErasureCode):
     DECODE_LRU_WIDTH = 2516 * 8
 
     def __init__(self, device=None) -> None:
-        super().__init__()
-        self.device = _device.resolve(device)
+        super().__init__(device)
         self.technique = "reed_sol_van"
         self.alignment = EC_TPU_DEFAULT_ALIGNMENT
         self._encode_mm: GFMatmul | None = None

@@ -5,9 +5,11 @@ Python analogue of Ceph's singleton dlopen-based ErasureCodePluginRegistry
 :186 preload).  Plugins are Python classes registered by name, directly
 or lazily via a module path (the analogue of deferred dlopen).
 
-The port registers only its `tpu` plugin, under the reference's name, so
-`plugin=tpu` profiles carry over unchanged.  `factory` takes the device
-the plugin's kernels run on (None means "cuda").
+The port registers the reference's plugin names (jerasure, isa, tpu, lrc,
+shec, clay), each loaded from `ceph_tpu_torch.ec.plugins.<name>`, so
+profiles carry over unchanged.  `factory` takes the device the plugin's
+kernels run on (None means "cuda"); lrc and clay build their sub-codes
+through the registry on their own device.
 """
 from __future__ import annotations
 
@@ -47,8 +49,11 @@ class ErasureCodePluginRegistry:
         with cls._instance_lock:
             if cls._instance is None:
                 cls._instance = cls()
-                cls._instance._lazy["tpu"] = (
-                    "ceph_tpu_torch.ec.plugins.tpu", "PLUGIN")
+                # analogue of the osd_erasure_code_plugins preload list
+                for name in ("jerasure", "isa", "tpu", "lrc", "shec",
+                             "clay"):
+                    cls._instance._lazy[name] = (
+                        f"ceph_tpu_torch.ec.plugins.{name}", "PLUGIN")
         return cls._instance
 
     def add(self, name: str, plugin: ErasureCodePlugin) -> None:

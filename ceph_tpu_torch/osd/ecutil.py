@@ -1,6 +1,7 @@
-"""EC stripe math — the ECUtil analogue, on the port's plugins.
+"""EC stripe math + per-shard integrity hashes — the ECUtil analogue,
+on the port's plugins.
 
-Two pieces (ref: src/osd/ECUtil.{h,cc}):
+Four pieces (ref: src/osd/ECUtil.{h,cc}):
 
 * `StripeInfo` — the logical<->chunk offset algebra of `stripe_info_t`
   (ECUtil.h:27-79), verbatim semantics (pure integer math).
@@ -11,9 +12,13 @@ Two pieces (ref: src/osd/ECUtil.{h,cc}):
   launch (`encode_batch`/`decode_batch`) when the plugin supports it,
   falling back to the per-stripe loop for plugins with chunk
   remapping or sub-chunk semantics.
+* repair — the plugin's partial-read plan (`repair_plan`) and the
+  compiled rebuild of lost shard streams (`compiled_repair_streams`,
+  K1 on the plugin's device), plus the interpreted sub-chunk path.
+* `HashInfo` — cumulative per-shard crc32c (ECUtil.cc:161 append), the
+  xattr-stored integrity metadata ECBackend checks on every sub-read.
 
-The port's copy of `ceph_tpu.osd.ecutil` up to the repair helpers;
-sub-chunk repair and `HashInfo` come with later parts of the port.
+The port's copy of `ceph_tpu.osd.ecutil`.
 """
 from __future__ import annotations
 
@@ -21,6 +26,10 @@ import time
 from typing import Iterable, Mapping
 
 import numpy as np
+
+from ..common.crc32c import crc32c
+from ..ec.interface import ErasureCodeError
+from ..ec.repairc import program_for
 
 
 class StripeInfo:
@@ -251,3 +260,197 @@ def decode(sinfo: StripeInfo, ec, to_decode: Mapping[int, bytes],
     if timings is not None:       # per-stripe path: no separate stage
         timings["kernel"] = (t0, time.monotonic())
     return out
+
+
+# ---------------------------------------------------------------- repair
+# Sub-chunk (network-optimal) single-shard repair: regenerating codes
+# (clay) rebuild one lost chunk from q^(t-1)-of-q^t sub-chunk ranges
+# of d helpers instead of k whole chunks (ref: ErasureCodeClay.cc:364
+# get_repair_subchunks; "Fast Product-Matrix Regenerating Codes",
+# arxiv 1412.3022).  These helpers translate the plugin's sub-chunk
+# plan into byte extents over shard chunk STREAMS (many stripes per
+# object) and drive the per-stripe repair decode.
+
+
+def supports_subchunk_repair(ec) -> bool:
+    """True when the plugin can rebuild a single shard from partial
+    (sub-chunk) helper reads.  Non-regenerating plugins and
+    sub_chunk_count == 1 codes fall back to full-chunk recovery.
+    (Plan-driven recovery — repair_plan below — supersedes this gate
+    for the OSD paths; it remains the sub-chunk capability probe.)"""
+    return (ec.get_sub_chunk_count() > 1
+            and hasattr(ec, "is_repair")
+            and hasattr(ec, "minimum_to_repair")
+            and hasattr(ec, "get_repair_subchunks"))
+
+
+def repair_plan(ec, lost, avail):
+    """The plugin's partial-read repair plan (ec.repair_schedule) for
+    this erasure signature, or None — the caller then takes wholesale
+    full-chunk recovery.  A plan names the helper shards, each
+    helper's sub-chunk extents, and feeds the repair-schedule compiler
+    (ec/repairc): clay ships q^(t-1)/q^t repair planes of d
+    helpers, lrc the l whole chunks of the lost shard's local parity
+    group, matrix codes k whole survivor chunks decoded straight to
+    the lost shards."""
+    hook = getattr(ec, "repair_schedule", None)
+    if hook is None:
+        return None
+    try:
+        return hook(set(lost), set(avail))
+    except ErasureCodeError:
+        return None
+
+
+def compiled_repair_streams(ec, plan, chunk_size: int,
+                            helper_bufs: Mapping[int, bytes],
+                            backend: str | None = None,
+                            device=None) -> dict[int, bytes]:
+    """Rebuild every lost shard's chunk stream through the plan's
+    compiled program (cached per erasure signature): gather the
+    helpers' plane bytes, one GF(2^8) matmul (K1 on `device`, by
+    default the plugin's own; "numpy" backend: the host oracle),
+    scatter.  Byte-identical to the interpreted decode path (pinned by
+    the tests/test_torch_repairc.py parity sweep)."""
+    if device is None:
+        device = getattr(ec, "device", None)
+    return program_for(ec, plan).run(helper_bufs, chunk_size,
+                                     backend=backend, device=device)
+
+
+def repair_chunk_extents(ec, lost_shard: int,
+                         chunk_size: int) -> list[tuple[int, int]]:
+    """Byte extents WITHIN ONE CHUNK that helpers must serve to repair
+    `lost_shard` (the plugin's sub-chunk plan scaled to bytes).  A
+    shard stream repeats these per stripe (see ECSubRead.subchunks)."""
+    sub_no = ec.get_sub_chunk_count()
+    assert chunk_size % sub_no == 0
+    ssz = chunk_size // sub_no
+    nu = getattr(ec, "nu", 0)
+    lost_node = lost_shard if lost_shard < ec.k else lost_shard + nu
+    return [(idx * ssz, cnt * ssz)
+            for idx, cnt in ec.get_repair_subchunks(lost_node)]
+
+
+def expand_stream_extents(extents: list[tuple[int, int]],
+                          chunk_size: int,
+                          stream_len: int) -> list[tuple[int, int]]:
+    """Per-chunk byte extents -> absolute extents over an
+    nstripes x chunk_size shard stream."""
+    if stream_len % chunk_size != 0:
+        raise ValueError("shard stream not chunk-aligned")
+    return [(s * chunk_size + off, length)
+            for s in range(stream_len // chunk_size)
+            for off, length in extents]
+
+
+def repair_shard_stream(ec, chunk_size: int, lost_shard: int,
+                        helper_bufs: Mapping[int, bytes]) -> bytes:
+    """Rebuild `lost_shard`'s whole chunk stream from the helpers'
+    CONCATENATED repair-plane bytes (one repair_blocksize block per
+    stripe, as handle_sub_read assembles them).  Byte-identical to the
+    chunk a full-decode + re-encode would produce."""
+    extents = repair_chunk_extents(ec, lost_shard, chunk_size)
+    rb = sum(length for _, length in extents)   # repair bytes / stripe
+    lengths = {len(v) for v in helper_bufs.values()}
+    if len(lengths) != 1:
+        raise ValueError("helper repair buffers differ in length")
+    total = lengths.pop()
+    if rb == 0 or total % rb != 0:
+        raise ValueError("helper buffer not repair-block aligned")
+    nstripes = total // rb
+    views = {s: np.frombuffer(v, dtype=np.uint8)
+             for s, v in helper_bufs.items()}
+    parts = []
+    for st in range(nstripes):
+        chunks = {s: v[st * rb:(st + 1) * rb] for s, v in views.items()}
+        rebuilt = ec.decode({lost_shard}, chunks, chunk_size)
+        # the plugin's own interpreted decode: host numpy, no device
+        parts.append(np.asarray(rebuilt[lost_shard], dtype=np.uint8))
+    return b"".join(p.tobytes() for p in parts)
+
+
+class HashInfo:
+    """Cumulative per-shard crc32c of everything ever appended to each
+    shard (ref: ECUtil.cc:161 HashInfo::append; stored as an object
+    xattr and checked by ECBackend::handle_sub_read ECBackend.cc:1059).
+
+    Seed is -1 per shard (matching the reference's default-constructed
+    cumulative_shard_hashes of (uint32_t)-1).
+    """
+
+    def __init__(self, num_chunks: int = 0):
+        self.total_chunk_size = 0
+        self.cumulative_shard_hashes = [0xFFFFFFFF] * num_chunks
+        self.projected_total_chunk_size = 0
+
+    def has_chunk_hash(self) -> bool:
+        return bool(self.cumulative_shard_hashes)
+
+    def append(self, old_size: int, to_append: Mapping[int, bytes]) -> None:
+        if old_size != self.total_chunk_size:
+            raise ValueError(
+                f"append at {old_size} but shard size is "
+                f"{self.total_chunk_size}")
+        sizes = {len(v) for v in to_append.values()}
+        if len(sizes) != 1:
+            raise ValueError("shard appends differ in length")
+        size_to_append = sizes.pop()
+        if self.has_chunk_hash():
+            if len(to_append) != len(self.cumulative_shard_hashes):
+                raise ValueError("append must cover every shard")
+            for shard, buf in to_append.items():
+                self.cumulative_shard_hashes[shard] = crc32c(
+                    self.cumulative_shard_hashes[shard], buf)
+        self.total_chunk_size += size_to_append
+        self.projected_total_chunk_size = max(
+            self.projected_total_chunk_size, self.total_chunk_size)
+
+    def append_shard(self, shard: int, old_size: int,
+                     buf: bytes) -> None:
+        """Shard-local cumulative append: when the chunk bytes exist
+        only on the shard that fetched them, each shard advances ITS
+        hash; other entries in this copy are never consulted on this
+        shard (handle_sub_read and scrub both check
+        `get_chunk_hash(self.shard)` only)."""
+        if old_size != self.total_chunk_size:
+            raise ValueError(
+                f"append at {old_size} but shard size is "
+                f"{self.total_chunk_size}")
+        if self.has_chunk_hash():
+            self.cumulative_shard_hashes[shard] = crc32c(
+                self.cumulative_shard_hashes[shard], buf)
+        self.total_chunk_size += len(buf)
+        self.projected_total_chunk_size = max(
+            self.projected_total_chunk_size, self.total_chunk_size)
+
+    def get_chunk_hash(self, shard: int) -> int:
+        return self.cumulative_shard_hashes[shard]
+
+    def get_total_chunk_size(self) -> int:
+        return self.total_chunk_size
+
+    # xattr codec (JSON-ish dict instead of the reference's binary
+    # ENCODE_START framing; ref: ECUtil.cc:181 encode/decode)
+    def to_dict(self) -> dict:
+        return {"total_chunk_size": self.total_chunk_size,
+                "cumulative_shard_hashes": list(
+                    self.cumulative_shard_hashes)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "HashInfo":
+        hi = cls()
+        hi.total_chunk_size = d["total_chunk_size"]
+        hi.cumulative_shard_hashes = list(d["cumulative_shard_hashes"])
+        hi.projected_total_chunk_size = hi.total_chunk_size
+        return hi
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, HashInfo)
+                and self.total_chunk_size == other.total_chunk_size
+                and self.cumulative_shard_hashes
+                == other.cumulative_shard_hashes)
+
+    def __repr__(self) -> str:
+        hashes = " ".join(hex(h) for h in self.cumulative_shard_hashes)
+        return f"HashInfo(tcs={self.total_chunk_size} {hashes})"

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: the erasure-code data path on one card.
+"""Chip smoke of the PyTorch/CUDA port on one card: the erasure-code data
+path, CRUSH placement and compiled repair.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -46,7 +47,30 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    seeds; K3's bound from the
    straw2 item evaluations the plain version counts over all 1,048,576
    seeds, the integer instructions of one hash in K3's SASS and the SM
-   clock read during the timing.
+   clock read during the timing;
+10. compiled repair at full width through the user entry points:
+   `factory("jerasure", k=4 m=2 reed_sol_van)`, `factory("clay", k=4
+   m=2)` (d=5) and `factory("lrc", k=4 m=2 l=3)` on cuda, 64 objects of
+   4 MiB each (stripe unit 4096 B, 256 stripes), made from the seed and
+   encoded by ecutil on the host.  Shard 0 is lost; each object's helper
+   buffers are cut as an OSD ships them (plan.byte_extents +
+   ecutil.expand_stream_extents) and ecutil.compiled_repair_streams
+   rebuilds it, twice; jerasure also rebuilds shards {1, 2} of every
+   object.  On object 0, every single-erasure signature (jerasure: every
+   double too) equals the original; one compile per signature; helper
+   bytes read per byte rebuilt are 4.0 / 2.5 / 3.0.  Then clay k=6 m=3
+   d=8 on one object (a 27 x 72 repair matrix) and gf2_matmul_device
+   against bitmatrix_apply for liber8tion k=8, liberation k=7 w=7 and
+   blaum_roth k=6 w=6 over 4 MiB of packets.  K1's launch count is
+   zeroed before and read after: one launch per repair or bit-matrix
+   product.  K1 equals its plain version at every repair shape, two
+   with tables above 48 KiB (k_in 256 and 400) included;
+11. time each code's rebuild of its 64 objects on the host clock, split
+   into gather, copy in, K1 (also by CUDA events), copy back and
+   scatter, with the rebuilt MB/s, beside the first (compiling) and
+   second pass of phase 10; K1 per launch at each repair shape beside
+   its bound ((k_in + r) * N bytes over 3.35 TB/s, or r * k_in * N
+   operations at the int8 rate) and its plain version.
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -62,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -80,6 +105,16 @@ PG_NUM, EC_PG_NUM = 1 << 20, 1 << 16
 EC_K, EC_M = 8, 4
 SAMPLE = 256                     # identity sample per pool, as placement_bench
 PLAIN_SEEDS = 1 << 16
+REPAIR_OBJECTS = 64
+REPAIR_OBJECT = 4 << 20          # 4 MiB objects
+STRIPE_UNIT = 4096               # osd_pool_erasure_code_stripe_unit default
+REPAIR_CODES = [                 # REPAIR_r01.json's profiles and read/rebuilt
+    ("jerasure", {"technique": "reed_sol_van", "k": "4", "m": "2"}, 4.0),
+    ("clay", {"k": "4", "m": "2"}, 2.5),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}, 3.0),
+]
+WIDE_CLAY = {"k": "6", "m": "3", "d": "8"}   # the corpus's wider clay profile
+SPIN_CYCLES = 4_000_000          # about 2 ms at the H100's 1980 MHz
 
 
 def card() -> str:
@@ -99,6 +134,26 @@ def time_ms(fn, reps: int = 10, repeats: int = 7) -> float:
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    return statistics.median(samples)
+
+
+def device_ms(fn, reps: int = 20, repeats: int = 7) -> float:
+    """Like time_ms, but each group is queued behind a spin kernel of
+    about 2 ms, so the card runs the launches back to back whatever the
+    host's cost of launching them: the kernel's own time."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -585,6 +640,300 @@ def crush_phases(log: str, name_power: str, dev) -> dict:
             "update_s": update_s, "update_split_s": split, **ptx}
 
 
+# ---------------------------------------------------------------------------
+# Compiled repair: phases 10-11
+
+def helper_bufs(ecutil, plan, shards: dict, cs: int) -> dict:
+    """Each helper's shard stream cut to the plan's extents, stripe by
+    stripe: exactly the bytes an OSD ships for the repair."""
+    ext = plan.byte_extents(cs)
+    return {h: b"".join(shards[h][o:o + c] for o, c in
+                        ecutil.expand_stream_extents(ext[h], cs,
+                                                     len(shards[h])))
+            for h in plan.helper_ids()}
+
+
+def encode_objects(ecutil, ec, sinfo, count: int, seed: int) -> list[dict]:
+    """`count` objects of REPAIR_OBJECT bytes (the last stripe padded
+    with zeros), made from the seed and encoded by ecutil on the host."""
+    rng = np.random.default_rng(seed)
+    size = -(-REPAIR_OBJECT // sinfo.stripe_width) * sinfo.stripe_width
+    out = []
+    for _ in range(count):
+        data = rng.integers(0, 256, REPAIR_OBJECT, dtype=np.uint8).tobytes()
+        out.append(ecutil.encode(sinfo, ec, data + bytes(size - len(data))))
+    return out
+
+
+def drive_repair(registry, ecutil, repairc, plugin: str, profile: dict,
+                 ratio: float, calls: list) -> dict:
+    """Phase 10 for one code on the card: lose shard 0 of REPAIR_OBJECTS
+    objects and rebuild it twice through compiled_repair_streams; check
+    every signature on object 0, the byte ratio and one compile per
+    signature.  Appends one entry to `calls` per compiled repair (one K1
+    launch each)."""
+    ec = registry.factory(plugin, dict(profile))     # device None: the card
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    cs = ec.get_chunk_size(k * STRIPE_UNIT)
+    sinfo = ecutil.StripeInfo(k, k * cs)
+    t0 = time.monotonic()
+    objs = encode_objects(ecutil, ec, sinfo, REPAIR_OBJECTS, SEED)
+    t_encode = time.monotonic() - t0
+    plan = ecutil.repair_plan(ec, {0}, set(range(n)) - {0})
+    bufs = [helper_bufs(ecutil, plan, s, cs) for s in objs]
+    read = sum(len(b) for b in bufs[0].values())
+    rebuilt = len(objs[0][0])
+    if read / rebuilt != ratio or \
+            plan.total_planes() / plan.output_planes() != ratio:
+        raise AssertionError(f"{plugin}: read/rebuilt {read}/{rebuilt}, "
+                             f"want {ratio}")
+    passes = []
+    for _ in range(2):                # the first pass compiles the plan
+        t0 = time.monotonic()
+        outs = [ecutil.compiled_repair_streams(ec, plan, cs, b) for b in bufs]
+        passes.append(time.monotonic() - t0)
+        calls.extend([plugin] * len(bufs))
+        if any(o[0] != s[0] for o, s in zip(outs, objs)):
+            raise AssertionError(f"{plugin}: a rebuilt shard 0 differs")
+    extra = {}
+    if plugin == "jerasure":
+        plan2 = ecutil.repair_plan(ec, {1, 2}, set(range(n)) - {1, 2})
+        for s in objs:
+            out = ecutil.compiled_repair_streams(
+                ec, plan2, cs, helper_bufs(ecutil, plan2, s, cs))
+            calls.append(plugin)
+            if out[1] != s[1] or out[2] != s[2]:
+                raise AssertionError("jerasure: lost {1, 2} differs")
+        extra = {"plan2": plan2, "bufs2": helper_bufs(ecutil, plan2,
+                                                       objs[0], cs)}
+    sigs = [{s} for s in range(n)]
+    if plugin == "jerasure":
+        sigs += [set(p) for p in itertools.combinations(range(n), 2)]
+    for lost in sigs:
+        p = ecutil.repair_plan(ec, lost, set(range(n)) - lost)
+        out = ecutil.compiled_repair_streams(
+            ec, p, cs, helper_bufs(ecutil, p, objs[0], cs))
+        calls.append(plugin)
+        if any(out[s] != objs[0][s] for s in lost):
+            raise AssertionError(f"{plugin}: signature {sorted(lost)} differs")
+    compiles = repairc.cache_of(ec).stats()["compiles"]
+    if len(compiles) != len(sigs) or set(compiles.values()) != {1}:
+        raise AssertionError(f"{plugin}: compiles {compiles}")
+    print(f"phase 10: {plugin} {profile}: {REPAIR_OBJECTS} x {REPAIR_OBJECT} "
+          f"B objects, chunk {cs} B, {len(objs[0][0]) // cs} stripes; "
+          f"ecutil.encode {t_encode:.1f} s on the host; shard 0 rebuilt "
+          f"twice == original; read/rebuilt {read}/{rebuilt} = "
+          f"{read / rebuilt}; {len(sigs)} signatures on object 0 == "
+          f"original, one compile each; compiled repair of all objects "
+          f"{passes[0]:.3f} s (first pass, compiles) then {passes[1]:.3f} s")
+    return {"plugin": plugin, "ec": ec, "plan": plan, "bufs": bufs,
+            "want": [s[0] for s in objs], "cs": cs, "passes": passes,
+            "encode_s": t_encode, "rebuilt": rebuilt, "read": read, **extra}
+
+
+def rebuild_pass(ecutil, state: dict) -> float:
+    """Host-clock seconds of one compiled_repair_streams over every
+    object, each output dropped at once (as an OSD that writes the
+    rebuilt shard out and moves on)."""
+    ec, plan, cs = state["ec"], state["plan"], state["cs"]
+    t0 = time.monotonic()
+    for bufs in state["bufs"]:
+        ecutil.compiled_repair_streams(ec, plan, cs, bufs)
+    return time.monotonic() - t0
+
+
+def repair_split(ecutil, state: dict) -> dict:
+    """Phase 11 for one code: a rebuild of every object timed piece by
+    piece with the calls RepairProgram.run makes (gather, copy in, K1,
+    copy back, scatter; K1 also by CUDA events around its launch, the
+    host's launch cost included), between two whole passes of
+    compiled_repair_streams; then the top functions of a third pass by
+    cProfile's own time."""
+    import cProfile
+    import pstats
+    from ceph_tpu_torch import device as _device
+    from ceph_tpu_torch.ec.repairc import program_for
+    ec, plan, cs = state["ec"], state["plan"], state["cs"]
+    prog = program_for(ec, plan)
+    mm = prog.kernel(ec.device)
+    whole = [rebuild_pass(ecutil, state)]
+    split = dict.fromkeys(("gather", "h2d", "k1", "d2h", "scatter"), 0.0)
+    k1_events = 0.0
+    for bufs, want in zip(state["bufs"], state["want"]):
+        t0 = time.monotonic()
+        x, nstripes, ssz = prog._gather(bufs, cs)
+        t1 = time.monotonic()
+        x_dev = _device.as_u8(x, ec.device)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_dev = mm(x_dev)
+        end.record()
+        end.synchronize()
+        t3 = time.monotonic()
+        out = out_dev.cpu().numpy()
+        t4 = time.monotonic()
+        streams = prog._scatter(out, nstripes, ssz)
+        t5 = time.monotonic()
+        if streams[0] != want:
+            raise AssertionError(f"{state['plugin']}: split rebuild differs")
+        for key, a, b in (("gather", t0, t1), ("h2d", t1, t2), ("k1", t2, t3),
+                          ("d2h", t3, t4), ("scatter", t4, t5)):
+            split[key] += b - a
+        k1_events += start.elapsed_time(end)
+    whole.append(rebuild_pass(ecutil, state))
+    prof = cProfile.Profile()
+    prof.runcall(rebuild_pass, ecutil, state)
+    stats = pstats.Stats(prof).stats
+    top = sorted(((v[2], f"{Path(k[0]).name}:{k[1]}({k[2]})")
+                  for k, v in stats.items()), reverse=True)[:6]
+    total = sum(split.values())
+    rebuilt = state["rebuilt"] * len(state["bufs"])
+    return {"split_s": split, "total_s": total, "k1_events_ms": k1_events,
+            "rebuilt_MBps": rebuilt / total / 1e6,
+            "pass_MBps": [rebuilt / t / 1e6 for t in state["passes"]],
+            "dropped_pass_s": whole,
+            "dropped_pass_MBps": [rebuilt / t / 1e6 for t in whole],
+            "profile_top_s": [[name, t] for t, name in top]}
+
+
+def repair_phases(name_power: str, gen: torch.Generator, dev) -> dict:
+    """Phases 10-11; returns the keys K1's entry of the kernels line
+    gains."""
+    from ceph_tpu_torch.ec import bitmatrix, registry, repairc
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.osd import ecutil
+
+    calls: list = []
+    bm.reset_launches()
+    states = [drive_repair(registry, ecutil, repairc, plugin, profile, ratio,
+                           calls) for plugin, profile, ratio in REPAIR_CODES]
+    # the corpus's wider clay profile: one object, 27 x 72 repair matrix
+    wide = registry.factory("clay", dict(WIDE_CLAY))
+    k = wide.get_data_chunk_count()
+    cs = wide.get_chunk_size(k * STRIPE_UNIT)
+    shards = encode_objects(ecutil, wide, ecutil.StripeInfo(k, k * cs), 1,
+                            SEED)[0]
+    wide_plan = ecutil.repair_plan(wide, {0},
+                                   set(range(1, wide.get_chunk_count())))
+    wide_bufs = helper_bufs(ecutil, wide_plan, shards, cs)
+    if ecutil.compiled_repair_streams(wide, wide_plan, cs,
+                                      wide_bufs)[0] != shards[0]:
+        raise AssertionError("clay k=6 m=3 d=8: rebuilt shard 0 differs")
+    calls.append("clay k6m3d8")
+    # the bit-matrix device form over one object of packets
+    bit_codes = {"liber8tion k=8": bitmatrix.liber8tion_bitmatrix(8),
+                 "liberation k=7 w=7": bitmatrix.liberation_bitmatrix(7, 7),
+                 "blaum_roth k=6 w=6": bitmatrix.blaum_roth_bitmatrix(6, 6)}
+    rng = np.random.default_rng(SEED)
+    bit_inputs = {}
+    for label, g in bit_codes.items():
+        rows = g.shape[1]
+        packets = rng.integers(0, 256, (rows, REPAIR_OBJECT // rows),
+                               dtype=np.uint8)
+        got = bitmatrix.gf2_matmul_device(g[rows:], packets)
+        calls.append(label)
+        if not np.array_equal(got.cpu().numpy(),
+                              bitmatrix.bitmatrix_apply(g[rows:], packets)):
+            raise AssertionError(f"gf2_matmul_device differs: {label}")
+        bit_inputs[label] = (g[rows:], packets)
+    launches = bm.LAUNCHES["gf_matmul"]
+    print(f"phase 10: launches gf_matmul {launches} for {len(calls)} "
+          f"compiled repairs and bit-matrix products (one each); clay k=6 "
+          f"m=3 d=8 shard 0 == original; gf2_matmul_device == "
+          f"bitmatrix_apply for {', '.join(bit_codes)}")
+    if launches == 0 or launches != len(calls) or \
+            bm.LAUNCHES["gf_decode_select"]:
+        raise AssertionError("the repair path did not run through K1 once "
+                             "per repair")
+
+    # -- K1 at each repair shape against its plain version, then timed --
+    def bound(r: int, k_in: int, n: int) -> tuple[float, str]:
+        tb = (k_in + r) * n / HBM_BYTES_PER_S * 1e3
+        to = r * k_in * n / INT8_OPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    shapes = []
+    for st in states:
+        shapes.append((f"{st['plugin']} lost 0", st["ec"], st["plan"],
+                       st["bufs"][0], st["cs"]))
+        if "plan2" in st:
+            shapes.append((f"{st['plugin']} lost 1,2", st["ec"], st["plan2"],
+                           st["bufs2"], st["cs"]))
+    shapes.append(("clay k6m3d8 lost 0", wide, wide_plan, wide_bufs, cs))
+    cases = []
+    for label, ec, plan, bufs, c in shapes:
+        prog = repairc.program_for(ec, plan)
+        x = torch.from_numpy(prog._gather(bufs, c)[0]).to(dev)[None]
+        cases.append((label, prog.matrix, x))
+    for label, (mat, packets) in bit_inputs.items():
+        cases.append((label, mat, torch.from_numpy(packets).to(dev)[None]))
+    for r, k_in, n in ((16, 256, 65536), (4, 400, 65536)):
+        cases.append((f"random {r}x{k_in}",
+                      torch.randint(0, 256, (r, k_in), generator=gen,
+                                    device=dev, dtype=torch.uint8)
+                      .cpu().numpy(),
+                      torch.randint(0, 256, (1, k_in, n), generator=gen,
+                                    device=dev, dtype=torch.uint8)))
+    worst = 0
+    rows = []
+    for label, mat, x in cases:
+        r, (_, k_in, n) = mat.shape[0], x.shape
+        tables = torch.from_numpy(bm.packed_nibble_tables(mat)).to(dev)
+        mat_t = torch.from_numpy(np.ascontiguousarray(mat)).to(dev)
+        err = max_err(bm.gf_matmul_cuda(tables, x, r),
+                      bm.gf_matmul_plain(mat_t, x))
+        torch.cuda.synchronize()
+        if err:
+            raise AssertionError(f"K1 differs from plain at {label}")
+        worst = max(worst, err)
+        b_ms, b_by = bound(r, k_in, n)
+        rows.append({"shape": label, "r": r, "k_in": k_in, "n": n,
+                     "ms": device_ms(lambda: bm.gf_matmul_cuda(tables, x, r)),
+                     "paced_ms": time_ms(
+                         lambda: bm.gf_matmul_cuda(tables, x, r)),
+                     "plain_ms": time_ms(lambda: bm.gf_matmul_plain(mat_t, x),
+                                         reps=1, repeats=3),
+                     "bound_ms": b_ms, "bound_by": b_by})
+    print(f"phase 10: K1 == plain at {len(cases)} repair shapes, "
+          f"max_abs_err {worst}")
+
+    # -- phase 11: the rebuild split and K1 per launch ---------------------
+    splits = {}
+    for st in states:
+        sp = repair_split(ecutil, st)
+        splits[st["plugin"]] = sp
+        s = sp["split_s"]
+        print(f"phase 11: {st['plugin']} rebuild of {REPAIR_OBJECTS} "
+              f"objects, split: {sp['rebuilt_MBps']:.1f} MB/s rebuilt on "
+              f"the host clock ({sp['total_s']:.3f} s: gather "
+              f"{s['gather']:.3f}, copy in {s['h2d']:.3f}, K1 {s['k1']:.3f} "
+              f"(CUDA events {sp['k1_events_ms'] / 1e3:.4f}), copy back "
+              f"{s['d2h']:.3f}, scatter {s['scatter']:.3f} s); "
+              f"compiled_repair_streams {sp['pass_MBps'][0]:.1f} MB/s first "
+              f"pass (compiles), {sp['pass_MBps'][1]:.1f} MB/s second "
+              f"(outputs kept), {sp['dropped_pass_MBps'][0]:.1f} and "
+              f"{sp['dropped_pass_MBps'][1]:.1f} MB/s before and after the "
+              f"split (outputs dropped); on {name_power}")
+        print(f"phase 11: {st['plugin']} pass by cProfile own time: "
+              + ", ".join(f"{name} {t:.3f} s"
+                          for name, t in sp["profile_top_s"]))
+    for row in rows:
+        print(f"phase 11: K1 {row['shape']} ({row['r']} x {row['k_in']}, N "
+              f"{row['n']}): {row['ms']:.4f} ms on the card "
+              f"({row['paced_ms']:.4f} ms launched one after another from "
+              f"the host), bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']} ({row['bound_ms'] / row['ms']:.2f} of "
+              f"it), plain {row['plain_ms']:.4f} ms on {name_power}")
+    return {"launches_repair": launches, "max_abs_err_repair": worst,
+            "repair_shapes": rows,
+            "repair": {p: {"encode_s": st["encode_s"],
+                           "passes_s": st["passes"], **splits[p]}
+                       for p, st in zip(splits, states)}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -706,6 +1055,7 @@ def main() -> int:
          "bound_by": k2_by, "library_ms": None},
     ]
     kernels.append(crush_phases(logs["crush_rule"], name_power, dev))
+    kernels[0].update(repair_phases(name_power, gen, dev))
     print(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1/K2 (GF(2^8) products) and K3 (CRUSH do_rule over a batch of seeds).
+K1/K2 (GF(2^8) products), K3 (CRUSH do_rule over a batch of seeds), and
+the paths that reach K1 from the plugin family: compiled repair and the
+bit-matrix device form.
 
 Marked `cuda`: each test skips without a CUDA device.  On a machine with
 one (no JAX needed, so the repository conftest is left out):
@@ -18,9 +20,11 @@ import torch
 from ceph_tpu_torch.crush import batch as crush_batch
 from ceph_tpu_torch.crush import testing as crush_testing
 from ceph_tpu_torch.crush.types import CrushRule
-from ceph_tpu_torch.ec import gf, registry
+from ceph_tpu_torch.ec import bitmatrix, gf, registry
 from ceph_tpu_torch.ec.kernels import bitmatmul as bm
 from ceph_tpu_torch.ec.matrix_code import make_decode_matrix_full
+from ceph_tpu_torch.ec.repairc import cache_of
+from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.osd import mapping as osd_mapping
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import PGPool
@@ -61,6 +65,18 @@ def k1_against_plain(dev, r, k, s, n, ptr_offset=0):
   + [(4, k, 2, 8192) for k in (2, 5, 20)])
 def test_k1_matches_plain(dev, r, k, s, n):
     k1_against_plain(dev, r, k, s, n)
+
+
+@pytest.mark.parametrize("r,k,n", [
+    (1, 4, 1 << 20), (2, 4, 1 << 20), (1, 3, 1 << 20),   # jerasure, lrc
+    (8, 20, 131072), (27, 72, 25920),                    # clay 4/2, 6/3/8
+    (16, 64, 65536),                                     # liber8tion k=8
+    (16, 256, 65536), (4, 400, 8192), (9, 200, 4099),    # > 48 KiB tables
+])
+def test_k1_matches_plain_at_repair_shapes(dev, r, k, n):
+    """One stripe (S = 1) as compiled repair launches it; k above 192
+    (W = 8) or 384 (W = 4) takes the opt-in shared-memory branch."""
+    k1_against_plain(dev, r, k, 1, n)
 
 
 def test_k1_splits_stripes_over_grid_y(dev):
@@ -188,3 +204,64 @@ def test_mapping_on_card_matches_cpu(dev):
                  "acting_primary"):
         assert np.array_equal(getattr(card.pools[0], name),
                               getattr(cpu.pools[0], name)), name
+
+
+# -- the plugin family on the card: compiled repair, bit-matrix form --------
+
+@pytest.mark.parametrize("plugin,profile", [
+    ("jerasure", {"technique": "reed_sol_van", "k": "4", "m": "2"}),
+    ("clay", {"k": "4", "m": "2"}),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("clay", {"k": "6", "m": "3", "d": "8"}),
+])
+def test_compiled_repair_on_card(dev, plugin, profile):
+    """Every single-erasure signature (and every double one that has a
+    plan) rebuilt through K1 on the card, one launch per repair, equal
+    to the lost shard and to the numpy oracle."""
+    ec = registry.factory(plugin, dict(profile))
+    assert ec.device.type == "cuda"
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    cs = ec.get_chunk_size(k * 4096)
+    sinfo = ecutil.StripeInfo(k, k * cs)
+    data = np.random.default_rng(n).integers(
+        0, 256, 5 * sinfo.stripe_width, dtype=np.uint8).tobytes()
+    shards = ecutil.encode(sinfo, ec, data)
+    repaired = 0
+    for r in (1, 2):
+        for lost in itertools.combinations(range(n), r):
+            plan = ecutil.repair_plan(ec, set(lost), set(range(n)) - set(lost))
+            if plan is None:
+                assert r == 2
+                continue
+            ext = plan.byte_extents(cs)
+            bufs = {h: b"".join(shards[h][o:o + c] for o, c in
+                                ecutil.expand_stream_extents(
+                                    ext[h], cs, len(shards[h])))
+                    for h in plan.helper_ids()}
+            before = bm.LAUNCHES["gf_matmul"]
+            got = ecutil.compiled_repair_streams(ec, plan, cs, bufs)
+            assert bm.LAUNCHES["gf_matmul"] == before + 1
+            oracle = ecutil.compiled_repair_streams(ec, plan, cs, bufs,
+                                                    backend="numpy")
+            for s in lost:
+                assert got[s] == shards[s] == oracle[s], (lost, s)
+            repaired += 1
+    stats = cache_of(ec).stats()
+    assert len(stats["compiles"]) == repaired
+    assert all(c == 1 for c in stats["compiles"].values())
+
+
+def test_gf2_matmul_device_on_card(dev):
+    rng = np.random.default_rng(4)
+    for g in (bitmatrix.liber8tion_bitmatrix(8),
+              bitmatrix.liberation_bitmatrix(7, 7),
+              bitmatrix.blaum_roth_bitmatrix(6, 6)):
+        rows = g.shape[1]
+        coding = g[rows:]
+        packets = rng.integers(0, 256, (rows, 65536 + 3), dtype=np.uint8)
+        before = bm.LAUNCHES["gf_matmul"]
+        got = bitmatrix.gf2_matmul_device(coding, packets)
+        assert bm.LAUNCHES["gf_matmul"] == before + 1
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(),
+                              bitmatrix.bitmatrix_apply(coding, packets))

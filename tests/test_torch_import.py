@@ -39,7 +39,18 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.crush.mapper",
                  "ceph_tpu_torch.crush.testing",
                  "ceph_tpu_torch.crush.batch", "ceph_tpu_torch.osd.types",
-                 "ceph_tpu_torch.osd.osdmap", "ceph_tpu_torch.osd.mapping"):
+                 "ceph_tpu_torch.osd.osdmap", "ceph_tpu_torch.osd.mapping",
+                 "ceph_tpu_torch.ec.gfw", "ceph_tpu_torch.ec.bitmatrix",
+                 "ceph_tpu_torch.ec.plugins.jerasure",
+                 "ceph_tpu_torch.ec.plugins.isa",
+                 "ceph_tpu_torch.ec.plugins.shec",
+                 "ceph_tpu_torch.ec.plugins.lrc",
+                 "ceph_tpu_torch.ec.plugins.clay",
+                 "ceph_tpu_torch.ec.repairc",
+                 "ceph_tpu_torch.ec.repairc.plan",
+                 "ceph_tpu_torch.ec.repairc.compiler",
+                 "ceph_tpu_torch.ec.repairc.cache",
+                 "ceph_tpu_torch.common.crc32c"):
         assert name in out["modules"], name
 
 

@@ -92,7 +92,7 @@ def test_profile_surface_matches_reference():
     with pytest.raises(ErasureCodeError, match="ENOENT"):
         port(4, 2, "liberation")
     with pytest.raises(ErasureCodeError, match="ENOENT"):
-        registry.factory("isa", {"k": "4", "m": "2"}, device="cpu")
+        registry.factory("nosuch", {"k": "4", "m": "2"}, device="cpu")
 
 
 def test_corpus_tpu_entries():
