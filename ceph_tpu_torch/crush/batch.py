@@ -20,7 +20,9 @@ scalar engine (`mapper.py`, itself checked against the C core):
   shortcut), selected by `compile_map(class_path=...)`.
 
 `CompiledCrushMap.map_batch` launches K3 on a cuda map and runs the plain
-version on a cpu map.  Nothing falls back from one to the other.
+version on a cpu map.  Nothing falls back from one to the other.  It
+stages the seeds, the weights and the rule's steps first and launches K3
+inside a region of the device guard (common/devguard.py).
 
 Restrictions (compile_map / map_batch raise BatchUnsupported; callers use
 the scalar engine): straw2 buckets only, rjenkins1 only,
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..common import devguard
 from ..ec.kernels import _build
 from ._ln_tables import LL_TBL, RH_LH_TBL
 from .types import (
@@ -262,7 +265,11 @@ class CompiledCrushMap:
         xs = _int64_on(xs, self.device)
         weight = _int64_on(weight, self.device)
         if self.device.type == "cuda":
-            res, cnt = crush_do_rule_cuda(self, cfg, xs, weight)
+            # staged here, outside the guarded launch
+            self.steps_tensor(cfg)
+            _ln16_on(self.device)
+            with devguard.guard_transfers(self.device):
+                res, cnt = crush_do_rule_cuda(self, cfg, xs, weight)
         else:
             res, cnt = map_batch_plain(self, cfg, xs, weight)
         if return_counts:
@@ -923,6 +930,7 @@ def map_batch_plain(cm: CompiledCrushMap, cfg: _RuleCfg, xs: torch.Tensor,
     `stats` dict, adds the straw2 item evaluations the rule needed for
     these seeds under stats["straw2_evals"] (evaluations whose result the
     rule uses, as the scalar engine and K3 make them)."""
+    devguard.check_device("map_batch_plain", cm.device, xs, weight)
     if weight.dim() != 1 or weight.shape[0] < 1:
         raise ValueError("weight must be a non-empty (D,) vector")
     res, cnt = [], []

@@ -3,6 +3,10 @@
 Every entry point of the port runs on the CUDA card unless its caller
 asks for the CPU (`device="cpu"`, as the CPU tests do).  A missing card
 is an error, never a quiet fall back to the CPU.
+
+`as_u8` stages a batch with a plain (blocking) copy; `stage` copies the
+small tables of an operator through pinned memory without a host sync,
+so an operator can be built inside a region of the device guard.
 """
 from __future__ import annotations
 
@@ -40,3 +44,14 @@ def as_u8(x, device: torch.device) -> torch.Tensor:
         warnings.simplefilter("ignore", UserWarning)
         t = torch.from_numpy(a)
     return t.to(device)
+
+
+def stage(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device` with no host sync: on cuda a
+    non-blocking copy from pinned memory on the current stream, the one
+    the port's launches use (the pinned block is kept until the copy is
+    done); on the CPU the array itself, shared."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

@@ -8,7 +8,9 @@ build takes seconds.  Libraries go to `ceph_tpu_torch/_build/`, named by
 a digest of the source and flags, and are built at first use.  The
 compiler's output (ptxas's register and stack-frame report) is kept
 beside each library, so it can be read back for a cached build too.  A
-failed build raises; nothing falls back to the plain versions.
+failed build raises; nothing falls back to the plain versions.  Under the
+device guard (common/devguard.py) each nvcc run and each library load
+counts as one compile of its library: a second one in a process raises.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from ...common import devguard
 
 PORT = Path(__file__).resolve().parents[2]
 CSRC = PORT / "ec" / "kernels" / "csrc"
@@ -90,6 +94,7 @@ def build(*names: str) -> dict[str, str]:
         log_tmp.write_text(log)
         os.replace(log_tmp, log_path(name))
         os.replace(tmp, out)
+        devguard.count_compile(f"nvcc:{name}", out.name)
     return {n: log_path(n).read_text() for n in names}
 
 
@@ -99,5 +104,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build(name)
-            lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
+            path = lib_path(name)
+            lib = _libs[name] = ctypes.CDLL(str(path))
+            devguard.count_compile(f"load:{name}", path.name)
         return lib

@@ -23,7 +23,10 @@ the plain version on a cpu tensor, and raise on anything else.
 
 `GFMatmul` and `GFDecodeFull` keep the byte matrix, its tables and the
 survivor index vector resident on their device across calls (the
-analogue of ISA-L's table cache, ref: ErasureCodeIsaTableCache.cc).
+analogue of ISA-L's table cache, ref: ErasureCodeIsaTableCache.cc),
+staged without a host sync.  The CUDA wrappers refuse a tensor that is not
+on the data's device; under the device guard (common/devguard.py) the
+dispatchers refuse one on the CPU path too.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 
 from .. import gf
 from ... import device as _device
+from ...common import devguard
 from . import _build
 
 #: launches of each CUDA kernel, counted by its wrapper at the launch
@@ -235,6 +239,7 @@ def gf_matmul(tables: torch.Tensor, mat: torch.Tensor,
     if data.device.type == "cuda":
         return gf_matmul_cuda(tables, data, mat.shape[0])
     if data.device.type == "cpu":
+        devguard.check_device("gf_matmul", data.device, tables, mat)
         return gf_matmul_plain(mat, data)
     raise ValueError(f"unsupported device {data.device}")
 
@@ -246,6 +251,8 @@ def gf_decode_select(tables: torch.Tensor, sel: torch.Tensor,
     if data.device.type == "cuda":
         return gf_decode_select_cuda(tables, sel, data)
     if data.device.type == "cpu":
+        devguard.check_device("gf_decode_select", data.device, tables, sel,
+                              mat)
         return gf_decode_select_plain(mat, runs, data)
     raise ValueError(f"unsupported device {data.device}")
 
@@ -261,9 +268,9 @@ class GFMatmul:
         self.device = _device.resolve(device)
         self.mat = np.ascontiguousarray(mat, dtype=np.uint8)
         self.r, self.k = self.mat.shape
-        self.mat_t = torch.from_numpy(self.mat.copy()).to(self.device)
-        self.tables = torch.from_numpy(
-            packed_nibble_tables(self.mat)).to(self.device)
+        self.mat_t = _device.stage(self.mat.copy(), self.device)
+        self.tables = _device.stage(packed_nibble_tables(self.mat),
+                                    self.device)
 
     def __call__(self, data) -> torch.Tensor:
         """data: (..., k, N) uint8, numpy or tensor -> (..., r, N) on the
@@ -294,10 +301,10 @@ class GFDecodeFull:
             raise ValueError("decode matrix has no nonzero columns")
         self.runs = _survivor_runs(list(self.sel))
         self.mat = np.ascontiguousarray(self.mat_full[:, list(self.sel)])
-        self.mat_t = torch.from_numpy(self.mat.copy()).to(self.device)
-        self.tables = torch.from_numpy(nibble_tables(self.mat)).to(self.device)
-        self.sel_t = torch.tensor(self.sel, dtype=torch.int32,
-                                  device=self.device)
+        self.mat_t = _device.stage(self.mat.copy(), self.device)
+        self.tables = _device.stage(nibble_tables(self.mat), self.device)
+        self.sel_t = _device.stage(np.asarray(self.sel, dtype=np.int32),
+                                   self.device)
 
     def __call__(self, data) -> torch.Tensor:
         data = _device.as_u8(data, self.device)

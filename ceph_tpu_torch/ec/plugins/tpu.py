@@ -16,7 +16,9 @@ Techniques (profile `technique=`):
 Beyond the interface, the plugin exposes a batched device-resident path
 (`encode_batch`/`decode_batch`/`decode_batch_full`) that takes numpy or
 torch input and returns tensors on the plugin's device: many stripes per
-launch, so the host<->device boundary stays off the hot path.
+launch, so the host<->device boundary stays off the hot path.  Each stages
+its input first and launches inside a region of the device guard
+(common/devguard.py).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ... import device as _device
+from ...common import devguard
 from .. import gf
 from ..interface import ErasureCodeProfile, ErasureCodeError, to_int, \
     sanity_check_k_m
@@ -115,7 +118,9 @@ class ErasureCodeTpu(MatrixErasureCode):
     def encode_batch(self, data) -> torch.Tensor:
         """(..., k, N) uint8 (host or device) -> (..., m, N) parity on the
         plugin's device, one launch for every stripe in the batch."""
-        return self._encode_mm(data)
+        data = _device.as_u8(data, self.device)
+        with devguard.guard_transfers(self.device):
+            return self._encode_mm(data)
 
     def decode_batch(self, decode_index: list[int], erasures: list[int],
                      data) -> torch.Tensor:
@@ -132,7 +137,9 @@ class ErasureCodeTpu(MatrixErasureCode):
                                       list(decode_index), list(erasures))
             mm = GFMatmul(dmat, self.device)
             self._decode_mm.put(sig, mm, cost=self.k)
-        return mm(data)
+        data = _device.as_u8(data, self.device)
+        with devguard.guard_transfers(self.device):
+            return mm(data)
 
     def decode_batch_full(self, erasures: list[int], data,
                           valid=None) -> torch.Tensor:
@@ -168,7 +175,11 @@ class ErasureCodeTpu(MatrixErasureCode):
                                            n, decode_index, erased)
             mm = GFDecodeFull(dmat, valid, self.device)
             self._decode_mm.put(sig, mm, cost=n)
-        return mm(data)
+        # staging-free contract: the kernel reads the survivor rows on
+        # the device, nothing inside the launch touches the host
+        data = _device.as_u8(data, self.device)
+        with devguard.guard_transfers(self.device):
+            return mm(data)
 
     def decode_batches_full(self, erasures: list[int], batches,
                             valid=None):

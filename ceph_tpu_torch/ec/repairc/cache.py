@@ -12,12 +12,16 @@ per profile across all its PGs, so this is also one cache per
 profile), attached lazily via `cache_of(ec)`.
 
 The port's copy of `ceph_tpu.ec.repairc.cache`, with plain
-`threading.Lock`s.
+`threading.Lock`s.  Each compile also counts under the device guard
+(common/devguard.py, site "repairc"): a cache that compiles a signature
+twice trips it.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 
+from ...common import devguard
 from ..matrix_code import DecodeTableCache
 from .compiler import compile_program
 from .plan import RepairPlan
@@ -27,6 +31,7 @@ from .plan import RepairPlan
 DEFAULT_CAPACITY = 1 << 20
 
 _attach_lock = threading.Lock()
+_serials = itertools.count()
 
 
 class RepairProgramCache:
@@ -37,6 +42,8 @@ class RepairProgramCache:
         self._lock = threading.Lock()
         self._compiles: dict[str, int] = {}
         self._hits = 0
+        #: tells this cache's signatures apart from another's in the guard
+        self._serial = next(_serials)
 
     def __len__(self) -> int:
         return len(self._lru)
@@ -55,6 +62,7 @@ class RepairProgramCache:
         self._lru.put(sig, prog, cost=prog.cost())
         with self._lock:
             self._compiles[sig] = self._compiles.get(sig, 0) + 1
+        devguard.count_compile("repairc", f"cache{self._serial}:{sig}")
         return prog
 
     def stats(self) -> dict:

@@ -16,7 +16,9 @@ multiplicative identity), then lowers the whole schedule to
 The matmul is K1 (`GFMatmul`) on the program's device, its plain
 PyTorch version on the CPU, or the numpy oracle (`backend="numpy"`).
 On a cuda device a kernel that fails to build or launch raises; nothing
-falls back to the oracle or the plain version.  Probing costs
+falls back to the oracle or the plain version.  The helper planes are
+staged first and K1 launches inside a region of the device guard
+(common/devguard.py); the readback comes after it.  Probing costs
 `total_planes + 1` interpreted 1-byte-sub-chunk repairs per signature,
 on the host, paid once and then cached (see cache.py).
 
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ... import device as _device
+from ...common import devguard
 from .. import gf
 from ..interface import ErasureCodeError
 from ..kernels.bitmatmul import GFMatmul
@@ -179,7 +182,11 @@ class RepairProgram:
         if backend == "numpy":
             out = gf.gf_matmul_bytes(self.matrix, x)
         elif backend in (None, "device"):
-            out = self.kernel(device)(x).cpu().numpy()
+            mm = self.kernel(device)
+            x_dev = _device.as_u8(x, mm.device)
+            with devguard.guard_transfers(mm.device):
+                out_dev = mm(x_dev)
+            out = out_dev.cpu().numpy()
         else:
             raise ValueError(f"unknown repair backend {backend!r}")
         return self._scatter(out, nstripes, ssz)

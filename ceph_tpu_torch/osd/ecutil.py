@@ -27,6 +27,8 @@ from typing import Iterable, Mapping
 
 import numpy as np
 
+from .. import device as _device
+from ..common import devguard
 from ..common.crc32c import crc32c
 from ..ec.interface import ErasureCodeError
 from ..ec.repairc import program_for
@@ -119,8 +121,12 @@ def encode(sinfo: StripeInfo, ec, data: bytes,
 
     if _batchable(ec):
         arr = np.frombuffer(data, dtype=np.uint8).reshape(nstripes, k, cs)
-        # one host->device copy in, one launch, one copy back
-        parity = ec.encode_batch(arr).cpu().numpy()     # (S, m, cs)
+        # one host->device copy in, one launch, one copy back; under the
+        # device guard a host sync inside the launch is an error
+        arr_dev = _device.as_u8(arr, ec.device)
+        with devguard.guard_transfers(ec.device):
+            parity_dev = ec.encode_batch(arr_dev)
+        parity = parity_dev.cpu().numpy()               # (S, m, cs)
         out: dict[int, bytes] = {}
         # tobytes() on a strided view copies element by element; a
         # contiguous copy first is several times faster for the same bytes
@@ -236,8 +242,12 @@ def decode(sinfo: StripeInfo, ec, to_decode: Mapping[int, bytes],
              .reshape(nstripes, cs) for i in decode_index], axis=1)
         t1 = time.monotonic()
         # .cpu() waits for the launch, so the kernel interval below
-        # is copy in + compute + readback, never enqueue-only
-        rec = ec.decode_batch(decode_index, missing, stack).cpu().numpy()
+        # is copy in + compute + readback, never enqueue-only; the
+        # launch alone is guarded, like encode's
+        stack_dev = _device.as_u8(stack, ec.device)
+        with devguard.guard_transfers(ec.device):
+            rec_dev = ec.decode_batch(decode_index, missing, stack_dev)
+        rec = rec_dev.cpu().numpy()
         t2 = time.monotonic()
         if timings is not None:
             timings["stage"] = (t0, t1)

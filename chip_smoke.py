@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port on one card: the erasure-code data
-path, CRUSH placement and compiled repair.
+path, CRUSH placement, compiled repair, the placement tools (crushtool,
+osdmaptool and the upmap balancer) and the device guard.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -70,13 +71,44 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    scatter, with the rebuilt MB/s, beside the first (compiling) and
    second pass of phase 10; K1 per launch at each repair shape beside
    its bound ((k_in + r) * N bytes over 3.35 TB/s, or r * k_in * N
-   operations at the int8 rate) and its plain version.
+   operations at the int8 rate) and its plain version;
+12. crushtool on the card, as Ceph's "Editing a CRUSH map" does it at the
+   placement scale: `crushtool --build --num-osds 10000 host straw2 20
+   root straw2 0`, `-d`, two rules appended (replicated_rule: chooseleaf
+   firstn 0 type host; ec_k8m4: set_chooseleaf_tries 5, chooseleaf indep
+   0 type host), `-c`, the decompile fixed point, then `-i --test
+   --show-statistics --show-utilization` over x = 0 .. 1,048,575 for
+   rule 0 at num_rep 3 and rule 1 at 12: one K3 launch per (rule,
+   num_rep), no scalar fallback, every x of full size, 4,096 sampled x
+   of the tester's table equal to CrushWrapper.do_rule; the text equal
+   to the plain version's at 65,536 x (on the card) and to
+   CrushTester(device="cpu")'s at 1,024 x; the host-clock split (map
+   load, compile_map, staging, K3 by CUDA events, copy back, counting
+   and formatting);
+13. the balancer: `osdmaptool --createsimple 10000 --osds-per-host 20
+   --pg-num 1048576`, then `--upmap --upmap-max 10 --upmap-deviation 5
+   --test-map-pgs` (the tool's defaults): two K3 launches (the
+   balancer's update() and --test-map-pgs's), every upmapped PG on 3
+   hosts and equal to the scalar pg_to_up_acting_osds after the
+   Incremental, Balancer.score()'s stddev lower after; the split
+   (update, _build_pgs_by_osd, clone, search, apply_incremental, second
+   update) and K3's share of the wall; then at 1,000 OSDs / 32,768 PGs
+   the command file from the card equals the one from `--device cpu`;
+14. the device guard (ceph_tpu_torch.common.devguard) armed: phase 5's
+   ECUtil round trip (and one on a fresh plugin, whose decode operator
+   is built inside the guarded region), an OSDMapMapping.update() of
+   phase 8's map, phase 10's compiled repair of one code (and one repair
+   on a fresh instance of it, whose cache compiles the plan once) and
+   phase 12's rule-0 test at 65,536 x, with no guard error and no
+   recompile; then an `.item()` inside guard_transfers() must raise.
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -114,6 +146,37 @@ REPAIR_CODES = [                 # REPAIR_r01.json's profiles and read/rebuilt
     ("lrc", {"k": "4", "m": "2", "l": "3"}, 3.0),
 ]
 WIDE_CLAY = {"k": "6", "m": "3", "d": "8"}   # the corpus's wider clay profile
+TOOL_TESTS = [(0, 3), (1, 12)]   # crushtool --test (rule, num_rep)
+TOOL_X = 1 << 20                 # x = 0 .. 1,048,575
+TOOL_SAMPLE = 4096               # sampled x per rule against do_rule
+TOOL_PLAIN_X = 1 << 16           # text against the plain version on the card
+TOOL_CPU_X = 1 << 10             # text against CrushTester on the CPU
+TOOL_RULES = """\
+rule replicated_rule {
+\tid 0
+\ttype replicated
+\tmin_size 1
+\tmax_size 10
+\tstep take root
+\tstep chooseleaf firstn 0 type host
+\tstep emit
+}
+
+rule ec_k8m4 {
+\tid 1
+\ttype erasure
+\tmin_size 3
+\tmax_size 12
+\tstep set_chooseleaf_tries 5
+\tstep take root
+\tstep chooseleaf indep 0 type host
+\tstep emit
+}
+"""
+UPMAP_MAX, UPMAP_DEVIATION = 10, 5   # osdmaptool's --upmap defaults
+# the card-against-CPU balancer map, cut from 65,536 PGs to keep phases
+# 12-14 near 90 s (the CPU side is the plain version)
+CROSS_OSD, CROSS_PG = 1000, 1 << 15
 SPIN_CYCLES = 4_000_000          # about 2 ms at the H100's 1980 MHz
 
 
@@ -534,8 +597,9 @@ def update_split(cb, om, placement, dev) -> dict:
     return split
 
 
-def crush_phases(log: str, name_power: str, dev) -> dict:
-    """Phases 7-9; returns K3's entry of the kernels line."""
+def crush_phases(log: str, name_power: str, dev) -> tuple[dict, object]:
+    """Phases 7-9; returns K3's entry of the kernels line and the
+    placement map (at its failure epoch)."""
     from ceph_tpu_torch.crush import batch as cb
     from ceph_tpu_torch.crush import testing as ct
     from ceph_tpu_torch.ec.kernels import _build
@@ -637,7 +701,7 @@ def crush_phases(log: str, name_power: str, dev) -> dict:
             "cases": cases,
             "straw2_evals": evals, "hash_sass_instructions": hash_instr,
             "sm_clock_mhz": mhz, "bytes": nbytes, "bytes_ms": bytes_ms,
-            "update_s": update_s, "update_split_s": split, **ptx}
+            "update_s": update_s, "update_split_s": split, **ptx}, placement
 
 
 # ---------------------------------------------------------------------------
@@ -799,9 +863,10 @@ def repair_split(ecutil, state: dict) -> dict:
             "profile_top_s": [[name, t] for t, name in top]}
 
 
-def repair_phases(name_power: str, gen: torch.Generator, dev) -> dict:
+def repair_phases(name_power: str, gen: torch.Generator,
+                  dev) -> tuple[dict, dict]:
     """Phases 10-11; returns the keys K1's entry of the kernels line
-    gains."""
+    gains and the first code's phase-10 state."""
     from ceph_tpu_torch.ec import bitmatrix, registry, repairc
     from ceph_tpu_torch.ec.kernels import bitmatmul as bm
     from ceph_tpu_torch.osd import ecutil
@@ -931,7 +996,390 @@ def repair_phases(name_power: str, gen: torch.Generator, dev) -> dict:
             "repair_shapes": rows,
             "repair": {p: {"encode_s": st["encode_s"],
                            "passes_s": st["passes"], **splits[p]}
-                       for p, st in zip(splits, states)}}
+                       for p, st in zip(splits, states)}}, states[0]
+
+
+# ---------------------------------------------------------------------------
+# The placement tools: phases 12-13; the device guard: phase 14
+
+def run_cli(tool_main, argv: list[str]) -> tuple[str, str, float]:
+    """One run of a tool's main(argv): (stdout, stderr, host seconds up
+    to a synchronize).  A non-zero exit fails the run."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool_main(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue(), wall
+
+
+def edited_crushmap(text: str) -> str:
+    """The decompiled --build map with the two rules a user appends
+    (Ceph's "Editing a CRUSH map": decompile, edit, compile)."""
+    if "# rules\n" not in text:
+        raise AssertionError("decompiled map has no rules section")
+    return text.replace("# rules\n", "# rules\n" + TOOL_RULES)
+
+
+def crushtool_phase(name_power: str, dev, work: Path) -> dict:
+    """Phase 12: crushtool --build / -d / edit / -c / --test on the card."""
+    from ceph_tpu_torch.crush import batch as cb
+    from ceph_tpu_torch.crush import tester as ctest
+    from ceph_tpu_torch.crush.compiler import compile_crushmap, decompile
+    from ceph_tpu_torch.tools import crushtool
+
+    t_phase = time.monotonic()
+    built, text, edited, mapfile = (str(work / n) for n in (
+        "built.json", "built.txt", "edited.txt", "map.json"))
+    run_cli(crushtool.main, ["--build", "--num-osds", str(N_OSD), "-o", built,
+                             "host", "straw2", str(OSDS_PER_HOST),
+                             "root", "straw2", "0"])
+    run_cli(crushtool.main, ["-d", built, "-o", text])
+    Path(edited).write_text(edited_crushmap(Path(text).read_text()))
+    run_cli(crushtool.main, ["-c", edited, "-o", mapfile])
+    w = crushtool.load(mapfile)
+    t2 = decompile(w)
+    if t2 != Path(edited).read_text() or decompile(compile_crushmap(t2)) != t2:
+        raise AssertionError("crushtool -c / -d is not a fixed point")
+    hosts = sum(1 for b in w.crush.buckets
+                if b is not None and w.type_map[b.type] == "host")
+    if w.crush.max_devices != N_OSD or hosts != N_OSD // OSDS_PER_HOST:
+        raise AssertionError(f"--build gave {w.crush.max_devices} OSDs, "
+                             f"{hosts} hosts")
+
+    def test_argv(rule: int, nr: int, max_x: int) -> list[str]:
+        return ["-i", mapfile, "--test", "--show-statistics",
+                "--show-utilization", "--min-x", "0", "--max-x", str(max_x),
+                "--rule", str(rule), "--num-rep", str(nr)]
+
+    cb.reset_launches()
+    ctest.reset_fallbacks()
+    outs, walls = {}, {}
+    for rule, nr in TOOL_TESTS:
+        outs[rule], _, walls[rule] = run_cli(crushtool.main,
+                                             test_argv(rule, nr, TOOL_X - 1))
+    launches = cb.LAUNCHES["crush_do_rule"]
+    fallbacks = ctest.FALLBACKS["batch_unsupported"]
+    if launches != len(TOOL_TESTS) or fallbacks:
+        raise AssertionError(f"crushtool --test: {launches} K3 launches for "
+                             f"{len(TOOL_TESTS)} (rule, num_rep), "
+                             f"{fallbacks} through the scalar engine")
+
+    weights = np.full(N_OSD, 0x10000, dtype=np.int64)
+    rng = np.random.default_rng(SEED + 2)
+    rows = {}
+    for rule, nr in TOOL_TESTS:
+        name = w.rule_name_map[rule]
+        if f"rule {rule} ({name}) num_rep {nr} result size == {nr}:\t" \
+                f"{TOOL_X}/{TOOL_X}" not in outs[rule]:
+            raise AssertionError(f"rule {rule}: not every x maps to {nr}")
+        devices = outs[rule].count("  device ")
+        # the tester's own engine call once more, for the sampled check
+        res, cnt = ctest.CrushTester(w, 0, TOOL_X - 1, nr, nr, rule,
+                                     device=dev).map_all(rule, nr)
+        if not (cnt == nr).all():
+            raise AssertionError(f"rule {rule}: a result is short")
+        t_sample = time.monotonic()
+        for x in rng.choice(TOOL_X, TOOL_SAMPLE, replace=False).tolist():
+            if res[x, :cnt[x]].tolist() != w.do_rule(rule, x, nr):
+                raise AssertionError(f"rule {rule} x {x}: K3 differs from "
+                                     "CrushWrapper.do_rule")
+        t_sample = time.monotonic() - t_sample
+        # the host-clock split of one test() at full width: the tool's map
+        # load, then the tester's own calls one by one; the rest of the
+        # run is its counting and formatting
+        t_load = time.monotonic()
+        crushtool.load(mapfile)
+        t0 = time.monotonic()
+        cc = cb.compile_map(w.crush, device=dev)
+        t1 = time.monotonic()
+        xs = torch.arange(TOOL_X, device=dev)
+        wt = torch.from_numpy(weights).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r_dev, c_dev = cc.map_batch(xs, wt, ruleno=rule, result_max=nr,
+                                    return_counts=True)
+        end.record()
+        end.synchronize()
+        t3 = time.monotonic()
+        r_dev.cpu().numpy(), c_dev.cpu().numpy()
+        t4 = time.monotonic()
+        k3_ms = start.elapsed_time(end)
+        split = {"load": t0 - t_load, "compile_map": t1 - t0,
+                 "stage": t2 - t1, "k3": t3 - t2, "copy_back": t4 - t3}
+        split["count_format"] = walls[rule] - sum(split.values())
+        rows[rule] = {"num_rep": nr, "wall_s": walls[rule], "split_s": split,
+                      "k3_events_ms": k3_ms, "devices_listed": devices}
+        print(f"phase 12: crushtool --test rule {rule} ({name}) num_rep {nr} "
+              f"x 0..{TOOL_X - 1}: {walls[rule]:.3f} s on the host clock; "
+              "split " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+              + f"; K3 {k3_ms:.3f} ms by CUDA events, "
+              f"{k3_ms / 1e3 / walls[rule]:.4f} of the wall; {devices} "
+              f"devices listed; {TOOL_SAMPLE} sampled x == "
+              f"CrushWrapper.do_rule ({t_sample:.1f} s) on {name_power}")
+
+    # the text against the plain version: at TOOL_PLAIN_X through the
+    # plain version on the card, at TOOL_CPU_X through CrushTester on
+    # the CPU
+    class PlainTester(ctest.CrushTester):
+        def map_all(self, ruleno, numrep):
+            cc = cb.compile_map(self.w.crush, device=self.device)
+            xs = torch.arange(self.min_x, self.max_x + 1, device=self.device)
+            wt = torch.tensor(self.weights, dtype=torch.int64,
+                              device=self.device)
+            res, cnt = cb.map_batch_plain(cc, cc.rule_cfg(ruleno, numrep),
+                                          xs, wt)
+            return res.cpu().numpy(), cnt.cpu().numpy()
+
+    flags = {"show_statistics": True, "show_utilization": True}
+    for rule, nr in TOOL_TESTS:
+        for n_x, tester in ((TOOL_PLAIN_X, PlainTester(
+                w, 0, TOOL_PLAIN_X - 1, nr, nr, rule, device=dev)),
+                (TOOL_CPU_X, ctest.CrushTester(w, 0, TOOL_CPU_X - 1, nr, nr,
+                                               rule, device="cpu"))):
+            card_text, _, _ = run_cli(crushtool.main,
+                                      test_argv(rule, nr, n_x - 1))
+            if card_text != tester.test(**flags):
+                raise AssertionError(f"rule {rule} at {n_x} x: the text "
+                                     "differs from the plain version's")
+    wall = time.monotonic() - t_phase
+    print(f"phase 12: crushtool --build {N_OSD} / -d / -c fixed point; "
+          f"--test text == plain version's (on the card at {TOOL_PLAIN_X} "
+          f"x, CrushTester on the CPU at {TOOL_CPU_X} x) for both rules; "
+          f"K3 launches {launches}, tester fallbacks {fallbacks}; phase "
+          f"{wall:.1f} s")
+    return {"launches": launches, "rows": rows, "wall_s": wall,
+            "mapfile": mapfile}
+
+
+def parse_upmaps(text: str):
+    """`ceph osd pg-upmap-items` lines -> {PG: [(from, to), ...]}; any
+    other line fails the run."""
+    from ceph_tpu_torch.osd.types import PG
+    items = {}
+    for line in text.splitlines():
+        head = "ceph osd pg-upmap-items "
+        if not line.startswith(head):
+            raise AssertionError(f"unexpected upmap line {line!r}")
+        pgid, *nums = line[len(head):].split()
+        pool, ps = pgid.split(".")
+        pairs = [int(v) for v in nums]
+        items[PG(int(pool), int(ps, 16))] = list(zip(pairs[::2], pairs[1::2]))
+    return items
+
+
+def balancer_phase(name_power: str, dev, work: Path) -> dict:
+    """Phase 13: osdmaptool --createsimple / --upmap --test-map-pgs on
+    the card at full scale, the split, and card against CPU at 1,000
+    OSDs."""
+    import random
+
+    from ceph_tpu_torch.crush import batch as cb
+    from ceph_tpu_torch.crush import remap
+    from ceph_tpu_torch.osd import balancer as bal
+    from ceph_tpu_torch.osd import mapping as om
+    from ceph_tpu_torch.osd.osdmap import Incremental
+    from ceph_tpu_torch.tools import osdmaptool
+
+    t_phase = time.monotonic()
+    mapfile, upfile = str(work / "om.json"), str(work / "upmap.txt")
+    run_cli(osdmaptool.main, ["--createsimple", str(N_OSD), "--osds-per-host",
+                              str(OSDS_PER_HOST), "--pg-num", str(PG_NUM),
+                              mapfile])
+    cb.reset_launches()
+    om.reset_fallbacks()
+    stats_text, err, wall = run_cli(osdmaptool.main, [
+        mapfile, "--upmap", upfile, "--upmap-max", str(UPMAP_MAX),
+        "--upmap-deviation", str(UPMAP_DEVIATION), "--test-map-pgs"])
+    launches = cb.LAUNCHES["crush_do_rule"]
+    if launches != 2 or om.FALLBACKS["batch_unsupported"]:
+        raise AssertionError(f"--upmap --test-map-pgs: {launches} K3 "
+                             "launches (want the balancer's update() and "
+                             "--test-map-pgs's), scalar-engine pools "
+                             f"{om.FALLBACKS['batch_unsupported']}")
+    prepared = re.search(r"prepared (\d+)/(\d+) changes", err)
+    items = parse_upmaps(Path(upfile).read_text())
+    if not prepared or int(prepared.group(1)) != len(items) or not items:
+        raise AssertionError(f"balancer output: {err!r}")
+    if f"pool 0 pg_num {PG_NUM}" not in stats_text or \
+            f" in {N_OSD}" not in stats_text or \
+            f"size 3\t{PG_NUM}" not in stats_text:
+        raise AssertionError("--test-map-pgs stats are incomplete")
+
+    # the invariants of the balanced map, on the card and the scalar path
+    m = osdmaptool.load_map(mapfile)
+    inc = Incremental(epoch=m.epoch + 1)
+    inc.new_pg_upmap_items.update(items)
+    after = m.clone()
+    after.apply_incremental(inc)
+    mapping = om.OSDMapMapping()
+    mapping.update(after)
+    parent = remap.build_parent_map(after.crush)
+    for pg, pairs in items.items():
+        up = mapping.get(pg)
+        if up != after.pg_to_up_acting_osds(pg):
+            raise AssertionError(f"{pg}: card mapping differs from scalar")
+        hosts = {remap.get_parent_of_type(after.crush, o, 1, parent)
+                 for o in up[0]}
+        if len(up[0]) != 3 or len(hosts) != 3 or \
+                any(to not in up[0] for _, to in pairs):
+            raise AssertionError(f"{pg}: up {up[0]} after the upmap")
+    b = bal.Balancer(max_deviation=UPMAP_DEVIATION,
+                     max_iterations=UPMAP_MAX)
+    before_score, after_score = b.score(m), b.score(after)
+    if not after_score["stddev"] < before_score["stddev"]:
+        raise AssertionError(f"stddev {before_score['stddev']} -> "
+                             f"{after_score['stddev']}")
+
+    # the host-clock split of the same balancer pass, piece by piece
+    split = {}
+    t0 = time.monotonic()
+    mp = om.OSDMapMapping()
+    mp.update(m)
+    torch.cuda.synchronize()
+    split["update"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    bal._build_pgs_by_osd(m, [0], mp)
+    split["build_pgs_by_osd"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    m.clone()
+    split["clone"] = time.monotonic() - t0
+    total_pgs = m.pools[0].size * m.pools[0].pg_num
+    n_in = sum(1 for o in range(m.max_osd) if m.is_in(o))
+    ratio = UPMAP_DEVIATION / max(1.0, total_pgs / n_in)
+    inc2 = Incremental(epoch=m.epoch + 1)
+    t0 = time.monotonic()
+    n = bal.calc_pg_upmaps(m, ratio, UPMAP_MAX, {0}, inc2,
+                           rng=random.Random(0), mapping=mp)
+    split["search"] = time.monotonic() - t0 - split["build_pgs_by_osd"] - \
+        split["clone"]
+    if inc2.new_pg_upmap_items != items or n != len(items):
+        raise AssertionError("the split's balancer pass differs from the "
+                             "tool's")
+    t0 = time.monotonic()
+    m.apply_incremental(inc2)
+    split["apply_incremental"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    om.OSDMapMapping().update(m)
+    torch.cuda.synchronize()
+    split["update_after"] = time.monotonic() - t0
+    pool = m.pools[0]
+    cc = cb.compile_map(m.crush, device=dev)
+    cfg = cc.rule_cfg(0, pool.size)
+    pps = torch.from_numpy(pool.raw_pg_to_pps_batch(np.arange(PG_NUM),
+                                                    0)).to(dev)
+    wt = torch.from_numpy(np.asarray(m.osd_weight, dtype=np.int64)).to(dev)
+    k3_ms = time_ms(lambda: cb.crush_do_rule_cuda(cc, cfg, pps, wt),
+                    reps=3, repeats=3)
+    share = 2 * k3_ms / 1e3 / wall
+    print(f"phase 13: osdmaptool --upmap --test-map-pgs at {N_OSD} OSDs / "
+          f"{PG_NUM} PGs: {wall:.3f} s on the host clock; prepared "
+          f"{len(items)}/{UPMAP_MAX} changes; every upmapped PG on 3 hosts "
+          f"and == scalar pg_to_up_acting_osds; score stddev "
+          f"{before_score['stddev']} -> {after_score['stddev']}; K3 "
+          f"launches {launches}; split "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+          + f"; K3 {k3_ms:.3f} ms per update (CUDA events), two of them "
+          f"{share:.4f} of the wall, on {name_power}")
+
+    # card against CPU at 1,000 OSDs: the same command file, byte for byte
+    small = str(work / "om_small.json")
+    run_cli(osdmaptool.main, ["--createsimple", str(CROSS_OSD),
+                              "--osds-per-host", str(OSDS_PER_HOST),
+                              "--pg-num", str(CROSS_PG), small])
+    files, cross = {}, {}
+    for device in ("cuda", "cpu"):
+        out = str(work / f"upmap_{device}.txt")
+        _, _, cross[device] = run_cli(osdmaptool.main, [
+            small, "--upmap", out, "--upmap-max", str(UPMAP_MAX),
+            "--upmap-deviation", str(UPMAP_DEVIATION), "--device", device])
+        files[device] = Path(out).read_bytes()
+    if files["cuda"] != files["cpu"] or not files["cuda"]:
+        raise AssertionError("--upmap on the card and on the CPU differ")
+    wall_phase = time.monotonic() - t_phase
+    print(f"phase 13: --upmap at {CROSS_OSD} OSDs / {CROSS_PG} PGs: card "
+          f"{cross['cuda']:.3f} s, CPU {cross['cpu']:.3f} s, command files "
+          f"equal ({len(files['cuda'])} B); phase {wall_phase:.1f} s")
+    return {"launches": launches, "wall_s": wall, "split_s": split,
+            "k3_ms": k3_ms, "k3_share": share, "changes": len(items),
+            "stddev": [before_score["stddev"], after_score["stddev"]],
+            "cross_s": cross, "phase_s": wall_phase}
+
+
+def guard_phase(ec, ecutil, logical: bytes, placement, repair_state,
+                mapfile: str, dev) -> dict:
+    """Phase 14: phases 5, 8, 10 and 12 once more under the device guard,
+    then a deliberate sync inside a region, which must raise."""
+    from ceph_tpu_torch.common import devguard
+    from ceph_tpu_torch.crush import batch as cb
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.osd import mapping as om
+    from ceph_tpu_torch.tools import crushtool
+
+    t_phase = time.monotonic()
+    devguard.reset()
+    devguard.enable()
+    bm.reset_launches()
+    cb.reset_launches()
+    try:
+        sinfo = ecutil.StripeInfo(K, K * CHUNK)
+        # phase 5's round trip, then one on a fresh plugin, whose decode
+        # operator is built inside ecutil's guarded region
+        for code in (ec, registry.factory("tpu", {"k": str(K), "m": str(M)})):
+            obj = logical if code is ec else logical[:8 * K * CHUNK]
+            shards = ecutil.encode(sinfo, code, obj)
+            degraded = {i: v for i, v in shards.items() if i not in ERASURES}
+            if ecutil.decode_concat(sinfo, code, degraded) != obj:
+                raise AssertionError("guarded ECUtil round trip differs")
+        mapping = om.OSDMapMapping()
+        mapping.update(placement)
+        st = repair_state
+        for bufs, want in zip(st["bufs"], st["want"]):
+            if ecutil.compiled_repair_streams(st["ec"], st["plan"], st["cs"],
+                                              bufs)[0] != want:
+                raise AssertionError("guarded repair differs")
+        # and a fresh plugin instance, whose cache compiles the plan once
+        fresh = registry.factory(st["plugin"], dict(REPAIR_CODES[0][1]))
+        if ecutil.compiled_repair_streams(fresh, st["plan"], st["cs"],
+                                          st["bufs"][0])[0] != st["want"][0]:
+            raise AssertionError("guarded repair on a fresh plugin differs")
+        run_cli(crushtool.main, ["-i", mapfile, "--test", "--show-statistics",
+                                 "--max-x", str(TOOL_PLAIN_X - 1), "--rule",
+                                 "0", "--num-rep", "3"])
+        stats = devguard.stats()
+        if any(s["recompiles"] for s in stats.values()) or \
+                stats.get("repairc", {}).get("compiles") != 1:
+            raise AssertionError(f"devguard compile stats: {stats}")
+        launches = {**bm.LAUNCHES, **cb.LAUNCHES}
+        if not (launches["gf_matmul"] and launches["crush_do_rule"]):
+            raise AssertionError(f"guarded run launched {launches}")
+        probe = torch.ones(4, device=dev)
+        try:
+            with devguard.guard_transfers(dev):
+                probe.sum().item()
+        except RuntimeError as ex:
+            caught = str(ex).splitlines()[0]
+        else:
+            raise AssertionError(".item() inside guard_transfers() passed")
+        if torch.cuda.get_sync_debug_mode() != 0:
+            raise AssertionError("the sync debug mode was not restored")
+    finally:
+        devguard.disable()
+    wall = time.monotonic() - t_phase
+    print(f"phase 14: under devguard: ECUtil round trips ({len(logical)} B "
+          f"and a fresh plugin), OSDMapMapping.update(), {len(st['bufs'])} "
+          f"compiled repairs of {st['plugin']}, crushtool --test rule 0 at "
+          f"{TOOL_PLAIN_X} x: no guard error; launches {launches}; compile "
+          f"stats {stats}; .item() inside a region raised ({caught!r}); "
+          f"phase {wall:.1f} s")
+    return {"launches": launches, "wall_s": wall, "stats": stats}
 
 
 def main() -> int:
@@ -1054,9 +1502,29 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
     ]
-    kernels.append(crush_phases(logs["crush_rule"], name_power, dev))
-    kernels[0].update(repair_phases(name_power, gen, dev))
-    print(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
+    k3, placement = crush_phases(logs["crush_rule"], name_power, dev)
+    kernels.append(k3)
+    k1_repair, repair_state = repair_phases(name_power, gen, dev)
+    kernels[0].update(k1_repair)
+
+    work = _build.BUILD_DIR / "smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    tool = crushtool_phase(name_power, dev, work)
+    balance = balancer_phase(name_power, dev, work)
+    guard = guard_phase(ec, ecutil, data.cpu().numpy().tobytes(), placement,
+                        repair_state, tool["mapfile"], dev)
+    k3.update({"launches_tester": tool["launches"],
+               "launches_balancer": balance["launches"],
+               "launches_guarded": guard["launches"]["crush_do_rule"],
+               "tester": tool["rows"], "balancer": {
+                   k: balance[k] for k in ("wall_s", "split_s", "k3_ms",
+                                           "k3_share", "changes", "stddev",
+                                           "cross_s")}})
+    kernels[0]["launches_guarded"] = guard["launches"]["gf_matmul"]
+    print(f"chip_smoke: phases 12-14 {tool['wall_s']:.1f} + "
+          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; "
+          f"{time.monotonic() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -265,3 +265,64 @@ def test_gf2_matmul_device_on_card(dev):
         assert got.device.type == "cuda"
         assert np.array_equal(got.cpu().numpy(),
                               bitmatrix.bitmatrix_apply(coding, packets))
+
+
+# -- the placement tools and the device guard on the card -------------------
+
+def test_crush_tester_on_card_matches_cpu(dev):
+    from ceph_tpu_torch.crush import tester as ctest
+    from ceph_tpu_torch.crush.wrapper import CrushWrapper
+    w = CrushWrapper.build_flat(120, osds_per_host=6)
+    w.add_simple_rule("rep", "default", "host")
+    w.add_simple_rule("ec", "default", "host", mode="indep",
+                      rule_type="erasure", max_size=12)
+    ctest.reset_fallbacks()
+    for rule, nr in ((0, 3), (1, 10)):
+        flags = {"show_statistics": True, "show_utilization": True,
+                 "show_bad_mappings": True}
+        card = ctest.CrushTester(w, 0, 4095, nr, nr, rule).test(**flags)
+        cpu = ctest.CrushTester(w, 0, 4095, nr, nr, rule,
+                                device="cpu").test(**flags)
+        assert card == cpu
+    assert ctest.FALLBACKS["batch_unsupported"] == 0
+
+
+def test_balancer_on_card_matches_cpu(dev):
+    import random
+    from ceph_tpu_torch.osd.balancer import Balancer, calc_pg_upmaps
+    from ceph_tpu_torch.osd.osdmap import Incremental
+    m = OSDMap()
+    m.build_simple(1000, PGPool(pg_num=4096, pgp_num=4096), osds_per_host=20)
+    incs = []
+    for device in (None, "cpu"):
+        inc = Incremental(epoch=m.epoch + 1)
+        n = calc_pg_upmaps(m, 0.05, 10, set(), inc, rng=random.Random(1),
+                           device=device)
+        incs.append((n, inc.new_pg_upmap_items, inc.old_pg_upmap_items))
+    assert incs[0] == incs[1] and incs[0][0] > 0
+    assert Balancer().optimize(m) == Balancer(device="cpu").optimize(m)
+
+
+def test_devguard_item_inside_a_region_raises(dev):
+    from ceph_tpu_torch.common import devguard
+    was = devguard.enabled()
+    devguard.enable()
+    try:
+        t = torch.ones(4, device=dev)
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            with devguard.guard_transfers(dev):
+                t.sum().item()
+        assert torch.cuda.get_sync_debug_mode() == 0
+        # an operator built inside the region stages without a sync
+        ec = registry.factory("tpu", {"k": "4", "m": "2"})
+        data = torch.randint(0, 256, (2, 4, 4096), dtype=torch.uint8,
+                             device=dev)
+        parity = ec.encode_batch(data)
+        # list indexing stages an index tensor: a sync, so outside
+        survivors = torch.cat([data[:, [0, 2, 3]], parity[:, :1]], dim=1)
+        with devguard.guard_transfers(dev):
+            rec = ec.decode_batch([0, 2, 3, 4], [1], survivors)
+        assert torch.equal(rec[:, 0], data[:, 1])
+    finally:
+        if not was:
+            devguard.disable()

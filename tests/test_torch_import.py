@@ -50,7 +50,15 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.ec.repairc.plan",
                  "ceph_tpu_torch.ec.repairc.compiler",
                  "ceph_tpu_torch.ec.repairc.cache",
-                 "ceph_tpu_torch.common.crc32c"):
+                 "ceph_tpu_torch.common.crc32c",
+                 "ceph_tpu_torch.crush.wrapper", "ceph_tpu_torch.crush.codec",
+                 "ceph_tpu_torch.crush.compiler",
+                 "ceph_tpu_torch.crush.tester",
+                 "ceph_tpu_torch.tools.crushtool",
+                 "ceph_tpu_torch.crush.remap", "ceph_tpu_torch.common.log",
+                 "ceph_tpu_torch.osd.balancer",
+                 "ceph_tpu_torch.tools.osdmaptool",
+                 "ceph_tpu_torch.common.devguard"):
         assert name in out["modules"], name
 
 

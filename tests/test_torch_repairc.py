@@ -368,3 +368,58 @@ def test_hashinfo_matches_reference():
     ref_one.append_shard(3, 0, b"abc")
     assert one.to_dict() == ref_one.to_dict()
     assert repr(one) == repr(ref_one)
+
+
+def _rack_wrapper(wrapper_cls):
+    """3 racks x 4 hosts x 1 OSD under `default`, built with the
+    wrapper's add_bucket / insert_item (osd.i sits in rack i // 4)."""
+    cw = wrapper_cls()
+    cw.add_bucket("default", "root")
+    for r in range(3):
+        rack = f"rack{r}"
+        cw.add_bucket(rack, "rack")
+        for h in range(4):
+            osd = r * 4 + h
+            host = f"host{osd}"
+            cw.add_bucket(host, "host")
+            cw.insert_item(osd, 1.0, f"osd.{osd}", host)
+            rb = cw.crush.bucket(cw.get_item_id(rack))
+            hid = cw.get_item_id(host)
+            rb.items.append(hid)
+            w = cw.crush.bucket(hid).weight
+            rb.item_weights.append(w)
+            rb.weight += w
+        root = cw.crush.bucket(cw.get_item_id("default"))
+        rid_ = cw.get_item_id(rack)
+        root.items.append(rid_)
+        root.item_weights.append(cw.crush.bucket(rid_).weight)
+        root.weight += cw.crush.bucket(rid_).weight
+    return cw
+
+
+def test_lrc_locality_rule_maps_groups_to_fault_domains():
+    """crush-locality lines local parity groups up with CRUSH fault
+    domains on the port's CrushWrapper: the generated rule picks one rack
+    per group and spreads that group's chunks across hosts inside it, and
+    maps every x as the reference's rule on the reference's wrapper."""
+    from ceph_tpu.crush.wrapper import CrushWrapper as RefCrushWrapper
+    from ceph_tpu_torch.crush.wrapper import CrushWrapper
+    profile = {"k": "4", "m": "2", "l": "3", "crush-locality": "rack",
+               "crush-failure-domain": "host"}
+    ec = registry.factory("lrc", dict(profile), device=CPU)
+    ref_ec = ref_registry.factory("lrc", dict(profile))
+    n = ec.get_chunk_count()
+    cw, ref_cw = _rack_wrapper(CrushWrapper), _rack_wrapper(RefCrushWrapper)
+    rid = ec.create_rule("lrc_rule", cw)
+    assert rid == ref_ec.create_rule("lrc_rule", ref_cw)
+    assert cw.rule_name_map[rid] == "lrc_rule"
+    for x in range(8):
+        osds = cw.do_rule(rid, x, n)
+        assert osds == ref_cw.do_rule(rid, x, n)
+        assert len(osds) == n and len(set(osds)) == n
+        assert all(o >= 0 for o in osds)
+        # each local group's 4 chunks land in ONE rack, and the two
+        # groups land in DIFFERENT racks
+        racks = [{o // 4 for o in osds[g:g + 4]} for g in (0, 4)]
+        assert all(len(r) == 1 for r in racks), (x, osds)
+        assert racks[0] != racks[1], (x, osds)
