@@ -88,14 +88,21 @@ def reset() -> None:
 
 # ------------------------------------------------------ transfer guard
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def guard_transfers(device):
     """Around a launch on `device`: on cuda, a host<->device sync inside
-    raises (torch's sync debug mode "error")."""
-    global _open, _saved_mode
+    raises (torch's sync debug mode "error").  Off, or on the CPU, a
+    shared null context."""
     if not _enabled or torch.device(device).type != "cuda":
-        yield
-        return
+        return _OFF
+    return _cuda_region()
+
+
+@contextlib.contextmanager
+def _cuda_region():
+    global _open, _saved_mode
     with _lock:
         if _open == 0:
             _saved_mode = torch.cuda.get_sync_debug_mode()

@@ -1,97 +1,35 @@
-"""Leveled per-subsystem logging — the dout/ldout analogue.
+"""Leveled per-subsystem logging: the dout analogue the balancer calls.
 
-Models the reference's debug macros and per-subsystem gather levels
-(ref: src/common/debug.h:23-31 dout/ldout/derr, src/common/subsys.h
-per-subsystem level table).  Python's stdlib logging supplies the sink;
-this module supplies the subsystem level table and `dout(subsys, level)`
-gating so call sites read like the reference's.
+Models the reference's debug macro (ref: src/common/debug.h:23-31 dout):
+`dout(subsys, level).write(fmt, *args)` emits only when `level` is at or
+below the subsystem's gather level, which is `GATHER_LEVEL` for every
+subsystem here (the reference's default).  At or below it, the line goes
+to the stdlib logger ``ceph_tpu_torch.<subsys>`` at INFO; above it, the
+returned sink drops the line, as the macro skips its formatting.
 
 The port's copy of the part of `ceph_tpu.common.log` that the balancer
-uses, with a plain `threading.Lock`.
+uses: its lines are at level 10, so they are dropped.
 """
 from __future__ import annotations
 
 import logging
-import sys
-import threading
 
-#: gather level of a subsystem without an override
-_DEFAULT_LEVEL = 1
-
-#: subsystem -> explicit gather level override (ref: subsys.h
-#: per-subsystem table)
-_levels: dict[str, int] = {}
-_loggers: dict[str, logging.Logger] = {}
-_lock = threading.Lock()
+#: gather level of every subsystem (ref: subsys.h defaults)
+GATHER_LEVEL = 1
 
 
-class _StderrHandler(logging.StreamHandler):
-    """Resolves sys.stderr per record (not at import) so redirection
-    — and pytest capture — see the log stream."""
+class _Sink:
+    __slots__ = ("write",)
 
-    @property
-    def stream(self):
-        return sys.stderr
-
-    @stream.setter
-    def stream(self, value):   # StreamHandler.__init__ assigns; ignore
-        pass
+    def __init__(self, write):
+        self.write = write
 
 
-_handler = _StderrHandler()
-_handler.setFormatter(logging.Formatter(
-    "%(asctime)s %(name)s %(levelname).1s %(message)s"))
+_null = _Sink(lambda msg, *args: None)
 
 
-def set_subsys_level(subsys: str, level: int) -> None:
-    """`debug_<subsys> = N` equivalent."""
-    with _lock:
-        _levels[subsys] = level
-
-
-def _logger(subsys: str) -> logging.Logger:
-    with _lock:
-        lg = _loggers.get(subsys)
-        if lg is None:
-            lg = logging.getLogger(f"ceph_tpu_torch.{subsys}")
-            if not lg.handlers:
-                lg.addHandler(_handler)
-                lg.propagate = False
-            lg.setLevel(logging.DEBUG)
-            _loggers[subsys] = lg
-    return lg
-
-
-class _NullCtx:
-    def write(self, *a, **kw):
-        pass
-
-
-_null = _NullCtx()
-
-
-class _DoutCtx:
-    __slots__ = ("_lg", "_level")
-
-    def __init__(self, lg: logging.Logger, level: int):
-        self._lg = lg
-        self._level = level
-
-    def write(self, msg: str, *args) -> None:
-        # level 0 errors -> ERROR, 1 -> INFO, deeper -> DEBUG, matching
-        # the reference's derr(=level -1/0) vs dout(>=10 verbose) split
-        if self._level <= 0:
-            self._lg.error(msg, *args)
-        elif self._level <= 1:
-            self._lg.info(msg, *args)
-        else:
-            self._lg.debug(msg, *args)
-
-
-def dout(subsys: str, level: int):
-    """`dout(subsys, level).write("...")` — returns a no-op sink when
-    the subsystem's gather level is below `level`, so message
-    formatting is skipped exactly like the dout macro."""
-    if level > _levels.get(subsys, _DEFAULT_LEVEL):
+def dout(subsys: str, level: int) -> _Sink:
+    """`dout(subsys, level).write("...", *args)`."""
+    if level > GATHER_LEVEL:
         return _null
-    return _DoutCtx(_logger(subsys), level)
+    return _Sink(logging.getLogger(f"ceph_tpu_torch.{subsys}").info)

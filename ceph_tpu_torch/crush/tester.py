@@ -10,7 +10,9 @@ format: src/test/cli/crushtool/arg-order-checks.t:204).
 All x values of one (rule, num_rep) go through the batch CRUSH engine in
 one call (K3 on the card, its plain version on the CPU) and come back to
 the host in one copy; the counters are numpy passes over that table, and
-only --show-mappings / --show-bad-mappings walk it x by x.  A map the
+only --show-mappings / --show-bad-mappings walk it x by x.  `test(...,
+timings={})` returns the host seconds of its pieces, summed over the
+(rule, num_rep) runs of that one call.  A map the
 batch engine refuses (BatchUnsupported: legacy bucket algorithms, or
 num_rep above CRUSH_MAX_RESULT) is mapped by the scalar engine instead,
 counted in `FALLBACKS`; no other error is caught.
@@ -20,7 +22,10 @@ reference's, byte for byte.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import torch
 
 from .. import device as _device
 from . import mapper as crush_mapper
@@ -43,6 +48,21 @@ def _fmt_float(v: float) -> str:
     return f"{v:g}"
 
 
+class _Laps:
+    """lap(name) adds the seconds since the previous lap (or since the
+    _Laps was made) to timings[name]; a no-op without a dict."""
+
+    def __init__(self, timings: dict | None):
+        self.timings = timings
+        self.t = time.monotonic()
+
+    def __call__(self, name: str) -> None:
+        if self.timings is not None:
+            now = time.monotonic()
+            self.timings[name] = self.timings.get(name, 0.0) + now - self.t
+            self.t = now
+
+
 class CrushTester:
     def __init__(self, w: CrushWrapper, min_x: int = 0, max_x: int = 1023,
                  min_rep: int = 0, max_rep: int = 0, rule: int = -1,
@@ -59,17 +79,24 @@ class CrushTester:
             else [0x10000] * n
 
     # ------------------------------------------------------------ engine
-    def map_all(self, ruleno: int, numrep: int
+    def map_all(self, ruleno: int, numrep: int, timings: dict | None = None
                 ) -> tuple[np.ndarray, np.ndarray]:
         """Every x of the range through rule `ruleno` at `numrep`: an
         (N, numrep) int32 table (entries past a row's count unused) and
-        the (N,) counts, on the host."""
+        the (N,) counts, on the host.  With `timings`, adds the host
+        seconds of "compile_map", "map_batch" (staging, the launch and,
+        on the card, the wait for it) and "copy_back"."""
+        lap = _Laps(timings)
         xs = np.arange(self.min_x, self.max_x + 1, dtype=np.int64)
         try:
             cc = compile_map(self.w.crush, device=self.device)
+            lap("compile_map")
             res, cnt = cc.map_batch(
                 xs, np.asarray(self.weights, dtype=np.int64),
                 ruleno=ruleno, result_max=numrep, return_counts=True)
+            if timings is not None and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            lap("map_batch")
         except BatchUnsupported:
             FALLBACKS["batch_unsupported"] += 1
             res = np.full((len(xs), max(numrep, 0)), CRUSH_ITEM_NONE,
@@ -81,7 +108,9 @@ class CrushTester:
                 res[i, :len(out)] = out
                 cnt[i] = len(out)
             return res, cnt
-        return res.cpu().numpy(), cnt.cpu().numpy()
+        res, cnt = res.cpu().numpy(), cnt.cpu().numpy()
+        lap("copy_back")
+        return res, cnt
 
     def _reachable_devices(self, ruleno: int) -> set[int]:
         """Devices under the rule's TAKE roots
@@ -105,7 +134,10 @@ class CrushTester:
     # ------------------------------------------------------------ output
     def test(self, show_utilization: bool = False,
              show_statistics: bool = False, show_mappings: bool = False,
-             show_bad_mappings: bool = False) -> str:
+             show_bad_mappings: bool = False,
+             timings: dict | None = None) -> str:
+        """The tool's text.  With `timings`, adds map_all's pieces and
+        "count_format", the rest of each (rule, num_rep) run."""
         lines: list[str] = []
         rules = [self.rule] if self.rule >= 0 else [
             i for i, r in enumerate(self.w.crush.rules) if r is not None]
@@ -126,7 +158,8 @@ class CrushTester:
             total_weight = sum(self.weights[d] for d in reachable
                                if d < len(self.weights))
             for nr in range(min_rep, max_rep + 1):
-                res, cnt = self.map_all(r, nr)
+                res, cnt = self.map_all(r, nr, timings)
+                lap = _Laps(timings)
                 used = np.arange(res.shape[1])[None, :] < cnt[:, None]
                 # non-device results (a rule emitting buckets) must not
                 # wrap into the device counters
@@ -169,4 +202,5 @@ class CrushTester:
                                 f"  device {d}:\t\t stored : "
                                 f"{per[d]}\t expected : "
                                 f"{_fmt_float(expected)}")
+                lap("count_format")
         return "\n".join(lines) + ("\n" if lines else "")

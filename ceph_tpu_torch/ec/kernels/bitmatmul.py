@@ -275,7 +275,10 @@ class GFMatmul:
     def __call__(self, data) -> torch.Tensor:
         """data: (..., k, N) uint8, numpy or tensor -> (..., r, N) on the
         device."""
-        data = _device.as_u8(data, self.device)
+        return self.launch(_device.as_u8(data, self.device))
+
+    def launch(self, data: torch.Tensor) -> torch.Tensor:
+        """__call__ on input its caller already staged on the device."""
         *lead, k, n = data.shape
         if k != self.k:
             raise ValueError(f"expected {self.k} input rows, got {k}")
@@ -307,7 +310,10 @@ class GFDecodeFull:
                                    self.device)
 
     def __call__(self, data) -> torch.Tensor:
-        data = _device.as_u8(data, self.device)
+        return self.launch(_device.as_u8(data, self.device))
+
+    def launch(self, data: torch.Tensor) -> torch.Tensor:
+        """__call__ on input its caller already staged on the device."""
         *lead, n, nbytes = data.shape
         if n != self.n:
             raise ValueError(f"expected {self.n} chunk slots, got {n}")

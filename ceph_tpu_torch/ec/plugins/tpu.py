@@ -120,7 +120,7 @@ class ErasureCodeTpu(MatrixErasureCode):
         plugin's device, one launch for every stripe in the batch."""
         data = _device.as_u8(data, self.device)
         with devguard.guard_transfers(self.device):
-            return self._encode_mm(data)
+            return self._encode_mm.launch(data)
 
     def decode_batch(self, decode_index: list[int], erasures: list[int],
                      data) -> torch.Tensor:
@@ -139,7 +139,7 @@ class ErasureCodeTpu(MatrixErasureCode):
             self._decode_mm.put(sig, mm, cost=self.k)
         data = _device.as_u8(data, self.device)
         with devguard.guard_transfers(self.device):
-            return mm(data)
+            return mm.launch(data)
 
     def decode_batch_full(self, erasures: list[int], data,
                           valid=None) -> torch.Tensor:
@@ -179,7 +179,7 @@ class ErasureCodeTpu(MatrixErasureCode):
         # the device, nothing inside the launch touches the host
         data = _device.as_u8(data, self.device)
         with devguard.guard_transfers(self.device):
-            return mm(data)
+            return mm.launch(data)
 
     def decode_batches_full(self, erasures: list[int], batches,
                             valid=None):

@@ -185,7 +185,7 @@ class RepairProgram:
             mm = self.kernel(device)
             x_dev = _device.as_u8(x, mm.device)
             with devguard.guard_transfers(mm.device):
-                out_dev = mm(x_dev)
+                out_dev = mm.launch(x_dev)
             out = out_dev.cpu().numpy()
         else:
             raise ValueError(f"unknown repair backend {backend!r}")

@@ -27,6 +27,7 @@ device of its mapping tables (None -> cuda).
 from __future__ import annotations
 
 import random
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -133,21 +134,42 @@ def calc_pg_upmaps(osdmap: OSDMap, max_deviation_ratio: float,
                    max_stddev: float = MAX_STDDEV,
                    rng: random.Random | None = None,
                    mapping: OSDMapMapping | None = None,
-                   device=None) -> int:
+                   device=None, timings: dict | None = None) -> int:
     """Emit pg_upmap_items changes into pending_inc until the PG
     distribution is balanced; returns the number of changes
     (ref: src/osd/OSDMap.cc:4360 calc_pg_upmaps).  The PG tables come
     from `mapping` when it is current, else from an update() on
-    `device` (None -> cuda)."""
+    `device` (None -> cuda).  `timings` (optional dict) receives the
+    host-clock intervals (t0, t1) of this call's pieces: "clone",
+    "build_pgs_by_osd" (with the update() when it makes one) and
+    "search" (the targets and the greedy loop)."""
+    laps = {} if timings is None else timings
+    try:
+        return _calc_pg_upmaps(osdmap, max_deviation_ratio, max_iterations,
+                               only_pools, pending_inc, aggressive,
+                               local_fallback_retries, max_stddev, rng,
+                               mapping, device, laps)
+    finally:
+        if "build_pgs_by_osd" in laps:
+            laps["search"] = (laps["build_pgs_by_osd"][1], time.monotonic())
+
+
+def _calc_pg_upmaps(osdmap, max_deviation_ratio, max_iterations, only_pools,
+                    pending_inc, aggressive, local_fallback_retries,
+                    max_stddev, rng, mapping, device, laps) -> int:
+    t0 = time.monotonic()
     tmp = osdmap.clone()
+    laps["clone"] = (t0, time.monotonic())
     num_changed = 0
     pool_ids = sorted(p for p in tmp.pools
                       if not only_pools or p in only_pools)
     if not pool_ids or max_iterations <= 0:
         return 0
 
+    t1 = time.monotonic()
     pgs_by_osd, total_pgs = _build_pgs_by_osd(tmp, pool_ids, mapping,
                                               device)
+    laps["build_pgs_by_osd"] = (t1, time.monotonic())
 
     # weight-proportional targets (OSDMap.cc:4390-4407)
     osd_weight: dict[int, float] = {}

@@ -79,23 +79,28 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    0 type host), `-c`, the decompile fixed point, then `-i --test
    --show-statistics --show-utilization` over x = 0 .. 1,048,575 for
    rule 0 at num_rep 3 and rule 1 at 12: one K3 launch per (rule,
-   num_rep), no scalar fallback, every x of full size, 4,096 sampled x
-   of the tester's table equal to CrushWrapper.do_rule; the text equal
-   to the plain version's at 65,536 x (on the card) and to
-   CrushTester(device="cpu")'s at 1,024 x; the host-clock split (map
-   load, compile_map, staging, K3 by CUDA events, copy back, counting
-   and formatting);
+   num_rep), no scalar fallback, every x of full size; K3 against the
+   plain version on the card over every x of both, the tool's text equal
+   to the text of the plain version's tables, 256 sampled x equal to
+   CrushWrapper.do_rule, and the text equal to CrushTester(device="cpu")'s
+   at 1,024 x; K3 by CUDA events in the tool's run, and the split of one
+   more run with each piece a lap of it (map load, then
+   CrushTester.test's timings: compile_map, map_batch, copy back,
+   counting and formatting);
 13. the balancer: `osdmaptool --createsimple 10000 --osds-per-host 20
    --pg-num 1048576`, then `--upmap --upmap-max 10 --upmap-deviation 5
    --test-map-pgs` (the tool's defaults): two K3 launches (the
-   balancer's update() and --test-map-pgs's), every upmapped PG on 3
-   hosts and equal to the scalar pg_to_up_acting_osds after the
-   Incremental, Balancer.score()'s stddev lower after; the split
-   (update, _build_pgs_by_osd, clone, search, apply_incremental, second
-   update) and K3's share of the wall; then at 1,000 OSDs / 32,768 PGs
+   balancer's update() and --test-map-pgs's), timed by CUDA events in
+   that run; every upmapped PG on 3 hosts and equal to the scalar
+   pg_to_up_acting_osds after the Incremental, Balancer.score()'s stddev
+   lower after; the split of one more pass, each piece a lap of it
+   (update, calc_pg_upmaps's timings: clone, _build_pgs_by_osd, search;
+   apply_incremental, second update); then at 1,000 OSDs / 32,768 PGs
    the command file from the card equals the one from `--device cpu`;
-14. the device guard (ceph_tpu_torch.common.devguard) armed: phase 5's
-   ECUtil round trip (and one on a fresh plugin, whose decode operator
+14. the device guard (ceph_tpu_torch.common.devguard): first the host
+   cost per call of K1's wrapper, the operator's launch() and the
+   plugin's encode_batch with the guard off and on; then, armed, phase
+   5's ECUtil round trip (and one on a fresh plugin, whose decode operator
    is built inside the guarded region), an OSDMapMapping.update() of
    phase 8's map, phase 10's compiled repair of one code (and one repair
    on a fresh instance of it, whose cache compiles the plan once) and
@@ -148,8 +153,9 @@ REPAIR_CODES = [                 # REPAIR_r01.json's profiles and read/rebuilt
 WIDE_CLAY = {"k": "6", "m": "3", "d": "8"}   # the corpus's wider clay profile
 TOOL_TESTS = [(0, 3), (1, 12)]   # crushtool --test (rule, num_rep)
 TOOL_X = 1 << 20                 # x = 0 .. 1,048,575
-TOOL_SAMPLE = 4096               # sampled x per rule against do_rule
-TOOL_PLAIN_X = 1 << 16           # text against the plain version on the card
+TOOL_SAMPLE = 256                # sampled x per rule against do_rule
+TOOL_PLAIN_CHUNK = 1 << 18       # seeds per pass of the plain version there
+TOOL_GUARD_X = 1 << 16           # phase 14's guarded tester run
 TOOL_CPU_X = 1 << 10             # text against CrushTester on the CPU
 TOOL_RULES = """\
 rule replicated_rule {
@@ -175,7 +181,7 @@ rule ec_k8m4 {
 """
 UPMAP_MAX, UPMAP_DEVIATION = 10, 5   # osdmaptool's --upmap defaults
 # the card-against-CPU balancer map, cut from 65,536 PGs to keep phases
-# 12-14 near 90 s (the CPU side is the plain version)
+# 12-14 short (the CPU side is the plain version)
 CROSS_OSD, CROSS_PG = 1000, 1 << 15
 SPIN_CYCLES = 4_000_000          # about 2 ms at the H100's 1980 MHz
 
@@ -1024,6 +1030,35 @@ def edited_crushmap(text: str) -> str:
     return text.replace("# rules\n", "# rules\n" + TOOL_RULES)
 
 
+@contextlib.contextmanager
+def k3_events(cb):
+    """Within the block, every K3 launch that map_batch makes is bracketed
+    by CUDA events; yields the list of (start, end) pairs.  The launch
+    itself, and its count, are the wrapper's."""
+    pairs = []
+    launch = cb.crush_do_rule_cuda
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    cb.crush_do_rule_cuda = timed
+    try:
+        yield pairs
+    finally:
+        cb.crush_do_rule_cuda = launch
+
+
+def events_ms(pairs) -> float:
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs)
+
+
 def crushtool_phase(name_power: str, dev, work: Path) -> dict:
     """Phase 12: crushtool --build / -d / edit / -c / --test on the card."""
     from ceph_tpu_torch.crush import batch as cb
@@ -1057,10 +1092,12 @@ def crushtool_phase(name_power: str, dev, work: Path) -> dict:
 
     cb.reset_launches()
     ctest.reset_fallbacks()
-    outs, walls = {}, {}
+    outs, walls, k3_cli = {}, {}, {}
     for rule, nr in TOOL_TESTS:
-        outs[rule], _, walls[rule] = run_cli(crushtool.main,
-                                             test_argv(rule, nr, TOOL_X - 1))
+        with k3_events(cb) as pairs:
+            outs[rule], _, walls[rule] = run_cli(
+                crushtool.main, test_argv(rule, nr, TOOL_X - 1))
+        k3_cli[rule] = events_ms(pairs)
     launches = cb.LAUNCHES["crush_do_rule"]
     fallbacks = ctest.FALLBACKS["batch_unsupported"]
     if launches != len(TOOL_TESTS) or fallbacks:
@@ -1068,94 +1105,108 @@ def crushtool_phase(name_power: str, dev, work: Path) -> dict:
                              f"{len(TOOL_TESTS)} (rule, num_rep), "
                              f"{fallbacks} through the scalar engine")
 
-    weights = np.full(N_OSD, 0x10000, dtype=np.int64)
+    class TablesTester(ctest.CrushTester):
+        """The tester's counting and text over tables it is given."""
+
+        def __init__(self, tables, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.tables = tables
+
+        def map_all(self, ruleno, numrep, timings=None):
+            return self.tables
+
+    flags = {"show_statistics": True, "show_utilization": True}
+    cc = cb.compile_map(w.crush, device=dev)
+    xs = torch.arange(TOOL_X, device=dev)
+    weight = torch.full((N_OSD,), 0x10000, dtype=torch.int64, device=dev)
     rng = np.random.default_rng(SEED + 2)
-    rows = {}
+    rows, worst = {}, 0
     for rule, nr in TOOL_TESTS:
         name = w.rule_name_map[rule]
         if f"rule {rule} ({name}) num_rep {nr} result size == {nr}:\t" \
                 f"{TOOL_X}/{TOOL_X}" not in outs[rule]:
             raise AssertionError(f"rule {rule}: not every x maps to {nr}")
-        devices = outs[rule].count("  device ")
-        # the tester's own engine call once more, for the sampled check
-        res, cnt = ctest.CrushTester(w, 0, TOOL_X - 1, nr, nr, rule,
-                                     device=dev).map_all(rule, nr)
-        if not (cnt == nr).all():
-            raise AssertionError(f"rule {rule}: a result is short")
+        # K3 against the plain version on the card, every x
+        cfg = cc.rule_cfg(rule, nr)
+        got, got_n = cb.crush_do_rule_cuda(cc, cfg, xs, weight)
+        torch.cuda.synchronize()
+        t_plain = time.monotonic()
+        want, want_n = cb.map_batch_plain(cc, cfg, xs, weight,
+                                          chunk=TOOL_PLAIN_CHUNK)
+        torch.cuda.synchronize()
+        t_plain = time.monotonic() - t_plain
+        err = max(max_err32(got, want), max_err32(got_n, want_n))
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"rule {rule}: K3 differs from the plain "
+                                 f"version over {TOOL_X} x")
+        res, cnt = got.cpu().numpy(), got_n.cpu().numpy()
+        # the tool's whole text against the plain version's tables
+        plain = TablesTester((want.cpu().numpy(), want_n.cpu().numpy()), w,
+                             0, TOOL_X - 1, nr, nr, rule, device=dev)
+        if plain.test(**flags) != outs[rule]:
+            raise AssertionError(f"rule {rule}: crushtool --test text "
+                                 "differs from the plain version's")
         t_sample = time.monotonic()
         for x in rng.choice(TOOL_X, TOOL_SAMPLE, replace=False).tolist():
             if res[x, :cnt[x]].tolist() != w.do_rule(rule, x, nr):
                 raise AssertionError(f"rule {rule} x {x}: K3 differs from "
                                      "CrushWrapper.do_rule")
         t_sample = time.monotonic() - t_sample
-        # the host-clock split of one test() at full width: the tool's map
-        # load, then the tester's own calls one by one; the rest of the
-        # run is its counting and formatting
-        t_load = time.monotonic()
-        crushtool.load(mapfile)
-        t0 = time.monotonic()
-        cc = cb.compile_map(w.crush, device=dev)
-        t1 = time.monotonic()
-        xs = torch.arange(TOOL_X, device=dev)
-        wt = torch.from_numpy(weights).to(dev)
-        torch.cuda.synchronize()
-        t2 = time.monotonic()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        r_dev, c_dev = cc.map_batch(xs, wt, ruleno=rule, result_max=nr,
-                                    return_counts=True)
-        end.record()
-        end.synchronize()
-        t3 = time.monotonic()
-        r_dev.cpu().numpy(), c_dev.cpu().numpy()
-        t4 = time.monotonic()
-        k3_ms = start.elapsed_time(end)
-        split = {"load": t0 - t_load, "compile_map": t1 - t0,
-                 "stage": t2 - t1, "k3": t3 - t2, "copy_back": t4 - t3}
-        split["count_format"] = walls[rule] - sum(split.values())
-        rows[rule] = {"num_rep": nr, "wall_s": walls[rule], "split_s": split,
-                      "k3_events_ms": k3_ms, "devices_listed": devices}
+        # the host-clock split, every piece a lap of this one run: the
+        # tool's map load, then CrushTester.test with its timings; K3 by
+        # CUDA events in the same run
+        timings = {}
+        with k3_events(cb) as pairs:
+            t0 = time.monotonic()
+            w_run = crushtool.load(mapfile)
+            t_load = time.monotonic() - t0
+            text_run = ctest.CrushTester(w_run, 0, TOOL_X - 1, nr, nr, rule,
+                                         device=dev).test(**flags,
+                                                          timings=timings)
+            wall_run = time.monotonic() - t0
+        if text_run != outs[rule]:
+            raise AssertionError(f"rule {rule}: CrushTester.test differs "
+                                 "from the tool's text")
+        split = {"load": t_load, **timings}
+        k3_ms = events_ms(pairs)
+        devices = outs[rule].count("  device ")
+        rows[rule] = {"num_rep": nr, "wall_s": walls[rule],
+                      "k3_events_ms": k3_cli[rule], "split_wall_s": wall_run,
+                      "split_s": split, "split_k3_events_ms": k3_ms,
+                      "plain_s": t_plain, "devices_listed": devices}
         print(f"phase 12: crushtool --test rule {rule} ({name}) num_rep {nr} "
-              f"x 0..{TOOL_X - 1}: {walls[rule]:.3f} s on the host clock; "
-              "split " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
-              + f"; K3 {k3_ms:.3f} ms by CUDA events, "
-              f"{k3_ms / 1e3 / walls[rule]:.4f} of the wall; {devices} "
-              f"devices listed; {TOOL_SAMPLE} sampled x == "
-              f"CrushWrapper.do_rule ({t_sample:.1f} s) on {name_power}")
+              f"x 0..{TOOL_X - 1}: {walls[rule]:.3f} s on the host clock, K3 "
+              f"{k3_cli[rule]:.3f} ms by CUDA events in that run "
+              f"({k3_cli[rule] / 1e3 / walls[rule]:.4f} of it); {devices} "
+              f"devices listed; K3 == plain version on every x (max_abs_err "
+              f"{err}, plain {t_plain:.1f} s) and the text == the plain "
+              f"version's; {TOOL_SAMPLE} sampled x == CrushWrapper.do_rule "
+              f"({t_sample:.1f} s) on {name_power}")
+        print(f"phase 12: split of one more run, each piece a lap of it: "
+              f"{wall_run:.3f} s = "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+              + f", the rest {wall_run - sum(split.values()):.3f} s; K3 "
+              f"{k3_ms:.3f} ms by CUDA events")
 
-    # the text against the plain version: at TOOL_PLAIN_X through the
-    # plain version on the card, at TOOL_CPU_X through CrushTester on
-    # the CPU
-    class PlainTester(ctest.CrushTester):
-        def map_all(self, ruleno, numrep):
-            cc = cb.compile_map(self.w.crush, device=self.device)
-            xs = torch.arange(self.min_x, self.max_x + 1, device=self.device)
-            wt = torch.tensor(self.weights, dtype=torch.int64,
-                              device=self.device)
-            res, cnt = cb.map_batch_plain(cc, cc.rule_cfg(ruleno, numrep),
-                                          xs, wt)
-            return res.cpu().numpy(), cnt.cpu().numpy()
-
-    flags = {"show_statistics": True, "show_utilization": True}
+    # the text against CrushTester on the CPU, at a range the CPU's plain
+    # version takes seconds for
+    t_cpu = time.monotonic()
     for rule, nr in TOOL_TESTS:
-        for n_x, tester in ((TOOL_PLAIN_X, PlainTester(
-                w, 0, TOOL_PLAIN_X - 1, nr, nr, rule, device=dev)),
-                (TOOL_CPU_X, ctest.CrushTester(w, 0, TOOL_CPU_X - 1, nr, nr,
-                                               rule, device="cpu"))):
-            card_text, _, _ = run_cli(crushtool.main,
-                                      test_argv(rule, nr, n_x - 1))
-            if card_text != tester.test(**flags):
-                raise AssertionError(f"rule {rule} at {n_x} x: the text "
-                                     "differs from the plain version's")
+        card_text, _, _ = run_cli(crushtool.main,
+                                  test_argv(rule, nr, TOOL_CPU_X - 1))
+        if card_text != ctest.CrushTester(w, 0, TOOL_CPU_X - 1, nr, nr, rule,
+                                          device="cpu").test(**flags):
+            raise AssertionError(f"rule {rule} at {TOOL_CPU_X} x: the text "
+                                 "differs from CrushTester on the CPU")
+    t_cpu = time.monotonic() - t_cpu
     wall = time.monotonic() - t_phase
     print(f"phase 12: crushtool --build {N_OSD} / -d / -c fixed point; "
-          f"--test text == plain version's (on the card at {TOOL_PLAIN_X} "
-          f"x, CrushTester on the CPU at {TOOL_CPU_X} x) for both rules; "
-          f"K3 launches {launches}, tester fallbacks {fallbacks}; phase "
-          f"{wall:.1f} s")
+          f"--test text == CrushTester(device=\"cpu\")'s at {TOOL_CPU_X} x "
+          f"for both rules ({t_cpu:.1f} s); K3 launches {launches}, tester "
+          f"fallbacks {fallbacks}; phase {wall:.1f} s")
     return {"launches": launches, "rows": rows, "wall_s": wall,
-            "mapfile": mapfile}
+            "max_abs_err": worst, "mapfile": mapfile}
 
 
 def parse_upmaps(text: str):
@@ -1194,9 +1245,11 @@ def balancer_phase(name_power: str, dev, work: Path) -> dict:
                               mapfile])
     cb.reset_launches()
     om.reset_fallbacks()
-    stats_text, err, wall = run_cli(osdmaptool.main, [
-        mapfile, "--upmap", upfile, "--upmap-max", str(UPMAP_MAX),
-        "--upmap-deviation", str(UPMAP_DEVIATION), "--test-map-pgs"])
+    with k3_events(cb) as pairs:
+        stats_text, err, wall = run_cli(osdmaptool.main, [
+            mapfile, "--upmap", upfile, "--upmap-max", str(UPMAP_MAX),
+            "--upmap-deviation", str(UPMAP_DEVIATION), "--test-map-pgs"])
+    k3_ms = events_ms(pairs)
     launches = cb.LAUNCHES["crush_do_rule"]
     if launches != 2 or om.FALLBACKS["batch_unsupported"]:
         raise AssertionError(f"--upmap --test-map-pgs: {launches} K3 "
@@ -1237,31 +1290,22 @@ def balancer_phase(name_power: str, dev, work: Path) -> dict:
         raise AssertionError(f"stddev {before_score['stddev']} -> "
                              f"{after_score['stddev']}")
 
-    # the host-clock split of the same balancer pass, piece by piece
-    split = {}
-    t0 = time.monotonic()
-    mp = om.OSDMapMapping()
-    mp.update(m)
-    torch.cuda.synchronize()
-    split["update"] = time.monotonic() - t0
-    t0 = time.monotonic()
-    bal._build_pgs_by_osd(m, [0], mp)
-    split["build_pgs_by_osd"] = time.monotonic() - t0
-    t0 = time.monotonic()
-    m.clone()
-    split["clone"] = time.monotonic() - t0
+    # the host-clock split of one more balancer pass, every piece a lap
+    # of that pass: update(), calc_pg_upmaps's own timings (clone,
+    # _build_pgs_by_osd, search), apply_incremental, update() again
     total_pgs = m.pools[0].size * m.pools[0].pg_num
     n_in = sum(1 for o in range(m.max_osd) if m.is_in(o))
     ratio = UPMAP_DEVIATION / max(1.0, total_pgs / n_in)
     inc2 = Incremental(epoch=m.epoch + 1)
-    t0 = time.monotonic()
+    laps = {}
+    t_pass = time.monotonic()
+    mp = om.OSDMapMapping()
+    mp.update(m)
+    torch.cuda.synchronize()
+    split = {"update": time.monotonic() - t_pass}
     n = bal.calc_pg_upmaps(m, ratio, UPMAP_MAX, {0}, inc2,
-                           rng=random.Random(0), mapping=mp)
-    split["search"] = time.monotonic() - t0 - split["build_pgs_by_osd"] - \
-        split["clone"]
-    if inc2.new_pg_upmap_items != items or n != len(items):
-        raise AssertionError("the split's balancer pass differs from the "
-                             "tool's")
+                           rng=random.Random(0), mapping=mp, timings=laps)
+    split.update({k: t1 - t0 for k, (t0, t1) in laps.items()})
     t0 = time.monotonic()
     m.apply_incremental(inc2)
     split["apply_incremental"] = time.monotonic() - t0
@@ -1269,24 +1313,22 @@ def balancer_phase(name_power: str, dev, work: Path) -> dict:
     om.OSDMapMapping().update(m)
     torch.cuda.synchronize()
     split["update_after"] = time.monotonic() - t0
-    pool = m.pools[0]
-    cc = cb.compile_map(m.crush, device=dev)
-    cfg = cc.rule_cfg(0, pool.size)
-    pps = torch.from_numpy(pool.raw_pg_to_pps_batch(np.arange(PG_NUM),
-                                                    0)).to(dev)
-    wt = torch.from_numpy(np.asarray(m.osd_weight, dtype=np.int64)).to(dev)
-    k3_ms = time_ms(lambda: cb.crush_do_rule_cuda(cc, cfg, pps, wt),
-                    reps=3, repeats=3)
-    share = 2 * k3_ms / 1e3 / wall
+    wall_pass = time.monotonic() - t_pass
+    if inc2.new_pg_upmap_items != items or n != len(items):
+        raise AssertionError("the split's balancer pass differs from the "
+                             "tool's")
+    share = k3_ms / 1e3 / wall
     print(f"phase 13: osdmaptool --upmap --test-map-pgs at {N_OSD} OSDs / "
           f"{PG_NUM} PGs: {wall:.3f} s on the host clock; prepared "
           f"{len(items)}/{UPMAP_MAX} changes; every upmapped PG on 3 hosts "
           f"and == scalar pg_to_up_acting_osds; score stddev "
           f"{before_score['stddev']} -> {after_score['stddev']}; K3 "
-          f"launches {launches}; split "
+          f"launches {launches}, {k3_ms:.3f} ms by CUDA events in that run, "
+          f"{share:.4f} of its wall, on {name_power}")
+    print(f"phase 13: split of one more pass, each piece a lap of it: "
+          f"{wall_pass:.3f} s = "
           + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
-          + f"; K3 {k3_ms:.3f} ms per update (CUDA events), two of them "
-          f"{share:.4f} of the wall, on {name_power}")
+          + f", the rest {wall_pass - sum(split.values()):.3f} s")
 
     # card against CPU at 1,000 OSDs: the same command file, byte for byte
     small = str(work / "om_small.json")
@@ -1307,13 +1349,46 @@ def balancer_phase(name_power: str, dev, work: Path) -> dict:
           f"{cross['cuda']:.3f} s, CPU {cross['cpu']:.3f} s, command files "
           f"equal ({len(files['cuda'])} B); phase {wall_phase:.1f} s")
     return {"launches": launches, "wall_s": wall, "split_s": split,
-            "k3_ms": k3_ms, "k3_share": share, "changes": len(items),
+            "split_wall_s": wall_pass, "k3_ms": k3_ms, "k3_share": share, "changes": len(items),
             "stddev": [before_score["stddev"], after_score["stddev"]],
             "cross_s": cross, "phase_s": wall_phase}
 
 
+def host_us_per_call(fn, calls: int = 2000) -> float:
+    """Host-clock microseconds per call of `fn` over `calls` calls in a
+    row, after a warmup, up to a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def launch_cost(ec, bm, devguard, dev) -> dict:
+    """What each layer above K1 costs the host per call, on one staged
+    stripe of 4 KiB chunks (the kernel takes microseconds, so the host
+    sets the pace): the kernel wrapper, the operator's launch(), the
+    plugin's encode_batch with the guard off, and with it on."""
+    x = torch.randint(0, 256, (1, K, 4096), dtype=torch.uint8, device=dev)
+    op = ec._encode_mm
+    cost = {"gf_matmul_cuda": host_us_per_call(
+                lambda: bm.gf_matmul_cuda(op.tables, x, M)),
+            "operator_launch": host_us_per_call(lambda: op.launch(x)),
+            "encode_batch_guard_off": host_us_per_call(
+                lambda: ec.encode_batch(x))}
+    devguard.enable()
+    try:
+        cost["encode_batch_guard_on"] = host_us_per_call(
+            lambda: ec.encode_batch(x))
+    finally:
+        devguard.disable()
+    return cost
+
+
 def guard_phase(ec, ecutil, logical: bytes, placement, repair_state,
-                mapfile: str, dev) -> dict:
+                mapfile: str, dev, name_power: str) -> dict:
     """Phase 14: phases 5, 8, 10 and 12 once more under the device guard,
     then a deliberate sync inside a region, which must raise."""
     from ceph_tpu_torch.common import devguard
@@ -1324,6 +1399,7 @@ def guard_phase(ec, ecutil, logical: bytes, placement, repair_state,
     from ceph_tpu_torch.tools import crushtool
 
     t_phase = time.monotonic()
+    cost = launch_cost(ec, bm, devguard, dev)
     devguard.reset()
     devguard.enable()
     bm.reset_launches()
@@ -1351,7 +1427,7 @@ def guard_phase(ec, ecutil, logical: bytes, placement, repair_state,
                                           st["bufs"][0])[0] != st["want"][0]:
             raise AssertionError("guarded repair on a fresh plugin differs")
         run_cli(crushtool.main, ["-i", mapfile, "--test", "--show-statistics",
-                                 "--max-x", str(TOOL_PLAIN_X - 1), "--rule",
+                                 "--max-x", str(TOOL_GUARD_X - 1), "--rule",
                                  "0", "--num-rep", "3"])
         stats = devguard.stats()
         if any(s["recompiles"] for s in stats.values()) or \
@@ -1376,10 +1452,14 @@ def guard_phase(ec, ecutil, logical: bytes, placement, repair_state,
     print(f"phase 14: under devguard: ECUtil round trips ({len(logical)} B "
           f"and a fresh plugin), OSDMapMapping.update(), {len(st['bufs'])} "
           f"compiled repairs of {st['plugin']}, crushtool --test rule 0 at "
-          f"{TOOL_PLAIN_X} x: no guard error; launches {launches}; compile "
+          f"{TOOL_GUARD_X} x: no guard error; launches {launches}; compile "
           f"stats {stats}; .item() inside a region raised ({caught!r}); "
           f"phase {wall:.1f} s")
-    return {"launches": launches, "wall_s": wall, "stats": stats}
+    print("phase 14: host us per call on one staged 8 x 4 KiB stripe: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in cost.items())
+          + f" on {name_power}")
+    return {"launches": launches, "wall_s": wall, "stats": stats,
+            "host_us_per_call": cost}
 
 
 def main() -> int:
@@ -1513,15 +1593,18 @@ def main() -> int:
     tool = crushtool_phase(name_power, dev, work)
     balance = balancer_phase(name_power, dev, work)
     guard = guard_phase(ec, ecutil, data.cpu().numpy().tobytes(), placement,
-                        repair_state, tool["mapfile"], dev)
+                        repair_state, tool["mapfile"], dev, name_power)
+    k3["max_abs_err"] = max(k3["max_abs_err"], tool["max_abs_err"])
     k3.update({"launches_tester": tool["launches"],
                "launches_balancer": balance["launches"],
                "launches_guarded": guard["launches"]["crush_do_rule"],
                "tester": tool["rows"], "balancer": {
-                   k: balance[k] for k in ("wall_s", "split_s", "k3_ms",
+                   k: balance[k] for k in ("wall_s", "split_s",
+                                           "split_wall_s", "k3_ms",
                                            "k3_share", "changes", "stddev",
                                            "cross_s")}})
     kernels[0]["launches_guarded"] = guard["launches"]["gf_matmul"]
+    kernels[0]["host_us_per_call"] = guard["host_us_per_call"]
     print(f"chip_smoke: phases 12-14 {tool['wall_s']:.1f} + "
           f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; "
           f"{time.monotonic() - t_start:.1f} s in all")

@@ -14,6 +14,7 @@ held to the port's in tests/test_torch_mapping.py, and
 `test_osdmaptool_upmap_cli` runs the reference tool unpatched.
 Everything is compared exactly.
 """
+import logging
 import random
 from types import SimpleNamespace
 
@@ -29,6 +30,7 @@ from ceph_tpu.osd.osdmap import OSDMap as RefOSDMap
 from ceph_tpu.osd.types import PG as RefPG
 from ceph_tpu.osd.types import PGPool as RefPGPool
 from ceph_tpu.tools import osdmaptool as ref_osdmaptool
+from ceph_tpu_torch.common import log
 from ceph_tpu_torch.crush import remap
 from ceph_tpu_torch.crush.types import (CRUSH_BUCKET_STRAW2, CrushBucket,
                                         CrushMap)
@@ -295,6 +297,35 @@ def test_calc_pg_upmaps_with_given_mapping(ref_scalar, aggressive):
                                      aggressive=aggressive,
                                      rng=random.Random(3))
     assert pn == rn and key(p_inc) == key(r_inc)
+
+
+def test_calc_pg_upmaps_timings_are_laps_of_the_same_call(ref_scalar):
+    """timings receives back-to-back (t0, t1) intervals of one call:
+    clone, then _build_pgs_by_osd, then the search; the Incremental is
+    the one made without timings."""
+    ref, m = build_maps(n_osd=16, osds_per_host=4, pg_num=128, size=3)
+    _, want = both_calc(ref, m, 0.01, 20, seed=1)
+    inc = Incremental(epoch=m.epoch + 1)
+    timings = {}
+    calc_pg_upmaps(m, 0.01, 20, set(), inc, rng=random.Random(1),
+                   device="cpu", timings=timings)
+    assert key(inc) == key(want)
+    assert list(timings) == ["clone", "build_pgs_by_osd", "search"]
+    (c0, c1), (b0, b1), (s0, s1) = timings.values()
+    assert c0 <= c1 <= b0 <= b1 == s0 <= s1
+
+
+def test_dout_drops_lines_above_the_gather_level(ref_scalar, caplog):
+    """The balancer's dout lines (level 10) never reach logging; a line
+    at the gather level goes to the subsystem's logger."""
+    with caplog.at_level(logging.DEBUG, logger="ceph_tpu_torch"):
+        _, m = build_maps(n_osd=16, osds_per_host=4, pg_num=128, size=3)
+        calc_pg_upmaps(m, 0.01, 20, set(), Incremental(epoch=m.epoch + 1),
+                       device="cpu")
+        assert caplog.records == []
+        log.dout("osd", log.GATHER_LEVEL).write("changed %d", 3)
+    assert [(r.name, r.getMessage()) for r in caplog.records] == \
+        [("ceph_tpu_torch.osd", "changed 3")]
 
 
 def test_balancer_driver_multi_pool(ref_scalar):

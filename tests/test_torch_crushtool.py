@@ -229,6 +229,24 @@ def test_tester_scalar_fallback_is_counted():
         min_rep=3, max_rep=3).test(show_mappings=True)
 
 
+def test_tester_timings_are_laps_of_the_same_run():
+    """test(timings=...) gives the same text and the host seconds of
+    each piece, summed over the (rule, num_rep) runs of that call."""
+    w = compiled()
+    t = CrushTester(w, min_x=0, max_x=63, rule=-1, min_rep=2, max_rep=3,
+                    device="cpu")
+    timings = {}
+    assert t.test(show_utilization=True, timings=timings) == \
+        t.test(show_utilization=True)
+    assert set(timings) == {"compile_map", "map_batch", "copy_back",
+                            "count_format"}
+    assert all(v >= 0.0 for v in timings.values())
+    one = {}
+    CrushTester(w, min_x=0, max_x=63, rule=0, min_rep=3, max_rep=3,
+                device="cpu").map_all(0, 3, one)
+    assert set(one) == {"compile_map", "map_batch", "copy_back"}
+
+
 def test_tester_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

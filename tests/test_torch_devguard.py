@@ -103,6 +103,9 @@ def test_off_is_a_no_op(sync_mode):
         with devguard.guard_transfers("cuda"):
             pass
         assert sync_mode["sets"] == []
+        # off, every region is the one shared null context
+        assert devguard.guard_transfers("cuda") is \
+            devguard.guard_transfers(CPU)
         devguard.check_device("w", CPU, torch.empty(1, device="meta"))
         devguard.count_compile("site", "sig")
         devguard.count_compile("site", "sig")
@@ -188,6 +191,19 @@ def test_wrong_device_is_refused_inside_a_region(armed):
         with pytest.raises(devguard.DevGuardError, match="map_batch_plain"):
             crush_batch.map_batch_plain(cc, cfg, torch.arange(4).to("meta"),
                                         weight)
+
+
+def test_staged_launch_equals_call():
+    """Callers that stage their input once launch the operators with
+    launch(); it gives what __call__ gives on the host array."""
+    rng = np.random.default_rng(9)
+    data = rng.integers(0, 256, (3, 4, 64), dtype=np.uint8)
+    op = bm.GFMatmul(rng.integers(0, 256, (2, 4), dtype=np.uint8), CPU)
+    staged = torch.from_numpy(data)
+    assert torch.equal(op.launch(staged), op(data))
+    full = bm.GFDecodeFull(rng.integers(1, 256, (2, 4), dtype=np.uint8),
+                           None, CPU)
+    assert torch.equal(full.launch(staged), full(data))
 
 
 def test_cuda_region_sets_and_restores_the_sync_mode(armed, sync_mode):
