@@ -29,9 +29,10 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 
 import torch
+
+from .lockdep import make_lock
 
 __all__ = ["ENV", "enable", "disable", "enabled", "guard_transfers",
            "check_device", "count_compile", "set_recompile_bound", "stats",
@@ -55,7 +56,7 @@ def _armed_by_env() -> bool:
 
 
 _enabled = _armed_by_env()
-_lock = threading.Lock()
+_lock = make_lock("devguard.sites")
 #: open cuda regions and the sync-debug mode to restore after the last
 _open = 0
 _saved_mode = 0

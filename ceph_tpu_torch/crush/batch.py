@@ -1028,9 +1028,11 @@ def crush_do_rule_cuda(cm: CompiledCrushMap, cfg: _RuleCfg,
         stable=cfg.stable, descend_once=cfg.descend_once,
         max_devices=cm.max_devices, max_depth=cm.max_depth,
         out=out.data_ptr(), counts=counts.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
-    err = lib.crush_do_rule(ctypes.byref(args), stream)
+    # the library launches on the calling thread's current device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.crush_do_rule(ctypes.byref(args), stream)
     if err:
         msg = lib.crush_error_string(err).decode()
         raise RuntimeError(f"crush_do_rule launch failed: {msg} ({err})")

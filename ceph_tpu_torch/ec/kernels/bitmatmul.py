@@ -197,17 +197,20 @@ def _raise_on(err: int, what: str) -> None:
 def gf_matmul_cuda(tables: torch.Tensor, data: torch.Tensor,
                    r: int) -> torch.Tensor:
     """K1: tables of packed_nibble_tables for an (r x k) matrix, data
-    (S, k, N) -> (S, r, N), launched on the current stream."""
+    (S, k, N) -> (S, r, N), launched on the current stream of the data's
+    device, whichever device is current."""
     if data.dim() != 3:
         raise ValueError("data must be a contiguous (S, rows, N) uint8 tensor")
     s, k, n = data.shape
     _check_cuda(tables, data, packed_shape(r, k), "packed_nibble_tables")
     out = torch.empty((s, r, n), dtype=torch.uint8, device=data.device)
     if s and n:
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        _raise_on(_lib().gf_matmul_k1(tables.data_ptr(), r, k,
-                                      data.data_ptr(), out.data_ptr(),
-                                      s, n, stream), "gf_matmul_k1")
+        # the library launches on the calling thread's current device
+        with torch.cuda.device(data.device):
+            stream = torch.cuda.current_stream(data.device).cuda_stream
+            _raise_on(_lib().gf_matmul_k1(tables.data_ptr(), r, k,
+                                          data.data_ptr(), out.data_ptr(),
+                                          s, n, stream), "gf_matmul_k1")
         LAUNCHES["gf_matmul"] += 1
     return out
 
@@ -224,11 +227,12 @@ def gf_decode_select_cuda(tables: torch.Tensor, sel: torch.Tensor,
         raise ValueError("sel must be a (k,) int32 tensor on the data's device")
     out = torch.empty((s, r, nbytes), dtype=torch.uint8, device=data.device)
     if s and nbytes:
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        _raise_on(_lib().gf_matmul_k2(tables.data_ptr(), r, k, n,
-                                      sel.data_ptr(), data.data_ptr(),
-                                      out.data_ptr(), s, nbytes, stream),
-                  "gf_matmul_k2")
+        with torch.cuda.device(data.device):
+            stream = torch.cuda.current_stream(data.device).cuda_stream
+            _raise_on(_lib().gf_matmul_k2(tables.data_ptr(), r, k, n,
+                                          sel.data_ptr(), data.data_ptr(),
+                                          out.data_ptr(), s, nbytes, stream),
+                      "gf_matmul_k2")
         LAUNCHES["gf_decode_select"] += 1
     return out
 

@@ -19,16 +19,19 @@ jerasure's w=16/32 techniques set a wide-word field (gfw.GF2w).
 """
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Iterable, Mapping
 
 import numpy as np
 
 from . import gf
+from ..common.lockdep import make_lock
+from ..common.racecheck import shared_state
 from .interface import ErasureCode, ErasureCodeError
 
 
+# the racecheck sanitizer checks that every access goes through self._lock
+@shared_state(only=("_lru", "_cost"), mutating=("_lru", "_cost"))
 class DecodeTableCache:
     """Cost-weighted LRU of decode tables keyed by erasure signature
     (ref: ErasureCodeIsaTableCache.cc, decoding_tables_lru_length).
@@ -44,7 +47,7 @@ class DecodeTableCache:
         self.capacity = capacity
         self._lru: OrderedDict[str, tuple[object, int]] = OrderedDict()
         self._cost = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("ec.decode_table_cache")
 
     def __len__(self) -> int:
         with self._lock:

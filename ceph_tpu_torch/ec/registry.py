@@ -14,9 +14,9 @@ through the registry on their own device.
 from __future__ import annotations
 
 import importlib
-import threading
 from typing import Callable
 
+from ..common.lockdep import make_lock
 from .interface import ErasureCodeInterface, ErasureCodeProfile, ErasureCodeError
 
 
@@ -37,10 +37,10 @@ class ErasureCodePlugin:
 
 class ErasureCodePluginRegistry:
     _instance: "ErasureCodePluginRegistry | None" = None
-    _instance_lock = threading.Lock()
+    _instance_lock = make_lock("ec.registry.instance")
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("ec.registry")
         self._plugins: dict[str, ErasureCodePlugin] = {}
         self._lazy: dict[str, tuple[str, str]] = {}  # name -> (module, attr)
 

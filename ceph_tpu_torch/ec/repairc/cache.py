@@ -11,17 +11,17 @@ One cache per plugin instance (a daemon shares one plugin instance
 per profile across all its PGs, so this is also one cache per
 profile), attached lazily via `cache_of(ec)`.
 
-The port's copy of `ceph_tpu.ec.repairc.cache`, with plain
-`threading.Lock`s.  Each compile also counts under the device guard
+The port's copy of `ceph_tpu.ec.repairc.cache`, with the reference's
+`make_lock` names.  Each compile also counts under the device guard
 (common/devguard.py, site "repairc"): a cache that compiles a signature
 twice trips it.
 """
 from __future__ import annotations
 
 import itertools
-import threading
 
 from ...common import devguard
+from ...common.lockdep import make_lock
 from ..matrix_code import DecodeTableCache
 from .compiler import compile_program
 from .plan import RepairPlan
@@ -30,7 +30,7 @@ from .plan import RepairPlan
 #: programs of a wide code; single-signature steady state uses one
 DEFAULT_CAPACITY = 1 << 20
 
-_attach_lock = threading.Lock()
+_attach_lock = make_lock("ec.repairc.attach")
 _serials = itertools.count()
 
 
@@ -39,7 +39,7 @@ class RepairProgramCache:
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
         self._lru = DecodeTableCache(capacity)
-        self._lock = threading.Lock()
+        self._lock = make_lock("ec.repairc.stats")
         self._compiles: dict[str, int] = {}
         self._hits = 0
         #: tells this cache's signatures apart from another's in the guard

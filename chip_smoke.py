@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port on one card: the erasure-code data
 path, CRUSH placement, compiled repair, the placement tools (crushtool,
-osdmaptool and the upmap balancer) and the device guard.
+osdmaptool and the upmap balancer), the device guard, the multi-device EC
+mesh and its OSD-side fabric, and the ceph_erasure_code_benchmark CLI.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -80,7 +81,9 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    --show-statistics --show-utilization` over x = 0 .. 1,048,575 for
    rule 0 at num_rep 3 and rule 1 at 12: one K3 launch per (rule,
    num_rep), no scalar fallback, every x of full size; K3 against the
-   plain version on the card over every x of both, the tool's text equal
+   plain version on the card over every x of rule 0 and every 4th x of
+   rule 1 (262,144 x over the whole range, cut to keep the smoke's wall
+   time; rule 1's text is not held to the plain version), rule 0's text equal
    to the text of the plain version's tables, 256 sampled x equal to
    CrushWrapper.do_rule, and the text equal to CrushTester(device="cpu")'s
    at 1,024 x; K3 by CUDA events in the tool's run, and the split of one
@@ -105,7 +108,27 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    phase 8's map, phase 10's compiled repair of one code (and one repair
    on a fresh instance of it, whose cache compiles the plan once) and
    phase 12's rule-0 test at 65,536 x, with no guard error and no
-   recompile; then an `.item()` inside guard_transfers() must raise.
+   recompile; then an `.item()` inside guard_transfers() must raise;
+15. the multi-device EC mesh on one card (ceph_tpu_torch.dist.make_mesh(8,
+   shard_ways=w, devices=["cuda:0"] * 8) for w = 1, 2, 4; K1 per grid
+   position, the partials XORed per stripe row): phase 5's 256 x 1 MiB
+   encode equal to encode_batch's parity and the plain version, the
+   decode of [1, 9] at full width and all 66 two-erasure patterns at 16
+   stripes equal to the lost chunks; K1's launch count zeroed before and
+   read after (8 per mesh step); the mesh encode timed beside
+   encode_batch, and K1 at the narrowest column slice ((128, 2, 131072)
+   -> r=4) beside its bound and its plain version.  One card cannot show
+   a launch on a card that is not the current device (the multi-card
+   test in tests/test_torch_cuda.py does);
+16. the fabric: ICIFabric(devices=["cuda:0"] * 8) with the `tpu` plugin
+   on the card, 64 objects of 4 MiB (stripe unit 4096 B); 32 staged, then
+   12 threads fetch every shard of those while 2 threads stage and fetch
+   the other 32; every stream equal to ecutil.encode, nothing staged
+   after release; each stage and fetch on the host clock;
+17. the ceph_erasure_code_benchmark CLI (ceph_tpu_torch.tools.ec_bench) on
+   the card for the tpu and isa plugins, k=8 m=4, 1 MiB x 64 iterations,
+   encode and decode (random two-erasure patterns through its byte
+   gate): seconds, KiB and MB/s.
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -155,6 +178,10 @@ TOOL_TESTS = [(0, 3), (1, 12)]   # crushtool --test (rule, num_rep)
 TOOL_X = 1 << 20                 # x = 0 .. 1,048,575
 TOOL_SAMPLE = 256                # sampled x per rule against do_rule
 TOOL_PLAIN_CHUNK = 1 << 18       # seeds per pass of the plain version there
+# stride of the x held to the plain version per rule: every x of rule 0;
+# every 4th x of rule 1 (the 12-wide indep rule, 8x rule 0's cost per x),
+# 262,144 x spread over the whole launch, to keep the smoke's wall time
+TOOL_PLAIN_STRIDE = {0: 1, 1: 4}
 TOOL_GUARD_X = 1 << 16           # phase 14's guarded tester run
 TOOL_CPU_X = 1 << 10             # text against CrushTester on the CPU
 TOOL_RULES = """\
@@ -183,6 +210,10 @@ UPMAP_MAX, UPMAP_DEVIATION = 10, 5   # osdmaptool's --upmap defaults
 # the card-against-CPU balancer map, cut from 65,536 PGs to keep phases
 # 12-14 short (the CPU side is the plain version)
 CROSS_OSD, CROSS_PG = 1000, 1 << 15
+MESH_WAYS = (1, 2, 4)            # shard_ways of the one-card mesh
+MESH_PATTERN_S = 16              # stripes per two-erasure pattern
+FABRIC_OBJECTS = 64              # 4 MiB objects through the fabric
+BENCH_ITERATIONS = 64            # ec_bench --iterations
 SPIN_CYCLES = 4_000_000          # about 2 ms at the H100's 1980 MHz
 
 
@@ -1126,27 +1157,41 @@ def crushtool_phase(name_power: str, dev, work: Path) -> dict:
         if f"rule {rule} ({name}) num_rep {nr} result size == {nr}:\t" \
                 f"{TOOL_X}/{TOOL_X}" not in outs[rule]:
             raise AssertionError(f"rule {rule}: not every x maps to {nr}")
-        # K3 against the plain version on the card, every x
+        # K3 against the plain version on the card, over every
+        # TOOL_PLAIN_STRIDE[rule]-th x of the whole range
         cfg = cc.rule_cfg(rule, nr)
         got, got_n = cb.crush_do_rule_cuda(cc, cfg, xs, weight)
+        stride = TOOL_PLAIN_STRIDE[rule]
+        n_plain = TOOL_X // stride
         torch.cuda.synchronize()
         t_plain = time.monotonic()
-        want, want_n = cb.map_batch_plain(cc, cfg, xs, weight,
-                                          chunk=TOOL_PLAIN_CHUNK)
+        want, want_n = cb.map_batch_plain(cc, cfg, xs[::stride].contiguous(),
+                                          weight, chunk=TOOL_PLAIN_CHUNK)
         torch.cuda.synchronize()
         t_plain = time.monotonic() - t_plain
-        err = max(max_err32(got, want), max_err32(got_n, want_n))
+        err = max(max_err32(got[::stride], want),
+                  max_err32(got_n[::stride], want_n))
         worst = max(worst, err)
         if err:
             raise AssertionError(f"rule {rule}: K3 differs from the plain "
-                                 f"version over {TOOL_X} x")
+                                 f"version over every {stride}th x")
         res, cnt = got.cpu().numpy(), got_n.cpu().numpy()
-        # the tool's whole text against the plain version's tables
-        plain = TablesTester((want.cpu().numpy(), want_n.cpu().numpy()), w,
-                             0, TOOL_X - 1, nr, nr, rule, device=dev)
-        if plain.test(**flags) != outs[rule]:
-            raise AssertionError(f"rule {rule}: crushtool --test text "
-                                 "differs from the plain version's")
+        if stride == 1:
+            # the tool's whole text against the plain version's tables
+            plain = TablesTester((want.cpu().numpy(), want_n.cpu().numpy()),
+                                 w, 0, TOOL_X - 1, nr, nr, rule, device=dev)
+            if plain.test(**flags) != outs[rule]:
+                raise AssertionError(f"rule {rule}: crushtool --test text "
+                                     "differs from the plain version's")
+            held = (f"K3 == plain version on every x (max_abs_err {err}, "
+                    f"plain {t_plain:.1f} s) and the text == the plain "
+                    "version's")
+        else:
+            held = (f"K3 == plain version on every {stride}th x, {n_plain} "
+                    f"x over 0..{TOOL_X - 1} (max_abs_err {err}, plain "
+                    f"{t_plain:.1f} s; cut from {TOOL_X} x to keep the "
+                    "smoke's wall time, so no text check against the plain "
+                    "version for this rule)")
         t_sample = time.monotonic()
         for x in rng.choice(TOOL_X, TOOL_SAMPLE, replace=False).tolist():
             if res[x, :cnt[x]].tolist() != w.do_rule(rule, x, nr):
@@ -1174,15 +1219,15 @@ def crushtool_phase(name_power: str, dev, work: Path) -> dict:
         rows[rule] = {"num_rep": nr, "wall_s": walls[rule],
                       "k3_events_ms": k3_cli[rule], "split_wall_s": wall_run,
                       "split_s": split, "split_k3_events_ms": k3_ms,
-                      "plain_s": t_plain, "devices_listed": devices}
+                      "plain_s": t_plain, "plain_x": n_plain,
+                      "plain_stride": stride,
+                      "devices_listed": devices}
         print(f"phase 12: crushtool --test rule {rule} ({name}) num_rep {nr} "
               f"x 0..{TOOL_X - 1}: {walls[rule]:.3f} s on the host clock, K3 "
               f"{k3_cli[rule]:.3f} ms by CUDA events in that run "
               f"({k3_cli[rule] / 1e3 / walls[rule]:.4f} of it); {devices} "
-              f"devices listed; K3 == plain version on every x (max_abs_err "
-              f"{err}, plain {t_plain:.1f} s) and the text == the plain "
-              f"version's; {TOOL_SAMPLE} sampled x == CrushWrapper.do_rule "
-              f"({t_sample:.1f} s) on {name_power}")
+              f"devices listed; {held}; {TOOL_SAMPLE} sampled x == "
+              f"CrushWrapper.do_rule ({t_sample:.1f} s) on {name_power}")
         print(f"phase 12: split of one more run, each piece a lap of it: "
               f"{wall_run:.3f} s = "
               + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
@@ -1462,6 +1507,243 @@ def guard_phase(ec, ecutil, logical: bytes, placement, repair_state,
             "host_us_per_call": cost}
 
 
+# ---------------------------------------------------------------------------
+# The multi-device EC mesh, the fabric and the benchmark CLI: phases 15-17
+
+def mesh_phase(ec, state: dict, name_power: str, dev) -> dict:
+    """Phase 15: the one-card mesh (["cuda:0"] * 8) at the main path's
+    shapes for shard_ways 1, 2 and 4: parity against encode_batch's and
+    the plain version, the decode of [1, 9] at full width, every
+    two-erasure pattern at S = MESH_PATTERN_S, K1's launches; then the
+    mesh encode beside encode_batch and K1 at the narrowest slice."""
+    from ceph_tpu_torch.dist import MeshECCoder, make_mesh
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+
+    t_phase = time.monotonic()
+    n = K + M
+    data, parity = state["data"], state["parity"]
+    full = torch.cat([data, parity], dim=1)
+    plain = bm.gf_matmul_plain(ec._encode_mm.mat_t, data)
+    di = state["decode_index"]
+    data_np = data.cpu().numpy()
+    survivors_np = state["survivors"].cpu().numpy()
+    small_np = full[:MESH_PATTERN_S].cpu().numpy()
+    patterns = list(itertools.combinations(range(n), 2))
+    coders, sharded = {}, {}
+    calls = 0
+    bm.reset_launches()
+    for w in MESH_WAYS:
+        coder = MeshECCoder(K, M, make_mesh(8, shard_ways=w, k=K,
+                                            devices=[dev] * 8),
+                            encode_matrix=ec.encode_matrix)
+        x = coder.shard_data(data_np)
+        out = coder.encode(x)
+        calls += 1
+        s = STRIPES // coder.mesh.devices.shape[0]
+        for i, row in enumerate(out.blocks):
+            if not torch.equal(row[0], parity[i * s:(i + 1) * s]) or \
+                    not torch.equal(row[0], plain[i * s:(i + 1) * s]):
+                raise AssertionError(f"mesh parity differs at shard_ways {w}"
+                                     f" stripe row {i}")
+        rec = coder.decode(di, ERASURES, coder.shard_data(survivors_np))
+        calls += 1
+        for i, row in enumerate(rec.blocks):
+            if not torch.equal(row[0], full[i * s:(i + 1) * s, ERASURES]):
+                raise AssertionError(f"mesh decode of {ERASURES} differs at "
+                                     f"shard_ways {w}")
+        s = MESH_PATTERN_S // coder.mesh.devices.shape[0]
+        for erasures in patterns:
+            idx = [i for i in range(n) if i not in erasures][:K]
+            rec = coder.decode(idx, list(erasures), coder.shard_data(
+                np.ascontiguousarray(small_np[:, idx])))
+            calls += 1
+            for i, row in enumerate(rec.blocks):
+                if not torch.equal(row[0], full[i * s:(i + 1) * s,
+                                               list(erasures)]):
+                    raise AssertionError(f"mesh decode of {erasures} differs"
+                                         f" at shard_ways {w}")
+        coders[w], sharded[w] = coder, x
+    torch.cuda.synchronize()
+    launches = bm.LAUNCHES["gf_matmul"]
+    if launches == 0 or launches != 8 * calls or \
+            bm.LAUNCHES["gf_decode_select"]:
+        raise AssertionError(f"mesh: {launches} K1 launches for {calls} mesh "
+                             "steps of 8 positions")
+    print(f"phase 15: mesh over ['cuda:0'] * 8, shard_ways {MESH_WAYS}, "
+          f"{STRIPES} x 1 MiB: parity == encode_batch == plain, decode of "
+          f"{ERASURES} == lost chunks, all {len(patterns)} two-erasure "
+          f"patterns at S = {MESH_PATTERN_S} == lost chunks; K1 launches "
+          f"{launches} for {calls} mesh steps (8 positions each)")
+
+    mesh_ms = {w: time_ms(lambda c=coders[w], x=sharded[w]: c.encode(x))
+               for w in MESH_WAYS}
+    batch_ms = time_ms(lambda: ec.encode_batch(data))
+    # K1 at the narrowest column slice: shard_ways 4, stripe row 0
+    w = max(MESH_WAYS)
+    block = sharded[w].blocks[0][0]
+    op = coders[w]._op("encode", coders[w].encode_matrix[K:], 0, dev)
+    s_n, k_in, n_b = block.shape
+    narrow_ms = device_ms(lambda: bm.gf_matmul_cuda(op.tables, block, M))
+    narrow_plain_ms = time_ms(lambda: bm.gf_matmul_plain(op.mat_t, block),
+                              reps=2, repeats=5)
+    err = max_err(bm.gf_matmul_cuda(op.tables, block, M),
+                  bm.gf_matmul_plain(op.mat_t, block))
+    if err:
+        raise AssertionError("K1 differs from plain at the narrow slice")
+    narrow_bytes = s_n * (k_in + M) * n_b
+    narrow_bound = narrow_bytes / HBM_BYTES_PER_S * 1e3
+    wall = time.monotonic() - t_phase
+    print(f"phase 15: mesh encode per {STRIPES} x 1 MiB by CUDA events: "
+          + ", ".join(f"shard_ways {w} {t:.4f} ms" for w, t in
+                      mesh_ms.items())
+          + f"; encode_batch (one launch) {batch_ms:.4f} ms; K1 at the "
+          f"narrow slice ({s_n}, {k_in}, {n_b}) -> r={M}: {narrow_ms:.4f} ms "
+          f"on the card, bound {narrow_bound:.4f} ms by bytes "
+          f"({narrow_bound / narrow_ms:.2f} of it), plain "
+          f"{narrow_plain_ms:.4f} ms; phase {wall:.1f} s on {name_power}")
+    return {"launches_mesh": launches, "mesh_steps": calls,
+            "mesh_ms": {str(w): t for w, t in mesh_ms.items()},
+            "mesh_encode_batch_ms": batch_ms,
+            "narrow_shape": [s_n, k_in, n_b, M], "narrow_ms": narrow_ms,
+            "narrow_bound_ms": narrow_bound, "narrow_bound_by": "bytes",
+            "narrow_plain_ms": narrow_plain_ms, "max_abs_err_mesh": err,
+            "phase_s": wall}
+
+
+def fabric_phase(ec, ecutil, name_power: str, dev) -> dict:
+    """Phase 16: ICIFabric over ["cuda:0"] * 8 with the `tpu` plugin on
+    the card: FABRIC_OBJECTS objects of 4 MiB (stripe unit 4096 B); half
+    staged first, then 12 threads fetch every shard of those while 2
+    threads stage the other half and fetch their shards, as the
+    reference's concurrency test does.  Every stream equals ecutil.encode;
+    nothing stays staged after release."""
+    import threading
+
+    from ceph_tpu_torch.dist import ICIFabric
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+
+    t_phase = time.monotonic()
+    n = K + M
+    cs = ec.get_chunk_size(K * STRIPE_UNIT)
+    sinfo = ecutil.StripeInfo(K, K * cs)
+    rng = np.random.default_rng(SEED + 3)
+    objs = [rng.integers(0, 256, REPAIR_OBJECT, dtype=np.uint8).tobytes()
+            for _ in range(FABRIC_OBJECTS)]
+    fab = ICIFabric(devices=[dev] * 8)
+    if not fab.supports(ec):
+        raise AssertionError("the fabric refuses the tpu plugin")
+    stage_s, fetch_s, results, errors = [], [], {}, []
+    lock = threading.Lock()
+
+    def stage(i):
+        t0 = time.monotonic()
+        fab.stage_encode(("obj", i), ec, objs[i], cs)
+        with lock:
+            stage_s.append(time.monotonic() - t0)
+
+    def fetch(i, shard):
+        t0 = time.monotonic()
+        out = fab.fetch_chunk(("obj", i), shard)
+        with lock:
+            fetch_s.append(time.monotonic() - t0)
+            results[(i, shard)] = out
+
+    def guarded(fn, *args):
+        try:
+            fn(*args)
+        except BaseException as ex:     # noqa: BLE001 — raised below
+            with lock:
+                errors.append(ex)
+
+    def fetcher(shard):
+        for i in range(FABRIC_OBJECTS // 2):
+            guarded(fetch, i, shard)
+
+    def stager(first):
+        for i in range(first, FABRIC_OBJECTS, 2):
+            guarded(stage, i)
+            for shard in range(n):
+                guarded(fetch, i, shard)
+
+    bm.reset_launches()
+    for i in range(FABRIC_OBJECTS // 2):
+        stage(i)
+    threads = [threading.Thread(target=fetcher, args=(s,)) for s in range(n)]
+    threads += [threading.Thread(target=stager, args=(FABRIC_OBJECTS // 2 + j,))
+                for j in range(2)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    concurrent_s = time.monotonic() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("fabric stage/fetch deadlocked")
+    if errors:
+        raise AssertionError(f"fabric errors: {errors[:3]}")
+    launches = bm.LAUNCHES["gf_matmul"]
+    t0 = time.monotonic()
+    for i, obj in enumerate(objs):
+        want = ecutil.encode(sinfo, ec, obj)
+        for shard in range(n):
+            if results[(i, shard)] != want[shard]:
+                raise AssertionError(f"fabric object {i} shard {shard} "
+                                     "differs from ecutil.encode")
+    check_s = time.monotonic() - t0
+    for i in range(FABRIC_OBJECTS):
+        fab.release(("obj", i))
+    if fab.staged_count() != 0 or fab.stats["staged"] != FABRIC_OBJECTS or \
+            fab.stats["fetched"] != FABRIC_OBJECTS * n:
+        raise AssertionError(f"fabric stats {fab.stats}, staged "
+                             f"{fab.staged_count()}")
+    if launches != 8 * FABRIC_OBJECTS:
+        raise AssertionError(f"fabric: {launches} K1 launches for "
+                             f"{FABRIC_OBJECTS} stages of 8 positions")
+    wall = time.monotonic() - t_phase
+
+    def summary(ts):
+        return (f"median {statistics.median(ts) * 1e3:.3f} ms, max "
+                f"{max(ts) * 1e3:.3f} ms, sum {sum(ts):.3f} s")
+    print(f"phase 16: ICIFabric over ['cuda:0'] * 8: {FABRIC_OBJECTS} x "
+          f"{REPAIR_OBJECT} B objects (chunk {cs} B), 12 fetch threads + 2 "
+          f"stage threads {concurrent_s:.3f} s; every fetched stream == "
+          f"ecutil.encode ({check_s:.1f} s); staged_count 0 after release; "
+          f"K1 launches {launches}; host clock per stage {summary(stage_s)}; "
+          f"per fetch {summary(fetch_s)}; phase {wall:.1f} s on {name_power}")
+    return {"launches": launches, "stage_s": stage_s, "fetch_s": fetch_s,
+            "concurrent_s": concurrent_s, "phase_s": wall}
+
+
+def bench_phase(name_power: str) -> dict:
+    """Phase 17: the ceph_erasure_code_benchmark CLI on the card for the
+    tpu and isa plugins, k=8 m=4, 1 MiB, both workloads; decode runs
+    random two-erasure patterns through the CLI's byte gate."""
+    from ceph_tpu_torch.tools import ec_bench
+
+    t_phase = time.monotonic()
+    rows = {}
+    for plugin in ("tpu", "isa"):
+        for workload in ("encode", "decode"):
+            argv = ["--plugin", plugin, "--workload", workload, "--size",
+                    str(OBJECT), "--iterations", str(BENCH_ITERATIONS),
+                    "--parameter", f"k={K}", "--parameter", f"m={M}"]
+            if workload == "decode":
+                argv += ["--erasures", "2"]
+            out, _, _ = run_cli(ec_bench.main, argv)
+            seconds, kib = out.strip().splitlines()[-1].split("\t")
+            seconds = float(seconds)
+            mbps = OBJECT * BENCH_ITERATIONS / seconds / 1e6
+            rows[f"{plugin}/{workload}"] = {"seconds": seconds, "kib": kib,
+                                            "MBps": mbps}
+            print(f"phase 17: ec_bench --plugin {plugin} --workload "
+                  f"{workload} k={K} m={M} --size {OBJECT} --iterations "
+                  f"{BENCH_ITERATIONS}: {seconds:.6f} s\t{kib} KiB, "
+                  f"{mbps:.1f} MB/s on {name_power}")
+    wall = time.monotonic() - t_phase
+    print(f"phase 17: phase {wall:.1f} s")
+    return {"rows": rows, "phase_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1605,9 +1887,22 @@ def main() -> int:
                                            "cross_s")}})
     kernels[0]["launches_guarded"] = guard["launches"]["gf_matmul"]
     kernels[0]["host_us_per_call"] = guard["host_us_per_call"]
+    mesh = mesh_phase(ec, state, name_power, dev)
+    fabric = fabric_phase(ec, ecutil, name_power, dev)
+    bench = bench_phase(name_power)
+    kernels[0].update({k: v for k, v in mesh.items() if k != "phase_s"})
+    kernels[0]["launches_fabric"] = fabric["launches"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    mesh["max_abs_err_mesh"])
+    # isa runs on the host and launches no K1: its rows stay on the
+    # phase's lines
+    kernels[0]["ec_bench"] = {k: v for k, v in bench["rows"].items()
+                              if k.startswith("tpu/")}
     print(f"chip_smoke: phases 12-14 {tool['wall_s']:.1f} + "
-          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; "
-          f"{time.monotonic() - t_start:.1f} s in all")
+          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-17 "
+          f"{mesh['phase_s']:.1f} + {fabric['phase_s']:.1f} + "
+          f"{bench['phase_s']:.1f} s; {time.monotonic() - t_start:.1f} s in "
+          f"all on {name_power}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -326,3 +326,58 @@ def test_devguard_item_inside_a_region_raises(dev):
     finally:
         if not was:
             devguard.disable()
+
+
+@pytest.mark.parametrize("shard_ways", [1, 2, 4])
+def test_mesh_on_one_card(dev, shard_ways):
+    """The one-card mesh (["cuda:0"] * 8): parity equals the plugin's
+    single launch, a decode rebuilds the lost chunks, K1 per position."""
+    from ceph_tpu_torch.dist import MeshECCoder, make_mesh
+    ec = registry.factory("tpu", {"k": "8", "m": "4"})
+    coder = MeshECCoder(8, 4, make_mesh(8, shard_ways=shard_ways,
+                                        devices=[dev] * 8),
+                        encode_matrix=ec.encode_matrix)
+    rng = np.random.default_rng(shard_ways)
+    data = rng.integers(0, 256, (16, 8, 4096 + 32), dtype=np.uint8)
+    before = bm.LAUNCHES["gf_matmul"]
+    parity = coder.encode(coder.shard_data(data))
+    assert bm.LAUNCHES["gf_matmul"] == before + 8
+    want = ec.encode_batch(data).cpu().numpy()
+    assert np.array_equal(parity.numpy(), want)
+    full = np.concatenate([data, want], axis=1)
+    idx = [i for i in range(12) if i not in (1, 9)][:8]
+    rec = coder.decode(idx, [1, 9], coder.shard_data(
+        np.ascontiguousarray(full[:, idx]))).numpy()
+    assert np.array_equal(rec, full[:, [1, 9]])
+
+
+def test_mesh_over_every_card(dev):
+    """The mesh over every card present, and K1 and K2 launched on a
+    card that is not the current device (the launch must follow the
+    tensor's device).  Needs two or more cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from ceph_tpu_torch.dist import MeshECCoder, make_mesh
+    mesh = make_mesh()
+    assert mesh.devices.size == n
+    coder = MeshECCoder(8, 4, mesh)
+    rng = np.random.default_rng(n)
+    data = rng.integers(0, 256, (4 * mesh.devices.shape[0], 8, 8192),
+                        dtype=np.uint8)
+    parity = coder.encode(coder.shard_data(data))
+    assert coder.check_parity(data, parity)
+    full = np.concatenate([data, parity.numpy()], axis=1)
+    idx = [i for i in range(12) if i not in (0, 11)][:8]
+    rec = coder.decode(idx, [0, 11], coder.shard_data(
+        np.ascontiguousarray(full[:, idx]))).numpy()
+    assert np.array_equal(rec, full[:, [0, 11]])
+    other = torch.device("cuda", n - 1)
+    with torch.cuda.device(0):
+        k1_against_plain(other, 4, 8, 3, 4096)
+        ec = registry.factory("tpu", {"k": "8", "m": "4"}, device=other)
+        x = torch.from_numpy(data[:4]).to(other)
+        arrival = torch.cat([x, ec.encode_batch(x)], dim=1)
+        rebuilt = ec.decode_batch_full([1, 9], arrival)
+        torch.cuda.synchronize(other)
+        assert torch.equal(rebuilt, arrival[:, [1, 9]])

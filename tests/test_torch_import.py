@@ -58,7 +58,13 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.crush.remap", "ceph_tpu_torch.common.log",
                  "ceph_tpu_torch.osd.balancer",
                  "ceph_tpu_torch.tools.osdmaptool",
-                 "ceph_tpu_torch.common.devguard"):
+                 "ceph_tpu_torch.common.devguard",
+                 "ceph_tpu_torch.common.options",
+                 "ceph_tpu_torch.common.lockdep",
+                 "ceph_tpu_torch.common.racecheck",
+                 "ceph_tpu_torch.dist", "ceph_tpu_torch.dist.mesh_ec",
+                 "ceph_tpu_torch.dist.fabric",
+                 "ceph_tpu_torch.tools.ec_bench"):
         assert name in out["modules"], name
 
 
