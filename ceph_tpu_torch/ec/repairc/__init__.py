@@ -18,9 +18,10 @@ recovery.
 The port's copy of `ceph_tpu.ec.repairc`.
 """
 from .plan import RepairPlan
-from .compiler import RepairProgram, compile_program, interpret_plan
+from .compiler import (RepairPlanError, RepairProgram, compile_program,
+                       interpret_plan)
 from .cache import RepairProgramCache, program_for, cache_of
 
-__all__ = ["RepairPlan", "RepairProgram", "RepairProgramCache",
-           "compile_program", "interpret_plan", "program_for",
-           "cache_of"]
+__all__ = ["RepairPlan", "RepairPlanError", "RepairProgram",
+           "RepairProgramCache", "compile_program", "interpret_plan",
+           "program_for", "cache_of"]

@@ -39,6 +39,14 @@ from ..kernels.bitmatmul import GFMatmul
 from .plan import RepairPlan
 
 
+class RepairPlanError(ValueError):
+    """The helper buffers or the chunk size do not fit the plan: the
+    chunk size is not sub-chunk aligned, a helper's buffer is not a
+    whole number of its repair blocks, or the helpers disagree on the
+    stripe count.  A caller may take another repair path on it; a fault
+    of the kernel, its build or its launch is never raised as one."""
+
+
 def interpret_plan(ec, plan: RepairPlan,
                    helper_bufs: Mapping[int, np.ndarray],
                    chunk_size: int) -> dict[int, np.ndarray]:
@@ -135,7 +143,7 @@ class RepairProgram:
         (total_planes x nstripes*ssz) array, plan order."""
         plan = self.plan
         if chunk_size % plan.sub_chunk_no:
-            raise ValueError("chunk size not sub-chunk aligned")
+            raise RepairPlanError("chunk size not sub-chunk aligned")
         ssz = chunk_size // plan.sub_chunk_no
         nstripes = None
         cols = []
@@ -147,14 +155,14 @@ class RepairProgram:
                 else np.asarray(helper_bufs[h], dtype=np.uint8)
             block = planes_h * ssz
             if block == 0 or buf.size % block:
-                raise ValueError(
+                raise RepairPlanError(
                     f"helper {h} buffer ({buf.size}B) not aligned to "
                     f"its {block}B repair block")
             ns = buf.size // block
             if nstripes is None:
                 nstripes = ns
             elif ns != nstripes:
-                raise ValueError("helper buffers disagree on stripes")
+                raise RepairPlanError("helper buffers disagree on stripes")
             cols.append(buf.reshape(ns, planes_h, ssz)
                         .transpose(1, 0, 2).reshape(planes_h, ns * ssz))
         return np.concatenate(cols, axis=0), nstripes, ssz

@@ -8,7 +8,8 @@ pg_t, pg_pool_t with pg/pgp masks, the stable-mod seed folding
 (pg_pool_t::raw_pg_to_pps, src/osd/osd_types.cc:1650).
 
 `pg_from_reference` and `pool_from_reference` copy a PG or pool of another
-package (the JAX reference's, in the tests) by attribute.
+package (the JAX reference's, in the tests) by attribute.  `PG` is a wire
+struct under the reference's name and version; `PGPool` is not.
 """
 from __future__ import annotations
 
@@ -224,3 +225,11 @@ def pool_from_reference(obj) -> PGPool:
     pool.snaps = dict(obj.snaps)
     pool.removed_snaps = list(obj.removed_snaps)
     return pool
+
+
+# wire registration of pg_t alone: EC sub-op messages carry a PG as their
+# pgid (ref: osd_types.h pg_t ENCODE_START); the pool rides no message
+# of the port yet
+from ..msg.encoding import register_struct as _reg  # noqa: E402
+
+_reg(PG, version=1, compat=1)

@@ -2,7 +2,8 @@
 """Chip smoke of the PyTorch/CUDA port on one card: the erasure-code data
 path, CRUSH placement, compiled repair, the placement tools (crushtool,
 osdmaptool and the upmap balancer), the device guard, the multi-device EC
-mesh and its OSD-side fabric, and the ceph_erasure_code_benchmark CLI.
+mesh and its OSD-side fabric, the ceph_erasure_code_benchmark CLI, and the
+EC placement group's data plane (ECBackend over MemStore).
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -128,7 +129,25 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
 17. the ceph_erasure_code_benchmark CLI (ceph_tpu_torch.tools.ec_bench) on
    the card for the tpu and isa plugins, k=8 m=4, 1 MiB x 64 iterations,
    encode and decode (random two-erasure patterns through its byte
-   gate): seconds, KiB and MB/s.
+   gate): seconds, KiB and MB/s;
+18. the EC placement group's data plane (ceph_tpu_torch.osd.ec_backend:
+   ECBackend and one ECPGShard per shard over the port's MemStores, wired
+   directly) at the pool shape `tpu` k=8 m=4 reed_sol_van on the card,
+   stripe unit 4096 B, 4 MiB objects: 64 objects written through
+   submit_transaction, 100 KiB unaligned overwrites in 16 of them, every
+   object read back equal to the script's bytes and every shard stream
+   equal to ecutil.encode through a device="cpu" plugin (K1's plain
+   version); shards 1 and 9 down and every object read degraded (K1's
+   staged decode); shard 0 wiped and recovered through recover_object,
+   one compiled repair (one K1 launch) per object and no full rebuild,
+   equal to the streams from before, read/rebuilt exactly 8.0; the same
+   recovery for REPAIR_r01.json's jerasure, clay and lrc (64 objects
+   each, 4.0 / 2.5 / 3.0); the 64 writes again through ICIFabric over
+   ["cuda:0"] * 8, every chunk equal to the host path's.  Write, read,
+   degraded-read and rebuilt MB/s on the host clock, K1's CUDA-event
+   share of each, and a split of one write (merge, ecutil.encode, the
+   HashInfo crc32c, the transaction build, MemStore's apply).  K1's
+   launch count is zeroed before and read after the phase.
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -1744,6 +1763,378 @@ def bench_phase(name_power: str) -> dict:
     return {"rows": rows, "phase_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# The EC placement group's data plane: phase 18
+
+EC_PG_OBJECTS = 64               # 4 MiB objects through ECBackend, per code
+EC_PG_RMW = 16                   # objects given an unaligned overwrite
+EC_PG_PATCH = 100 << 10          # 100 KiB
+EC_PG_KILLED = [1, 9]
+PGID = "1.0"
+
+
+@contextlib.contextmanager
+def k1_events(bm):
+    """Within the block, every K1 launch is bracketed by CUDA events;
+    yields the list of (start, end) pairs.  The launch itself, and its
+    count, are the wrapper's."""
+    pairs = []
+    launch = bm.gf_matmul_cuda
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    bm.gf_matmul_cuda = timed
+    try:
+        yield pairs
+    finally:
+        bm.gf_matmul_cuda = launch
+
+
+class ECPG:
+    """One EC placement group of the port: a MemStore and an ECPGShard per
+    shard, wired to the primary's ECBackend (osd.0, shard 0) directly, as
+    tests/test_ec_backend.py wires them.  Counts the full-chunk rebuilds
+    the backend falls back to."""
+
+    def __init__(self, ec, fabric=None):
+        from ceph_tpu_torch import store
+        from ceph_tpu_torch.common.perf_counters import PerfCounters
+        from ceph_tpu_torch.msg import messages
+        from ceph_tpu_torch.osd import ec_backend, pg_types
+
+        self.messages, self.store, self.pg_types = messages, store, pg_types
+        self.cid = ec_backend.pg_cid(PGID)
+        self.k = ec.get_data_chunk_count()
+        self.n = ec.get_chunk_count()
+        self.stores = [store.MemStore() for _ in range(self.n)]
+        self.shards = [ec_backend.ECPGShard(PGID, s, self.stores[s], self.k,
+                                            self.n - self.k, fabric=fabric)
+                       for s in range(self.n)]
+        self.alive = [True] * self.n
+        self.perf = PerfCounters("osd.0")
+        for key in ("recovery_bytes_read", "recovery_bytes_rebuilt"):
+            self.perf.add_u64_counter(key)
+        self.backend = ec_backend.ECBackend(
+            PGID, ec, 0, list(range(self.n)), self.shards[0], self._send,
+            fabric=fabric)
+        self.backend.perf = self.perf
+        self.full_rebuilds = 0
+        full = self.backend._recover_object_full
+
+        def counted(*args, **kwargs):
+            self.full_rebuilds += 1
+            return full(*args, **kwargs)
+
+        self.backend._recover_object_full = counted
+
+    def _send(self, shard, msg):
+        if not self.alive[shard]:
+            return False
+        if isinstance(msg, self.messages.ECSubWrite):
+            reply = self.shards[shard].handle_sub_write(msg)
+            if not self.backend.handle_recovery_write_reply(reply):
+                self.backend.handle_sub_write_reply(reply)
+        elif isinstance(msg, self.messages.ECSubRead):
+            self.backend.handle_sub_read_reply(
+                self.shards[shard].handle_sub_read(msg))
+        return True
+
+    def write(self, oid: str, off: int, data: bytes) -> None:
+        out = []
+        self.backend.submit_transaction(oid, [("write", off, data)],
+                                        out.append)
+        if out != [True]:
+            raise AssertionError(f"write of {oid} at {off}: {out}")
+
+    def read(self, oid: str) -> bytes:
+        out = {}
+        self.backend.objects_read_and_reconstruct(
+            {oid: (0, 0)}, lambda r, e: out.update(results=r, errors=e))
+        if not out or out["errors"]:
+            raise AssertionError(f"read of {oid}: {out.get('errors')}")
+        return out["results"][oid]
+
+    def recover(self, oid: str, shard: int) -> None:
+        out = []
+        self.backend.recover_object(oid, [shard], out.append)
+        if out != [True]:
+            raise AssertionError(f"recovery of {oid} shard {shard}: {out}")
+
+    def stream(self, shard: int, oid: str) -> bytes:
+        return self.stores[shard].read(self.cid,
+                                       self.store.ObjectId(oid, shard=shard))
+
+    def kill(self, shard: int, oids) -> None:
+        """The shard's OSD is down: peering would mark its objects
+        missing."""
+        self.alive[shard] = False
+        for oid in oids:
+            self.backend.peer_missing[shard].add(
+                oid, self.pg_types.EVersion(1, 1))
+
+    def revive(self, shard: int) -> None:
+        self.alive[shard] = True
+        self.backend.peer_missing[shard] = self.pg_types.PGMissing()
+
+    def wipe(self, shard: int, oids) -> None:
+        """The shard's chunks are lost (its OSD replaced, the log kept):
+        remove them from its store and mark them missing."""
+        txn = self.store.Transaction()
+        for oid in oids:
+            txn.remove(self.cid, self.store.ObjectId(oid, shard=shard))
+        self.stores[shard].queue_transaction(txn)
+        self.kill(shard, oids)
+        self.alive[shard] = True
+
+
+def write_split(pg: ECPG, oid: str, data: bytes) -> dict:
+    """One more 4 MiB write, timed piece by piece on the host clock: the
+    merge of old and new bytes, ecutil.encode, the HashInfo crc32c, the
+    shard transactions' build, and MemStore applying them (data and log
+    transactions of every shard)."""
+    from ceph_tpu_torch.osd import ec_backend, ecutil
+    from ceph_tpu_torch.store import MemStore
+
+    marks: dict = {}
+    apply_s = []
+    saved = (ec_backend.ECBackend._encode_write, ecutil.encode,
+             ecutil.HashInfo.append, MemStore.queue_transaction)
+    enc_write, encode, append, apply = saved
+
+    def t_enc_write(self, op):
+        marks["enter"] = time.perf_counter()
+        out = enc_write(self, op)
+        marks["exit"] = time.perf_counter()
+        return out
+
+    def t_encode(*args, **kwargs):
+        marks["encode0"] = time.perf_counter()
+        out = encode(*args, **kwargs)
+        marks["encode1"] = time.perf_counter()
+        return out
+
+    def t_append(self, *args, **kwargs):
+        marks["crc0"] = time.perf_counter()
+        out = append(self, *args, **kwargs)
+        marks["crc1"] = time.perf_counter()
+        return out
+
+    def t_apply(self, txn):
+        t0 = time.perf_counter()
+        out = apply(self, txn)
+        apply_s.append(time.perf_counter() - t0)
+        return out
+
+    ec_backend.ECBackend._encode_write = t_enc_write
+    ecutil.encode = t_encode
+    ecutil.HashInfo.append = t_append
+    MemStore.queue_transaction = t_apply
+    try:
+        t0 = time.perf_counter()
+        pg.write(oid, 0, data)
+        total = time.perf_counter() - t0
+    finally:
+        (ec_backend.ECBackend._encode_write, ecutil.encode,
+         ecutil.HashInfo.append, MemStore.queue_transaction) = saved
+    split = {"merge": marks["encode0"] - marks["enter"],
+             "ecutil.encode": marks["encode1"] - marks["encode0"],
+             "hashinfo_crc32c": marks["crc1"] - marks["crc0"],
+             "txn_build": marks["exit"] - marks["crc1"],
+             "memstore_apply": sum(apply_s)}
+    split["other"] = total - (marks["exit"] - marks["enter"]) - sum(apply_s)
+    split["total"] = total
+    return split
+
+
+def recover_all(pg: ECPG, ec, objs: dict, bm) -> dict:
+    """Phase 18's recovery: shard 0 of every object wiped and rebuilt
+    through recover_object.  The signature's program is compiled first
+    (its probes run the plugin's own decode, on the card for `tpu`), and
+    timed apart; then each rebuild must be one compiled repair (one K1
+    launch, one program run) and none a full-chunk rebuild, and the
+    rebuilt streams equal those from before the failure.  Returns the
+    host time, K1's events time and the read/rebuilt pair."""
+    from ceph_tpu_torch.ec.repairc import cache_of, program_for
+    from ceph_tpu_torch.osd import ecutil
+
+    before = {oid: pg.stream(0, oid) for oid in objs}
+    pg.wipe(0, objs)
+    t0 = time.monotonic()
+    program_for(ec, ecutil.repair_plan(ec, {0}, set(range(1, pg.n))))
+    compile_s = time.monotonic() - t0
+    stats = cache_of(ec).stats()
+    runs0 = stats["hits"] + sum(stats["compiles"].values())
+    launches0 = bm.LAUNCHES["gf_matmul"]
+    with k1_events(bm) as ev:
+        t0 = time.monotonic()
+        for oid in objs:
+            pg.recover(oid, 0)
+        wall = time.monotonic() - t0
+    k1 = events_ms(ev)
+    stats = cache_of(ec).stats()
+    runs = stats["hits"] + sum(stats["compiles"].values()) - runs0
+    launches = bm.LAUNCHES["gf_matmul"] - launches0
+    if runs != len(objs) or launches != len(objs) or pg.full_rebuilds:
+        raise AssertionError(f"recovery: {runs} compiled repairs, {launches} "
+                             f"K1 launches, {pg.full_rebuilds} full "
+                             f"rebuilds for {len(objs)} objects")
+    for oid in objs:
+        if pg.stream(0, oid) != before[oid]:
+            raise AssertionError(f"rebuilt shard 0 of {oid} differs")
+    perf = pg.perf.dump()
+    return {"wall_s": wall, "k1_ms": k1, "compile_s": compile_s,
+            "read": perf["recovery_bytes_read"],
+            "rebuilt": perf["recovery_bytes_rebuilt"],
+            "ratio": perf["recovery_bytes_read"] /
+            perf["recovery_bytes_rebuilt"]}
+
+
+def ec_pg_phase(ec, name_power: str, dev) -> dict:
+    """Phase 18: the EC placement group's data plane (ECBackend and
+    ECPGShard over the port's MemStores) on the card at the pool shape
+    `tpu` k=8 m=4 reed_sol_van, stripe unit 4096 B, 4 MiB objects: writes,
+    an unaligned overwrite of 16 objects, reads, a degraded read with two
+    shards down, shard 0 recovered; the same recovery for REPAIR_r01.json's
+    three codes; the 64 writes again through the fabric."""
+    from ceph_tpu_torch.dist import ICIFabric
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.osd import ecutil
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 18)
+    objs = {f"obj{i}": rng.integers(0, 256, REPAIR_OBJECT,
+                                    dtype=np.uint8).tobytes()
+            for i in range(EC_PG_OBJECTS)}
+    logical = len(objs) * REPAIR_OBJECT
+    n = K + M
+    pg = ECPG(ec)
+    sinfo = pg.backend.sinfo
+    if sinfo.chunk_size != STRIPE_UNIT:
+        raise AssertionError(f"chunk {sinfo.chunk_size} B, want {STRIPE_UNIT}")
+    rows = {}
+
+    def row(name, nbytes, wall, k1_ms):
+        rows[name] = {"MBps": nbytes / wall / 1e6, "wall_s": wall,
+                      "k1_ms": k1_ms, "k1_share": k1_ms / 1e3 / wall}
+        return rows[name]
+
+    # -- writes, the overwrite, reads ---------------------------------------
+    with k1_events(bm) as ev:
+        t0 = time.monotonic()
+        for oid, data in objs.items():
+            pg.write(oid, 0, data)
+        wall = time.monotonic() - t0
+    row("write", logical, wall, events_ms(ev))
+    written = {oid: [pg.stream(s, oid) for s in range(n)] for oid in objs}
+    split = write_split(pg, "split", objs["obj0"])
+    for i in range(EC_PG_RMW):
+        oid = f"obj{i * (EC_PG_OBJECTS // EC_PG_RMW)}"
+        off = 1_000_003 + 65_537 * i                 # unaligned to a stripe
+        patch = rng.integers(0, 256, EC_PG_PATCH, dtype=np.uint8).tobytes()
+        pg.write(oid, off, patch)
+        objs[oid] = objs[oid][:off] + patch + objs[oid][off + len(patch):]
+    with k1_events(bm) as ev:
+        t0 = time.monotonic()
+        for oid, data in objs.items():
+            if pg.read(oid) != data:
+                raise AssertionError(f"read of {oid} differs")
+        wall = time.monotonic() - t0
+    row("read", logical, wall, events_ms(ev))
+    ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M),
+                                      "technique": "reed_sol_van"},
+                              device="cpu")
+    for oid, data in objs.items():
+        want = ecutil.encode(sinfo, ec_cpu, data)
+        for s in range(n):
+            if pg.stream(s, oid) != want[s]:
+                raise AssertionError(f"{oid} shard {s} differs from the plain "
+                                     "version's encode")
+    # -- degraded read --------------------------------------------------------
+    for s in EC_PG_KILLED:
+        pg.kill(s, objs)
+    with k1_events(bm) as ev:
+        t0 = time.monotonic()
+        for oid, data in objs.items():
+            if pg.read(oid) != data:
+                raise AssertionError(f"degraded read of {oid} differs")
+        wall = time.monotonic() - t0
+    row("degraded_read", logical, wall, events_ms(ev))
+    for s in EC_PG_KILLED:
+        pg.revive(s)
+    # -- recovery of shard 0, then REPAIR_r01.json's codes --------------------
+    rec = {"tpu": recover_all(pg, ec, objs, bm)}
+    want_ratio = {"tpu": float(K)}
+    write_s = {}
+    for plugin, profile, ratio in REPAIR_CODES:
+        ec2 = registry.factory(plugin, dict(profile))     # the card
+        pg2 = ECPG(ec2)
+        t0 = time.monotonic()
+        for i, data in enumerate(objs.values()):
+            pg2.write(f"obj{i}", 0, data)
+        write_s[plugin] = time.monotonic() - t0
+        rec[plugin] = recover_all(pg2, ec2, {f"obj{i}": None
+                                             for i in range(len(objs))}, bm)
+        want_ratio[plugin] = ratio
+        del pg2
+    for code, r in rec.items():
+        if r["ratio"] != want_ratio[code]:
+            raise AssertionError(f"{code}: read/rebuilt {r['read']}/"
+                                 f"{r['rebuilt']} = {r['ratio']}, want "
+                                 f"{want_ratio[code]}")
+        row(f"rebuild_{code}", r["rebuilt"], r["wall_s"], r["k1_ms"])
+    # -- the same writes through the fabric -----------------------------------
+    fab = ICIFabric(devices=[dev] * 8)
+    for osd in range(n):
+        fab.register_resident(osd)
+    pg3 = ECPG(ec, fabric=fab)
+    rng = np.random.default_rng(SEED + 18)        # the first writes' bytes
+    with k1_events(bm) as ev:
+        t0 = time.monotonic()
+        for oid in written:
+            pg3.write(oid, 0, rng.integers(0, 256, REPAIR_OBJECT,
+                                           dtype=np.uint8).tobytes())
+        wall = time.monotonic() - t0
+    row("fabric_write", logical, wall, events_ms(ev))
+    for oid, streams in written.items():
+        for s in range(n):
+            if pg3.stream(s, oid) != streams[s]:
+                raise AssertionError(f"fabric {oid} shard {s} differs from "
+                                     "the host path's")
+    if fab.stats["staged"] != len(written) or fab.staged_count():
+        raise AssertionError(f"fabric stats {fab.stats}")
+    wall = time.monotonic() - t_phase
+    for name, r in rows.items():
+        print(f"phase 18: {name} {r['MBps']:.1f} MB/s on the host clock "
+              f"({r['wall_s']:.3f} s), K1 {r['k1_ms']:.3f} ms by CUDA events "
+              f"({r['k1_share'] * 100:.2f} % of it) on {name_power}")
+    print("phase 18: split of one 4 MiB write (host s): " + ", ".join(
+        f"{k} {v:.6f}" for k, v in split.items()) + f" on {name_power}")
+    print(f"phase 18: ECBackend tpu k={K} m={M} stripe unit {STRIPE_UNIT} B: "
+          f"{len(objs)} x {REPAIR_OBJECT} B written, {EC_PG_RMW} x "
+          f"{EC_PG_PATCH} B unaligned overwrites, every read == the "
+          f"script's bytes, every shard stream == the plain version's "
+          f"encode; degraded read with shards {EC_PG_KILLED} down == the "
+          f"bytes; shard 0 recovered == before the failure, read/rebuilt " +
+          ", ".join(f"{c} {r['ratio']}" for c, r in rec.items()) +
+          f", one compiled repair per object, 0 full rebuilds; "
+          f"repair compiles (apart) " +
+          ", ".join(f"{c} {r['compile_s']:.3f}" for c, r in rec.items()) +
+          f" s; {', '.join(c for c, _, _ in REPAIR_CODES)} writes " +
+          ", ".join(f"{v:.1f}" for v in write_s.values()) +
+          f" s; fabric chunks == the host path's; phase {wall:.1f} s")
+    return {"rows": rows, "split_s": split, "write_s": write_s,
+            "ratios": {c: r["ratio"] for c, r in rec.items()},
+            "phase_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1890,6 +2281,12 @@ def main() -> int:
     mesh = mesh_phase(ec, state, name_power, dev)
     fabric = fabric_phase(ec, ecutil, name_power, dev)
     bench = bench_phase(name_power)
+    bm.reset_launches()
+    ec_pg = ec_pg_phase(ec, name_power, dev)
+    launches = dict(bm.LAUNCHES)
+    print(f"phase 18: launches {launches}")
+    if launches["gf_matmul"] == 0:
+        raise AssertionError("the EC PG data plane never launched gf_matmul")
     kernels[0].update({k: v for k, v in mesh.items() if k != "phase_s"})
     kernels[0]["launches_fabric"] = fabric["launches"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
@@ -1898,11 +2295,14 @@ def main() -> int:
     # phase's lines
     kernels[0]["ec_bench"] = {k: v for k, v in bench["rows"].items()
                               if k.startswith("tpu/")}
+    kernels[0]["launches_ecbackend"] = launches["gf_matmul"]
+    kernels[0]["ecbackend"] = {k: ec_pg[k] for k in ("rows", "split_s",
+                                                      "ratios")}
     print(f"chip_smoke: phases 12-14 {tool['wall_s']:.1f} + "
-          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-17 "
+          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-18 "
           f"{mesh['phase_s']:.1f} + {fabric['phase_s']:.1f} + "
-          f"{bench['phase_s']:.1f} s; {time.monotonic() - t_start:.1f} s in "
-          f"all on {name_power}")
+          f"{bench['phase_s']:.1f} + {ec_pg['phase_s']:.1f} s; "
+          f"{time.monotonic() - t_start:.1f} s in all on {name_power}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1/K2 (GF(2^8) products), K3 (CRUSH do_rule over a batch of seeds), and
-the paths that reach K1 from the plugin family: compiled repair and the
-bit-matrix device form.
+the paths that reach K1 from the plugin family: compiled repair, the
+bit-matrix device form, and the EC placement group's data plane
+(ECBackend writes, degraded reads and recovery).
 
 Marked `cuda`: each test skips without a CUDA device.  On a machine with
 one (no JAX needed, so the repository conftest is left out):
@@ -249,6 +250,85 @@ def test_compiled_repair_on_card(dev, plugin, profile):
     stats = cache_of(ec).stats()
     assert len(stats["compiles"]) == repaired
     assert all(c == 1 for c in stats["compiles"].values())
+
+
+# -- the EC placement group's data plane on the card ------------------------
+
+def ec_pg_run(plugin, profile, device):
+    """One EC PG over MemStores, wired directly: writes, an unaligned
+    overwrite, a degraded read, and shard 1 recovered; returns what was
+    read and every store's chunk bytes and xattrs."""
+    from ceph_tpu_torch.msg.messages import ECSubRead, ECSubWrite
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, ECPGShard
+    from ceph_tpu_torch.osd.pg_types import EVersion
+    from ceph_tpu_torch.store import MemStore
+
+    ec = registry.factory(plugin, dict(profile), device=device)
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    stores = [MemStore() for _ in range(n)]
+    shards = [ECPGShard("1.0", s, stores[s], k, n - k) for s in range(n)]
+    alive = [True] * n
+
+    def send(s, msg):
+        if not alive[s]:
+            return False
+        if isinstance(msg, ECSubWrite):
+            reply = shards[s].handle_sub_write(msg)
+            if not be.handle_recovery_write_reply(reply):
+                be.handle_sub_write_reply(reply)
+        elif isinstance(msg, ECSubRead):
+            be.handle_sub_read_reply(shards[s].handle_sub_read(msg))
+        return True
+
+    be = ECBackend("1.0", ec, 0, list(range(n)), shards[0], send)
+    w = be.sinfo.stripe_width
+    rng = np.random.default_rng(n)
+    objs = {f"o{i}": rng.integers(0, 256, 6 * w + 99 * i,
+                                  dtype=np.uint8).tobytes()
+            for i in range(3)}
+    done = []
+    for oid, data in objs.items():
+        be.submit_transaction(oid, [("write", 0, data)], done.append)
+    patch = rng.integers(0, 256, w + 7, dtype=np.uint8).tobytes()
+    be.submit_transaction("o1", [("write", 333, patch)], done.append)
+    objs["o1"] = objs["o1"][:333] + patch + objs["o1"][333 + len(patch):]
+    assert done == [True] * 4
+    alive[1] = alive[n - 1] = False
+    for oid in objs:
+        be.peer_missing[1].add(oid, EVersion(1, 1))
+        be.peer_missing[n - 1].add(oid, EVersion(1, 1))
+    reads = {}
+    for oid in objs:
+        be.objects_read_and_reconstruct(
+            {oid: (0, 0)}, lambda r, e, oid=oid: reads.update({oid: (r, e)}))
+    alive[1] = alive[n - 1] = True
+    be.peer_missing[n - 1] = type(be.peer_missing[1])()
+    stores[1] = MemStore()
+    shards[1] = ECPGShard("1.0", 1, stores[1], k, n - k)
+    for oid in objs:
+        be.recover_object(oid, [1], done.append)
+    assert done == [True] * 7
+    for oid, data in objs.items():
+        assert reads[oid] == ({oid: data}, {})
+    return reads, [{(o.name, o.shard): (st.read("pg_1.0", o),
+                                        st.getattrs("pg_1.0", o))
+                    for o in st.collection_list("pg_1.0")} for st in stores]
+
+
+@pytest.mark.parametrize("plugin,profile", [
+    ("tpu", {"k": "8", "m": "4", "technique": "reed_sol_van"}),
+    ("clay", {"k": "4", "m": "2"}),
+])
+def test_ec_backend_on_card_matches_cpu(dev, plugin, profile):
+    """ECBackend writes, an overwrite, a degraded read and a compiled
+    repair with the plugin on the card equal the same run on the CPU
+    (K1's plain version), store for store, and K1 ran on the card."""
+    before = bm.LAUNCHES["gf_matmul"]
+    card = ec_pg_run(plugin, profile, None)
+    launched = bm.LAUNCHES["gf_matmul"] - before
+    cpu = ec_pg_run(plugin, profile, "cpu")
+    assert bm.LAUNCHES["gf_matmul"] - before == launched > 0
+    assert card == cpu
 
 
 def test_gf2_matmul_device_on_card(dev):

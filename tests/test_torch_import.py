@@ -64,7 +64,19 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.common.racecheck",
                  "ceph_tpu_torch.dist", "ceph_tpu_torch.dist.mesh_ec",
                  "ceph_tpu_torch.dist.fabric",
-                 "ceph_tpu_torch.tools.ec_bench"):
+                 "ceph_tpu_torch.tools.ec_bench",
+                 "ceph_tpu_torch.msg", "ceph_tpu_torch.msg.encoding",
+                 "ceph_tpu_torch.msg.messenger",
+                 "ceph_tpu_torch.msg.messages",
+                 "ceph_tpu_torch.common.tracing",
+                 "ceph_tpu_torch.common.perf_counters",
+                 "ceph_tpu_torch.store", "ceph_tpu_torch.store.objectstore",
+                 "ceph_tpu_torch.store.memstore",
+                 "ceph_tpu_torch.osd.pg_types", "ceph_tpu_torch.osd.pg_log",
+                 "ceph_tpu_torch.osd.mutations",
+                 "ceph_tpu_torch.osd.replicated_backend",
+                 "ceph_tpu_torch.osd.snap_mapper",
+                 "ceph_tpu_torch.osd.ec_backend"):
         assert name in out["modules"], name
 
 

@@ -1,6 +1,7 @@
 """The port's options, lockdep and racecheck (ceph_tpu_torch.common).
 
-The option schema against the reference's; lockdep's cycle detection
+The option schema against the reference's (the sanitizers' two, the PG
+log trim bounds, MemStore's capacity and its injected read errors); lockdep's cycle detection
 as tests/test_common.py checks the reference's; tests/test_racecheck.py's
 cases on the port's racecheck; and the port's locks and shared
 structures wired under the reference's names.  The repository conftest
@@ -25,7 +26,12 @@ from ceph_tpu_torch.common.racecheck import (RaceError, RaceTracked,
 from ceph_tpu_torch.dist import ICIFabric
 from ceph_tpu_torch.ec import matrix_code
 from ceph_tpu_torch.ec import registry as ec_registry
+from ceph_tpu_torch.common.perf_counters import (PerfCounters,
+                                                 PerfCountersCollection)
+from ceph_tpu_torch.common.tracing import Tracer
 from ceph_tpu_torch.ec.repairc import cache as repairc_cache
+from ceph_tpu_torch.osd.ec_backend import ECBackend
+from ceph_tpu_torch.store import MemStore
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -48,15 +54,57 @@ def probe(code: str, **env: str | None) -> subprocess.CompletedProcess:
 
 # ------------------------------------------------------------- options
 
+PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
+                "osd_min_pg_log_entries", "osd_max_pg_log_entries",
+                "objectstore_debug_inject_read_err"}
+
+
 def test_options_schema_equals_reference_but_backend():
-    """The port reads two options; each is the reference's entry: a
-    dev-level bool with the same default, text and see-also."""
-    assert set(options.OPTIONS) == {"lockdep", "racecheck"}
+    """The port reads six options; each is the reference's entry: the
+    same type, level, default, text, bounds, see-also and runtime
+    flag."""
+    assert set(options.OPTIONS) == PORT_OPTIONS
     for name, opt in options.OPTIONS.items():
         ref = ref_options.OPTIONS[name]
-        assert (ref.type.value, ref.level.value) == ("bool", "dev")
-        assert (opt.name, opt.default, opt.description, opt.see_also) == \
-            (ref.name, ref.default, ref.description, ref.see_also)
+        assert (opt.type.value, opt.level.value) == \
+            (ref.type.value, ref.level.value)
+        assert (opt.name, opt.default, opt.description, opt.see_also,
+                opt.min, opt.max, opt.enum_values, opt.runtime) == \
+            (ref.name, ref.default, ref.description, ref.see_also,
+             ref.min, ref.max, ref.enum_values, ref.runtime)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("memstore_device_bytes", "4K"), ("memstore_device_bytes", "2GiB"),
+    ("memstore_device_bytes", " 1.5m "), ("memstore_device_bytes", 12345),
+    ("memstore_device_bytes", "lots"),
+    ("osd_min_pg_log_entries", "100"), ("osd_min_pg_log_entries", -1),
+    ("osd_max_pg_log_entries", "7"), ("osd_max_pg_log_entries", "1e3"),
+    ("objectstore_debug_inject_read_err", "yes"),
+    ("objectstore_debug_inject_read_err", "2")])
+def test_typed_options_parse_like_the_reference(name, value):
+    ref = ref_options.OPTIONS[name]
+    try:
+        want = ref.parse(value)
+    except ValueError:
+        with pytest.raises(ValueError):
+            options.OPTIONS[name].parse(value)
+    else:
+        got = options.OPTIONS[name].parse(value)
+        assert (got, type(got)) == (want, type(want))
+
+
+def test_typed_options_env_layer(monkeypatch):
+    monkeypatch.setenv("CEPH_TPU_OSD_MAX_PG_LOG_ENTRIES", "64")
+    monkeypatch.setenv("CEPH_TPU_MEMSTORE_DEVICE_BYTES", "1M")
+    cfg, ref = options.Config(), ref_options.Config()
+    for name in ("osd_max_pg_log_entries", "memstore_device_bytes",
+                 "osd_min_pg_log_entries"):
+        assert cfg[name] == ref[name]
+    assert (cfg["osd_max_pg_log_entries"], cfg["memstore_device_bytes"]) == \
+        (64, 1 << 20)
+    cfg.set("osd_min_pg_log_entries", "3")
+    assert cfg["osd_min_pg_log_entries"] == 3
 
 
 @pytest.mark.parametrize("value", ["1", "0", "true", "False", " yes ", "off",
@@ -166,6 +214,13 @@ WIRED = {
     "devguard.sites": lambda: devguard._lock,
     "dist.fabric": lambda: ICIFabric(devices=["cpu"])._lock,
     "dist.fabric.dispatch": lambda: ICIFabric(devices=["cpu"])._dispatch,
+    "memstore.mem": lambda: MemStore()._lock,
+    "tracer": lambda: Tracer("osd.0")._lock,
+    "perf.osd.0": lambda: PerfCounters("osd.0")._lock,
+    "perf.collection": lambda: PerfCountersCollection()._lock,
+    "osd.3.ecbackend.1.0": lambda: ECBackend(
+        "1.0", ec_registry.factory("tpu", {"k": "2", "m": "1"}, "cpu"), 3,
+        [3, 4, 5], None, lambda s, m: False)._lock,
 }
 
 
