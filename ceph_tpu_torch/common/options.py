@@ -11,7 +11,13 @@ configures both packages:
 * `osd_min_pg_log_entries`, `osd_max_pg_log_entries` — the EC shard's
   durable log trim;
 * `memstore_device_bytes` — MemStore's statfs capacity;
-* `objectstore_debug_inject_read_err` — MemStore's injected EIO.
+* `objectstore_debug_inject_read_err` — MemStore's injected EIO;
+* the cluster's: heartbeats and failure reports (`osd_heartbeat_*`,
+  `mon_osd_min_down_reporters`), the down-out interval, map history
+  (`mon_min_osdmap_epochs`), pg-stat reports and their staleness, the
+  mClock client and recovery classes, backfill reservations and scan
+  windows, op tracking (`osd_op_complaint_time`,
+  `osd_op_history_size`) and `blkin_trace_all`.
 
 Every other option of the reference's schema configures code the port
 does not have, and is not read here.
@@ -126,6 +132,45 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
            "log length that triggers a trim", runtime=True),
     Option("objectstore_debug_inject_read_err", T.BOOL, L.DEV, False,
            "make MemStore reads of marked objects fail with EIO",
+           runtime=True),
+    Option("osd_heartbeat_interval", T.SECS, L.ADVANCED, 6.0,
+           "peer ping period", min=0.001, runtime=True),
+    Option("osd_heartbeat_grace", T.SECS, L.ADVANCED, 20.0,
+           "missed-ping window before reporting a peer down",
+           runtime=True),
+    Option("osd_mclock_client_wgt", T.FLOAT, L.ADVANCED, 10.0,
+           "client op-class weight", runtime=True),
+    Option("osd_mclock_recovery_res", T.FLOAT, L.ADVANCED, 20.0,
+           "recovery reservation, ops/s", runtime=True),
+    Option("osd_mclock_recovery_wgt", T.FLOAT, L.ADVANCED, 1.0,
+           "recovery op-class weight", runtime=True),
+    Option("osd_mclock_recovery_lim", T.FLOAT, L.ADVANCED, 200.0,
+           "recovery limit, ops/s (0 = unlimited)", runtime=True),
+    Option("mon_osd_down_out_interval", T.SECS, L.BASIC, 600.0,
+           "seconds a down OSD stays in before auto-out",
+           runtime=True),
+    Option("mon_osd_min_down_reporters", T.UINT, L.ADVANCED, 2,
+           "distinct failure reporters required to mark an OSD down",
+           runtime=True),
+    Option("mon_min_osdmap_epochs", T.UINT, L.DEV, 500),
+    Option("osd_mon_report_interval", T.SECS, L.ADVANCED, 5.0,
+           "seconds between pg-stat reports to the mon", runtime=True),
+    Option("mon_osd_stale_report_grace", T.SECS, L.ADVANCED, 60.0,
+           "flag osds whose last pg-stat report is older than this"),
+    Option("osd_max_backfills", T.UINT, L.ADVANCED, 1,
+           "concurrent backfills an OSD serves (local or remote)",
+           runtime=True),
+    Option("osd_backfill_scan_max", T.UINT, L.ADVANCED, 512,
+           "objects per ranged backfill scan chunk", runtime=True),
+    Option("osd_op_complaint_time", T.SECS, L.ADVANCED, 30.0,
+           "in-flight op age that counts as slow: feeds each "
+           "daemon's dump_blocked_ops and the cluster SLOW_OPS "
+           "health warning", runtime=True),
+    Option("osd_op_history_size", T.UINT, L.ADVANCED, 20,
+           "completed ops kept for dump_historic_ops (and the slow "
+           "subset for dump_historic_slow_ops)"),
+    Option("blkin_trace_all", T.BOOL, L.DEV, False,
+           "trace every client op with distributed spans",
            runtime=True),
 ]}
 

@@ -161,6 +161,15 @@ class CrushMap:
          self.chooseleaf_vary_r, self.chooseleaf_stable) = vals
 
 
+# wire registration (ref: CrushWrapper::encode versions the crush map
+# on the wire; here each struct is a versioned wire struct)
+from ..msg.encoding import register_struct as _reg  # noqa: E402
+
+for _cls in (CrushBucket, CrushRuleStep, CrushRuleMask, CrushRule,
+             ChooseArg, CrushMap):
+    _reg(_cls, version=1, compat=1)
+
+
 # ---------------------------------------------------------------------------
 # carrying a map of another package across (by attribute, no import)
 

@@ -7,9 +7,10 @@ construction (`add_bucket`, `insert_item`), simple-rule creation
 classes, and `do_rule` dispatch through the scalar engine (ref:
 CrushWrapper.h:1568).
 
-The port's copy of `ceph_tpu.crush.wrapper`, without its wire
-registration; `CrushWrapper.from_reference` carries a wrapper of another
-package across by attribute.
+The port's copy of `ceph_tpu.crush.wrapper`, registered on the wire as
+the reference registers it (the mon's store holds it beside each full
+map); `CrushWrapper.from_reference` carries a wrapper of another package
+across by attribute.
 """
 from __future__ import annotations
 
@@ -218,3 +219,15 @@ class CrushWrapper:
             root.item_weights.append(hb.weight)
             root.weight += hb.weight
         return cw
+
+
+# ------------------------------------------------- wire registration
+# (ref: CrushWrapper::encode — map + name/type/class tables)
+def _register_wire() -> None:
+    from ..msg.encoding import register_struct
+    register_struct(CrushWrapper, version=1, compat=1, fields=(
+        "crush", "type_map", "name_map", "class_map", "class_name",
+        "rule_name_map"))
+
+
+_register_wire()

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -43,6 +44,14 @@ from . import _build
 
 #: launches of each CUDA kernel, counted by its wrapper at the launch
 LAUNCHES = {"gf_matmul": 0, "gf_decode_select": 0}
+#: K1 launches of the calling thread, counted at the same place, so a
+#: caller can split its own launches from other threads'
+_THREAD = threading.local()
+
+
+def thread_launches() -> int:
+    """K1 launches made so far by the calling thread."""
+    return getattr(_THREAD, "gf_matmul", 0)
 
 
 def reset_launches() -> None:
@@ -212,6 +221,7 @@ def gf_matmul_cuda(tables: torch.Tensor, data: torch.Tensor,
                                           data.data_ptr(), out.data_ptr(),
                                           s, n, stream), "gf_matmul_k1")
         LAUNCHES["gf_matmul"] += 1
+        _THREAD.gf_matmul = thread_launches() + 1
     return out
 
 

@@ -26,6 +26,7 @@ The port's copy of `ceph_tpu.ec.repairc.compiler`.
 """
 from __future__ import annotations
 
+import threading
 from typing import Mapping
 
 import numpy as np
@@ -35,8 +36,15 @@ from ... import device as _device
 from ...common import devguard
 from .. import gf
 from ..interface import ErasureCodeError
+from ..kernels import bitmatmul
 from ..kernels.bitmatmul import GFMatmul
 from .plan import RepairPlan
+
+#: programs compiled, and the K1 launches their probes made (a probe
+#: decodes through the plugin, on the card when the plugin is there),
+#: kept apart from the launches of the repairs themselves
+COMPILES = {"programs": 0, "probe_launches": 0}
+_COMPILES_LOCK = threading.Lock()
 
 
 class RepairPlanError(ValueError):
@@ -68,6 +76,7 @@ def compile_program(ec, plan: RepairPlan) -> "RepairProgram":
     rows = plan.output_planes()
     cols = plan.total_planes()
     planes = {h: sum(c for _, c in ext) for h, ext in plan.helpers}
+    launches0 = bitmatmul.thread_launches()
 
     def probe(shard=None, plane=0):
         bufs = {h: np.zeros(planes[h], dtype=np.uint8)
@@ -93,6 +102,10 @@ def compile_program(ec, plan: RepairPlan) -> "RepairProgram":
             for i, lost in enumerate(plan.lost):
                 mat[i * sub_no:(i + 1) * sub_no, col] = out[lost]
             col += 1
+    with _COMPILES_LOCK:
+        COMPILES["programs"] += 1
+        COMPILES["probe_launches"] += \
+            bitmatmul.thread_launches() - launches0
     return RepairProgram(plan, mat)
 
 

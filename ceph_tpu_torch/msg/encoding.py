@@ -229,6 +229,9 @@ def ensure_registered() -> None:
     """Import every module of the port that registers wire structs
     (idempotent).  Decoders of PERSISTED data call this first so
     decoding never depends on what the caller happened to import."""
+    from ..crush import types as _ct          # noqa: F401
+    from ..crush import wrapper as _cw        # noqa: F401
+    from ..osd import osdmap as _om           # noqa: F401
     from ..osd import pg_types as _pt         # noqa: F401
     from ..osd import types as _ot            # noqa: F401
     from ..store import memstore as _ms       # noqa: F401

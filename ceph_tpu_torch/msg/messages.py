@@ -1,10 +1,16 @@
-"""Typed wire messages of the EC data plane (ref: src/messages/).
+"""Typed wire messages — one dataclass per type (ref: src/messages/).
 
-The port's copy of the four EC sub-op messages of
-`ceph_tpu.msg.messages`, registered as the reference registers them: the
-same wire names, versions and field order, so a frame written by either
-package decodes in the other.  The other message types are not ported
-yet.
+The port's copy of the messages of `ceph_tpu.msg.messages` that its
+cluster exchanges: the EC sub-ops, the EC peering and backfill family,
+the client op and its reply, the pg-stat report, the map publish, mon
+commands and subscriptions, boot and failure reports, pg_temp requests,
+the paxos commit pipeline and the heartbeat pings.  Each is registered
+as the reference registers it (the same wire names, versions and field
+order), so a frame written by either package decodes in the other.
+Left out with the services that send them: the replicated sub-ops,
+scrub, snap trim, cephx, MDS/fs, config and cluster-log, mgr, mon
+quorum (election, lease, forward, sync request) and watch/notify
+messages.
 """
 from __future__ import annotations
 
@@ -13,8 +19,7 @@ from typing import Any
 
 from .messenger import Message
 
-# ---------------------------------------------------------------- osd/EC
-
+# ------------------------------------------------------------ osd/EC
 
 @dataclass
 class ECSubWrite(Message):
@@ -24,7 +29,7 @@ class ECSubWrite(Message):
     v2 appends the ICI-fabric fields: when `fabric_key` is set the
     chunk bytes are NOT in `txn` — they sit staged on the shared
     device mesh and the receiving shard gathers its slice locally
-    (ceph_tpu.dist.fabric; the message is control-plane only)."""
+    (dist/fabric.py; the message is control-plane only)."""
     pgid: Any = None
     tid: int = 0
     reqid: Any = None
@@ -90,12 +95,337 @@ class ECSubReadReply(Message):
     errors: dict = field(default_factory=dict)        # oid -> errno str
 
 
+@dataclass
+class PGScan(Message):
+    """Primary asks a peer for its object inventory after an acting
+    change (the peering/backfill scan,
+    ref: src/messages/MOSDPGScan.h / PG::scan_range).
+
+    v2 appends the ranged-walk fields: with `ranged` set the peer
+    returns only its objects in (begin, end] (PG::scan_range's
+    interval window), so a backfill walk never materializes a big
+    PG's whole inventory in one message."""
+    pgid: Any = None
+    ec: bool = False       # scanner's pool type: build only that view
+    # --- v2: ranged backfill walk ---
+    ranged: bool = False
+    begin: str = ""        # exclusive lower bound ("" = start)
+    end: str = ""          # inclusive upper bound ("" = unbounded)
+
+
+@dataclass
+class PGScanReply(Message):
+    """v2 appends the ranged-walk echo fields so the primary can match
+    a chunk reply to its cursor position."""
+    pgid: Any = None
+    from_osd: int = -1
+    #: oid -> ((epoch, version), whiteout) — the recovery inventory
+    objects: dict = field(default_factory=dict)
+    #: EC pools: oid -> [shard indexes present in the peer's store]
+    ec_shards: dict = field(default_factory=dict)
+    # --- v2: ranged backfill walk ---
+    ranged: bool = False
+    begin: str = ""
+    end: str = ""
+
+
+# ----------------------------------------------------------- peering
+
+@dataclass
+class PGQuery(Message):
+    """Primary asks a (possibly prior-interval) peer for its pg_info
+    (GetInfo phase, ref: src/messages/MOSDPGQuery.h).
+
+    v2 appends `ec`: the querying primary's pool type, so the peer
+    answers from the matching store view (EC collections hold
+    sharded ObjectIds the replicated view cannot read)."""
+    pgid: Any = None
+    epoch: int = 0
+    # --- v2: EC-pool peering ---
+    ec: bool = False
+
+
+@dataclass
+class PGNotify(Message):
+    """pg_info, two roles (ref: src/messages/MOSDPGNotify.h carrying
+    pg_info_t): the GetInfo reply, answered from the persisted shard
+    log even when the peer has no live PG state; and — with `stray`
+    set — the unsolicited stray self-notify (an OSD holding data for
+    a PG it is no longer mapped to announces itself to the current
+    primary, which answers PGRemove once clean, or re-peers if the
+    stray holds newer history)."""
+    pgid: Any = None
+    from_osd: int = -1
+    epoch: int = 0
+    last_update: Any = None      # EVersion head of the shard's log
+    log_tail: Any = None         # EVersion tail
+    have_data: bool = False      # store collection is non-empty
+    n_objects: int = 0
+    stray: bool = False          # unsolicited self-notify leg
+    # --- v2: EC-pool peering — shard indexes present in the peer's
+    # store (a remapped holder may carry several; ref: pg_info_t's
+    # shard-qualified pg identity, src/osd/osd_types.h spg_t)
+    shards: list = field(default_factory=list)
+
+
+@dataclass
+class PGLogReq(Message):
+    """GetLog: primary asks the authoritative peer for its log
+    (ref: MOSDPGQuery with query_t::LOG)."""
+    pgid: Any = None
+    since: Any = None            # EVersion: send entries > since
+    epoch: int = 0               # staleness guard
+    full: bool = False           # wholesale adoption (primary backfill)
+    # --- v2: EC-pool peering — answer from the EC shard log view
+    ec: bool = False
+
+
+@dataclass
+class PGLogPush(Message):
+    """A log segment + bounds, both directions (ref:
+    src/messages/MOSDPGLog.h): auth peer -> primary as the GetLog
+    reply, primary -> replica during GetMissing/activation (the
+    replica merges it and answers PGMissingReply)."""
+    pgid: Any = None
+    from_osd: int = -1
+    entries: list = field(default_factory=list)   # PGLogEntry, ascending
+    head: Any = None             # sender's log head (EVersion)
+    tail: Any = None             # sender's log tail
+    to_primary: bool = False     # True = GetLog reply leg
+    activate: bool = False       # primary->replica: compute missing
+    full: bool = False           # wholesale adoption leg
+    epoch: int = 0
+
+
+@dataclass
+class BackfillReserve(Message):
+    """Backfill reservation handshake (ref:
+    src/messages/MBackfillReserve.h REQUEST/GRANT/REJECT_TOOFULL/
+    RELEASE): a target only serves `osd_max_backfills` concurrent
+    backfills; rejected primaries retry on the tick."""
+    pgid: Any = None
+    from_osd: int = -1
+    op: str = "request"          # request|grant|reject|release
+
+
+@dataclass
+class PGRemove(Message):
+    """Primary tells a stray (an OSD holding this PG's data but no
+    longer in the acting/up set) to delete its copy after the PG goes
+    clean (ref: src/messages/MOSDPGRemove.h)."""
+    pgid: Any = None
+    epoch: int = 0
+
+
+@dataclass
+class MOSDPGTemp(Message):
+    """OSD asks the mon for a pg_temp override (ref:
+    src/messages/MOSDPGTemp.h): a freshly-mapped primary with no data
+    keeps the old acting set serving while it backfills; empty `osds`
+    clears the override when the backfill finishes."""
+    pgid: Any = None
+    from_osd: int = -1
+    epoch: int = 0
+    osds: list = field(default_factory=list)
+
+
+@dataclass
+class PGPush(Message):
+    """Full-object push (recovery/backfill payload,
+    ref: src/messages/MOSDPGPush.h — PushOp carries data, attrs and
+    omap entries; ReplicatedBackend::build_push_op)."""
+    pgid: Any = None
+    oid: str = ""
+    data: bytes = b""
+    size: int = 0
+    version: Any = None
+    whiteout: bool = False     # delete tombstone push
+    force: bool = False        # scrub repair: overwrite same-version
+    attrs: dict = field(default_factory=dict)    # user xattrs
+    omap: dict = field(default_factory=dict)
+    omap_hdr: bytes = b""
+    #: snapshot history rides along:
+    #: {snap_seq, items: [{snap, covers, data, attrs, omap}]}
+    clones: dict = field(default_factory=dict)
+    # --- v2 ---
+    #: backfill walk payload: the primary's interval is absolutely
+    #: authoritative — apply regardless of the target's local version
+    #: (a divergent survivor past trimmed history can carry a NEWER
+    #: version that the force guard would wrongly keep)
+    backfill: bool = False
+
+
+# ------------------------------------------------------------ client
+
+@dataclass
+class OSDOp(Message):
+    """Client op to the primary (ref: src/messages/MOSDOp.h).
+    op names the sub-op (write/read/setxattr/omap_setkeys/...);
+    `args` carries op-specific parameters the way MOSDOp's osd_op
+    vector carries per-op payloads (src/include/rados.h
+    CEPH_OSD_OP_*)."""
+    pgid: Any = None
+    oid: str = ""
+    op: str = ""
+    tid: int = 0
+    epoch: int = 0
+    offset: int = 0
+    length: int = 0
+    data: bytes = b""
+    args: dict = field(default_factory=dict)
+
+
+@dataclass
+class OSDOpReply(Message):
+    """(ref: src/messages/MOSDOpReply.h)."""
+    tid: int = 0
+    result: int = 0
+    errno_name: str = ""
+    data: bytes = b""
+    attrs: dict = field(default_factory=dict)
+    epoch: int = 0
+
+
+@dataclass
+class MPGStats(Message):
+    """osd -> mon: periodic pg + usage stat report
+    (ref: src/messages/MPGStats.h; osd_stat_t / pg_stat_t)."""
+    osd: int = -1
+    epoch: int = 0
+    stamp: float = 0.0
+    pg_stats: dict = field(default_factory=dict)
+    kb_total: int = 0
+    kb_used: int = 0
+    kb_avail: int = 0
+    #: daemon perf counters (the MMgrReport payload in the reference —
+    #: piggybacked on the stat report here)
+    perf: dict = field(default_factory=dict)
+    # --- v2: slow-op summary {count, oldest_age} from the daemon's
+    # OpTracker — the mon raises SLOW_OPS while any report carries a
+    # non-zero count (ref: the health_checks slice DaemonServer
+    # derives from per-daemon op trackers)
+    slow_ops: dict = field(default_factory=dict)
+
+
+# ---------------------------------------------------------- maps/mon
+
+@dataclass
+class MMap(Message):
+    """Map publish (ref: src/messages/MOSDMap.h): full map or
+    incrementals for a range of epochs."""
+    full_map: Any = None
+    incrementals: list = field(default_factory=list)
+    first: int = 0
+    last: int = 0
+
+
+@dataclass
+class MMonCommand(Message):
+    """Mon command (ref: src/messages/MMonCommand.h); cmd is the parsed
+    argv-style dict like the mon's cmdmap."""
+    tid: int = 0
+    cmd: dict = field(default_factory=dict)
+
+
+@dataclass
+class MMonCommandAck(Message):
+    tid: int = 0
+    result: int = 0
+    outs: str = ""                  # human output
+    outb: Any = None                # data payload
+
+
+@dataclass
+class MMonSubscribe(Message):
+    """Map subscription (ref: src/messages/MMonSubscribe.h): ask for
+    osdmap updates starting at `start` epoch."""
+    what: str = "osdmap"
+    start: int = 0
+
+
+@dataclass
+class MOSDBoot(Message):
+    """OSD announces itself to the mon (ref: src/messages/MOSDBoot.h)."""
+    osd: int = -1
+
+
+@dataclass
+class MOSDFailure(Message):
+    """Failure report (ref: src/messages/MOSDFailure.h)."""
+    target_osd: int = -1
+    reporter: int = -1
+    failed_for: float = 0.0
+    epoch: int = 0
+
+
+# --------------------------------------------------------- mon paxos
+
+@dataclass
+class MPaxosBegin(Message):
+    """Leader -> peon: accept value at version
+    (ref: src/messages/MMonPaxos.h OP_BEGIN; epoch guards a deposed
+    leader's traffic)."""
+    version: int = 0
+    tx: bytes = b""
+    epoch: int = 0
+
+
+@dataclass
+class MPaxosAccept(Message):
+    """(ref: MMonPaxos.h OP_ACCEPT)."""
+    version: int = 0
+    rank: int = -1
+    epoch: int = 0
+
+
+@dataclass
+class MPaxosCommit(Message):
+    """(ref: MMonPaxos.h OP_COMMIT)."""
+    version: int = 0
+    tx: bytes = b""
+    epoch: int = 0
+
+
+@dataclass
+class MPaxosStoreSync(Message):
+    """Full-store sync for a mon lagging past the trim window
+    (ref: src/mon/Monitor.cc sync_* full-store sync)."""
+    data: bytes = b""            # wire-encoded store contents
+    first_committed: int = 0
+    last_committed: int = 0
+
+
+# ------------------------------------------------------------- pings
+
+@dataclass
+class Ping(Message):
+    """Heartbeat (ref: src/messages/MOSDPing.h PING)."""
+    epoch: int = 0
+    stamp: float = 0.0
+
+
+@dataclass
+class PingReply(Message):
+    """(ref: MOSDPing.h PING_REPLY)."""
+    epoch: int = 0
+    stamp: float = 0.0
+
+
 # ------------------------------------------------- wire registration
-#: per-type (version, compat) — bump when appending fields (ref: each
-#: src/messages/*.h declares HEAD_VERSION/COMPAT_VERSION)
+# Every message type is a versioned wire struct (ref: each
+# src/messages/*.h declares HEAD_VERSION/COMPAT_VERSION); bump a
+# type's version here when appending fields.
+#: per-type (version, compat) overrides — bump when appending fields
 _VERSIONS: dict[str, tuple[int, int]] = {
     "ECSubWrite": (3, 1),       # v2: ICI-fabric; v3: push version guard
     "ECSubRead": (2, 1),        # v2: sub-chunk repair extents
+    "PGScan": (2, 1),           # v2: ranged backfill walk
+    "PGScanReply": (2, 1),      # v2: ranged/begin/end echo fields
+    "PGPush": (2, 1),           # v2: authoritative backfill flag
+    "PGQuery": (2, 1),          # v2: EC pool-type flag
+    "PGNotify": (2, 1),         # v2: held EC shard indexes
+    "PGLogReq": (2, 1),         # v2: EC shard-log view flag
+    "MPGStats": (2, 1),         # v2: slow-op summary (SLOW_OPS feed)
 }
 
 

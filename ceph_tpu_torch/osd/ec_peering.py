@@ -1,0 +1,945 @@
+"""EC-pool peering statechart: shard-aware GetInfo/GetLog, version
+reconcile, and reservation-gated backfill (VERDICT r4 #1).
+
+The reference runs ONE statechart over replicated and EC PGs alike
+(ref: src/osd/PG.h:2085-2195; PeeringState.cc) with the backend
+supplying pool-specific recovery (ref: ECBackend.cc:735 recover_object
+plugged into the recovery machinery at :567).  This module is the EC
+side of that split — the replicated statechart
+lives in osd/peering.py; both share the daemon's reservation pools,
+pg_temp plumbing, and message family.
+
+The port's copy of `ceph_tpu.osd.ec_peering`.  Recovery rebuilds a lost
+shard through the port's compiled repair (`ecutil.compiled_repair_streams`,
+one K1 launch per object on the plugin's device) and the full rebuild
+through `ecutil.decode_concat` and `ECBackend.push_rebuilt`.  Two rules
+differ from the reference: only a plan error (`RepairPlanError`) or an
+`ErasureCodeError` sends a compiled repair to the full rebuild, or turns
+a full rebuild's decode into a failed job; a fault of K1's wrapper, its
+launch, its build or the device guard propagates.  Every full rebuild
+bumps the daemon's `recovery_full_rebuild` counter.
+
+Phases (same names, shard-aware semantics):
+
+* **GetInfo** — query pg_info from current acting ∪ up ∪ the previous
+  interval's acting set (ref: PastIntervals / build_prior).  Peers
+  answer from their durable EC shard log (`ECPGShard._load_log`) plus
+  the shard indexes their store actually holds — after a remap an OSD
+  may carry chunks for indexes it no longer serves.
+* **GetLog** — newest last_update wins (ref: find_best_info); fetch
+  the segment we lack and merge it (divergent local entries drop the
+  local CHUNK via `ECRollbacker` — it re-arrives at the authoritative
+  version through the reconcile).  A primary with NO overlap adopts
+  the auth log wholesale and, when the previous interval's holders
+  are all alive, asks the mon for a **pg_temp** override so the
+  data-holding old set keeps serving clients while the new set
+  backfills (ref: choose_acting's want_temp for EC backfill).
+* **GetMissing/Reconcile** — full shard-inventory scan of every
+  data-holding peer (current AND prior interval); the authoritative
+  (version, whiteout) per object is the newest anywhere.  Acting
+  shards behind it become recovery targets; acting or up members with
+  no log overlap become **backfill targets**.
+* **Recovering** — per-object rebuild: gather ≥k authoritative chunks
+  (cross-set: prior-interval holders are valid sources, read via
+  direct per-shard sub-reads), decode, re-encode, push to stale
+  shards with a version guard so a push planned before a concurrent
+  client write cannot roll a chunk back.  Client IO stays ESTALE-
+  parked through this phase (bounded by log divergence), exactly as
+  the legacy EC scan path did.
+* **Backfilling** — reservation-gated (osd_max_backfills on both
+  ends, shared pools with the replicated statechart) windowed walk
+  per target: rebuild every object the target's shard lacks, in
+  `osd_backfill_scan_max` batches, then install the authoritative
+  log on it.  Client IO is live during backfill.
+* **Clean** — strays (prior holders no longer mapped) are told to
+  delete; a temp primary clears its pg_temp override, flipping the
+  map back to the true up set, whose own peering round then finds the
+  data in place.
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+from ..common.log import dout
+from ..common.options import global_config
+from ..crush.types import CRUSH_ITEM_NONE
+from ..msg.messages import (BackfillReserve, ECSubRead, PGLogPush,
+                            PGLogReq, PGNotify, PGQuery, PGRemove, PGScan)
+from .peering import (BACKFILLING, CLEAN, GETINFO, GETLOG, GETMISSING,
+                      RECOVERING, WAIT_BACKFILL, _RETRY_TICKS, _ev)
+from .pg_log import IndexedLog, LogEntryHandler
+from .pg_types import EVersion, ZERO_VERSION
+
+if TYPE_CHECKING:  # pragma: no cover
+    from .daemon import OSDDaemon
+
+
+class ECRollbacker(LogEntryHandler):
+    """Divergence side-effects on the local EC shard: an entry the
+    authoritative log does not know drops the local CHUNK — the
+    reconcile re-delivers it at the authoritative version (ref:
+    PGLog::LogEntryHandler; EC rollback is chunk-granular here because
+    rollback blobs are not recorded)."""
+
+    def __init__(self, shard):
+        self.shard = shard
+
+    def remove(self, soid: str) -> None:
+        self.shard.remove_shard_object(soid)
+
+    def rollback(self, entry) -> None:
+        self.remove(entry.soid)
+
+
+class _ECInfo:
+    def __init__(self, osd: int, last_update: EVersion,
+                 log_tail: EVersion, have_data: bool,
+                 shards: list[int]):
+        self.osd = osd
+        self.last_update = last_update
+        self.log_tail = log_tail
+        self.have_data = have_data
+        self.shards = list(shards)
+
+    def __repr__(self):
+        return (f"ecinfo(osd.{self.osd} lu={self.last_update} "
+                f"tail={self.log_tail} data={self.have_data} "
+                f"shards={self.shards})")
+
+
+class ECPGPeering:
+    """Primary-side EC peering driver for one PG.  Entry points run
+    under the daemon lock (message dispatch + tick); the public
+    surface mirrors PGPeering so the daemon glue is shared."""
+
+    def __init__(self, daemon: "OSDDaemon", pg, st,
+                 prior_acting: list[int] | None = None):
+        self.d = daemon
+        self.pg = pg
+        self.st = st
+        self.epoch = daemon.osdmap.epoch
+        self.phase = GETINFO
+        self.prior_acting = [o for o in (prior_acting or []) if o >= 0]
+        self.infos: dict[int, _ECInfo] = {}
+        self.pending_info: set[int] = set()
+        self.auth: _ECInfo | None = None
+        self._log_adopted = False
+        self.pg_temp_requested = False
+        # reconcile state
+        self.pending_scans: set[int] = set()
+        #: osd -> {oid: {shard: ((e, v), whiteout)}}
+        self.inventories: dict[int, dict] = {}
+        self.auth_objects: dict[str, tuple] = {}   # oid -> (ver, wo)
+        self.rec_pending = 0
+        self.rec_failed = False
+        #: in-flight chunk gathers: tid -> (job dict, source shard)
+        self._chunk_reads: dict[int, tuple] = {}
+        # backfill state
+        self.backfill_targets: list[tuple[int, int]] = []  # (osd, shard)
+        self.bf_target: tuple[int, int] | None = None
+        self.bf_jobs: list[str] = []
+        self.bf_window_pending = 0
+        self.bf_reserved_local = False
+        self.bf_reserved_remote = False
+        self._phase_ticks = 0
+
+    # ------------------------------------------------------------ util
+    def _shard(self):
+        return self.st.shard
+
+    def _send(self, osd: int, msg) -> bool:
+        return self.d.ms.connect(f"osd.{osd}").send_message(msg)
+
+    def _log(self, lvl: int, fmt: str, *args) -> None:
+        dout("pg", lvl).write(
+            f"{self.d.name}: pg {self.pg} ec-peering[{self.phase}] "
+            + fmt, *args)
+
+    def _members(self) -> list[int]:
+        peers = []
+        for o in list(self.st.acting) + list(self.st.up) + \
+                self.prior_acting:
+            if 0 <= o < CRUSH_ITEM_NONE and o != self.d.whoami and \
+                    o not in peers:
+                peers.append(o)
+        return peers
+
+    # ---------------------------------------------------------- GetInfo
+    def start(self) -> None:
+        self.st.recovering = True
+        self.st.backfilling = False
+        peers = [o for o in self._members() if self.d.osdmap.is_up(o)]
+        if not peers:
+            self._choose_auth()
+            return
+        self.pending_info = set(peers)
+        self._log(10, "querying %s", peers)
+        for o in list(peers):
+            if not self._send(o, PGQuery(pgid=self.pg,
+                                         epoch=self.epoch, ec=True)):
+                self.pending_info.discard(o)
+        if not self.pending_info:
+            self._choose_auth()
+
+    def on_info(self, msg: PGNotify) -> None:
+        if self.phase != GETINFO or msg.epoch != self.epoch or \
+                msg.from_osd not in self.pending_info:
+            return
+        self._phase_ticks = 0
+        self.pending_info.discard(msg.from_osd)
+        self.infos[msg.from_osd] = _ECInfo(
+            msg.from_osd, _ev(msg.last_update), _ev(msg.log_tail),
+            msg.have_data, list(msg.shards or []))
+        if not self.pending_info:
+            self._choose_auth()
+
+    def _my_info(self) -> _ECInfo:
+        head, tail = self._shard().log_info()
+        inv = self._shard().shard_inventory()
+        return _ECInfo(self.d.whoami, head, tail, bool(inv),
+                       sorted({s for m in inv.values() for s in m}))
+
+    def _choose_auth(self) -> None:
+        mine = self._my_info()
+        best = mine
+        for info in self.infos.values():
+            if info.last_update > best.last_update:
+                best = info
+        self.auth = best
+        self._log(10, "auth=%r mine=%r", best, mine)
+        if best.osd != self.d.whoami and \
+                best.last_update > mine.last_update:
+            self.phase = GETLOG
+            full = not (best.log_tail <= mine.last_update and
+                        mine.last_update != ZERO_VERSION)
+            if full:
+                self._maybe_request_pg_temp(best)
+            if not self._send(best.osd, PGLogReq(
+                    pgid=self.pg,
+                    since=ZERO_VERSION if full else mine.last_update,
+                    epoch=self.epoch, full=full, ec=True)):
+                self._log(1, "auth osd.%d unreachable", best.osd)
+            return
+        self._log_adopted = True
+        self._enter_reconcile()
+
+    def _maybe_request_pg_temp(self, auth: _ECInfo) -> None:
+        """A freshly-(re)mapped primary with no usable history: keep
+        the previous interval's set serving while the new set
+        backfills (ref: MOSDPGTemp + choose_acting want_temp).  Only
+        viable when the whole prior set is alive — EC shard positions
+        must be preserved exactly."""
+        if self.pg_temp_requested or not self.prior_acting:
+            return
+        width = len([o for o in self.st.acting])
+        if len(self.prior_acting) != width:
+            return
+        if any(not self.d.osdmap.is_up(o) for o in self.prior_acting):
+            return
+        if list(self.prior_acting) == [o for o in self.st.acting]:
+            return              # nothing to override
+        self.pg_temp_requested = True
+        self.d.request_pg_temp(self.pg, self.prior_acting)
+        self._log(4, "requested pg_temp=%s (no usable local history)",
+                  self.prior_acting)
+
+    # ----------------------------------------------------------- GetLog
+    def on_auth_log(self, msg: PGLogPush) -> None:
+        if self.phase != GETLOG or msg.epoch != self.epoch or \
+                self.auth is None or msg.from_osd != self.auth.osd:
+            return
+        self._phase_ticks = 0
+        shard = self._shard()
+        head = _ev(msg.head)
+        tail = _ev(msg.tail)
+        if msg.full:
+            shard.pg_log.log = IndexedLog(list(msg.entries), head=head,
+                                          tail=tail)
+            shard.pg_log.log.can_rollback_to = head
+            shard.persist_log()
+        else:
+            olog = IndexedLog(list(msg.entries), head=head, tail=tail)
+            try:
+                shard.pg_log.merge_log(olog, ECRollbacker(shard))
+            except ValueError:
+                # the auth trimmed between info and log reply: adopt
+                # wholesale instead
+                self._send(self.auth.osd, PGLogReq(
+                    pgid=self.pg, since=ZERO_VERSION,
+                    epoch=self.epoch, full=True, ec=True))
+                return
+            shard.persist_log()
+        self._log_adopted = True
+        self._enter_reconcile()
+
+    # ----------------------------------------------- GetMissing/reconcile
+    def _enter_reconcile(self) -> None:
+        self.phase = GETMISSING
+        # replicas with live shards adopt the authoritative log so
+        # every future interval peers from honest bounds
+        shard = self._shard()
+        head, tail = shard.log_info()
+        entries = list(shard.pg_log.log.entries)
+        acting_alive = [o for o in self.st.acting
+                        if o >= 0 and o != self.d.whoami and
+                        self.d.osdmap.is_up(o)]
+        for o in acting_alive:
+            self._send(o, PGLogPush(
+                pgid=self.pg, from_osd=self.d.whoami, entries=entries,
+                head=head, tail=tail, activate=True, epoch=self.epoch))
+        targets = set(acting_alive)
+        targets.update(o for o, info in self.infos.items()
+                       if info.have_data and self.d.osdmap.is_up(o))
+        targets.update(o for o in self.st.up
+                       if 0 <= o < CRUSH_ITEM_NONE and
+                       o != self.d.whoami and self.d.osdmap.is_up(o))
+        self.pending_scans = set(targets)
+        self.inventories = {self.d.whoami: shard.shard_inventory()}
+        self._log(10, "reconcile scan -> %s", sorted(targets))
+        for o in list(targets):
+            if not self._send(o, PGScan(pgid=self.pg, ec=True)):
+                self.pending_scans.discard(o)
+        if not self.pending_scans:
+            self._plan()
+
+    def on_primary_backfill_scan(self, msg) -> None:
+        """Full EC shard inventory from one peer (the non-ranged scan
+        reply leg; the name matches PGPeering's dispatch surface)."""
+        if self.phase != GETMISSING or \
+                msg.from_osd not in self.pending_scans:
+            return
+        self._phase_ticks = 0
+        self.pending_scans.discard(msg.from_osd)
+        self.inventories[msg.from_osd] = dict(msg.ec_shards)
+        if not self.pending_scans:
+            self._plan()
+
+    # ------------------------------------------------------- Recovering
+    def _overlaps(self, osd: int) -> bool:
+        _head, tail = self._shard().log_info()
+        info = self.infos.get(osd)
+        if info is None:
+            return False
+        return info.last_update >= tail and \
+            info.last_update != ZERO_VERSION
+
+    def _plan(self) -> None:
+        """Version reconcile over every gathered inventory: compute
+        authoritative versions, split stale shards into immediate
+        recovery (log-overlap members) vs reservation-gated backfill
+        (no-overlap members and up-set newcomers)."""
+        self.phase = RECOVERING
+        b = self.st.backend
+        if b is None:
+            self.st.recovering = False
+            return
+        acting = list(self.st.acting)
+        # backfill membership: (osd, shard_index) pairs needing a full
+        # walk.  up-not-acting members backfill at their UP position
+        # (the pg_temp case: the old set serves, the new set fills).
+        bf: dict[int, int] = {}
+        for s, o in enumerate(self.st.up):
+            if 0 <= o < CRUSH_ITEM_NONE and o != self.d.whoami and \
+                    o not in acting and self.d.osdmap.is_up(o):
+                bf[o] = s
+        for s, o in enumerate(acting):
+            if o >= 0 and o != self.d.whoami and \
+                    self.d.osdmap.is_up(o) and not self._overlaps(o):
+                bf[o] = s
+        self.backfill_targets = sorted(bf.items())
+        # authoritative (version, whiteout) per object, newest wins
+        auth: dict[str, tuple] = {}
+        for osd, inv in self.inventories.items():
+            for oid, shards in inv.items():
+                for entry in shards.values():
+                    ver, wo = tuple(entry[0]), bool(entry[1])
+                    cur = auth.get(oid)
+                    if cur is None or ver > cur[0]:
+                        auth[oid] = (ver, wo)
+        self.auth_objects = auth
+        # recovery jobs: acting shards (not backfill members) behind
+        # the authoritative version
+        jobs: list[tuple[str, dict, tuple]] = []
+        tombstones: list[tuple[str, tuple, list[int]]] = []
+        failed_any = False
+        for oid in sorted(auth):
+            ver, wo = auth[oid]
+            targets: dict[int, int] = {}
+            for s, o in enumerate(acting):
+                if o < 0 or o in bf:
+                    continue
+                entry = self.inventories.get(o, {}).get(oid, {}).get(s)
+                stale = entry is None or tuple(entry[0]) < ver or \
+                    bool(entry[1]) != wo
+                pm = b.peer_missing.get(s)
+                if pm is not None:
+                    if stale and not wo:
+                        pm.add(oid, EVersion(*ver))
+                    elif not stale:
+                        pm.rm(oid)
+                if stale:
+                    targets[s] = o
+            if not targets:
+                continue
+            if wo:
+                tombstones.append((oid, ver, sorted(targets)))
+                continue
+            if not self._sources_for(oid, ver):
+                failed_any = True
+                dout("osd", 0).write(
+                    "%s: pg %s object %s unrecoverable (< k=%d "
+                    "authoritative chunks anywhere)", self.d.name,
+                    self.pg, oid, b.k)
+                continue
+            jobs.append((oid, targets, ver))
+        for oid, ver, tgt_shards in tombstones:
+            self._push_tombstones(oid, ver,
+                                  {s: acting[s] for s in tgt_shards})
+        self.rec_failed = failed_any
+        self.rec_pending = len(jobs)
+        self._log(4, "plan: %d recovery jobs, %d tombstones, "
+                  "%d backfill targets", len(jobs), len(tombstones),
+                  len(self.backfill_targets))
+        if not jobs:
+            self._recovery_done()
+            return
+        for oid, targets, ver in jobs:
+            self.d.perf.inc("recovery_pull")
+            self.d.op_queue.enqueue(
+                "recovery",
+                lambda oid=oid, targets=targets, ver=ver:
+                    self._rebuild(oid, targets, ver))
+        self.d._drain_op_queue()
+
+    def _sources_for(self, oid: str, ver: tuple) -> dict[int, int]:
+        """{shard_index: osd} holding the authoritative version —
+        current acting preferred, prior-interval holders otherwise
+        (cross-set reads are what let a reseeded PG rebuild at all)."""
+        sources: dict[int, int] = {}
+        order = [self.d.whoami] + \
+            [o for o in self.st.acting if o >= 0] + \
+            sorted(self.inventories)
+        for osd in order:
+            inv = self.inventories.get(osd)
+            if inv is None or (osd != self.d.whoami and
+                               not self.d.osdmap.is_up(osd)):
+                continue
+            for s, entry in inv.get(oid, {}).items():
+                if s in sources:
+                    continue
+                if tuple(entry[0]) == ver and not entry[1]:
+                    sources[s] = osd
+        b = self.st.backend
+        return sources if b is not None and len(sources) >= b.k else {}
+
+    def _push_tombstones(self, oid: str, ver: tuple,
+                         targets: dict[int, int]) -> None:
+        """Spread a delete to shards that missed it (shared
+        implementation with the daemon's scrub repair)."""
+        from .ec_backend import spread_tombstones
+        b = self.st.backend
+        spread_tombstones(
+            self.pg, b.k + b.m, self._shard(), self.d.whoami,
+            lambda osd, msg: self._send(osd, msg), oid, ver, targets)
+
+    def _rebuild(self, oid: str, targets: dict[int, int], ver: tuple,
+                 on_done=None) -> None:
+        """Gather ≥k authoritative chunks (cross-set), decode,
+        re-encode, push to `targets` ({shard: osd}) with the version
+        guard.  `on_done(ok)` defaults to the recovery countdown.
+
+        Single-shard loss on a regenerating code takes the
+        repair-bandwidth-optimal path first: helpers serve only the
+        plugin's repair sub-chunk extents (ECSubRead v2 `subchunks`),
+        ~(k+m-1)/m x fewer bytes on the wire than k whole chunks."""
+        if on_done is None:
+            on_done = self._rec_job_done
+        sources = self._sources_for(oid, ver)
+        b = self.st.backend
+        if b is None or not sources:
+            on_done(False)
+            return
+        if self._try_subchunk_rebuild(oid, targets, ver, sources,
+                                      on_done):
+            return
+        self._rebuild_full(oid, targets, ver, sources, on_done)
+
+    def _rebuild_full(self, oid: str, targets: dict[int, int],
+                      ver: tuple, sources: dict[int, int],
+                      on_done) -> None:
+        self.d.perf.inc("recovery_full_rebuild")
+        job = {"oid": oid, "targets": targets, "ver": ver,
+               "chunks": {}, "attrs": {}, "pending": set(),
+               "failed": False, "on_done": on_done}
+        # local chunks first (free), then the remote gather
+        from .ec_backend import pg_cid
+        from ..store import ObjectId, StoreError
+        for s, osd in sorted(sources.items()):
+            if osd != self.d.whoami:
+                continue
+            try:
+                job["chunks"][s] = self.d.store.read(
+                    pg_cid(self.pg), ObjectId(oid, shard=s), 0, 0)
+                job["attrs"][s] = self.d.store.getattrs(
+                    pg_cid(self.pg), ObjectId(oid, shard=s))
+            except StoreError:
+                pass
+        remote = {s: osd for s, osd in sources.items()
+                  if osd != self.d.whoami and s not in job["chunks"]}
+        for s, osd in sorted(remote.items()):
+            tid = next(self.d._tid_gen)
+            job["pending"].add(tid)
+            self._chunk_reads[tid] = (job, s)
+            if not self._send(osd, ECSubRead(
+                    pgid=self.pg, tid=tid, shard=s,
+                    to_read=[(oid, 0, 0)], attrs_to_read=[oid])):
+                job["pending"].discard(tid)
+                self._chunk_reads.pop(tid, None)
+        if not job["pending"]:
+            self._maybe_decode(job)
+
+    def _try_subchunk_rebuild(self, oid: str, targets: dict[int, int],
+                              ver: tuple, sources: dict[int, int],
+                              on_done) -> bool:
+        """Plan a compiled-program rebuild from the plugin's repair
+        schedule (clay repair planes, lrc local-group chunks, matrix
+        k-survivor decode); False -> caller runs the full-chunk
+        gather.  Helper reads carry per-chunk byte extents; replies
+        hold only the plan's planes (ref: ErasureCodeClay.cc:400
+        repair; arxiv 1412.3022, 1906.08602)."""
+        from . import ecutil
+        from .ec_backend import pg_cid
+        from ..store import ObjectId, StoreError
+        b = self.st.backend
+        ec = b.ec
+        avail = {s for s in sources if s not in targets}
+        plan = ecutil.repair_plan(ec, set(targets), avail)
+        if plan is None or set(plan.lost) != set(targets):
+            return False
+        cs = b.sinfo.chunk_size
+        try:
+            byte_extents = plan.byte_extents(cs)
+        except ValueError:
+            return False
+        job = {"oid": oid, "targets": targets, "ver": ver,
+               "chunks": {}, "attrs": {}, "pending": set(),
+               "failed": False, "on_done": on_done, "sources": sources,
+               "repair": {"plan": plan,
+                          "helpers": set(plan.helper_ids()),
+                          "cs": cs}}
+        cid = pg_cid(self.pg)
+        for s, extents in sorted(byte_extents.items()):
+            if sources[s] != self.d.whoami:
+                continue
+            soid = ObjectId(oid, shard=s)
+            try:
+                stream_len = self.d.store.stat(cid, soid)["size"]
+                abs_ext = ecutil.expand_stream_extents(
+                    extents, cs, stream_len)
+                job["chunks"][s] = b"".join(
+                    self.d.store.read(cid, soid, off, length)
+                    for off, length in abs_ext)
+                job["attrs"][s] = self.d.store.getattrs(cid, soid)
+            except (StoreError, ValueError):
+                pass
+        remote = {s: sources[s] for s in plan.helper_ids()
+                  if sources[s] != self.d.whoami
+                  and s not in job["chunks"]}
+        for s, osd in sorted(remote.items()):
+            tid = next(self.d._tid_gen)
+            job["pending"].add(tid)
+            self._chunk_reads[tid] = (job, s)
+            if not self._send(osd, ECSubRead(
+                    pgid=self.pg, tid=tid, shard=s,
+                    to_read=[], attrs_to_read=[oid],
+                    subchunks={oid: list(byte_extents[s])},
+                    chunk_size=cs)):
+                job["pending"].discard(tid)
+                self._chunk_reads.pop(tid, None)
+        if not job["pending"]:
+            self._maybe_decode(job)
+        return True
+
+    def _repair_decode(self, job: dict) -> None:
+        """Finish a plan-driven repair job: rebuild the lost chunk
+        streams through the signature's compiled program and push
+        them; any gap falls back to the full-chunk gather wholesale."""
+        from . import ecutil
+        from .ec_backend import newest_oi_attrs
+        from ..ec.interface import ErasureCodeError
+        from ..ec.repairc import RepairPlanError
+        b = self.st.backend
+        rep = job["repair"]
+        oid, plan = job["oid"], rep["plan"]
+
+        def fallback():
+            self._rebuild_full(job["oid"], job["targets"], job["ver"],
+                               job["sources"], job["on_done"])
+
+        if b is None:
+            job["on_done"](False)
+            return
+        got = {s: v for s, v in job["chunks"].items()
+               if s in rep["helpers"]}
+        if set(got) != rep["helpers"]:
+            fallback()
+            return
+        self.d.perf.inc("recovery_bytes_read",
+                        sum(len(v) for v in got.values()))
+        # only a plan error falls back: K1's wrapper, its launch, its
+        # build and the device guard raise ValueError or RuntimeError,
+        # and a fault there must not hide behind a slower path that
+        # still returns the right bytes
+        try:
+            streams = ecutil.compiled_repair_streams(
+                b.ec, plan, rep["cs"], got)
+        except (RepairPlanError, ErasureCodeError) as ex:
+            self._log(0, "compiled repair of %s failed: %r", oid, ex)
+            fallback()
+            return
+        # authoritative metadata from the newest-oi helper (the shared
+        # HashInfo carries the rebuilt shards' cumulative crcs too)
+        best = newest_oi_attrs(job["attrs"])
+        if best is None:
+            fallback()
+            return
+        _, oi, hinfo_dict, user_attrs = best
+        on_done = job["on_done"]
+        pending = set(plan.lost)
+        state = {"ok": True, "done": False}
+
+        def agg(shard):
+            def cb(committed):
+                state["ok"] = state["ok"] and bool(committed)
+                pending.discard(shard)
+                if not pending and not state["done"]:
+                    state["done"] = True
+                    on_done(state["ok"])
+            return cb
+
+        for lost in plan.lost:
+            b._push_repaired_shard(
+                oid, lost, streams[lost], oi.get("size", 0),
+                EVersion(*job["ver"]), hinfo_dict, user_attrs,
+                agg(lost), target_osds=dict(job["targets"]))
+
+    def on_chunk_reply(self, msg) -> bool:
+        """ECSubReadReply routing for peering-owned chunk gathers;
+        returns True when consumed."""
+        entry = self._chunk_reads.pop(msg.tid, None)
+        if entry is None:
+            return False
+        job, s = entry
+        job["pending"].discard(msg.tid)
+        oid = job["oid"]
+        buf = msg.buffers_read.get(oid)
+        if buf is not None and oid not in msg.errors:
+            job["chunks"][s] = buf
+            if msg.attrs_read.get(oid):
+                job["attrs"][s] = msg.attrs_read[oid]
+        if not job["pending"]:
+            self._maybe_decode(job)
+        return True
+
+    def _maybe_decode(self, job: dict) -> None:
+        from . import ecutil
+        from .ec_backend import newest_oi_attrs
+        from ..ec.interface import ErasureCodeError
+        if job.get("repair"):
+            self._repair_decode(job)
+            return
+        b = self.st.backend
+        self.d.perf.inc("recovery_bytes_read",
+                        sum(len(v) for v in job["chunks"].values()))
+        oid, ver = job["oid"], job["ver"]
+        if b is None or len(job["chunks"]) < b.k:
+            job["on_done"](False)
+            return
+        # equal-length chunk set at the authoritative version
+        lengths = sorted({len(v) for v in job["chunks"].values()})
+        chunks = {s: v for s, v in job["chunks"].items()
+                  if len(v) == lengths[-1]}
+        if len(chunks) < b.k:
+            job["on_done"](False)
+            return
+        if len(chunks) > b.k:
+            chunks = {s: chunks[s] for s in sorted(chunks)[:b.k]}
+        # the same rule as the compiled repair: a code that cannot
+        # decode these chunks fails the job, a kernel fault propagates
+        try:
+            logical = ecutil.decode_concat(b.sinfo, b.ec, chunks)
+        except ErasureCodeError as ex:
+            self._log(0, "decode of %s failed: %r", oid, ex)
+            job["on_done"](False)
+            return
+        # logical size + user xattrs from the newest-oi source shard
+        best = newest_oi_attrs(job["attrs"])
+        user_attrs = {} if best is None else best[3]
+        size = None if best is None else best[1].get("size")
+        if size is not None:
+            logical = logical[:size]
+        b.push_rebuilt(oid, logical, sorted(job["targets"]),
+                       job["on_done"], version=EVersion(*ver),
+                       user_attrs=user_attrs,
+                       target_osds=job["targets"])
+
+    def _rec_job_done(self, ok: bool) -> None:
+        if not ok:
+            self.rec_failed = True
+        self.rec_pending -= 1
+        if self.rec_pending <= 0 and self.phase == RECOVERING:
+            self._recovery_done()
+
+    def _recovery_done(self) -> None:
+        if self.rec_failed:
+            # honest failure: missing marks persist (gating writes to
+            # those objects) until a map change restarts peering
+            dout("osd", 0).write("%s: pg %s ec-recovery INCOMPLETE",
+                                 self.d.name, self.pg)
+        self.st.recovering = False
+        if not self.backfill_targets:
+            self._enter_clean()
+            return
+        self.st.backfilling = True
+        self._next_backfill_target()
+
+    # ------------------------------------------------------- Backfilling
+    def _next_backfill_target(self) -> None:
+        if not self.backfill_targets:
+            self._enter_clean()
+            return
+        self.bf_target = self.backfill_targets[0]
+        self.bf_reserved_remote = False
+        self.phase = WAIT_BACKFILL
+        self.st.backfilling = True
+        if not self.bf_reserved_local and \
+                not self.d.reserve_local_backfill(self.pg):
+            return          # queued: local_granted() resumes us
+        self.bf_reserved_local = True
+        self._send(self.bf_target[0], BackfillReserve(
+            pgid=self.pg, from_osd=self.d.whoami, op="request"))
+
+    def local_granted(self) -> None:
+        if self.phase != WAIT_BACKFILL or self.bf_target is None:
+            self.d.release_local_backfill(self.pg)
+            return
+        self._phase_ticks = 0
+        self.bf_reserved_local = True
+        self._send(self.bf_target[0], BackfillReserve(
+            pgid=self.pg, from_osd=self.d.whoami, op="request"))
+
+    def on_reserve(self, msg: BackfillReserve) -> bool:
+        """Same contract as PGPeering.on_reserve (False = unusable
+        grant the daemon must bounce back)."""
+        if self.bf_target is not None and \
+                msg.from_osd == self.bf_target[0] and \
+                msg.op == "grant" and self.bf_reserved_remote:
+            return True                    # duplicate for a held slot
+        if self.phase != WAIT_BACKFILL or self.bf_target is None or \
+                msg.from_osd != self.bf_target[0]:
+            return msg.op != "grant"
+        if msg.op == "grant":
+            self.bf_reserved_remote = True
+            self.phase = BACKFILLING
+            self._phase_ticks = 0
+            self._log(4, "backfill -> osd.%d (shard %d) starts",
+                      self.bf_target[0], self.bf_target[1])
+            self._build_bf_jobs()
+            self._next_bf_window()
+        elif msg.op == "reject":
+            self._phase_ticks = -2 * _RETRY_TICKS
+        return True
+
+    def _build_bf_jobs(self) -> None:
+        """Everything the target's shard lacks vs the authoritative
+        inventory (whiteouts included: a tombstone the newcomer missed
+        must land too)."""
+        osd, s = self.bf_target
+        theirs = self.inventories.get(osd, {})
+        jobs = []
+        for oid in sorted(self.auth_objects):
+            ver, _wo = self.auth_objects[oid]
+            entry = theirs.get(oid, {}).get(s)
+            if entry is None or tuple(entry[0]) < ver:
+                jobs.append(oid)
+        self.bf_jobs = jobs
+
+    def _next_bf_window(self) -> None:
+        if self.phase != BACKFILLING or self.bf_target is None:
+            return
+        if not self.bf_jobs:
+            self._bf_target_done()
+            return
+        n = global_config()["osd_backfill_scan_max"]
+        window, self.bf_jobs = self.bf_jobs[:n], self.bf_jobs[n:]
+        osd, s = self.bf_target
+        self.bf_window_pending = len(window)
+        for oid in window:
+            ver, wo = self.auth_objects[oid]
+            if wo:
+                self._push_tombstones(oid, ver, {s: osd})
+                self._bf_push_done(True)
+                continue
+            self.d.op_queue.enqueue(
+                "recovery",
+                lambda oid=oid, ver=ver, osd=osd, s=s:
+                    self._rebuild(oid, {s: osd}, ver,
+                                  on_done=self._bf_push_done))
+        self.d._drain_op_queue()
+
+    def _bf_push_done(self, ok: bool) -> None:
+        self.bf_window_pending -= 1
+        if not ok:
+            self.rec_failed = True
+        if self.bf_window_pending <= 0 and self.phase == BACKFILLING:
+            self._phase_ticks = 0
+            self._next_bf_window()
+
+    def _bf_target_done(self) -> None:
+        osd, s = self.bf_target
+        shard = self._shard()
+        head, tail = shard.log_info()
+        # install the authoritative log on the target so its next
+        # interval peers from honest bounds instead of re-walking
+        self._send(osd, PGLogPush(
+            pgid=self.pg, from_osd=self.d.whoami,
+            entries=list(shard.pg_log.log.entries), head=head,
+            tail=tail, activate=True, full=True, epoch=self.epoch))
+        self._send(osd, BackfillReserve(
+            pgid=self.pg, from_osd=self.d.whoami, op="release"))
+        self._log(4, "backfill -> osd.%d (shard %d) complete", osd, s)
+        self.bf_reserved_remote = False
+        self.backfill_targets.pop(0)
+        self.bf_target = None
+        self._next_backfill_target()
+
+    # ------------------------------------------------------------ Clean
+    def _enter_clean(self) -> None:
+        self.phase = CLEAN
+        self.st.recovering = False
+        self.st.backfilling = False
+        if self.bf_reserved_local:
+            self.d.release_local_backfill(self.pg)
+            self.bf_reserved_local = False
+        m = self.d.osdmap
+        up, _, acting, _ = m.pg_to_up_acting_osds(self.pg)
+        current = {o for o in list(up) + list(acting)
+                   if 0 <= o < CRUSH_ITEM_NONE}
+        if self.pg_temp_requested and self.d.whoami in current:
+            # direct convergence won before the override landed
+            self.d.clear_pg_temp(self.pg)
+            self.pg_temp_requested = False
+        if self.d.whoami in current and set(acting) != set(up):
+            # we are the temp primary and the up set is backfilled:
+            # hand the interval back (ref: the pg_temp clear in
+            # PeeringState::Clean)
+            self.d.clear_pg_temp(self.pg)
+        for o, info in self.infos.items():
+            if o not in current and (info.have_data or
+                                     info.last_update != ZERO_VERSION):
+                self._send(o, PGRemove(pgid=self.pg,
+                                       epoch=self.d.osdmap.epoch))
+        self._log(10, "clean")
+
+    # ---------------------------------------------------------- aborts
+    def tick(self, now: float) -> None:
+        if self.phase == CLEAN:
+            return
+        self._phase_ticks += 1
+        if self._phase_ticks < _RETRY_TICKS:
+            return
+        self._phase_ticks = 0
+        if self.phase == GETINFO and self.pending_info:
+            for o in list(self.pending_info):
+                if not self._send(o, PGQuery(pgid=self.pg,
+                                             epoch=self.epoch,
+                                             ec=True)):
+                    self.pending_info.discard(o)
+            if not self.pending_info:
+                self._choose_auth()
+        elif self.phase == GETLOG and self.auth is not None:
+            mine = self._my_info()
+            full = not (self.auth.log_tail <= mine.last_update and
+                        mine.last_update != ZERO_VERSION)
+            self._send(self.auth.osd, PGLogReq(
+                pgid=self.pg,
+                since=ZERO_VERSION if full else mine.last_update,
+                epoch=self.epoch, full=full, ec=True))
+        elif self.phase == GETMISSING and self.pending_scans:
+            for o in list(self.pending_scans):
+                if not self.d.osdmap.is_up(o):
+                    self.pending_scans.discard(o)
+                    continue
+                self._send(o, PGScan(pgid=self.pg, ec=True))
+            if not self.pending_scans:
+                self._plan()
+        elif self.phase in (RECOVERING, BACKFILLING) and \
+                self._chunk_reads:
+            # lost read replies (a prior-interval SOURCE died — no
+            # interval change fires, so the tick is the only unwedge):
+            # resolve the stalled jobs with whatever chunks arrived;
+            # short gathers fail their job and the walk moves on
+            stalled = {id(job): job
+                       for job, _s in self._chunk_reads.values()}
+            self._chunk_reads.clear()
+            for job in stalled.values():
+                job["pending"].clear()
+                self._maybe_decode(job)
+        elif self.phase == WAIT_BACKFILL and self.bf_target is not None \
+                and not self.bf_reserved_remote:
+            if not self.bf_reserved_local and \
+                    not self.d.reserve_local_backfill(self.pg):
+                return
+            self.bf_reserved_local = True
+            self._send(self.bf_target[0], BackfillReserve(
+                pgid=self.pg, from_osd=self.d.whoami, op="request"))
+        elif self.phase == BACKFILLING and self.bf_window_pending <= 0:
+            self._next_bf_window()
+
+    def on_map_advance(self) -> None:
+        alive = lambda o: self.d.osdmap.is_up(o)   # noqa: E731
+        if self.phase == GETINFO:
+            dead = {o for o in self.pending_info if not alive(o)}
+            if dead:
+                self.pending_info -= dead
+                if not self.pending_info:
+                    self._choose_auth()
+        elif self.phase == GETLOG and self.auth is not None and \
+                not alive(self.auth.osd):
+            self.infos.pop(self.auth.osd, None)
+            self.phase = GETINFO
+            self._choose_auth()
+        elif self.phase == GETMISSING:
+            dead = {o for o in self.pending_scans if not alive(o)}
+            if dead:
+                self.pending_scans -= dead
+                if not self.pending_scans:
+                    self._plan()
+        elif self.phase in (WAIT_BACKFILL, BACKFILLING) and \
+                self.bf_target is not None and \
+                not alive(self.bf_target[0]):
+            self.backfill_targets = [
+                (o, s) for o, s in self.backfill_targets if alive(o)]
+            self.bf_target = None
+            self.bf_reserved_remote = False
+            self._next_backfill_target()
+
+    # PGPeering surface parity (unused legs)
+    def on_missing(self, msg) -> None:      # pragma: no cover
+        pass
+
+    def on_pull_done(self, oid: str) -> None:   # pragma: no cover
+        pass
+
+    def on_backfill_scan(self, msg) -> None:    # pragma: no cover
+        pass
+
+    def abort(self) -> None:
+        self.d.release_local_backfill(self.pg)
+        self.bf_reserved_local = False
+        if self.bf_target is not None:
+            self._send(self.bf_target[0], BackfillReserve(
+                pgid=self.pg, from_osd=self.d.whoami, op="release"))
+            self.bf_reserved_remote = False
+        self._chunk_reads.clear()
+        self.phase = CLEAN

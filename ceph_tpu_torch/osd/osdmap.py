@@ -19,7 +19,9 @@ OSDMapMapping/ParallelPGMapper replacement) lives in `mapping.py` and uses
 the batch CRUSH engine (K3 on the card).
 
 `OSDMap.from_reference` copies a map of another package (the JAX
-reference's, in the tests) by attribute.
+reference's, in the tests) by attribute.  `Incremental` and `OSDMap` are
+registered on the wire as the reference registers them, so the mon's
+store and map publishes carry the same bytes in both packages.
 """
 from __future__ import annotations
 
@@ -400,6 +402,21 @@ class OSDMap:
     def clone(self) -> "OSDMap":
         return copy.deepcopy(self)
 
+    def ingest(self, full_map: "OSDMap | None",
+               incrementals: list) -> "OSDMap":
+        """Apply a map publish (full and/or incrementals) and return
+        the resulting map — newer full maps replace, stale ones are
+        ignored, incs apply in epoch order.  Shared by the OSD daemon
+        and the Objecter (ref: OSD.cc handle_osd_map :8010,
+        Objecter.cc handle_osd_map :1182)."""
+        m = self
+        if full_map is not None and full_map.epoch > m.epoch:
+            m = full_map
+        for inc in incrementals:
+            if inc.epoch == m.epoch + 1:
+                m.apply_incremental(inc)
+        return m
+
     # ------------------------------------------------------------------
     # convenience builders (vstart-style, for tests/tools)
     def build_simple(self, n_osd: int, pg_pool: PGPool | None = None,
@@ -442,3 +459,19 @@ class OSDMap:
         self.pool_names[0] = "rbd"
         self.pool_max = 0
         self.epoch = 1
+
+
+# ------------------------------------------------- wire registration
+# OSDMap encodes as a versioned wire struct like the reference's
+# OSDMap::encode (ref: src/osd/OSDMap.cc encode w/ ENCODE_START).
+def _register_wire() -> None:
+    from ..msg.encoding import register_struct
+    register_struct(Incremental, version=1, compat=1)
+    register_struct(OSDMap, version=1, compat=1, fields=(
+        "epoch", "fsid", "max_osd", "osd_state", "osd_weight",
+        "osd_primary_affinity", "pools", "pool_names", "pool_max",
+        "crush", "pg_upmap", "pg_upmap_items", "pg_temp",
+        "primary_temp", "erasure_code_profiles", "flags"))
+
+
+_register_wire()

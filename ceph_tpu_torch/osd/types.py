@@ -227,9 +227,8 @@ def pool_from_reference(obj) -> PGPool:
     return pool
 
 
-# wire registration of pg_t alone: EC sub-op messages carry a PG as their
-# pgid (ref: osd_types.h pg_t ENCODE_START); the pool rides no message
-# of the port yet
+# wire registration (ref: pg_t / pg_pool_t encode in osd_types.cc)
 from ..msg.encoding import register_struct as _reg  # noqa: E402
 
 _reg(PG, version=1, compat=1)
+_reg(PGPool, version=1, compat=1)

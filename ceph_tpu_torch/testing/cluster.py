@@ -1,0 +1,160 @@
+"""MiniCluster: vstart-style single-process cluster harness.
+
+One mon + N OSD daemons + client handles over a LocalNetwork — the
+tier-2 cluster fixture the reference builds with vstart.sh /
+qa/tasks/ceph.py: spin a cluster up, create pools, do IO through
+librados, kill/revive daemons, and let the mon's failure handling and
+the client's resend engine react.
+
+The port's copy of `ceph_tpu.testing.cluster` in part: one mon,
+`start_osd`, `kill_osd`, `revive_osd`, `rados()`, `pump`, `tick`,
+`wait_all_up`, `shutdown` and the shared `fabric`.  The cluster runs on
+its `device` (cuda unless the caller passes `device="cpu"`): every OSD
+builds its plugins there, and so does the mon.  Left out: multi-mon
+quorums (`n_mon`, `kill_mon`, `revive_mon`, `leader`), cephx, crash
+spools, the MDS, mgr and RGW helpers.
+"""
+from __future__ import annotations
+
+import copy
+import time
+
+from .. import device as _device
+from ..client.rados import Rados
+from ..common.log import dout
+from ..common.perf_counters import PerfCountersCollection
+from ..mon.monitor import Monitor, build_initial
+from ..msg.messenger import LocalNetwork
+from ..osd.daemon import OSDDaemon
+
+
+class MiniCluster:
+    def __init__(self, n_osd: int = 6, osds_per_host: int = 1,
+                 threaded: bool = True, fabric=None, device=None):
+        self.device = _device.resolve(device)
+        self.network = LocalNetwork()
+        # fault-plane delays release against the same clock the mon
+        # ticks on, so a sim-time schedule holds messages sim-time long
+        self.network.faults.clock = self._clock
+        self.threaded = threaded
+        #: shared ICIFabric — OSDs become device-mesh co-resident and
+        #: EC writes ride the mesh fan-out (dist/fabric.py)
+        self.fabric = fabric
+        self._sim_now: float | None = None
+        self.perf_collection = PerfCountersCollection()
+        self.mon_names = ["mon.0"]
+        self.osds: dict[int, OSDDaemon] = {}
+        self._stores: dict[int, object] = {}
+        self.clients: list[Rados] = []
+        m, w = build_initial(n_osd, osds_per_host=osds_per_host)
+        self.mon = Monitor(self.network, rank=0,
+                           initial_map=copy.deepcopy(m),
+                           initial_wrapper=copy.deepcopy(w),
+                           threaded=threaded, clock=self._clock,
+                           device=self.device)
+        self.mon.init()
+        self.mons = {0: self.mon}
+        for osd in range(n_osd):
+            self.start_osd(osd)
+
+    # ------------------------------------------------------------ osds
+    def start_osd(self, osd: int) -> OSDDaemon:
+        store = self._stores.get(osd)
+        d = OSDDaemon(self.network, osd, store=store,
+                      threaded=self.threaded,
+                      perf_collection=self.perf_collection,
+                      mon=self.mon_names, fabric=self.fabric,
+                      device=self.device)
+        self._stores[osd] = d.store
+        d.init()
+        self.osds[osd] = d
+        return d
+
+    def kill_osd(self, osd: int) -> None:
+        """Hard-kill: the daemon vanishes from the wire; its store
+        survives for a later restart (qa thrasher kill_osd model)."""
+        d = self.osds.pop(osd, None)
+        if d is not None:
+            d.shutdown()
+
+    def revive_osd(self, osd: int) -> OSDDaemon:
+        return self.start_osd(osd)
+
+    # ---------------------------------------------------------- client
+    def rados(self, timeout: float = 30.0) -> Rados:
+        r = Rados(self.network, op_timeout=timeout,
+                  threaded=self.threaded, mon=self.mon_names)
+        self.clients.append(r)   # before connect: pump() must see it
+        if self.threaded:
+            r.connect(timeout)
+        else:
+            r.objecter.pump_hook = self.pump
+            r.objecter.start()
+            self.pump()
+            if r.objecter.osdmap.epoch < 1:
+                raise TimeoutError("no osdmap after pump")
+            r._connected = True
+        return r
+
+    # ------------------------------------------------------------ sync
+    def pump(self, rounds: int = 30) -> None:
+        """Non-threaded mode: pump every endpoint until quiescent."""
+        for _ in range(rounds):
+            # release fault-held messages whose deadline passed;
+            # counts as movement so we keep pumping
+            moved = self.network.faults.flush()
+            moved += self.mon.ms.poll()
+            for d in self.osds.values():
+                moved += d.ms.poll()
+            for c in self.clients:
+                moved += c.objecter.ms.poll()
+            if not moved:
+                break
+
+    def _clock(self) -> float:
+        """Mon clock: simulated when ticks carry `now`, else real —
+        keeps the mon's failure/auto-out timers in the same time domain
+        as the OSD heartbeats."""
+        return self._sim_now if self._sim_now is not None \
+            else time.monotonic()
+
+    def tick(self, now: float | None = None) -> None:
+        """One heartbeat round on every live OSD + a mon tick; pumps
+        in non-threaded mode so the exchange completes.  An OSD whose
+        tick raises is reaped like an aborted process: off the wire,
+        store kept for a revive."""
+        if now is not None:
+            self._sim_now = now
+        for osd, d in list(self.osds.items()):
+            try:
+                d.heartbeat_tick(now)
+            except Exception as ex:
+                dout("cluster", 0).write(
+                    "osd.%d crashed in tick (%s: %s) — reaped",
+                    osd, type(ex).__name__, ex)
+                del self.osds[osd]
+                d.shutdown()
+        if not self.threaded:
+            self.pump()
+        self.mon.tick(now)
+        if not self.threaded:
+            self.pump()
+
+    def wait_all_up(self, timeout: float = 30.0) -> None:
+        end = time.monotonic() + timeout
+        want = set(self.osds)
+        while time.monotonic() < end:
+            if not self.threaded:
+                self.pump()
+            m = self.mon.osdmap
+            if all(o < m.max_osd and m.is_up(o) for o in want):
+                return
+            time.sleep(0.01)
+        raise TimeoutError("osds never came up")
+
+    def shutdown(self) -> None:
+        for c in self.clients:
+            c.shutdown()
+        for d in list(self.osds.values()):
+            d.shutdown()
+        self.mon.shutdown()

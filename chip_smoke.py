@@ -2,8 +2,9 @@
 """Chip smoke of the PyTorch/CUDA port on one card: the erasure-code data
 path, CRUSH placement, compiled repair, the placement tools (crushtool,
 osdmaptool and the upmap balancer), the device guard, the multi-device EC
-mesh and its OSD-side fabric, the ceph_erasure_code_benchmark CLI, and the
-EC placement group's data plane (ECBackend over MemStore).
+mesh and its OSD-side fabric, the ceph_erasure_code_benchmark CLI, the
+EC placement group's data plane (ECBackend over MemStore), and the port's
+own cluster (mon, OSD daemons with EC peering and recovery, librados).
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -147,7 +148,29 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    degraded-read and rebuilt MB/s on the host clock, K1's CUDA-event
    share of each, and a split of one write (merge, ecutil.encode, the
    HashInfo crc32c, the transaction build, MemStore's apply).  K1's
-   launch count is zeroed before and read after the phase.
+   launch count is zeroed before and read after the phase;
+19. the port's cluster (ceph_tpu_torch.testing.MiniCluster on the card,
+   threaded as deployed daemons run): one mon, 16 OSDs one per host, a
+   `tpu` k=8 m=4 profile with crush-failure-domain=host and an erasure
+   pool of pg_num 32 (Octopus's osd_pool_default_pg_num), as
+   __graft_entry__.py:92-183 builds it.  64 objects of 4 MiB written
+   through librados write_full and read back; the OSD in the most acting
+   sets killed and marked down, every object read degraded; the OSD
+   marked out, every PG's EC peering run to CLEAN (the lost shards
+   rebuilt on their new OSDs by the compiled repair, on K1), every
+   object read again.  Every read equals its payload, every shard of
+   every object on its acting OSD equals ecutil.encode through a
+   device="cpu" plugin (K1's plain version), read/rebuilt is exactly
+   8.0, no full rebuild, no failed queued item and no handler error
+   caught by a dispatch thread (the waits fail on the first one).  Then
+   the same cluster over ICIFabric(["cuda:0"] * 8): 16 objects of 4 MiB
+   written and read back, writes staged on the mesh and shards fetched
+   from it.
+   Write, read and degraded-read MB/s, the time from `osd out` to clean
+   and the rebuilt MB/s on the host clock, K1's launches and CUDA-event
+   share of each leg, recovery's launches split into compile probes and
+   repairs, the messages routed, and the phase's wall.
+   K1's launch count is zeroed before and read after the phase.
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -2135,6 +2158,277 @@ def ec_pg_phase(ec, name_power: str, dev) -> dict:
             "phase_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# The port's cluster: phase 19
+
+CLUSTER_OSDS = 16                # __graft_entry__.py's cluster
+CLUSTER_PG_NUM = 32              # osd_pool_default_pg_num (Octopus)
+CLUSTER_OBJECTS = 64             # 4 MiB objects through librados
+CLUSTER_FABRIC_OBJECTS = 16
+CLUSTER_TIMEOUT_S = 300.0
+
+
+def _faults(c) -> None:
+    """Fail at once on a handler error a dispatch thread logged and
+    survived, or on a queued item that raised: a kernel or device fault
+    on the cluster's threads must not show only as a stall."""
+    if c.network.dispatch_errors:
+        raise AssertionError(
+            f"phase 19: {c.network.dispatch_errors} dispatch errors, the "
+            f"last on {c.network.last_dispatch_error}")
+    failed = _perf_sum(c, "queued_op_failures")
+    if failed:
+        raise AssertionError(f"phase 19: {failed} failed queued items")
+
+
+def _wait(c, pred, what: str, timeout: float = CLUSTER_TIMEOUT_S) -> None:
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        _faults(c)
+        if pred():
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"phase 19: {what} within {timeout:.0f} s")
+
+
+def _cluster(fabric=None):
+    """The port's MiniCluster on the card with a k=8 m=4 `tpu` pool;
+    returns the cluster, the client and the pool's IoCtx."""
+    from ceph_tpu_torch.testing import MiniCluster
+
+    c = MiniCluster(n_osd=CLUSTER_OSDS, osds_per_host=1, threaded=True,
+                    fabric=fabric)
+    c.wait_all_up()
+    r = c.rados(timeout=CLUSTER_TIMEOUT_S)
+    rc, outs, _ = r.mon_command({
+        "prefix": "osd erasure-code-profile set", "name": "tpu_k8m4",
+        "profile": {"plugin": "tpu", "k": str(K), "m": str(M),
+                    "technique": "reed_sol_van",
+                    "crush-failure-domain": "host"}})
+    if rc != 0:
+        raise AssertionError(f"phase 19: profile set: {outs}")
+    r.pool_create("ecpool", pg_num=CLUSTER_PG_NUM, pool_type="erasure",
+                  erasure_code_profile="tpu_k8m4")
+    _wait(c, lambda: _all_clean(c, r), "the new pool's PGs peered")
+    return c, r, r.open_ioctx("ecpool")
+
+
+def _primaries(c, r) -> dict:
+    """pg -> the primary daemon's PG state, for every PG of the pool."""
+    out = {}
+    for d in list(c.osds.values()):
+        with d._lock:
+            for pg, st in d.pgs.items():
+                if st.backend is not None:
+                    out[pg] = st
+    return out
+
+
+def _all_clean(c, r) -> bool:
+    from ceph_tpu_torch.osd.peering import CLEAN
+
+    prim = _primaries(c, r)
+    epoch = c.mon.osdmap.epoch
+    return (all(d.osdmap.epoch >= epoch for d in list(c.osds.values())) and
+            len(prim) == CLUSTER_PG_NUM and
+            all(st.peering is not None and st.peering.phase == CLEAN
+                for st in prim.values()) and
+            all(d.pgs_recovering() == 0 for d in list(c.osds.values())))
+
+
+def _perf_sum(c, key: str) -> int:
+    return sum(d.perf.get(key) for d in list(c.osds.values()))
+
+
+def cluster_phase(name_power: str, dev) -> dict:
+    """Phase 19: the port's cluster on the card (see the module
+    docstring)."""
+    from ceph_tpu_torch.dist import ICIFabric
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.ec.repairc import compiler as repairc_compiler
+    from ceph_tpu_torch.osd import ec_backend, ecutil
+    from ceph_tpu_torch.osd.types import PG
+    from ceph_tpu_torch.store import ObjectId
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 19)
+    objs = {f"obj{i}": rng.integers(0, 256, REPAIR_OBJECT,
+                                    dtype=np.uint8).tobytes()
+            for i in range(CLUSTER_OBJECTS)}
+    logical = len(objs) * REPAIR_OBJECT
+    legs = {}
+
+    def leg(name, nbytes, wall, ev, launches0):
+        k1 = events_ms(ev)
+        legs[name] = {"MBps": nbytes / wall / 1e6, "wall_s": wall,
+                      "k1_ms": k1, "k1_share": k1 / 1e3 / wall,
+                      "launches": bm.LAUNCHES["gf_matmul"] - launches0}
+        return legs[name]
+
+    def timed_reads(io, what):
+        for oid, data in objs.items():
+            if io.read(oid) != data:
+                raise AssertionError(f"phase 19: {what} read of {oid} "
+                                     "differs")
+
+    c, r, io = _cluster()
+    try:
+        if any(d.device.type != torch.device(dev).type
+               for d in c.osds.values()):
+            raise AssertionError("phase 19: an OSD is not on the card")
+        # -- writes and reads --------------------------------------------
+        l0 = bm.LAUNCHES["gf_matmul"]
+        with k1_events(bm) as ev:
+            t0 = time.monotonic()
+            for oid, data in objs.items():
+                io.write_full(oid, data)
+            wall = time.monotonic() - t0
+        leg("write", logical, wall, ev, l0)
+        l0 = bm.LAUNCHES["gf_matmul"]
+        with k1_events(bm) as ev:
+            t0 = time.monotonic()
+            timed_reads(io, "first")
+            wall = time.monotonic() - t0
+        leg("read", logical, wall, ev, l0)
+        # -- the OSD in the most acting sets dies -------------------------
+        m = c.mon.osdmap
+        pid = r.pool_lookup("ecpool")
+        count: dict = {}
+        before = {}
+        for ps in range(CLUSTER_PG_NUM):
+            before[ps] = list(m.pg_to_up_acting_osds(PG(pid, ps))[2])
+            for o in before[ps]:
+                if 0 <= o < CLUSTER_OSDS:
+                    count[o] = count.get(o, 0) + 1
+        victim = max(sorted(count), key=lambda o: count[o])
+        c.kill_osd(victim)
+        rc, outs, _ = r.mon_command({"prefix": "osd down",
+                                     "ids": [victim]})
+        if rc != 0:
+            raise AssertionError(f"phase 19: osd down: {outs}")
+        _wait(c, lambda: r.objecter.osdmap.is_down(victim) and
+              _all_clean(c, r), "peering after osd down")
+        l0 = bm.LAUNCHES["gf_matmul"]
+        with k1_events(bm) as ev:
+            t0 = time.monotonic()
+            timed_reads(io, "degraded")
+            wall = time.monotonic() - t0
+        leg("degraded_read", logical, wall, ev, l0)
+        # -- out: EC peering rebuilds the lost shards ----------------------
+        read0 = _perf_sum(c, "recovery_bytes_read")
+        rebuilt0 = _perf_sum(c, "recovery_bytes_rebuilt")
+        l0 = bm.LAUNCHES["gf_matmul"]
+        comp0 = dict(repairc_compiler.COMPILES)
+        with k1_events(bm) as ev:
+            t0 = time.monotonic()
+            rc, outs, _ = r.mon_command({"prefix": "osd out",
+                                         "ids": [victim]})
+            if rc != 0:
+                raise AssertionError(f"phase 19: osd out: {outs}")
+            _wait(c, lambda: c.mon.osdmap.is_out(victim) and
+                  _all_clean(c, r), "recovery to clean")
+            recover_s = time.monotonic() - t0
+        compiles = {key: repairc_compiler.COMPILES[key] - comp0[key]
+                    for key in comp0}
+        rebuilt = _perf_sum(c, "recovery_bytes_rebuilt") - rebuilt0
+        read = _perf_sum(c, "recovery_bytes_read") - read0
+        leg("recovery", rebuilt, recover_s, ev, l0)
+        l0 = bm.LAUNCHES["gf_matmul"]
+        with k1_events(bm) as ev:
+            t0 = time.monotonic()
+            timed_reads(io, "post-recovery")
+            wall = time.monotonic() - t0
+        leg("read_after_clean", logical, wall, ev, l0)
+        _faults(c)
+        full = _perf_sum(c, "recovery_full_rebuild")
+        if not rebuilt or read / rebuilt != float(K) or full:
+            raise AssertionError(
+                f"phase 19: recovery read {read} B / rebuilt {rebuilt} B, "
+                f"{full} full rebuilds")
+        # -- every shard on its acting OSD == the plain version's encode ---
+        ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M),
+                                          "technique": "reed_sol_van"},
+                                  device="cpu")
+        sinfo = ecutil.StripeInfo(K, K * STRIPE_UNIT)
+        m = c.mon.osdmap
+        moved = 0             # shards now on an OSD that did not hold them
+        for oid, data in objs.items():
+            raw = m.object_locator_to_pg(oid, pid)
+            pg = m.pools[pid].raw_pg_to_pg(raw)
+            acting = m.pg_to_up_acting_osds(raw)[2]
+            if victim in acting:
+                raise AssertionError(f"phase 19: {oid} still maps to the "
+                                     f"dead osd.{victim}")
+            want = ecutil.encode(sinfo, ec_cpu, data)
+            for s, osd in enumerate(acting):
+                got = c.osds[osd].store.read(ec_backend.pg_cid(pg),
+                                             ObjectId(oid, shard=s))
+                if got != want[s]:
+                    raise AssertionError(f"phase 19: {oid} shard {s} on "
+                                         f"osd.{osd} differs from the "
+                                         "plain version's encode")
+                moved += osd != before[pg.ps][s]
+        if not moved:
+            raise AssertionError("phase 19: no shard moved to a new OSD")
+        messages = c.network.routed
+    finally:
+        c.shutdown()
+    # -- the fabric leg -------------------------------------------------------
+    fab = ICIFabric(devices=[dev] * 8)
+    c, r, io = _cluster(fabric=fab)
+    fobjs = dict(itertools.islice(objs.items(), CLUSTER_FABRIC_OBJECTS))
+    try:
+        l0 = bm.LAUNCHES["gf_matmul"]
+        with k1_events(bm) as ev:
+            t0 = time.monotonic()
+            for oid, data in fobjs.items():
+                io.write_full(oid, data)
+            wall = time.monotonic() - t0
+        leg("fabric_write", len(fobjs) * REPAIR_OBJECT, wall, ev, l0)
+        for oid, data in fobjs.items():
+            if io.read(oid) != data:
+                raise AssertionError(f"phase 19: fabric read of {oid} "
+                                     "differs")
+        stats = dict(fab.stats)
+        if stats["staged"] < 1 or stats["fetched"] < K + M - 1:
+            raise AssertionError(f"phase 19: fabric stats {stats}")
+        _faults(c)
+        messages_f = c.network.routed
+    finally:
+        c.shutdown()
+    wall = time.monotonic() - t_phase
+    for name, lg in legs.items():
+        print(f"phase 19: {name} {lg['MBps']:.1f} MB/s on the host clock "
+              f"({lg['wall_s']:.3f} s), K1 {lg['launches']} launches, "
+              f"{lg['k1_ms']:.3f} ms by CUDA events "
+              f"({lg['k1_share'] * 100:.2f} % of it) on {name_power}")
+    print(f"phase 19: time to recover (osd out -> every PG clean) "
+          f"{recover_s:.3f} s, rebuilt {rebuilt} B at "
+          f"{rebuilt / recover_s / 1e6:.1f} MB/s, read/rebuilt "
+          f"{read / rebuilt} on {name_power}")
+    probe = compiles["probe_launches"]
+    print(f"phase 19: recovery's K1 launches {legs['recovery']['launches']}: "
+          f"{probe} by the compile probes of {compiles['programs']} repair "
+          f"programs, {legs['recovery']['launches'] - probe} by repairs and "
+          f"re-encodes, for {rebuilt // (REPAIR_OBJECT // K)} shards "
+          f"rebuilt on {name_power}")
+    print(f"phase 19: MiniCluster mon + {CLUSTER_OSDS} OSDs, tpu k={K} "
+          f"m={M} pg_num {CLUSTER_PG_NUM}: {len(objs)} x {REPAIR_OBJECT} B "
+          f"written and read == payloads; osd.{victim} (in {count[victim]} "
+          f"acting sets) killed and down, degraded reads == payloads; out, "
+          f"every PG clean, reads == payloads, every shard ({moved} of "
+          f"them rebuilt on a new OSD) == the plain version's encode; "
+          f"0 full rebuilds, 0 failed queued items, 0 dispatch errors; "
+          f"{messages} messages routed; fabric leg {len(fobjs)} objects "
+          f"== payloads, stats {stats}, {messages_f} messages; phase "
+          f"{wall:.1f} s on {name_power}")
+    return {"legs": legs, "recover_s": recover_s, "rebuilt": rebuilt,
+            "ratio": read / rebuilt, "messages": messages,
+            "compiles": compiles,
+            "fabric_stats": stats, "phase_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2298,10 +2592,20 @@ def main() -> int:
     kernels[0]["launches_ecbackend"] = launches["gf_matmul"]
     kernels[0]["ecbackend"] = {k: ec_pg[k] for k in ("rows", "split_s",
                                                       "ratios")}
+    bm.reset_launches()
+    cluster = cluster_phase(name_power, dev)
+    launches = dict(bm.LAUNCHES)
+    print(f"phase 19: launches {launches}")
+    if launches["gf_matmul"] == 0:
+        raise AssertionError("the cluster never launched gf_matmul")
+    kernels[0]["launches_cluster"] = launches["gf_matmul"]
+    kernels[0]["cluster"] = {k: cluster[k] for k in (
+        "legs", "recover_s", "rebuilt", "ratio", "messages")}
     print(f"chip_smoke: phases 12-14 {tool['wall_s']:.1f} + "
-          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-18 "
+          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-19 "
           f"{mesh['phase_s']:.1f} + {fabric['phase_s']:.1f} + "
-          f"{bench['phase_s']:.1f} + {ec_pg['phase_s']:.1f} s; "
+          f"{bench['phase_s']:.1f} + {ec_pg['phase_s']:.1f} + "
+          f"{cluster['phase_s']:.1f} s; "
           f"{time.monotonic() - t_start:.1f} s in all on {name_power}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

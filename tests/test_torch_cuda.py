@@ -2,8 +2,9 @@
 
 K1/K2 (GF(2^8) products), K3 (CRUSH do_rule over a batch of seeds), and
 the paths that reach K1 from the plugin family: compiled repair, the
-bit-matrix device form, and the EC placement group's data plane
-(ECBackend writes, degraded reads and recovery).
+bit-matrix device form, the EC placement group's data plane
+(ECBackend writes, degraded reads and recovery), and the port's cluster
+(mon, OSD daemons, EC peering and librados on the card).
 
 Marked `cuda`: each test skips without a CUDA device.  On a machine with
 one (no JAX needed, so the repository conftest is left out):
@@ -461,3 +462,64 @@ def test_mesh_over_every_card(dev):
         rebuilt = ec.decode_batch_full([1, 9], arrival)
         torch.cuda.synchronize(other)
         assert torch.equal(rebuilt, arrival[:, [1, 9]])
+
+
+def test_cluster_on_card(dev):
+    """A small port cluster on the card: 8 OSDs, a `tpu` k=4 m=2 pool, 8
+    objects written through librados, one OSD killed, marked down and
+    out; every read equals its payload (degraded and after clean), the
+    recovery ran through K1's compiled repair (no full rebuild, bytes
+    read over rebuilt = k) and every plugin lives on the card."""
+    import time
+    from ceph_tpu_torch.testing import MiniCluster
+    c = MiniCluster(n_osd=8, threaded=True)
+    try:
+        c.wait_all_up()
+        r = c.rados()
+        r.mon_command({"prefix": "osd erasure-code-profile set",
+                       "name": "k4m2",
+                       "profile": {"plugin": "tpu", "k": "4", "m": "2",
+                                   "crush-failure-domain": "host"}})
+        r.pool_create("ec", pg_num=8, pool_type="erasure",
+                      erasure_code_profile="k4m2")
+        io = r.open_ioctx("ec")
+        rng = np.random.default_rng(41)
+        objs = {f"c{i}": rng.integers(0, 256, 65536 + 4097 * i,
+                                      dtype=np.uint8).tobytes()
+                for i in range(8)}
+        before = bm.LAUNCHES["gf_matmul"]
+        for oid, data in objs.items():
+            io.write_full(oid, data)
+        assert bm.LAUNCHES["gf_matmul"] > before
+        c.kill_osd(0)
+        r.mon_command({"prefix": "osd down", "ids": [0]})
+        for oid, data in objs.items():
+            assert io.read(oid) == data, oid
+        from ceph_tpu_torch.ec.repairc import compiler
+        comp0 = dict(compiler.COMPILES)
+        r.mon_command({"prefix": "osd out", "ids": [0]})
+        end = time.monotonic() + 60
+        while time.monotonic() < end:
+            if c.mon.osdmap.is_out(0) and all(
+                    d.pgs_recovering() == 0 for d in c.osds.values()):
+                break
+            time.sleep(0.05)
+        for oid, data in objs.items():
+            assert io.read(oid) == data, oid
+        perf = {k: sum(d.perf.get(k) for d in c.osds.values())
+                for k in ("recovery_bytes_read", "recovery_bytes_rebuilt",
+                          "recovery_full_rebuild", "queued_op_failures")}
+        assert perf["recovery_bytes_rebuilt"] > 0
+        assert perf["recovery_bytes_read"] == \
+            4 * perf["recovery_bytes_rebuilt"]
+        assert perf["recovery_full_rebuild"] == 0
+        assert perf["queued_op_failures"] == 0
+        assert c.network.dispatch_errors == 0, c.network.last_dispatch_error
+        # every compiled program's probes decoded on the card
+        assert compiler.COMPILES["programs"] > comp0["programs"]
+        assert compiler.COMPILES["probe_launches"] > comp0["probe_launches"]
+        for d in c.osds.values():
+            assert d.device.type == "cuda"
+            assert all(ec.device.type == "cuda" for ec in d._ecs.values())
+    finally:
+        c.shutdown()

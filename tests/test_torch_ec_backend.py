@@ -17,8 +17,9 @@ rule (a plan error still takes the full rebuild; a fault of K1's wrapper,
 its launch, its build or the device guard propagates), a cluster written
 by the reference carried across with `MemStore.from_reference` and
 recovered by the port, writes through the port's fabric against the host
-path (chunk bytes), and the `ec_decode_kernel` span's `stage`/`kernel`
-children.
+path (chunk bytes), the `ec_decode_kernel` span's `stage`/`kernel`
+children, and the sub-ops sent through the port's Messenger against the
+direct wiring (the stores must come out the same).
 """
 from types import SimpleNamespace
 
@@ -452,6 +453,73 @@ def test_scenario_equals_reference(code, name):
     assert type(port_cl.backend).__module__ == "ceph_tpu_torch.osd.ec_backend"
     assert type(port_cl.stores[0]).__module__ == \
         "ceph_tpu_torch.store.memstore"
+
+
+class MessengerCluster(Cluster):
+    """The port's Cluster with every sub-op on the wire: the primary and
+    each shard are endpoints of the port's LocalNetwork (non-threaded),
+    and a send is delivered and answered by pumping every endpoint until
+    the network is quiet, as the direct wiring answers inline."""
+
+    def __init__(self, plugin, profile):
+        from ceph_tpu_torch.msg import messenger as ms
+        self.net = ms.LocalNetwork()
+        self.eps = {}
+        super().__init__(PORT, plugin, profile)
+        cluster = self
+
+        class Primary(ms.Dispatcher):
+            def ms_dispatch(self, msg):
+                be = cluster.backend
+                if isinstance(msg, port_messages.ECSubWriteReply):
+                    if not be.handle_recovery_write_reply(msg):
+                        be.handle_sub_write_reply(msg)
+                elif isinstance(msg, port_messages.ECSubReadReply):
+                    be.handle_sub_read_reply(msg)
+                else:
+                    return False        # a sub-op for the local shard
+                return True
+
+        class Shard(ms.Dispatcher):
+            def __init__(self, s):
+                self.s = s
+
+            def ms_dispatch(self, msg):
+                svc = cluster.shards[self.s]
+                if isinstance(msg, port_messages.ECSubWrite):
+                    reply = svc.handle_sub_write(msg)
+                else:
+                    reply = svc.handle_sub_read(msg)
+                cluster.eps[self.s].connect(msg.src).send_message(reply)
+                return True
+
+        for s in range(self.n):
+            ep = ms.Messenger.create(self.net, f"osd.{s}", threaded=False)
+            ep.add_dispatcher(Primary() if s == 0 else Shard(s))
+            self.eps[s] = ep
+        # the primary's own shard is local: it still answers through
+        # the messenger, from its own endpoint
+        self.eps[0].add_dispatcher(Shard(0))
+
+    def _deliver(self, shard, msg):
+        self.eps[0].connect(f"osd.{shard}").send_message(msg)
+        while sum(ep.poll() for ep in self.eps.values()):
+            pass
+
+
+@pytest.mark.parametrize("name", ["write_read_roundtrip",
+                                  "partial_overwrite_rmw",
+                                  "kill_and_recover_shard"])
+def test_sub_ops_through_the_messenger_equal_direct_wiring(name):
+    """ECSubWrite/ECSubRead and their replies sent through the port's
+    Messenger leave every store, log and counter as the direct wiring
+    does: the EC data plane and the daemon's routing agree."""
+    plugin, profile = CODES["tpu_k8m4"]
+    direct = Cluster(PORT, plugin, profile)
+    wired = MessengerCluster(plugin, profile)
+    assert SCENARIOS[name](wired) == SCENARIOS[name](direct)
+    assert wired.state() == direct.state()
+    assert wired.net._routed > 0
 
 
 @pytest.mark.parametrize("code,ratio", [("tpu_k3m2", 3.0), ("jerasure", 4.0),

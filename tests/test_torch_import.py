@@ -76,7 +76,27 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.osd.mutations",
                  "ceph_tpu_torch.osd.replicated_backend",
                  "ceph_tpu_torch.osd.snap_mapper",
-                 "ceph_tpu_torch.osd.ec_backend"):
+                 "ceph_tpu_torch.osd.ec_backend",
+                 # the cluster: messenger, mon, OSD daemon, client
+                 "ceph_tpu_torch.msg.faults",
+                 "ceph_tpu_torch.msg.mon_client",
+                 "ceph_tpu_torch.common.backoff",
+                 "ceph_tpu_torch.common.heartbeat_map",
+                 "ceph_tpu_torch.common.tracked_op",
+                 "ceph_tpu_torch.mon", "ceph_tpu_torch.mon.store",
+                 "ceph_tpu_torch.mon.paxos",
+                 "ceph_tpu_torch.mon.osd_monitor",
+                 "ceph_tpu_torch.mon.pg_map",
+                 "ceph_tpu_torch.mon.monitor",
+                 "ceph_tpu_torch.osd.op_queue",
+                 "ceph_tpu_torch.osd.peering",
+                 "ceph_tpu_torch.osd.ec_peering",
+                 "ceph_tpu_torch.osd.daemon",
+                 "ceph_tpu_torch.client",
+                 "ceph_tpu_torch.client.objecter",
+                 "ceph_tpu_torch.client.rados",
+                 "ceph_tpu_torch.testing",
+                 "ceph_tpu_torch.testing.cluster"):
         assert name in out["modules"], name
 
 

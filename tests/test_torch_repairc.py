@@ -7,6 +7,7 @@ the read/rebuilt ratios equal REPAIR_r01.json; `HashInfo` and crc32c
 equal the reference's.  Every output is bytes, compared exactly."""
 import itertools
 import json
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -181,6 +182,40 @@ def test_compile_once_per_signature():
     assert len(stats["compiles"]) == n
     assert all(c == 1 for c in stats["compiles"].values()), stats
     assert stats["hits"] >= 2 * n
+
+
+def test_compile_counter_splits_probe_launches(monkeypatch):
+    """COMPILES counts each compiled program and the K1 launches its
+    probes made on the compiling thread, not those another thread makes
+    meanwhile."""
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.ec.repairc import compiler
+
+    ec = factory("tpu", {"k": "4", "m": "2"})
+    plan = ecutil.repair_plan(ec, {1}, {0, 2, 3, 4, 5})
+    plain = bm.gf_matmul
+    other = []
+
+    def bump():
+        # stands in for the CUDA wrapper's count at the launch
+        bm._THREAD.gf_matmul = bm.thread_launches() + 1
+        return bm.thread_launches()
+
+    def counted(tables, mat, data):
+        bump()
+        if not other:       # another thread launches during the compile
+            t = threading.Thread(target=lambda: other.append(bump()))
+            t.start()
+            t.join()
+        return plain(tables, mat, data)
+    monkeypatch.setattr(bm, "gf_matmul", counted)
+    before = dict(compiler.COMPILES)
+    compile_program(ec, plan)
+    assert other == [1]
+    assert compiler.COMPILES["programs"] == before["programs"] + 1
+    # total_planes + 1 probes, each one staged decode through K1
+    assert compiler.COMPILES["probe_launches"] - \
+        before["probe_launches"] == plan.total_planes() + 1
 
 
 def test_cache_cost_weighted_eviction():

@@ -56,11 +56,20 @@ def probe(code: str, **env: str | None) -> subprocess.CompletedProcess:
 
 PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
                 "osd_min_pg_log_entries", "osd_max_pg_log_entries",
-                "objectstore_debug_inject_read_err"}
+                "objectstore_debug_inject_read_err",
+                # the cluster's
+                "osd_heartbeat_interval", "osd_heartbeat_grace",
+                "osd_mclock_client_wgt", "osd_mclock_recovery_res",
+                "osd_mclock_recovery_wgt", "osd_mclock_recovery_lim",
+                "mon_osd_down_out_interval", "mon_osd_min_down_reporters",
+                "mon_min_osdmap_epochs", "osd_mon_report_interval",
+                "mon_osd_stale_report_grace", "osd_max_backfills",
+                "osd_backfill_scan_max", "osd_op_complaint_time",
+                "osd_op_history_size", "blkin_trace_all"}
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads six options; each is the reference's entry: the
+    """The port reads 22 options; each is the reference's entry: the
     same type, level, default, text, bounds, see-also and runtime
     flag."""
     assert set(options.OPTIONS) == PORT_OPTIONS
