@@ -10,9 +10,10 @@ handle_osd_map :1182).  The mon subscription keeps the map fresh.
 
 The port's copy of `ceph_tpu.client.objecter` in part: op targeting,
 per-object ordering, resend on a map change or a reset, the rescan of
-parked ops, op timeouts and mon commands.  Left out: cephx (the
-MAuthRequest handshake and message signing) and the linger ops of
-watch/notify, whose OSD side the port's daemon does not carry yet.
+parked ops, op timeouts, mon commands and cephx (the MAuthRequest
+handshake, message signing and ticket renewal).  Left out: the linger
+ops of watch/notify, whose OSD side the port's daemon does not carry
+yet.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ from ..common.lockdep import make_lock
 from ..common.log import dout
 from ..common.options import global_config
 from ..common.tracing import Tracer, child_of, current_trace, new_trace
-from ..msg.messages import (MMap, MMonCommand, MMonCommandAck,
-                            MMonSubscribe, OSDOp, OSDOpReply)
+from ..msg.messages import (MAuthReply, MMap, MMonCommand,
+                            MMonCommandAck, MMonSubscribe, OSDOp,
+                            OSDOpReply)
 from ..msg.mon_client import MonHunter
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..osd.osdmap import OSDMap
@@ -92,8 +94,17 @@ class Objecter(Dispatcher, MonHunter):
     """(ref: src/osdc/Objecter.h:1204)."""
 
     def __init__(self, network: LocalNetwork, name: str | None = None,
-                 mon="mon.0", threaded: bool = True):
+                 mon="mon.0", threaded: bool = True,
+                 auth_secret: str | None = None):
         self.name = name or f"client.{next(_client_ids)}"
+        # cephx: clients do the wire handshake (they hold only their
+        # own secret); until the mon's ticket arrives nothing but the
+        # MAuthRequest goes out (ref: MonClient::authenticate)
+        self._cephx = None
+        self.auth_error: str | None = None
+        if auth_secret is not None:
+            from ..auth import CephxClient
+            self._cephx = CephxClient(self.name, auth_secret)
         self._init_mons(mon)
         self.osdmap = OSDMap()
         self._map_ev = threading.Event()
@@ -123,6 +134,10 @@ class Objecter(Dispatcher, MonHunter):
     # ------------------------------------------------------------ setup
     def start(self) -> None:
         self.ms.start()
+        if self._cephx is not None and not self._cephx.authenticated:
+            self.ms.connect(self.mon).send_message(
+                self._cephx.build_request())
+            return        # subscription follows the MAuthReply
         self.ms.connect(self.mon).send_message(
             MMonSubscribe(what="osdmap", start=1))
 
@@ -149,13 +164,33 @@ class Objecter(Dispatcher, MonHunter):
         return done()
 
     def wait_for_map(self, epoch: int = 1, timeout: float = 30.0) -> None:
-        if not self.wait_sync(lambda: self.osdmap.epoch >= epoch,
-                              timeout):
+        if not self.wait_sync(lambda: self.osdmap.epoch >= epoch or
+                              self.auth_error is not None, timeout):
             raise TimeoutError(
                 f"no osdmap >= e{epoch} (have e{self.osdmap.epoch})")
+        if self.auth_error is not None and self.osdmap.epoch < epoch:
+            raise PermissionError(f"cephx: {self.auth_error}")
 
     # --------------------------------------------------------- dispatch
     def ms_dispatch(self, msg: Message) -> bool:
+        if isinstance(msg, MAuthReply):
+            if self._cephx is None:
+                return True
+            if self._cephx.ingest_reply(msg):
+                self.ms.auth_signer = self._cephx
+                # ticket renewal before expiry, fired from sign() so
+                # every traffic pattern renews (ref:
+                # MonClient::_check_auth_rotating)
+                self._cephx.renew_hook = self._send_auth_renewal
+                # initial auth subscribes from scratch; a ticket
+                # renewal reply only needs maps we don't have yet
+                self.ms.connect(self.mon).send_message(
+                    MMonSubscribe(what="osdmap",
+                                  start=self.osdmap.epoch + 1))
+            else:
+                self.auth_error = msg.errstr or "authentication failed"
+                self._map_ev.set()       # unblock connect() waiters
+            return True
         if isinstance(msg, MMap):
             self._handle_map(msg)
             return True
@@ -166,7 +201,18 @@ class Objecter(Dispatcher, MonHunter):
             return self._handle_command_ack(msg)
         return False
 
+    def _send_auth_renewal(self) -> None:
+        """Re-run the MAuthRequest handshake (called off-thread by the
+        signer's renewal hook)."""
+        if self._cephx is not None:
+            self.ms.connect(self.mon).send_message(
+                self._cephx.build_request())
+
     def _hunt_greeting(self) -> list:
+        if self._cephx is not None and not self._cephx.authenticated:
+            # a mon failover mid-handshake: re-authenticate at the new
+            # mon first (an unsigned subscription would be dropped)
+            return [self._cephx.build_request()]
         return [MMonSubscribe(what="osdmap",
                               start=self.osdmap.epoch + 1)]
 

@@ -9,7 +9,8 @@ recalc/resend on map changes is inherited.
 
 The port's copy of `ceph_tpu.client.rados` in part: `Rados.connect`,
 `pool_create`, `pool_lookup`, `list_pools`, `mon_command`, `open_ioctx`
-and `shutdown`; `IoCtx.write`, `write_full`, `read`, `remove`, `stat`
+and `shutdown` (cephx through `auth_secret`); `IoCtx.write`,
+`write_full`, `read`, `remove`, `stat`
 and `append`, and the `aio_` forms of those the reference has.  Left
 out: snapshots (pool and self-managed), xattrs, omap, object classes
 (`exec`), watch/notify, `WriteOp` compound operations, object listing
@@ -37,9 +38,10 @@ class Rados:
 
     def __init__(self, network: LocalNetwork, name: str | None = None,
                  mon="mon.0", op_timeout: float = 30.0,
-                 threaded: bool = True):
+                 threaded: bool = True, auth_secret: str | None = None):
         self.objecter = Objecter(network, name=name, mon=mon,
-                                 threaded=threaded)
+                                 threaded=threaded,
+                                 auth_secret=auth_secret)
         self.op_timeout = op_timeout
         self._connected = False
 

@@ -193,6 +193,10 @@ class Config:
     def __getitem__(self, name: str):
         return self.get(name)
 
+    def dump(self) -> dict:
+        """Every option's live value (`config show`)."""
+        return {name: self.get(name) for name in sorted(OPTIONS)}
+
     def set(self, name: str, value) -> None:
         opt = OPTIONS.get(name)
         if opt is None:

@@ -158,6 +158,7 @@ class CrushTester:
             total_weight = sum(self.weights[d] for d in reachable
                                if d < len(self.weights))
             for nr in range(min_rep, max_rep + 1):
+                # cephck: ignore[host-sync-hot-path] one launch and one readback per (rule, num_rep), the tester's unit of work
                 res, cnt = self.map_all(r, nr, timings)
                 lap = _Laps(timings)
                 used = np.arange(res.shape[1])[None, :] < cnt[:, None]
@@ -176,6 +177,7 @@ class CrushTester:
                         if not show_mappings and not bad[i]:
                             continue
                         fmt = "[" + ",".join(
+                            # cephck: ignore[host-sync-hot-path] res is map_all's numpy readback
                             str(o) for o in res[i, :cnt[i]].tolist()) + "]"
                         if show_mappings:
                             lines.append(f"CRUSH rule {r} x {x} {fmt}")

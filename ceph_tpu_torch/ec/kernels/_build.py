@@ -11,10 +11,14 @@ beside each library, so it can be read back for a cached build too.  A
 failed build raises; nothing falls back to the plain versions.  Under the
 device guard (common/devguard.py) each nvcc run and each library load
 counts as one compile of its library: a second one in a process raises.
+Processes that build at once (daemons started together) take a file
+lock per source, so one runs nvcc and the others load its library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -77,25 +81,39 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
     return out, tmp, proc
 
 
+@contextlib.contextmanager
+def _file_locks(names):
+    """Hold an exclusive file lock per source (taken in sorted order)
+    across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with contextlib.ExitStack() as stack:
+        for name in sorted(set(names)):
+            f = stack.enter_context(open(BUILD_DIR / f".{name}.lock", "a"))
+            fcntl.flock(f, fcntl.LOCK_EX)
+            stack.callback(fcntl.flock, f, fcntl.LOCK_UN)
+        yield
+
+
 def build(*names: str) -> dict[str, str]:
     """Compile every named source that is not built yet, all nvcc
     processes at once.  Returns {name: compiler output} for every name,
     read back from the kept log where the library was already built."""
-    started = {n: _start(n) for n in names}
-    for name, job in started.items():
-        if job is None:
-            continue
-        out, tmp, proc = job
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        log_tmp = log_path(name).with_suffix(f".{os.getpid()}.logtmp")
-        log_tmp.write_text(log)
-        os.replace(log_tmp, log_path(name))
-        os.replace(tmp, out)
-        devguard.count_compile(f"nvcc:{name}", out.name)
-    return {n: log_path(n).read_text() for n in names}
+    with _file_locks(names):
+        started = {n: _start(n) for n in names}
+        for name, job in started.items():
+            if job is None:
+                continue
+            out, tmp, proc = job
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            log_tmp = log_path(name).with_suffix(f".{os.getpid()}.logtmp")
+            log_tmp.write_text(log)
+            os.replace(log_tmp, log_path(name))
+            os.replace(tmp, out)
+            devguard.count_compile(f"nvcc:{name}", out.name)
+        return {n: log_path(n).read_text() for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,8 +18,12 @@ reports and the tick's down-out.  Left out: the elector, leases and
 the peon paths of a multi-mon quorum; the ConfigMonitor, LogMonitor,
 MDSMonitor and CrashService (so `config` subscriptions get no MConfig
 and cluster-log events go to the local log only); mgr command
-proxying, cephx, the admin socket and its synchronous
-`handle_command`.
+proxying and the synchronous `handle_command`.  With a `keyring` it
+runs the cephx key server and verifies inbound traffic;
+`start_admin_socket` serves status, health, df, pg_stat,
+quorum_status, perf dump, config show and the op tracker's dumps.
+The port adds a perf counter set (`perf`) holding `tick_errors`, the
+tick errors a daemon process's loop survived (tools/daemon_main.py).
 """
 from __future__ import annotations
 
@@ -33,7 +37,9 @@ from ..common.options import global_config
 from ..common.racecheck import shared_state
 from ..common.tracked_op import OpTracker
 from ..crush.wrapper import CrushWrapper
-from ..msg.messages import (MMap, MMonCommand, MMonCommandAck,
+from ..common.perf_counters import PerfCounters
+from ..msg.messages import (MAuthRequest, MMap, MMonCommand,
+                            MMonCommandAck,
                             MMonSubscribe, MOSDBoot, MOSDFailure,
                             MOSDPGTemp, MPGStats)
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
@@ -73,7 +79,7 @@ class Monitor(Dispatcher):
                  initial_map: OSDMap | None = None,
                  initial_wrapper=None, store: MonitorStore | None = None,
                  threaded: bool = True, clock=time.monotonic,
-                 device=None):
+                 device=None, keyring=None):
         self.name = f"mon.{rank}"
         self.rank = rank
         #: injectable clock so harnesses can run the failure/auto-out
@@ -85,6 +91,16 @@ class Monitor(Dispatcher):
                                  device=device)
         self.ms = Messenger.create(network, self.name, threaded=threaded)
         self.ms.add_dispatcher(self)
+        # cephx: the mon runs the key server and gates inbound traffic
+        # (ref: AuthMonitor + ms_verify_authorizer)
+        self.cephx = None
+        if keyring is not None:
+            from ..auth import CephxServer, attach_cephx
+            self.cephx = CephxServer(keyring)
+            attach_cephx(self.ms, self.name, keyring)
+        self.asok = None
+        self.perf = PerfCounters(self.name)
+        self.perf.add_u64_counter("tick_errors")
         # osdmap subscribers: entity -> next epoch they need
         self._subs: dict[str, int] = {}
         # failure reports: target osd -> {reporter: stamp}
@@ -120,7 +136,36 @@ class Monitor(Dispatcher):
         self.ms.start()
 
     def shutdown(self) -> None:
+        if self.asok is not None:
+            self.asok.shutdown()
         self.ms.shutdown()
+
+    def start_admin_socket(self, path: str) -> None:
+        """`ceph daemon mon.N <cmd>` endpoint
+        (ref: Monitor::do_admin_command)."""
+        from ..common.admin_socket import AdminSocket, register_obs_commands
+        a = AdminSocket(path)
+
+        def _via_preprocess(prefix):
+            def fn(c):
+                with self._lock:
+                    r, outs, outb = self._preprocess_mon_command(
+                        {**c, "prefix": prefix})
+                return r, outb if outb is not None else outs
+            return fn
+        for p in ("status", "health", "df", "pg stat"):
+            a.register(p.replace(" ", "_") if p == "pg stat" else p,
+                       f"mon {p}", _via_preprocess(p))
+        a.register("quorum_status", "mon quorum_status",
+                   lambda c: (0, {"quorum": self.quorum(),
+                                  "leader": self.leader_rank}))
+        a.register("perf dump", "dump perf counters",
+                   lambda c: (0, self.perf.dump()))
+        a.register("config show", "live config",
+                   lambda c: (0, global_config().dump()))
+        register_obs_commands(a, self.op_tracker)
+        a.start()
+        self.asok = a
 
     @property
     def osdmap(self) -> OSDMap:
@@ -129,6 +174,11 @@ class Monitor(Dispatcher):
     # -------------------------------------------------------- dispatch
     def ms_dispatch(self, msg: Message) -> bool:
         with self._lock:
+            if isinstance(msg, MAuthRequest):
+                if self.cephx is not None:
+                    self.ms.connect(msg.src).send_message(
+                        self.cephx.handle_request(msg))
+                return True
             if isinstance(msg, MMonCommand):
                 self._handle_wire_command(msg.cmd, msg.src, msg.tid)
                 return True

@@ -4,11 +4,12 @@ The port's copy of the messages of `ceph_tpu.msg.messages` that its
 cluster exchanges: the EC sub-ops, the EC peering and backfill family,
 the client op and its reply, the pg-stat report, the map publish, mon
 commands and subscriptions, boot and failure reports, pg_temp requests,
-the paxos commit pipeline and the heartbeat pings.  Each is registered
+the paxos commit pipeline, the cephx handshake (`MAuthRequest`,
+`MAuthReply`) and the heartbeat pings.  Each is registered
 as the reference registers it (the same wire names, versions and field
 order), so a frame written by either package decodes in the other.
 Left out with the services that send them: the replicated sub-ops,
-scrub, snap trim, cephx, MDS/fs, config and cluster-log, mgr, mon
+scrub, snap trim, MDS/fs, config and cluster-log, mgr, mon
 quorum (election, lease, forward, sync request) and watch/notify
 messages.
 """
@@ -396,6 +397,27 @@ class MPaxosStoreSync(Message):
 
 
 # ------------------------------------------------------------- pings
+
+@dataclass
+class MAuthRequest(Message):
+    """client/daemon -> mon: prove identity (ref: src/messages/MAuth.h
+    + CephxAuthorizer)."""
+    entity: str = ""
+    nonce: str = ""
+    sig: str = ""
+
+
+@dataclass
+class MAuthReply(Message):
+    """(ref: src/messages/MAuthReply.h): session ticket or failure.
+    `expires` is advertised in the clear so the client knows when to
+    renew (the sealed ticket is opaque to it)."""
+    result: int = 0
+    errstr: str = ""
+    challenge: str = ""
+    ticket: Any = None
+    expires: float = 0.0
+
 
 @dataclass
 class Ping(Message):

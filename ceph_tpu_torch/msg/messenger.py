@@ -8,11 +8,12 @@ machinery with per-entity queues: a "connection" is a handle onto the
 peer's dispatch queue, and delivery order per (src, dst) pair is FIFO
 like a TCP stream.
 
-The port's copy of `ceph_tpu.msg.messenger` for the in-process
-transport.  Left out: the TCP backend (`Messenger.create` over a
-`TcpNet`), cephx signing and verification, the dispatch thread's crash
-hook, and the `ms_inject_socket_failures` shim (its drop rule needs the
-fault plane's rules, which `faults.py` does not carry yet).
+The port's copy of `ceph_tpu.msg.messenger`: the in-process transport,
+the cephx signer and verifier hooks, and `Messenger.create` over a
+`TcpNet`, which selects the socket backend (`msg/tcp.py`).  Left out:
+the dispatch thread's crash hook and the `ms_inject_socket_failures`
+shim (its drop rule needs the fault plane's rules, which `faults.py`
+does not carry yet).
 """
 from __future__ import annotations
 
@@ -92,12 +93,20 @@ class Messenger:
         self._queue: "queue.Queue[Optional[Message]]" = queue.Queue()
         self._thread: threading.Thread | None = None
         self._running = False
+        # cephx hooks: the signer stamps outgoing copies, the verifier
+        # gates incoming ones (None = auth off; ref: ms_verify_authorizer)
+        self.auth_signer = None
+        self.auth_verifier = None
 
     # -- factory (ref: Messenger.cc:21 Messenger::create) ---------------
     @staticmethod
-    def create(network: "LocalNetwork", name: EntityName,
-               ms_type: str | None = None,
-               threaded: bool = True) -> "Messenger":
+    def create(network, name: EntityName, ms_type: str | None = None,
+               threaded: bool = True):
+        # a TcpNet (monmap) network selects the socket backend: the
+        # same dispatcher surface, one OS process per daemon
+        from .tcp import TcpNet
+        if isinstance(network, TcpNet):
+            return network.messenger(name)
         # ici carries bulk arrays on the device mesh; its control
         # endpoint is identical to local
         if ms_type not in (None, "local", "ici"):
@@ -132,6 +141,13 @@ class Messenger:
         # stamp a copy: the caller may reuse its message object (e.g. a
         # broadcast loop) while earlier sends are still in flight
         msg = dataclasses.replace(msg, src=self.name, seq=next(_seq))
+        if self.auth_signer is not None:
+            try:
+                msg = self.auth_signer.sign(msg)
+            except ValueError as ex:     # WireError from the canon
+                dout("ms", 0).write("%s: unsignable %s: %s", self.name,
+                                    msg.type_name, ex)
+                return False
         return self.network.route(self.name, peer, msg)
 
     def enqueue(self, msg: Message) -> None:
@@ -169,6 +185,12 @@ class Messenger:
                                     self.name, tb)
 
     def _deliver(self, msg: Message) -> None:
+        if self.auth_verifier is not None and \
+                not self.auth_verifier.verify(msg):
+            dout("ms", 1).write(
+                "%s: dropping unauthenticated %s from %s", self.name,
+                msg.type_name, msg.src)
+            return
         for d in self.dispatchers:
             if d.ms_dispatch(msg):
                 return

@@ -21,8 +21,12 @@ the reference and also counted in the `queued_op_failures` perf
 counter.  Left out: replicated pools (their PGs are not instantiated),
 scrub, snap trim, object classes, watch/notify, snapshot ops and omap
 reads (a client op the daemon does not carry answers EINVAL), PG split
-on pg_num growth, cephx, crash capture, the cluster-log client,
-centralized config, the admin socket and the heartbeat mute hook.
+on pg_num growth, crash capture, the cluster-log client, centralized
+config and the heartbeat mute hook.  With a `keyring` the daemon signs
+its traffic and verifies inbound (cephx); `start_admin_socket` serves
+perf dump, status, config show/get/set and the op tracker's dumps.
+The port adds `tick_errors` to the perf counters: the tick errors a
+daemon process's loop survived (tools/daemon_main.py).
 """
 from __future__ import annotations
 
@@ -98,7 +102,7 @@ class OSDDaemon(Dispatcher, MonHunter):
     def __init__(self, network: LocalNetwork, whoami: int,
                  store: Optional[MemStore] = None, mon="mon.0",
                  threaded: bool = False, perf_collection=None,
-                 fabric=None, device=None):
+                 fabric=None, device=None, keyring=None):
         self.whoami = whoami
         self.name = f"osd.{whoami}"
         #: where every plugin this daemon builds lives (cuda unless
@@ -184,10 +188,12 @@ class OSDDaemon(Dispatcher, MonHunter):
                     "subop_w", "recovery_push", "recovery_pull",
                     "recovery_bytes_read", "recovery_bytes_rebuilt",
                     "map_epochs",
-                    # the port's two fault counters: rebuilds that took
-                    # the full decode + re-encode instead of the
-                    # compiled repair, and queued items that raised
-                    "recovery_full_rebuild", "queued_op_failures"):
+                    # the port's fault counters: rebuilds that took the
+                    # full decode + re-encode instead of the compiled
+                    # repair, queued items that raised, and tick errors
+                    # a daemon process's loop survived
+                    "recovery_full_rebuild", "queued_op_failures",
+                    "tick_errors"):
             self.perf.add_u64_counter(key)
         # per-op-class latency histograms (ref: the l_osd_op_*_lat
         # family + mClock op classes)
@@ -198,6 +204,10 @@ class OSDDaemon(Dispatcher, MonHunter):
         self.perf.add_u64_counter("msgr_drops_total")
         self.ms = Messenger.create(network, self.name, threaded=threaded)
         self.ms.add_dispatcher(self)
+        if keyring is not None:
+            from ..auth import attach_cephx
+            attach_cephx(self.ms, self.name, keyring)
+        self.asok = None
 
     # ------------------------------------------------------------ setup
     def init(self) -> None:
@@ -207,9 +217,51 @@ class OSDDaemon(Dispatcher, MonHunter):
             MMonSubscribe(what="osdmap", start=1))
 
     def shutdown(self) -> None:
+        if self.asok is not None:
+            self.asok.shutdown()
         if self._qos_timer is not None:
             self._qos_timer.cancel()
         self.ms.shutdown()
+
+    # -------------------------------------------------- admin socket
+    def start_admin_socket(self, path: str) -> None:
+        """`ceph daemon osd.N <cmd>` endpoint
+        (ref: OSD::asok_command src/osd/OSD.cc:2712)."""
+        from ..common.admin_socket import AdminSocket, register_obs_commands
+        a = AdminSocket(path)
+
+        def _perf_dump(c):
+            self._refresh_msgr_perf()
+            return 0, self.perf.dump()
+        a.register("perf dump", "dump perf counters", _perf_dump)
+        a.register("config show", "dump live config values",
+                   lambda c: (0, global_config().dump()))
+        a.register("config get", "get one option",
+                   lambda c: (0, global_config()[c["var"]]))
+
+        def _config_set(c):
+            global_config().set(c["var"], c["val"])
+            return 0, "success"
+        a.register("config set", "set one option", _config_set)
+        register_obs_commands(a, self.op_tracker, self.tracer)
+
+        def _status(c):
+            with self._lock:
+                prim = [st for st in self.pgs.values()
+                        if st.backend is not None]
+                return 0, {"whoami": self.whoami,
+                           "osdmap_epoch": self.osdmap.epoch,
+                           "num_pgs": len(self.pgs),
+                           "num_primary": len(prim),
+                           "primary_clean": sum(
+                               1 for st in prim if st.peering is not None
+                               and st.peering.phase == CLEAN),
+                           "pgs_recovering": self.pgs_recovering(),
+                           "hbmap_unhealthy":
+                               self.hbmap.get_unhealthy_workers()}
+        a.register("status", "daemon status", _status)
+        a.start()
+        self.asok = a
 
     def _hunt_greeting(self) -> list:
         return [MOSDBoot(osd=self.whoami),
@@ -996,8 +1048,10 @@ class OSDDaemon(Dispatcher, MonHunter):
 
     # ------------------------------------------------------- pg stats
     def _refresh_msgr_perf(self) -> None:
-        """Pull the network's drop total into our counter set."""
-        total = getattr(self.ms.network, "drops_total", None)
+        """Pull the network's drop total into our counter set
+        (LocalNetwork only; TcpNet has no shared drop ledger)."""
+        net = getattr(self.ms, "network", None)
+        total = getattr(net, "drops_total", None)
         if total is not None:
             self.perf.set("msgr_drops_total", total)
 

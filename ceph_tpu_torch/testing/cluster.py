@@ -10,14 +10,23 @@ The port's copy of `ceph_tpu.testing.cluster` in part: one mon,
 `start_osd`, `kill_osd`, `revive_osd`, `rados()`, `pump`, `tick`,
 `wait_all_up`, `shutdown` and the shared `fabric`.  The cluster runs on
 its `device` (cuda unless the caller passes `device="cpu"`): every OSD
-builds its plugins there, and so does the mon.  Left out: multi-mon
-quorums (`n_mon`, `kill_mon`, `revive_mon`, `leader`), cephx, crash
-spools, the MDS, mgr and RGW helpers.
+builds its plugins there, and so does the mon.  `auth="cephx"` gives
+the cluster one keyring (the daemons' keys and the service secret) and
+each `rados()` client a key minted into it; unlike the reference, such
+a client also runs in pump mode, where its MAuthRequest handshake is
+pumped like any other message.  One rule differs: `tick` reaps an OSD
+whose `heartbeat_tick` raises, as the reference does, and also records
+the reap in `reaped` (osd id, exception type, traceback), so a kernel
+fault raised from a ticked peering retry shows.  Left out: multi-mon
+quorums (`n_mon`, `kill_mon`, `revive_mon`, `leader`), crash spools,
+the MDS, mgr and RGW helpers.
 """
 from __future__ import annotations
 
 import copy
+import itertools
 import time
+import traceback
 
 from .. import device as _device
 from ..client.rados import Rados
@@ -30,7 +39,8 @@ from ..osd.daemon import OSDDaemon
 
 class MiniCluster:
     def __init__(self, n_osd: int = 6, osds_per_host: int = 1,
-                 threaded: bool = True, fabric=None, device=None):
+                 threaded: bool = True, fabric=None, device=None,
+                 auth: str = "none"):
         self.device = _device.resolve(device)
         self.network = LocalNetwork()
         # fault-plane delays release against the same clock the mon
@@ -46,12 +56,23 @@ class MiniCluster:
         self.osds: dict[int, OSDDaemon] = {}
         self._stores: dict[int, object] = {}
         self.clients: list[Rados] = []
+        #: (osd, exception type, traceback) of every OSD `tick` reaped
+        self.reaped: list[tuple[int, str, str]] = []
+        # cephx: one cluster keyring; daemons get it whole, clients get
+        # per-entity secrets minted on demand (ref: ceph-authtool
+        # provisioning + AuthMonitor key server)
+        self.keyring = None
+        if auth == "cephx":
+            from ..auth import KeyRing
+            self.keyring = KeyRing.generate(
+                ["mon.0"] + [f"osd.{o}" for o in range(n_osd)])
+        self._client_keys = itertools.count(1)
         m, w = build_initial(n_osd, osds_per_host=osds_per_host)
         self.mon = Monitor(self.network, rank=0,
                            initial_map=copy.deepcopy(m),
                            initial_wrapper=copy.deepcopy(w),
                            threaded=threaded, clock=self._clock,
-                           device=self.device)
+                           device=self.device, keyring=self.keyring)
         self.mon.init()
         self.mons = {0: self.mon}
         for osd in range(n_osd):
@@ -64,7 +85,7 @@ class MiniCluster:
                       threaded=self.threaded,
                       perf_collection=self.perf_collection,
                       mon=self.mon_names, fabric=self.fabric,
-                      device=self.device)
+                      device=self.device, keyring=self.keyring)
         self._stores[osd] = d.store
         d.init()
         self.osds[osd] = d
@@ -82,8 +103,16 @@ class MiniCluster:
 
     # ---------------------------------------------------------- client
     def rados(self, timeout: float = 30.0) -> Rados:
-        r = Rados(self.network, op_timeout=timeout,
-                  threaded=self.threaded, mon=self.mon_names)
+        name = auth_secret = None
+        if self.keyring is not None:
+            # mint this client's key into the shared keyring
+            from ..auth import generate_key
+            name = f"client.mc{next(self._client_keys)}"
+            auth_secret = generate_key()
+            self.keyring.keys[name] = auth_secret
+        r = Rados(self.network, name=name, op_timeout=timeout,
+                  threaded=self.threaded, mon=self.mon_names,
+                  auth_secret=auth_secret)
         self.clients.append(r)   # before connect: pump() must see it
         if self.threaded:
             r.connect(timeout)
@@ -122,7 +151,7 @@ class MiniCluster:
         """One heartbeat round on every live OSD + a mon tick; pumps
         in non-threaded mode so the exchange completes.  An OSD whose
         tick raises is reaped like an aborted process: off the wire,
-        store kept for a revive."""
+        store kept for a revive, and recorded in `reaped`."""
         if now is not None:
             self._sim_now = now
         for osd, d in list(self.osds.items()):
@@ -132,6 +161,8 @@ class MiniCluster:
                 dout("cluster", 0).write(
                     "osd.%d crashed in tick (%s: %s) — reaped",
                     osd, type(ex).__name__, ex)
+                self.reaped.append((osd, type(ex).__name__,
+                                    traceback.format_exc()))
                 del self.osds[osd]
                 d.shutdown()
         if not self.threaded:

@@ -3,8 +3,10 @@
 path, CRUSH placement, compiled repair, the placement tools (crushtool,
 osdmaptool and the upmap balancer), the device guard, the multi-device EC
 mesh and its OSD-side fabric, the ceph_erasure_code_benchmark CLI, the
-EC placement group's data plane (ECBackend over MemStore), and the port's
-own cluster (mon, OSD daemons with EC peering and recovery, librados).
+EC placement group's data plane (ECBackend over MemStore), the port's
+own cluster (mon, OSD daemons with EC peering and recovery, librados),
+and that cluster over TCP with cephx, as daemon processes driven by
+`rados bench`, and in the port's dry run.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -83,8 +85,8 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    --show-statistics --show-utilization` over x = 0 .. 1,048,575 for
    rule 0 at num_rep 3 and rule 1 at 12: one K3 launch per (rule,
    num_rep), no scalar fallback, every x of full size; K3 against the
-   plain version on the card over every x of rule 0 and every 4th x of
-   rule 1 (262,144 x over the whole range, cut to keep the smoke's wall
+   plain version on the card over every x of rule 0 and every 8th x of
+   rule 1 (131,072 x over the whole range, cut to keep the smoke's wall
    time; rule 1's text is not held to the plain version), rule 0's text equal
    to the text of the plain version's tables, 256 sampled x equal to
    CrushWrapper.do_rule, and the text equal to CrushTester(device="cpu")'s
@@ -142,8 +144,8 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    staged decode); shard 0 wiped and recovered through recover_object,
    one compiled repair (one K1 launch) per object and no full rebuild,
    equal to the streams from before, read/rebuilt exactly 8.0; the same
-   recovery for REPAIR_r01.json's jerasure, clay and lrc (64 objects
-   each, 4.0 / 2.5 / 3.0); the 64 writes again through ICIFabric over
+   recovery for REPAIR_r01.json's jerasure, clay and lrc (the first 32
+   objects each, 4.0 / 2.5 / 3.0); the 64 writes again through ICIFabric over
    ["cuda:0"] * 8, every chunk equal to the host path's.  Write, read,
    degraded-read and rebuilt MB/s on the host clock, K1's CUDA-event
    share of each, and a split of one write (merge, ecutil.encode, the
@@ -170,7 +172,29 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    and the rebuilt MB/s on the host clock, K1's launches and CUDA-event
    share of each leg, recovery's launches split into compile probes and
    repairs, the messages routed, and the phase's wall.
-   K1's launch count is zeroed before and read after the phase.
+   K1's launch count is zeroed before and read after the phase;
+20. the cluster on its real transport, in three legs.  (a) phase 19's
+   cell over TCP (ceph_tpu_torch.dryrun.TcpCluster): the mon, 16 OSDs
+   and the client each on its own socket on 127.0.0.1, cephx on and
+   secure mode off (Octopus's defaults), the same 64 x 4 MiB writes,
+   reads, kill, `osd down`, degraded reads, `osd out` and recovery to
+   clean; every shard on its acting OSD equal to its bytes before the
+   kill; frames and bytes on the wire, cephx signatures verified and
+   rejected (0).  (b) `dryrun_multichip(8)` on ["cuda:0"] * 8: the mesh
+   encode and decode, then a mon, 16 OSDs and a client on TCP with a
+   fabric write whose 12 stored shards equal the plain version's
+   encode, and a degraded read.  (c) Ceph's `rados bench` shape: `python
+   -m ceph_tpu_torch.tools.daemon_main` mon and 16 OSD processes on the
+   card, each with a keyring and an admin socket, a k=8 m=4 pool, the
+   `rados_cli` processes `bench ecpool 8 write -t 16 --no-cleanup` and
+   `bench ecpool 8 seq -t 16` (4 MiB, each read checked against the
+   payload), then the OSD in the most acting sets killed, `osd down`
+   and 16 bench objects read degraded.  Bench MB/s, each daemon's
+   start-up (interpreter, imports, CUDA context, kernel load, join),
+   and, through each admin socket, its K1 launches, tick errors, failed
+   queued items, full rebuilds and dispatch errors, all of which must
+   be 0.  K1's launch count in this process is zeroed before and read
+   after the phase.
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -221,9 +245,9 @@ TOOL_X = 1 << 20                 # x = 0 .. 1,048,575
 TOOL_SAMPLE = 256                # sampled x per rule against do_rule
 TOOL_PLAIN_CHUNK = 1 << 18       # seeds per pass of the plain version there
 # stride of the x held to the plain version per rule: every x of rule 0;
-# every 4th x of rule 1 (the 12-wide indep rule, 8x rule 0's cost per x),
-# 262,144 x spread over the whole launch, to keep the smoke's wall time
-TOOL_PLAIN_STRIDE = {0: 1, 1: 4}
+# every 8th x of rule 1 (the 12-wide indep rule, 8x rule 0's cost per x),
+# 131,072 x spread over the whole launch, to keep the smoke's wall time
+TOOL_PLAIN_STRIDE = {0: 1, 1: 8}
 TOOL_GUARD_X = 1 << 16           # phase 14's guarded tester run
 TOOL_CPU_X = 1 << 10             # text against CrushTester on the CPU
 TOOL_RULES = """\
@@ -1789,7 +1813,8 @@ def bench_phase(name_power: str) -> dict:
 # ---------------------------------------------------------------------------
 # The EC placement group's data plane: phase 18
 
-EC_PG_OBJECTS = 64               # 4 MiB objects through ECBackend, per code
+EC_PG_OBJECTS = 64               # 4 MiB objects through ECBackend, tpu
+EC_PG_CODE_OBJECTS = 32          # of them through jerasure, clay and lrc
 EC_PG_RMW = 16                   # objects given an unaligned overwrite
 EC_PG_PATCH = 100 << 10          # 100 KiB
 EC_PG_KILLED = [1, 9]
@@ -2100,11 +2125,12 @@ def ec_pg_phase(ec, name_power: str, dev) -> dict:
         ec2 = registry.factory(plugin, dict(profile))     # the card
         pg2 = ECPG(ec2)
         t0 = time.monotonic()
-        for i, data in enumerate(objs.values()):
+        for i, data in enumerate(itertools.islice(objs.values(),
+                                                  EC_PG_CODE_OBJECTS)):
             pg2.write(f"obj{i}", 0, data)
         write_s[plugin] = time.monotonic() - t0
-        rec[plugin] = recover_all(pg2, ec2, {f"obj{i}": None
-                                             for i in range(len(objs))}, bm)
+        rec[plugin] = recover_all(pg2, ec2, {
+            f"obj{i}": None for i in range(EC_PG_CODE_OBJECTS)}, bm)
         want_ratio[plugin] = ratio
         del pg2
     for code, r in rec.items():
@@ -2150,7 +2176,8 @@ def ec_pg_phase(ec, name_power: str, dev) -> dict:
           f", one compiled repair per object, 0 full rebuilds; "
           f"repair compiles (apart) " +
           ", ".join(f"{c} {r['compile_s']:.3f}" for c, r in rec.items()) +
-          f" s; {', '.join(c for c, _, _ in REPAIR_CODES)} writes " +
+          f" s; {', '.join(c for c, _, _ in REPAIR_CODES)} writes of "
+          f"{EC_PG_CODE_OBJECTS} objects " +
           ", ".join(f"{v:.1f}" for v in write_s.values()) +
           f" s; fabric chunks == the host path's; phase {wall:.1f} s")
     return {"rows": rows, "split_s": split, "write_s": write_s,
@@ -2168,48 +2195,64 @@ CLUSTER_FABRIC_OBJECTS = 16
 CLUSTER_TIMEOUT_S = 300.0
 
 
-def _faults(c) -> None:
+def _faults(c, tag: str = "phase 19") -> None:
     """Fail at once on a handler error a dispatch thread logged and
-    survived, or on a queued item that raised: a kernel or device fault
-    on the cluster's threads must not show only as a stall."""
+    survived, an OSD the cluster's tick reaped, or a queued item that
+    raised: a kernel or device fault on the cluster's threads must not
+    show only as a stall."""
     if c.network.dispatch_errors:
         raise AssertionError(
-            f"phase 19: {c.network.dispatch_errors} dispatch errors, the "
+            f"{tag}: {c.network.dispatch_errors} dispatch errors, the "
             f"last on {c.network.last_dispatch_error}")
+    for osd, exc, tb in getattr(c, "reaped", ()):
+        raise AssertionError(f"{tag}: osd.{osd} reaped in tick ({exc}):\n{tb}")
     failed = _perf_sum(c, "queued_op_failures")
     if failed:
-        raise AssertionError(f"phase 19: {failed} failed queued items")
+        raise AssertionError(f"{tag}: {failed} failed queued items")
 
 
-def _wait(c, pred, what: str, timeout: float = CLUSTER_TIMEOUT_S) -> None:
+def _wait(c, pred, what: str, timeout: float = CLUSTER_TIMEOUT_S,
+          tag: str = "phase 19") -> None:
     end = time.monotonic() + timeout
     while time.monotonic() < end:
-        _faults(c)
+        _faults(c, tag)
         if pred():
             return
         time.sleep(0.01)
-    raise AssertionError(f"phase 19: {what} within {timeout:.0f} s")
+    raise AssertionError(f"{tag}: {what} within {timeout:.0f} s")
 
 
-def _cluster(fabric=None):
-    """The port's MiniCluster on the card with a k=8 m=4 `tpu` pool;
-    returns the cluster, the client and the pool's IoCtx."""
+PROFILE_CMD = {"prefix": "osd erasure-code-profile set", "name": "tpu_k8m4",
+               "profile": {"plugin": "tpu", "k": str(K), "m": str(M),
+                           "technique": "reed_sol_van",
+                           "crush-failure-domain": "host"}}
+
+
+def _cluster(fabric=None, tcp: bool = False, dev="cuda"):
+    """The port's cluster on the card with a k=8 m=4 `tpu` pool: a
+    threaded MiniCluster over LocalNetwork, or (tcp) a TcpCluster with
+    cephx on and secure mode off, every daemon and the client on its own
+    socket.  Returns the cluster, the client and the pool's IoCtx."""
+    from ceph_tpu_torch.dryrun import TcpCluster
     from ceph_tpu_torch.testing import MiniCluster
 
-    c = MiniCluster(n_osd=CLUSTER_OSDS, osds_per_host=1, threaded=True,
-                    fabric=fabric)
-    c.wait_all_up()
-    r = c.rados(timeout=CLUSTER_TIMEOUT_S)
-    rc, outs, _ = r.mon_command({
-        "prefix": "osd erasure-code-profile set", "name": "tpu_k8m4",
-        "profile": {"plugin": "tpu", "k": str(K), "m": str(M),
-                    "technique": "reed_sol_van",
-                    "crush-failure-domain": "host"}})
+    tag = "phase 20" if tcp else "phase 19"
+    if tcp:
+        c = TcpCluster(n_osd=CLUSTER_OSDS, device=dev, auth="cephx",
+                       op_timeout=CLUSTER_TIMEOUT_S)
+        c.wait_all_up()
+        r = c.rados
+    else:
+        c = MiniCluster(n_osd=CLUSTER_OSDS, osds_per_host=1, threaded=True,
+                        fabric=fabric)
+        c.wait_all_up()
+        r = c.rados(timeout=CLUSTER_TIMEOUT_S)
+    rc, outs, _ = r.mon_command(PROFILE_CMD)
     if rc != 0:
-        raise AssertionError(f"phase 19: profile set: {outs}")
+        raise AssertionError(f"{tag}: profile set: {outs}")
     r.pool_create("ecpool", pg_num=CLUSTER_PG_NUM, pool_type="erasure",
                   erasure_code_profile="tpu_k8m4")
-    _wait(c, lambda: _all_clean(c, r), "the new pool's PGs peered")
+    _wait(c, lambda: _all_clean(c, r), "the new pool's PGs peered", tag=tag)
     return c, r, r.open_ioctx("ecpool")
 
 
@@ -2240,22 +2283,29 @@ def _perf_sum(c, key: str) -> int:
     return sum(d.perf.get(key) for d in list(c.osds.values()))
 
 
-def cluster_phase(name_power: str, dev) -> dict:
-    """Phase 19: the port's cluster on the card (see the module
-    docstring)."""
-    from ceph_tpu_torch.dist import ICIFabric
-    from ceph_tpu_torch.ec import registry
+def acting_sets(m, pid: int, pg_num: int, PG) -> tuple[dict, dict]:
+    """ps -> acting set, and osd -> the acting sets it is in."""
+    before, count = {}, {}
+    for ps in range(pg_num):
+        before[ps] = list(m.pg_to_up_acting_osds(PG(pid, ps))[2])
+        for o in before[ps]:
+            if 0 <= o:
+                count[o] = count.get(o, 0) + 1
+    return before, count
+
+
+def drive_cluster(c, r, io, objs: dict, tag: str, dev,
+                  snapshot: bool = False) -> dict:
+    """Writes, reads, the OSD in the most acting sets killed and marked
+    down, degraded reads, `osd out` and recovery to clean, reads again;
+    K1's launches and CUDA-event share of each leg.  Every read equals
+    its payload; read/rebuilt is exactly 8.0 and no rebuild is full.
+    With `snapshot`, every shard's bytes before the kill are kept
+    (result "shards": (oid, shard) -> bytes)."""
     from ceph_tpu_torch.ec.kernels import bitmatmul as bm
     from ceph_tpu_torch.ec.repairc import compiler as repairc_compiler
-    from ceph_tpu_torch.osd import ec_backend, ecutil
     from ceph_tpu_torch.osd.types import PG
-    from ceph_tpu_torch.store import ObjectId
 
-    t_phase = time.monotonic()
-    rng = np.random.default_rng(SEED + 19)
-    objs = {f"obj{i}": rng.integers(0, 256, REPAIR_OBJECT,
-                                    dtype=np.uint8).tobytes()
-            for i in range(CLUSTER_OBJECTS)}
     logical = len(objs) * REPAIR_OBJECT
     legs = {}
 
@@ -2264,111 +2314,130 @@ def cluster_phase(name_power: str, dev) -> dict:
         legs[name] = {"MBps": nbytes / wall / 1e6, "wall_s": wall,
                       "k1_ms": k1, "k1_share": k1 / 1e3 / wall,
                       "launches": bm.LAUNCHES["gf_matmul"] - launches0}
-        return legs[name]
 
-    def timed_reads(io, what):
-        for oid, data in objs.items():
-            if io.read(oid) != data:
-                raise AssertionError(f"phase 19: {what} read of {oid} "
-                                     "differs")
-
-    c, r, io = _cluster()
-    try:
-        if any(d.device.type != torch.device(dev).type
-               for d in c.osds.values()):
-            raise AssertionError("phase 19: an OSD is not on the card")
-        # -- writes and reads --------------------------------------------
+    def reads(what):
         l0 = bm.LAUNCHES["gf_matmul"]
         with k1_events(bm) as ev:
             t0 = time.monotonic()
             for oid, data in objs.items():
-                io.write_full(oid, data)
+                if io.read(oid) != data:
+                    raise AssertionError(f"{tag}: {what} read of {oid} "
+                                         "differs")
             wall = time.monotonic() - t0
-        leg("write", logical, wall, ev, l0)
-        l0 = bm.LAUNCHES["gf_matmul"]
-        with k1_events(bm) as ev:
-            t0 = time.monotonic()
-            timed_reads(io, "first")
-            wall = time.monotonic() - t0
-        leg("read", logical, wall, ev, l0)
-        # -- the OSD in the most acting sets dies -------------------------
-        m = c.mon.osdmap
-        pid = r.pool_lookup("ecpool")
-        count: dict = {}
-        before = {}
-        for ps in range(CLUSTER_PG_NUM):
-            before[ps] = list(m.pg_to_up_acting_osds(PG(pid, ps))[2])
-            for o in before[ps]:
-                if 0 <= o < CLUSTER_OSDS:
-                    count[o] = count.get(o, 0) + 1
-        victim = max(sorted(count), key=lambda o: count[o])
-        c.kill_osd(victim)
-        rc, outs, _ = r.mon_command({"prefix": "osd down",
-                                     "ids": [victim]})
+        leg(what, logical, wall, ev, l0)
+
+    if any(d.device.type != torch.device(dev).type
+           for d in c.osds.values()):
+        raise AssertionError(f"{tag}: an OSD is not on the card")
+    l0 = bm.LAUNCHES["gf_matmul"]
+    with k1_events(bm) as ev:
+        t0 = time.monotonic()
+        for oid, data in objs.items():
+            io.write_full(oid, data)
+        wall = time.monotonic() - t0
+    leg("write", logical, wall, ev, l0)
+    reads("read")
+    # -- the OSD in the most acting sets dies ------------------------------
+    pid = r.pool_lookup("ecpool")
+    before, count = acting_sets(c.mon.osdmap, pid, CLUSTER_PG_NUM, PG)
+    victim = max(sorted(count), key=lambda o: count[o])
+    shards = {}
+    if snapshot:
+        res = {"pid": pid, "victim": -1, "before": before}
+        shards = {(oid, s): got for oid, s, _osd, got, _was, _pg
+                  in _shards_on_acting(c, objs, res, tag)}
+    c.kill_osd(victim)
+    rc, outs, _ = r.mon_command({"prefix": "osd down", "ids": [victim]})
+    if rc != 0:
+        raise AssertionError(f"{tag}: osd down: {outs}")
+    _wait(c, lambda: r.objecter.osdmap.is_down(victim) and
+          _all_clean(c, r), "peering after osd down", tag=tag)
+    reads("degraded_read")
+    # -- out: EC peering rebuilds the lost shards ----------------------------
+    read0 = _perf_sum(c, "recovery_bytes_read")
+    rebuilt0 = _perf_sum(c, "recovery_bytes_rebuilt")
+    l0 = bm.LAUNCHES["gf_matmul"]
+    comp0 = dict(repairc_compiler.COMPILES)
+    with k1_events(bm) as ev:
+        t0 = time.monotonic()
+        rc, outs, _ = r.mon_command({"prefix": "osd out", "ids": [victim]})
         if rc != 0:
-            raise AssertionError(f"phase 19: osd down: {outs}")
-        _wait(c, lambda: r.objecter.osdmap.is_down(victim) and
-              _all_clean(c, r), "peering after osd down")
-        l0 = bm.LAUNCHES["gf_matmul"]
-        with k1_events(bm) as ev:
-            t0 = time.monotonic()
-            timed_reads(io, "degraded")
-            wall = time.monotonic() - t0
-        leg("degraded_read", logical, wall, ev, l0)
-        # -- out: EC peering rebuilds the lost shards ----------------------
-        read0 = _perf_sum(c, "recovery_bytes_read")
-        rebuilt0 = _perf_sum(c, "recovery_bytes_rebuilt")
-        l0 = bm.LAUNCHES["gf_matmul"]
-        comp0 = dict(repairc_compiler.COMPILES)
-        with k1_events(bm) as ev:
-            t0 = time.monotonic()
-            rc, outs, _ = r.mon_command({"prefix": "osd out",
-                                         "ids": [victim]})
-            if rc != 0:
-                raise AssertionError(f"phase 19: osd out: {outs}")
-            _wait(c, lambda: c.mon.osdmap.is_out(victim) and
-                  _all_clean(c, r), "recovery to clean")
-            recover_s = time.monotonic() - t0
-        compiles = {key: repairc_compiler.COMPILES[key] - comp0[key]
-                    for key in comp0}
-        rebuilt = _perf_sum(c, "recovery_bytes_rebuilt") - rebuilt0
-        read = _perf_sum(c, "recovery_bytes_read") - read0
-        leg("recovery", rebuilt, recover_s, ev, l0)
-        l0 = bm.LAUNCHES["gf_matmul"]
-        with k1_events(bm) as ev:
-            t0 = time.monotonic()
-            timed_reads(io, "post-recovery")
-            wall = time.monotonic() - t0
-        leg("read_after_clean", logical, wall, ev, l0)
-        _faults(c)
-        full = _perf_sum(c, "recovery_full_rebuild")
-        if not rebuilt or read / rebuilt != float(K) or full:
-            raise AssertionError(
-                f"phase 19: recovery read {read} B / rebuilt {rebuilt} B, "
-                f"{full} full rebuilds")
+            raise AssertionError(f"{tag}: osd out: {outs}")
+        _wait(c, lambda: c.mon.osdmap.is_out(victim) and
+              _all_clean(c, r), "recovery to clean", tag=tag)
+        recover_s = time.monotonic() - t0
+    compiles = {key: repairc_compiler.COMPILES[key] - comp0[key]
+                for key in comp0}
+    rebuilt = _perf_sum(c, "recovery_bytes_rebuilt") - rebuilt0
+    read = _perf_sum(c, "recovery_bytes_read") - read0
+    leg("recovery", rebuilt, recover_s, ev, l0)
+    reads("read_after_clean")
+    _faults(c, tag)
+    full = _perf_sum(c, "recovery_full_rebuild")
+    if not rebuilt or read / rebuilt != float(K) or full:
+        raise AssertionError(
+            f"{tag}: recovery read {read} B / rebuilt {rebuilt} B, "
+            f"{full} full rebuilds")
+    return {"legs": legs, "victim": victim, "count": count,
+            "before": before, "shards": shards, "pid": pid,
+            "recover_s": recover_s, "rebuilt": rebuilt, "read": read,
+            "compiles": compiles}
+
+
+def _shards_on_acting(c, objs: dict, res: dict, tag: str):
+    """Yield (oid, shard, osd, stored bytes, the OSD that held the shard
+    before the kill) for every shard of every object on its acting OSD
+    now; fail if an object still maps to the dead OSD."""
+    from ceph_tpu_torch.osd import ec_backend
+    from ceph_tpu_torch.store import ObjectId
+
+    m, pid, victim = c.mon.osdmap, res["pid"], res["victim"]
+    for oid in objs:
+        raw = m.object_locator_to_pg(oid, pid)
+        pg = m.pools[pid].raw_pg_to_pg(raw)
+        acting = m.pg_to_up_acting_osds(raw)[2]
+        if victim in acting:
+            raise AssertionError(f"{tag}: {oid} still maps to the dead "
+                                 f"osd.{victim}")
+        for s, osd in enumerate(acting):
+            got = c.osds[osd].store.read(ec_backend.pg_cid(pg),
+                                         ObjectId(oid, shard=s))
+            yield oid, s, osd, got, res["before"][pg.ps][s], pg
+
+
+def cluster_phase(name_power: str, dev) -> dict:
+    """Phase 19: the port's cluster on the card (see the module
+    docstring)."""
+    from ceph_tpu_torch.dist import ICIFabric
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.osd import ecutil
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 19)
+    objs = {f"obj{i}": rng.integers(0, 256, REPAIR_OBJECT,
+                                    dtype=np.uint8).tobytes()
+            for i in range(CLUSTER_OBJECTS)}
+    c, r, io = _cluster()
+    try:
+        res = drive_cluster(c, r, io, objs, "phase 19", dev)
+        legs = res["legs"]
         # -- every shard on its acting OSD == the plain version's encode ---
         ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M),
                                           "technique": "reed_sol_van"},
                                   device="cpu")
         sinfo = ecutil.StripeInfo(K, K * STRIPE_UNIT)
-        m = c.mon.osdmap
         moved = 0             # shards now on an OSD that did not hold them
-        for oid, data in objs.items():
-            raw = m.object_locator_to_pg(oid, pid)
-            pg = m.pools[pid].raw_pg_to_pg(raw)
-            acting = m.pg_to_up_acting_osds(raw)[2]
-            if victim in acting:
-                raise AssertionError(f"phase 19: {oid} still maps to the "
-                                     f"dead osd.{victim}")
-            want = ecutil.encode(sinfo, ec_cpu, data)
-            for s, osd in enumerate(acting):
-                got = c.osds[osd].store.read(ec_backend.pg_cid(pg),
-                                             ObjectId(oid, shard=s))
-                if got != want[s]:
-                    raise AssertionError(f"phase 19: {oid} shard {s} on "
-                                         f"osd.{osd} differs from the "
-                                         "plain version's encode")
-                moved += osd != before[pg.ps][s]
+        want = {}
+        for oid, s, osd, got, was, _pg in _shards_on_acting(
+                c, objs, res, "phase 19"):
+            if oid not in want:
+                want = {oid: ecutil.encode(sinfo, ec_cpu, objs[oid])}
+            if got != want[oid][s]:
+                raise AssertionError(f"phase 19: {oid} shard {s} on "
+                                     f"osd.{osd} differs from the plain "
+                                     "version's encode")
+            moved += osd != was
         if not moved:
             raise AssertionError("phase 19: no shard moved to a new OSD")
         messages = c.network.routed
@@ -2385,7 +2454,11 @@ def cluster_phase(name_power: str, dev) -> dict:
             for oid, data in fobjs.items():
                 io.write_full(oid, data)
             wall = time.monotonic() - t0
-        leg("fabric_write", len(fobjs) * REPAIR_OBJECT, wall, ev, l0)
+        k1 = events_ms(ev)
+        legs["fabric_write"] = {
+            "MBps": len(fobjs) * REPAIR_OBJECT / wall / 1e6, "wall_s": wall,
+            "k1_ms": k1, "k1_share": k1 / 1e3 / wall,
+            "launches": bm.LAUNCHES["gf_matmul"] - l0}
         for oid, data in fobjs.items():
             if io.read(oid) != data:
                 raise AssertionError(f"phase 19: fabric read of {oid} "
@@ -2398,15 +2471,14 @@ def cluster_phase(name_power: str, dev) -> dict:
     finally:
         c.shutdown()
     wall = time.monotonic() - t_phase
-    for name, lg in legs.items():
-        print(f"phase 19: {name} {lg['MBps']:.1f} MB/s on the host clock "
-              f"({lg['wall_s']:.3f} s), K1 {lg['launches']} launches, "
-              f"{lg['k1_ms']:.3f} ms by CUDA events "
-              f"({lg['k1_share'] * 100:.2f} % of it) on {name_power}")
+    print_legs("phase 19", legs, name_power)
+    recover_s, rebuilt, read = res["recover_s"], res["rebuilt"], res["read"]
+    victim, count = res["victim"], res["count"]
     print(f"phase 19: time to recover (osd out -> every PG clean) "
           f"{recover_s:.3f} s, rebuilt {rebuilt} B at "
           f"{rebuilt / recover_s / 1e6:.1f} MB/s, read/rebuilt "
           f"{read / rebuilt} on {name_power}")
+    compiles = res["compiles"]
     probe = compiles["probe_launches"]
     print(f"phase 19: recovery's K1 launches {legs['recovery']['launches']}: "
           f"{probe} by the compile probes of {compiles['programs']} repair "
@@ -2419,14 +2491,383 @@ def cluster_phase(name_power: str, dev) -> dict:
           f"acting sets) killed and down, degraded reads == payloads; out, "
           f"every PG clean, reads == payloads, every shard ({moved} of "
           f"them rebuilt on a new OSD) == the plain version's encode; "
-          f"0 full rebuilds, 0 failed queued items, 0 dispatch errors; "
-          f"{messages} messages routed; fabric leg {len(fobjs)} objects "
-          f"== payloads, stats {stats}, {messages_f} messages; phase "
-          f"{wall:.1f} s on {name_power}")
+          f"0 full rebuilds, 0 failed queued items, 0 dispatch errors, "
+          f"0 reaps; {messages} messages routed; fabric leg {len(fobjs)} "
+          f"objects == payloads, stats {stats}, {messages_f} messages; "
+          f"phase {wall:.1f} s on {name_power}")
     return {"legs": legs, "recover_s": recover_s, "rebuilt": rebuilt,
             "ratio": read / rebuilt, "messages": messages,
             "compiles": compiles,
             "fabric_stats": stats, "phase_s": wall}
+
+
+def print_legs(tag: str, legs: dict, name_power: str) -> None:
+    for name, lg in legs.items():
+        print(f"{tag}: {name} {lg['MBps']:.1f} MB/s on the host clock "
+              f"({lg['wall_s']:.3f} s), K1 {lg['launches']} launches, "
+              f"{lg['k1_ms']:.3f} ms by CUDA events "
+              f"({lg['k1_share'] * 100:.2f} % of it) on {name_power}")
+
+
+# ---------------------------------------------------------------------------
+# The cluster on TCP and in processes: phase 20
+
+PROC_BENCH_S = 8                 # seconds of each `rados bench` run
+PROC_THREADS = 16                # rados bench -t
+PROC_DEGRADED = 16               # bench objects read degraded
+PROC_BOOT_S = 180.0
+
+
+def tcp_leg(name_power: str, dev) -> dict:
+    """Phase 20 (a): phase 19's cell over TCP with cephx on."""
+    rng = np.random.default_rng(SEED + 20)
+    objs = {f"obj{i}": rng.integers(0, 256, REPAIR_OBJECT,
+                                    dtype=np.uint8).tobytes()
+            for i in range(CLUSTER_OBJECTS)}
+    t_leg = time.monotonic()
+    c, r, io = _cluster(tcp=True, dev=dev)
+    try:
+        boot_s = time.monotonic() - t_leg
+        frames0, bytes0 = c.network.frames_sent, c.network.bytes_sent
+        res = drive_cluster(c, r, io, objs, "phase 20", dev, snapshot=True)
+        frames = c.network.frames_sent - frames0
+        nbytes = c.network.bytes_sent - bytes0
+        # every shard on its acting OSD, rebuilt or moved, equals the
+        # shard before the kill (phase 19 holds those to the plain
+        # version's encode)
+        moved = 0
+        for oid, s, osd, got, was, _pg in _shards_on_acting(
+                c, objs, res, "phase 20"):
+            if got != res["shards"][oid, s]:
+                raise AssertionError(f"phase 20: {oid} shard {s} on osd."
+                                     f"{osd} differs from before the kill")
+            moved += osd != was
+        if not moved:
+            raise AssertionError("phase 20: no shard moved to a new OSD")
+        daemons = [c.mon] + list(c.osds.values())
+        verified = sum(d.ms.auth_verifier.verified for d in daemons)
+        rejected = sum(d.ms.auth_verifier.rejected for d in daemons)
+        if rejected or not verified:
+            raise AssertionError(f"phase 20: cephx verified {verified}, "
+                                 f"rejected {rejected}")
+    finally:
+        c.shutdown()
+    wall = time.monotonic() - t_leg
+    legs = res["legs"]
+    print_legs("phase 20 (a) tcp+cephx", legs, name_power)
+    print(f"phase 20 (a): time to recover {res['recover_s']:.3f} s, rebuilt "
+          f"{res['rebuilt']} B; every shard == its bytes before the kill "
+          f"({moved} of them on a new OSD); "
+          f"read/rebuilt {res['read'] / res['rebuilt']}; on the wire "
+          f"{frames} frames, {nbytes} B; cephx signatures verified "
+          f"{verified}, rejected {rejected}; boot {boot_s:.1f} s; osd."
+          f"{res['victim']} in {res['count'][res['victim']]} acting sets; "
+          f"0 dispatch errors, 0 failed queued items, 0 full rebuilds; leg "
+          f"{wall:.1f} s on {name_power}")
+    return {"legs": legs, "recover_s": res["recover_s"],
+            "rebuilt": res["rebuilt"], "frames": frames, "bytes": nbytes,
+            "cephx_verified": verified, "cephx_rejected": rejected,
+            "wall_s": wall}
+
+
+def dryrun_leg(name_power: str, dev) -> dict:
+    """Phase 20 (b): dryrun_multichip(8) on ["cuda:0"] * 8; every shard
+    the fabric write stored equals the plain version's encode."""
+    from ceph_tpu_torch.dryrun import dryrun_multichip
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.osd import ecutil
+
+    l0 = bm.LAUNCHES["gf_matmul"]
+    t0 = time.monotonic()
+    res = dryrun_multichip(8, devices=[dev] * 8)
+    wall = time.monotonic() - t0
+    launches = bm.LAUNCHES["gf_matmul"] - l0
+    ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M)},
+                              device="cpu")
+    want = ecutil.encode(ecutil.StripeInfo(K, K * STRIPE_UNIT), ec_cpu,
+                         res["payload"])
+    for s, got in res["stored"].items():
+        if got != want[s]:
+            raise AssertionError(f"phase 20 (b): shard {s} differs from the "
+                                 "plain version's encode")
+    print(f"phase 20 (b): dryrun_multichip(8) on ['cuda:0'] * 8: mesh "
+          f"encode and decode of [1, 9] == oracle; mon + 16 OSDs + client "
+          f"each on its own TCP socket, a {len(res['payload'])} B fabric "
+          f"write (stats {res['fabric']}), its 12 stored shards == the "
+          f"plain version's encode, osd.{res['victim']} killed and down, "
+          f"degraded read == payload; K1 {launches} launches; {wall:.1f} s "
+          f"on {name_power}")
+    return {"wall_s": wall, "launches": launches, "fabric": res["fabric"]}
+
+
+class Daemons:
+    """`daemon_main` processes of one cluster (a mon and OSDs), each on
+    the card with a keyring and an admin socket; stopped on exit."""
+
+    def __init__(self, work: Path, n_osd: int):
+        from ceph_tpu_torch.auth import KeyRing
+        from ceph_tpu_torch.msg.tcp import pick_free_ports
+
+        self.work, self.n_osd = work, n_osd
+        names = ["mon.0"] + [f"osd.{i}" for i in range(n_osd)]
+        ports = pick_free_ports(len(names))
+        self.addrs = {n: ["127.0.0.1", p] for n, p in zip(names, ports)}
+        self.monmap = work / "monmap.json"
+        self.monmap.write_text(json.dumps({
+            "addrs": self.addrs, "mon_ranks": [0], "n_osd": n_osd,
+            "osds_per_host": 1}))
+        self.keyring_path = work / "keyring.json"
+        self.keyring = KeyRing.generate(names + ["client.admin",
+                                                 "client.smoke"])
+        self.keyring.save(str(self.keyring_path))
+        self.env = dict(os.environ,
+                        PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.spawned: dict[str, float] = {}
+
+    def asok(self, name: str) -> str:
+        return str(self.work / f"{name}.asok")
+
+    def spawn(self, name: str) -> None:
+        role, ident = name.split(".")
+        argv = [sys.executable, "-m", "ceph_tpu_torch.tools.daemon_main",
+                role, "--rank" if role == "mon" else "--id", ident,
+                "--monmap", str(self.monmap), "--keyring",
+                str(self.keyring_path), "--asok", self.asok(name)]
+        log = open(self.work / f"{name}.log", "w")
+        self.spawned[name] = time.time()
+        self.procs[name] = subprocess.Popen(
+            argv, env=self.env, cwd=self.env["PYTHONPATH"], stdout=log,
+            stderr=subprocess.STDOUT)
+        log.close()
+
+    def wait_serving(self, names, timeout: float = PROC_BOOT_S) -> None:
+        end = time.monotonic() + timeout
+        for name in names:
+            while not os.path.exists(self.asok(name)):
+                if self.procs[name].poll() is not None:
+                    raise AssertionError(
+                        f"phase 20 (c): {name} exited: "
+                        f"{(self.work / f'{name}.log').read_text()[-2000:]}")
+                if time.monotonic() > end:
+                    raise AssertionError(f"phase 20 (c): {name} not serving "
+                                         f"within {timeout:.0f} s")
+                time.sleep(0.05)
+
+    def command(self, name: str, cmd: str):
+        from ceph_tpu_torch.common.admin_socket import admin_command
+        rc, out = admin_command(self.asok(name), cmd)
+        if rc != 0:
+            raise AssertionError(f"phase 20 (c): {name} {cmd}: {out}")
+        return out
+
+    def kill(self, name: str) -> None:
+        self.procs[name].kill()
+        self.procs[name].wait(30)
+
+    def live(self) -> list[str]:
+        return [n for n, p in self.procs.items() if p.poll() is None]
+
+    def stop(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for p in self.procs.values():
+            try:
+                p.wait(15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(15)
+
+
+def _proc_faults(ds: Daemons, names) -> dict:
+    """Each daemon's fault counters through its admin socket; fails on
+    any tick error, failed queued item, full rebuild or dispatch
+    error."""
+    out = {}
+    for name in names:
+        perf = ds.command(name, "perf dump")
+        row = {k: perf.get(k, 0) for k in ("tick_errors", "queued_op_failures",
+                                          "recovery_full_rebuild")}
+        row["dispatch_errors"] = ds.command(name, "msgr")["dispatch_errors"]
+        if any(row.values()):
+            raise AssertionError(f"phase 20 (c): {name} counters {row}")
+        out[name] = row
+    return out
+
+
+def _proc_clean(ds: Daemons, names, epoch: int) -> bool:
+    st = [ds.command(n, "status") for n in names if n.startswith("osd.")]
+    return (all(s["osdmap_epoch"] >= epoch and s["pgs_recovering"] == 0
+                for s in st) and
+            sum(s["num_primary"] for s in st) == CLUSTER_PG_NUM and
+            sum(s["primary_clean"] for s in st) == CLUSTER_PG_NUM)
+
+
+def _bench(ds: Daemons, mode: str) -> dict:
+    argv = [sys.executable, "-m", "ceph_tpu_torch.tools.rados_cli",
+            "--monmap", str(ds.monmap), "--keyring", str(ds.keyring_path),
+            "--timeout", "120", "bench", "ecpool", str(PROC_BENCH_S), mode,
+            "-t", str(PROC_THREADS)] + (["--no-cleanup"]
+                                         if mode == "write" else [])
+    t0 = time.monotonic()
+    p = subprocess.run(argv, env=ds.env, cwd=ds.env["PYTHONPATH"],
+                       capture_output=True, text=True, timeout=300)
+    wall = time.monotonic() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"phase 20 (c): rados bench {mode} rc "
+                             f"{p.returncode}:\n{p.stdout}\n{p.stderr[-3000:]}")
+    fields = dict(line.split(":", 1) for line in p.stdout.splitlines()
+                  if ":" in line)
+    return {"MBps": float(fields["Bandwidth (MB/sec)"]),
+            "ops": int(fields[f"Total {mode}s made"]),
+            "lat_s": float(fields["Average Latency(s)"]),
+            "run_s": float(fields["Total time run"]), "cli_wall_s": wall}
+
+
+def process_leg(name_power: str, work: Path) -> dict:
+    """Phase 20 (c): a mon and 16 OSD daemon processes on the card,
+    `rados bench` write then seq through the CLI, then the OSD in the
+    most acting sets killed, marked down, and bench objects read
+    degraded."""
+    from ceph_tpu_torch.client import Rados
+    from ceph_tpu_torch.msg.tcp import TcpNet
+    from ceph_tpu_torch.osd.types import PG
+    from ceph_tpu_torch.tools import rados_cli
+
+    work.mkdir(parents=True, exist_ok=True)
+    t_leg = time.monotonic()
+    ds = Daemons(work, CLUSTER_OSDS)
+    r = None
+    try:
+        # all at once: each OSD boots when the mon accepts connections
+        osds = [f"osd.{i}" for i in range(CLUSTER_OSDS)]
+        for name in ["mon.0"] + osds:
+            ds.spawn(name)
+        ds.wait_serving(["mon.0"] + osds)
+        boot_s = time.monotonic() - t_leg
+        startup = {}
+        for name in ["mon.0"] + osds:
+            st = ds.command(name, "startup")
+            # a daemon off the card (a CPU rehearsal) has no cuda stamps
+            cuda = st.get("cuda", st["imported"])
+            kernels = st.get("kernels", cuda)
+            startup[name] = {
+                "interpreter": st["main"] - ds.spawned[name],
+                "imports": st["imported"] - st["main"],
+                "cuda": cuda - st["imported"], "kernels": kernels - cuda,
+                "join": st["serving"] - kernels}
+        net = TcpNet({k: tuple(v) for k, v in ds.addrs.items()})
+        r = Rados(net, name="client.smoke", op_timeout=CLUSTER_TIMEOUT_S,
+                  auth_secret=ds.keyring.get("client.smoke")).connect(60.0)
+        end = time.monotonic() + PROC_BOOT_S
+        while sum(r.objecter.osdmap.is_up(o)
+                  for o in range(CLUSTER_OSDS)) < CLUSTER_OSDS:
+            if time.monotonic() > end:
+                raise AssertionError("phase 20 (c): OSDs never all up")
+            time.sleep(0.05)
+        rc, outs, _ = r.mon_command(PROFILE_CMD)
+        if rc != 0:
+            raise AssertionError(f"phase 20 (c): profile set: {outs}")
+        r.pool_create("ecpool", pg_num=CLUSTER_PG_NUM, pool_type="erasure",
+                      erasure_code_profile="tpu_k8m4")
+
+        def wait_clean(names, what):
+            end = time.monotonic() + CLUSTER_TIMEOUT_S
+            while not _proc_clean(ds, names, r.objecter.osdmap.epoch):
+                if time.monotonic() > end:
+                    raise AssertionError(f"phase 20 (c): {what}")
+                time.sleep(0.1)
+
+        wait_clean(osds, "the new pool's PGs peered")
+
+        def launches(names):
+            return sum(ds.command(n, "kernel launches")["gf_matmul"]
+                       for n in names)
+
+        l0 = launches(osds)
+        bench = {"write": _bench(ds, "write")}
+        l1 = launches(osds)
+        bench["seq"] = _bench(ds, "seq")
+        l2 = launches(osds)
+        # -- the OSD in the most acting sets dies -----------------------------
+        pid = r.pool_lookup("ecpool")
+        _, count = acting_sets(r.objecter.osdmap, pid, CLUSTER_PG_NUM, PG)
+        victim = max(sorted(count), key=lambda o: count[o])
+        faults = _proc_faults(ds, ["mon.0"] + osds)
+        ds.kill(f"osd.{victim}")
+        rc, outs, _ = r.mon_command({"prefix": "osd down", "ids": [victim]})
+        if rc != 0:
+            raise AssertionError(f"phase 20 (c): osd down: {outs}")
+        live = [n for n in osds if n != f"osd.{victim}"]
+        end = time.monotonic() + CLUSTER_TIMEOUT_S
+        while not r.objecter.osdmap.is_down(victim):
+            if time.monotonic() > end:
+                raise AssertionError("phase 20 (c): victim never down")
+            time.sleep(0.05)
+        wait_clean(live, "peering after osd down")
+        l3 = launches(live)
+        io = r.open_ioctx("ecpool")
+        meta = json.loads(io.read(rados_cli.METADATA))
+        payload = rados_cli.bench_payload(meta["size"], meta["seed"])
+        t0 = time.monotonic()
+        for i in range(min(PROC_DEGRADED, meta["objects"])):
+            if io.read(meta["prefix"] + str(i)) != payload:
+                raise AssertionError(f"phase 20 (c): degraded read of bench "
+                                     f"object {i} differs")
+        degraded_s = time.monotonic() - t0
+        l4 = launches(live)
+        faults.update(_proc_faults(ds, ["mon.0"] + live))
+    finally:
+        if r is not None:
+            r.shutdown()
+        ds.stop()
+    wall = time.monotonic() - t_leg
+    n_read = min(PROC_DEGRADED, meta["objects"])
+    degraded = {"MBps": n_read * meta["size"] / degraded_s / 1e6,
+                "wall_s": degraded_s}
+    for mode, b in bench.items():
+        print(f"phase 20 (c): rados bench {mode} -t {PROC_THREADS} -b "
+              f"{meta['size']}: {b['MBps']} MB/s, {b['ops']} ops, average "
+              f"latency {b['lat_s']} s in {b['run_s']} s (CLI process "
+              f"{b['cli_wall_s']:.1f} s) on {name_power}")
+    print(f"phase 20 (c): osd.{victim} (in {count[victim]} acting sets) "
+          f"killed and down: {n_read} bench objects read degraded == "
+          f"payload at {degraded['MBps']:.1f} MB/s ({degraded_s:.3f} s) on "
+          f"{name_power}")
+    for name, st in startup.items():
+        print(f"phase 20 (c): {name} start-up " + ", ".join(
+            f"{part} {v:.2f}" for part, v in st.items()) + " s; " +
+            ", ".join(f"{k} {v}" for k, v in faults[name].items()))
+    for part in ("interpreter", "imports", "cuda", "kernels", "join"):
+        vals = sorted(s[part] for s in startup.values())
+        print(f"phase 20 (c): start-up {part}: min {vals[0]:.2f} median "
+              f"{statistics.median(vals):.2f} max {vals[-1]:.2f} s over "
+              f"{len(vals)} daemons")
+    k1 = {"write": l1 - l0, "seq": l2 - l1, "degraded_read": l4 - l3}
+    sums = {k: sum(row[k] for row in faults.values())
+            for k in next(iter(faults.values()))}
+    print(f"phase 20 (c): K1 launches in the OSD processes (their admin "
+          f"sockets): {k1}; summed over {len(faults)} daemons' admin "
+          f"sockets {sums}; boot {boot_s:.1f} s, leg {wall:.1f} s")
+    if not k1["write"] or not k1["degraded_read"]:
+        raise AssertionError(f"phase 20 (c): K1 launches {k1}")
+    return {"bench": bench, "degraded": degraded, "startup": startup,
+            "launches": k1,
+            "faults": faults, "wall_s": wall, "boot_s": boot_s}
+
+
+def tcp_phase(name_power: str, dev, work: Path) -> dict:
+    """Phase 20: the cluster on TCP (a), the dry run (b), processes (c)."""
+    t_phase = time.monotonic()
+    tcp = tcp_leg(name_power, dev)
+    dry = dryrun_leg(name_power, dev)
+    proc = process_leg(name_power, work)
+    wall = time.monotonic() - t_phase
+    print(f"phase 20: legs {tcp['wall_s']:.1f} + {dry['wall_s']:.1f} + "
+          f"{proc['wall_s']:.1f} s; phase {wall:.1f} s on {name_power}")
+    return {"tcp": tcp, "dryrun": dry, "processes": proc, "phase_s": wall}
 
 
 def main() -> int:
@@ -2601,11 +3042,23 @@ def main() -> int:
     kernels[0]["launches_cluster"] = launches["gf_matmul"]
     kernels[0]["cluster"] = {k: cluster[k] for k in (
         "legs", "recover_s", "rebuilt", "ratio", "messages")}
+    bm.reset_launches()
+    tcp = tcp_phase(name_power, dev, work / "phase20")
+    launches = dict(bm.LAUNCHES)
+    print(f"phase 20: launches in this process (legs a and b) {launches}")
+    if launches["gf_matmul"] == 0:
+        raise AssertionError("the cluster over TCP never launched gf_matmul")
+    kernels[0]["launches_tcp"] = launches["gf_matmul"]
+    kernels[0]["launches_processes"] = tcp["processes"]["launches"]
+    kernels[0]["tcp"] = {
+        "legs": tcp["tcp"]["legs"], "recover_s": tcp["tcp"]["recover_s"],
+        "bench": tcp["processes"]["bench"],
+        "degraded_read": tcp["processes"]["degraded"]}
     print(f"chip_smoke: phases 12-14 {tool['wall_s']:.1f} + "
-          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-19 "
+          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-20 "
           f"{mesh['phase_s']:.1f} + {fabric['phase_s']:.1f} + "
           f"{bench['phase_s']:.1f} + {ec_pg['phase_s']:.1f} + "
-          f"{cluster['phase_s']:.1f} s; "
+          f"{cluster['phase_s']:.1f} + {tcp['phase_s']:.1f} s; "
           f"{time.monotonic() - t_start:.1f} s in all on {name_power}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

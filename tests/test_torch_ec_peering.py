@@ -393,3 +393,46 @@ def test_failed_queued_item_bumps_queued_op_failures(monkeypatch):
         assert counters(c, "recovery_bytes_rebuilt") == 0
     finally:
         c.shutdown()
+
+
+def test_kernel_fault_from_a_ticked_retry_is_reaped_and_recorded(
+        monkeypatch):
+    """A K1 fault raised from a peering retry that `MiniCluster.tick`
+    drives is reaped like an aborted daemon, as the reference does, and
+    recorded in `reaped` (osd, exception type, traceback), which phase
+    19 of chip_smoke.py fails on.  The retry: a full-rebuild gather
+    whose one surplus read reply was lost stalls, and the tick resolves
+    it with the k chunks that did arrive, through K1's staged decode."""
+    c, r, _ = _written(seed=23)
+    try:
+        # no repair plan: every rebuild gathers every surviving shard
+        monkeypatch.setattr(port_ecutil, "repair_plan",
+                            lambda *a, **kw: None)
+        lost = []
+
+        def lose_one_reply(src, dst, msg):
+            if msg.type_name == "ECSubReadReply" and not lost:
+                lost.append((src, dst))
+                return False
+            return True
+        c.network.filter = lose_one_reply
+        c.kill_osd(4)
+        r.mon_command({"prefix": "osd down", "ids": [4]})
+        r.mon_command({"prefix": "osd out", "ids": [4]})
+        for _ in range(5):
+            c.pump()
+        assert lost and c.osds[int(lost[0][1][4:])].pgs_recovering() > 0
+        monkeypatch.setattr(bm, "gf_matmul", _k1_fault(
+            "launch", "an illegal memory access was encountered"))
+        now = 1000.0
+        for _ in range(8):
+            now += 1.0
+            c.tick(now)
+            if c.reaped:
+                break
+        assert [osd for osd, _exc, _tb in c.reaped] == [int(lost[0][1][4:])]
+        osd, exc, tb = c.reaped[0]
+        assert exc == "RuntimeError" and "gf_matmul_k1" in tb
+        assert osd not in c.osds
+    finally:
+        c.shutdown()

@@ -96,7 +96,19 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.client.objecter",
                  "ceph_tpu_torch.client.rados",
                  "ceph_tpu_torch.testing",
-                 "ceph_tpu_torch.testing.cluster"):
+                 "ceph_tpu_torch.testing.cluster",
+                 # the transport, auth, processes and the dry run
+                 "ceph_tpu_torch.analysis",
+                 "ceph_tpu_torch.analysis.engine",
+                 "ceph_tpu_torch.analysis.project",
+                 "ceph_tpu_torch.analysis.rules",
+                 "ceph_tpu_torch.compressor",
+                 "ceph_tpu_torch.msg.secure", "ceph_tpu_torch.msg.tcp",
+                 "ceph_tpu_torch.auth",
+                 "ceph_tpu_torch.common.admin_socket",
+                 "ceph_tpu_torch.tools.daemon_main",
+                 "ceph_tpu_torch.tools.rados_cli",
+                 "ceph_tpu_torch.dryrun"):
         assert name in out["modules"], name
 
 
