@@ -10,8 +10,11 @@ configures both packages:
 * `lockdep`, `racecheck` — the sanitizers;
 * `osd_min_pg_log_entries`, `osd_max_pg_log_entries` — the EC shard's
   durable log trim;
-* `memstore_device_bytes` — MemStore's statfs capacity;
-* `objectstore_debug_inject_read_err` — MemStore's injected EIO;
+* `memstore_device_bytes` — MemStore's statfs capacity, and
+  BlueStore's when the block file is smaller;
+* `bluestore_device_bytes` — BlueStore's provisioned statfs capacity;
+* `objectstore_debug_inject_read_err` — MemStore's and BlueStore's
+  injected EIO;
 * the cluster's: heartbeats and failure reports (`osd_heartbeat_*`,
   `mon_osd_min_down_reporters`), the down-out interval, map history
   (`mon_min_osdmap_epochs`), pg-stat reports and their staleness, the
@@ -126,6 +129,9 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
            see_also=("lockdep",)),
     Option("memstore_device_bytes", T.SIZE, L.ADVANCED, 1 << 30,
            "capacity reported by MemStore statfs"),
+    Option("bluestore_device_bytes", T.SIZE, L.ADVANCED, 0,
+           "provisioned capacity reported by BlueStore statfs; 0 = "
+           "grow with the block file (never report used > total)"),
     Option("osd_min_pg_log_entries", T.UINT, L.ADVANCED, 250,
            "entries kept after a pg log trim", runtime=True),
     Option("osd_max_pg_log_entries", T.UINT, L.ADVANCED, 500,

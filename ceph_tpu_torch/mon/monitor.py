@@ -24,6 +24,12 @@ runs the cephx key server and verifies inbound traffic;
 quorum_status, perf dump, config show and the op tracker's dumps.
 The port adds a perf counter set (`perf`) holding `tick_errors`, the
 tick errors a daemon process's loop survived (tools/daemon_main.py).
+A mon started on a store that holds committed state (a `MonitorStore`
+over `kv.LogDB`) resumes from it, as the reference's does.  One rule
+differs there: the subscriptions died with the old process, so the
+resumed mon subscribes an entity it hears from without one (an OSD's
+pg-stat report, a client's command) and sends it the maps it lacks;
+the reference's single mon never hears from them again.
 """
 from __future__ import annotations
 
@@ -86,6 +92,9 @@ class Monitor(Dispatcher):
         #: machinery on simulated time consistently with OSD ticks
         self.clock = clock
         self.store = store or MonitorStore()
+        #: started on a store that holds committed state: it resumes
+        #: from it and adopts the subscribers it lost
+        self._resumed = not self.store.empty
         self.paxos = Paxos(self.store)
         self.osdmon = OSDMonitor(self.paxos, initial_map, initial_wrapper,
                                  device=device)
@@ -180,6 +189,7 @@ class Monitor(Dispatcher):
                         self.cephx.handle_request(msg))
                 return True
             if isinstance(msg, MMonCommand):
+                self._adopt_subscriber(msg.src, None)
                 self._handle_wire_command(msg.cmd, msg.src, msg.tid)
                 return True
             if isinstance(msg, MMonSubscribe):
@@ -195,6 +205,7 @@ class Monitor(Dispatcher):
                 self._handle_pg_temp(msg)
                 return True
             if isinstance(msg, MPGStats):
+                self._adopt_subscriber(msg.src, msg.epoch)
                 self.pgmap.ingest(OSDStatReport(
                     osd=msg.osd, epoch=msg.epoch, stamp=msg.stamp,
                     pg_stats=msg.pg_stats, kb_total=msg.kb_total,
@@ -379,6 +390,17 @@ class Monitor(Dispatcher):
             return      # config/fsmap services are not ported
         self._subs[msg.src] = msg.start or 1
         self._send_maps(msg.src)
+
+    def _adopt_subscriber(self, entity: str, epoch: int | None) -> None:
+        """A mon started again on its store lost its subscriptions with
+        its process: an entity it hears from without one (an OSD's
+        pg-stat report, a client's command) gets the maps past its
+        `epoch` (the current full map when the message carries none)
+        and stays subscribed.  A mon that bootstrapped does nothing
+        here."""
+        if self._resumed and entity not in self._subs:
+            self._subs[entity] = 1 if epoch is None else epoch + 1
+            self._send_maps(entity)
 
     def _send_maps(self, entity: str) -> None:
         """Send everything from the subscriber's next epoch to current

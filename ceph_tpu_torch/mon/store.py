@@ -3,12 +3,14 @@
 Shape of src/mon/MonitorDBStore.h: values live under (prefix, key),
 mutations batch into transactions applied atomically, and services
 keep versioned entries ("%d" keys) plus first/last_committed markers.
-In-memory here (the reference sits on RocksDB); the transaction journal
-makes replay/replication possible later.
+In memory, optionally written through to a `KeyValueDB` (kv/, the
+RocksDB slot the reference's MonitorDBStore sits on).
 
-The port's copy of `ceph_tpu.mon.store`, without the `KeyValueDB`
-backing (`kv/` is not ported): the store lives in memory only, and a
-killed mon's store survives only as the object the harness keeps.
+The port's copy of `ceph_tpu.mon.store`, whole: with a `LogDB` under
+it every transaction is durable before `apply_transaction` returns,
+and a mon started on that store again resumes from its committed
+paxos state (`python -m ceph_tpu_torch.tools.daemon_main mon
+--data-dir DIR`).
 """
 from __future__ import annotations
 
@@ -55,11 +57,19 @@ class StoreTransaction:
 
 class MonitorStore:
     """(prefix, key) -> value with atomic transactions
-    (ref: MonitorDBStore.h:161 apply_transaction)."""
+    (ref: MonitorDBStore.h:161 apply_transaction).
 
-    def __init__(self) -> None:
+    With a `KeyValueDB` backing (kv/ — the RocksDB slot the
+    reference's MonitorDBStore sits on), every transaction writes
+    through durably and a restarted mon resumes from its committed
+    paxos state instead of bootstrap."""
+
+    def __init__(self, db=None) -> None:
         self._data: dict[tuple[str, str], Any] = {}
         self._lock = make_lock("mon.store")
+        self.db = db
+        if db is not None:
+            self._data = dict(db.all_items())
 
     @property
     def empty(self) -> bool:
@@ -68,11 +78,16 @@ class MonitorStore:
 
     def apply_transaction(self, tx: StoreTransaction) -> None:
         with self._lock:
+            kvt = self.db.transaction() if self.db is not None else None
             for op, prefix, key, value in tx.ops:
                 if op == "put":
                     self._data[(prefix, key)] = value
+                    if kvt is not None:
+                        kvt.set(prefix, key, value)
                 elif op == "erase":
                     self._data.pop((prefix, key), None)
+                    if kvt is not None:
+                        kvt.rmkey(prefix, key)
                 elif op == "erase_range":
                     lo, hi = int(key), int(value)
                     # versioned keys are decimal ints
@@ -80,6 +95,10 @@ class MonitorStore:
                               if k[0] == prefix and k[1].isdigit()
                               and lo <= int(k[1]) < hi]:
                         del self._data[k]
+                        if kvt is not None:
+                            kvt.rmkey(k[0], k[1])
+            if kvt is not None:
+                self.db.submit_transaction(kvt)
 
     def get(self, prefix: str, key: str | int, default: Any = None) -> Any:
         with self._lock:
@@ -109,3 +128,13 @@ class MonitorStore:
             raise wire.WireError("store snapshot must be a dict")
         with self._lock:
             self._data = data
+            if self.db is not None:
+                # full-sync REPLACES the store: stale keys absent from
+                # the snapshot must die in the same transaction, or a
+                # restart resurrects diverged paxos/osdmap versions
+                kvt = self.db.transaction()
+                for prefix in {k[0] for k, _v in self.db.all_items()}:
+                    kvt.rmkeys_by_prefix(prefix)
+                for (prefix, key), value in data.items():
+                    kvt.set(prefix, key, value)
+                self.db.submit_transaction(kvt)

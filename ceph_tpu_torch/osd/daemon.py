@@ -26,7 +26,12 @@ config and the heartbeat mute hook.  With a `keyring` the daemon signs
 its traffic and verifies inbound (cephx); `start_admin_socket` serves
 perf dump, status, config show/get/set and the op tracker's dumps.
 The port adds `tick_errors` to the perf counters: the tick errors a
-daemon process's loop survived (tools/daemon_main.py).
+daemon process's loop survived (tools/daemon_main.py).  As the
+reference's, the daemon starts on a store that already holds PG
+collections, pgmeta omaps and shard logs (a `BlueStore` or
+`JournaledStore` mounted on its data dir after a SIGKILL): each PG's
+shard takes the collection as it is and loads its durable log, so EC
+peering compares real log bounds and rebuilds only what the OSD missed.
 """
 from __future__ import annotations
 

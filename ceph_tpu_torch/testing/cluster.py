@@ -6,11 +6,16 @@ qa/tasks/ceph.py: spin a cluster up, create pools, do IO through
 librados, kill/revive daemons, and let the mon's failure handling and
 the client's resend engine react.
 
-The port's copy of `ceph_tpu.testing.cluster` in part: one mon,
-`start_osd`, `kill_osd`, `revive_osd`, `rados()`, `pump`, `tick`,
-`wait_all_up`, `shutdown` and the shared `fabric`.  The cluster runs on
-its `device` (cuda unless the caller passes `device="cpu"`): every OSD
-builds its plugins there, and so does the mon.  `auth="cephx"` gives
+The port's copy of `ceph_tpu.testing.cluster` in part: one mon with
+`kill_mon` and `revive_mon` (the revived mon resumes from the store the
+killed one kept; give it a `MonitorStore(LogDB(dir))` through
+`mon_store` to have that store on disk), `start_osd`, `kill_osd`,
+`revive_osd`, `rados()`, `pump`, `tick`, `wait_all_up`, `shutdown` and
+the shared `fabric`.  An OSD runs on whatever store `_stores[osd]`
+holds when it starts (a mounted `BlueStore` or `JournaledStore` for a
+durable one), as the reference's tests use that slot.  The cluster
+runs on its `device` (cuda unless the caller passes `device="cpu"`):
+every OSD builds its plugins there, and so does the mon.  `auth="cephx"` gives
 the cluster one keyring (the daemons' keys and the service secret) and
 each `rados()` client a key minted into it; unlike the reference, such
 a client also runs in pump mode, where its MAuthRequest handshake is
@@ -18,8 +23,10 @@ pumped like any other message.  One rule differs: `tick` reaps an OSD
 whose `heartbeat_tick` raises, as the reference does, and also records
 the reap in `reaped` (osd id, exception type, traceback), so a kernel
 fault raised from a ticked peering retry shows.  Left out: multi-mon
-quorums (`n_mon`, `kill_mon`, `revive_mon`, `leader`), crash spools,
-the MDS, mgr and RGW helpers.
+quorums (`n_mon`, `leader`), crash spools, the MDS, mgr and RGW
+helpers.  `revive_mon` also hands the revived mon the cluster's
+keyring (the reference's starts it without one), and makes it
+`self.mon` again.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ from ..osd.daemon import OSDDaemon
 class MiniCluster:
     def __init__(self, n_osd: int = 6, osds_per_host: int = 1,
                  threaded: bool = True, fabric=None, device=None,
-                 auth: str = "none"):
+                 auth: str = "none", mon_store=None):
         self.device = _device.resolve(device)
         self.network = LocalNetwork()
         # fault-plane delays release against the same clock the mon
@@ -71,12 +78,36 @@ class MiniCluster:
         self.mon = Monitor(self.network, rank=0,
                            initial_map=copy.deepcopy(m),
                            initial_wrapper=copy.deepcopy(w),
+                           store=mon_store,
                            threaded=threaded, clock=self._clock,
                            device=self.device, keyring=self.keyring)
         self.mon.init()
         self.mons = {0: self.mon}
+        self._mon_stores: dict = {}
         for osd in range(n_osd):
             self.start_osd(osd)
+
+    # ------------------------------------------------------------ mons
+    def kill_mon(self, rank: int = 0) -> None:
+        """Hard-kill the mon: off the wire, its store kept for
+        `revive_mon`."""
+        mn = self.mons.pop(rank, None)
+        if mn is not None:
+            self._mon_stores[rank] = mn.store
+            mn.shutdown()
+
+    def revive_mon(self, rank: int = 0) -> Monitor:
+        """Restart a killed mon from its surviving store."""
+        mn = Monitor(self.network, rank=rank,
+                     store=self._mon_stores.get(rank),
+                     threaded=self.threaded, clock=self._clock,
+                     device=self.device, keyring=self.keyring)
+        mn.init()
+        self.mons[rank] = mn
+        self.mon = mn
+        if not self.threaded:
+            self.pump()
+        return mn
 
     # ------------------------------------------------------------ osds
     def start_osd(self, osd: int) -> OSDDaemon:
@@ -132,7 +163,7 @@ class MiniCluster:
             # release fault-held messages whose deadline passed;
             # counts as movement so we keep pumping
             moved = self.network.faults.flush()
-            moved += self.mon.ms.poll()
+            moved += sum(mn.ms.poll() for mn in self.mons.values())
             for d in self.osds.values():
                 moved += d.ms.poll()
             for c in self.clients:
@@ -167,7 +198,8 @@ class MiniCluster:
                 d.shutdown()
         if not self.threaded:
             self.pump()
-        self.mon.tick(now)
+        for mn in self.mons.values():
+            mn.tick(now)
         if not self.threaded:
             self.pump()
 
@@ -188,4 +220,5 @@ class MiniCluster:
             c.shutdown()
         for d in list(self.osds.values()):
             d.shutdown()
-        self.mon.shutdown()
+        for mn in self.mons.values():
+            mn.shutdown()

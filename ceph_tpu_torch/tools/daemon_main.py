@@ -11,13 +11,21 @@ monmap JSON:
      "ms_secure_mode": false, "ms_compress": null}
 
 Usage:
-    python -m ceph_tpu_torch.tools.daemon_main mon --rank 0 --monmap m.json
+    python -m ceph_tpu_torch.tools.daemon_main mon --rank 0 --monmap m.json \\
+        [--data-dir mon0]
     python -m ceph_tpu_torch.tools.daemon_main osd --id 2 --monmap m.json \\
-        --keyring k.json --asok osd.2.asok [--device cpu]
+        --keyring k.json --asok osd.2.asok [--device cpu] \\
+        [--data-dir osd2 [--objectstore journaled]]
 
 The port's copy of `ceph_tpu.tools.daemon_main` for the mon and OSD
-roles: `--monmap`, `--keyring` (cephx), `--asok` (admin socket) and the
-monmap's `ms_secure_mode` and `ms_compress`.  Each daemon runs on
+roles: `--monmap`, `--keyring` (cephx), `--asok` (admin socket),
+`--data-dir` and `--objectstore`, and the monmap's `ms_secure_mode` and
+`ms_compress`.  With `--data-dir` the mon keeps its store in a `LogDB`
+there and an OSD its objects in a `BlueStore` (or, with `--objectstore
+journaled`, a `JournaledStore`), so a daemon killed with SIGKILL and
+started again on the same directory resumes: the mon from its
+committed paxos state, the OSD from its PG collections and shard logs.
+Without it the daemon keeps its state in memory.  Each daemon runs on
 `--device` (cuda, the default, or cpu): its plugins live there, and on
 cuda the process makes its CUDA context and loads the EC kernels'
 library (built once, by whichever process comes first) before it joins,
@@ -33,8 +41,9 @@ device guard and the race checker arm from the environment
 is imported.  One rule
 differs: a tick error the loop logs and survives also counts in the
 daemon's perf counters as `tick_errors` (`perf dump`).  Not ported yet,
-and refused with a one-line error: the `mds` role, `--data-dir` (the
-durable mon and OSD stores) and `--crash-dir` (crash reports).
+and refused with a one-line error: the `mds` role and `--crash-dir`
+(crash reports; the reference also spools them to `<data-dir>/crash`,
+which the port does not, because `common/crash.py` is not ported).
 """
 from __future__ import annotations
 
@@ -48,8 +57,7 @@ import time
 MON_WAIT_S = 300.0
 
 #: the reference's options whose modules the port does not carry yet
-NOT_PORTED = {"data_dir": "--data-dir (the durable mon and OSD stores)",
-              "crash_dir": "--crash-dir (crash reports)"}
+NOT_PORTED = {"crash_dir": "--crash-dir (crash reports)"}
 
 
 def load_monmap(path: str) -> dict:
@@ -148,8 +156,17 @@ def run_mon(args, stamps: dict) -> int:
                          osds_per_host=mm.get("osds_per_host", 1))
     keyring = _keyring(args)
     _warm(args.device, stamps)
+    store = None
+    if args.data_dir:
+        # durable mon store on the KV engine (ref: MonitorDBStore on
+        # RocksDB): a restarted mon resumes from committed paxos state
+        from ..kv import LogDB
+        from ..mon.store import MonitorStore
+        store = MonitorStore(LogDB(args.data_dir))
+    stamps["store"] = time.time()
     mon = Monitor(make_net(mm, keyring), rank=args.rank, initial_map=m,
-                  initial_wrapper=w, device=args.device, keyring=keyring)
+                  initial_wrapper=w, store=store, device=args.device,
+                  keyring=keyring)
     mon.init()
     stamps["serving"] = time.time()
     _admin(mon, args, stamps)
@@ -157,6 +174,8 @@ def run_mon(args, stamps: dict) -> int:
           f"{mm['addrs'][f'mon.{args.rank}']}", flush=True)
     _serve(lambda: mon.tick(), interval=1.0, perf=mon.perf)
     mon.shutdown()
+    if store is not None:
+        store.db.close()
     return 0
 
 
@@ -167,7 +186,20 @@ def run_osd(args, stamps: dict) -> int:
     mons = [f"mon.{r}" for r in mm.get("mon_ranks", [0])]
     keyring = _keyring(args)
     _warm(args.device, stamps)
-    d = OSDDaemon(make_net(mm, keyring), args.id, mon=mons,
+    store = None
+    if args.data_dir:
+        if args.objectstore == "journaled":
+            from ..store import JournaledStore
+            store = JournaledStore(args.data_dir)
+        else:
+            # the durable default (ref: bluestore as the OSD default;
+            # JournaledStore retired to an opt-in legacy engine)
+            from ..store import BlueStore
+            store = BlueStore(args.data_dir)
+            store.mkfs()
+        store.mount()
+    stamps["store"] = time.time()
+    d = OSDDaemon(make_net(mm, keyring), args.id, store=store, mon=mons,
                   threaded=True, device=args.device, keyring=keyring)
     wait_for_mon(mm, mons)
     d.init()
@@ -178,6 +210,8 @@ def run_osd(args, stamps: dict) -> int:
     interval = global_config()["osd_heartbeat_interval"]
     _serve(lambda: d.heartbeat_tick(), interval=interval, perf=d.perf)
     d.shutdown()
+    if store is not None:
+        store.umount()
     return 0
 
 
@@ -216,9 +250,16 @@ def parser() -> argparse.ArgumentParser:
                        help="where the daemon's plugins run (default "
                             "cuda; raises without a card)")
         p.add_argument("--data-dir", default="",
-                       help="durable store directory (not ported yet)")
+                       help="durable store directory (a LogDB for the "
+                            "mon, BlueStore for an OSD); in memory "
+                            "when omitted")
+        if role == "osd":
+            p.add_argument("--objectstore", default="bluestore",
+                           choices=["bluestore", "journaled"],
+                           help="durable engine (journaled = legacy)")
         p.add_argument("--crash-dir", default="",
-                       help="crash-report spool dir (not ported yet)")
+                       help="crash-report spool dir (not ported yet; "
+                            "nor is the reference's <data-dir>/crash)")
     pd = sub.add_parser("mds")
     pd.add_argument("--rank", type=int, default=0)
     pd.add_argument("--monmap", required=True)

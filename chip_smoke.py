@@ -6,7 +6,8 @@ mesh and its OSD-side fabric, the ceph_erasure_code_benchmark CLI, the
 EC placement group's data plane (ECBackend over MemStore), the port's
 own cluster (mon, OSD daemons with EC peering and recovery, librados),
 and that cluster over TCP with cephx, as daemon processes driven by
-`rados bench`, and in the port's dry run.
+`rados bench`, in the port's dry run, and on durable stores through
+SIGKILLs and restarts.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -194,7 +195,31 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    and, through each admin socket, its K1 launches, tick errors, failed
    queued items, full rebuilds and dispatch errors, all of which must
    be 0.  K1's launch count in this process is zeroed before and read
-   after the phase.
+   after the phase;
+21. the durable cluster: phase 20 (c)'s mon and 16 OSD processes, each
+   with `--data-dir` under ceph_tpu_torch/_build/smoke/phase21/data on
+   this machine's disk (`df -T` printed): the mon on a LogDB, every OSD
+   on BlueStore.  `rados bench write --no-cleanup -t 16 -b 4M` for 8 s;
+   the OSD in the most acting sets SIGKILLed and marked down (not out),
+   16 seeded 4 MiB objects written while it is down; the OSD restarted
+   on its data dir and timed until every PG is clean: it answers peering
+   from its durable shard log and only the shards it missed are rebuilt
+   (bytes rebuilt equal to them, read/rebuilt exactly 8.0, no full
+   rebuild, K1 launches counted through the admin sockets); the mon
+   SIGKILLed and restarted on its LogDB at the same epoch with the pool
+   and the profile, a new client and the old one served; `rados bench
+   seq` and the seeded objects read back byte for byte; one OSD stopped
+   cleanly and marked down, a stored byte of a data shard of a seeded
+   object flipped with `corrupt_blob_bytes`, the OSD restarted, the
+   object read right through a degraded decode on K1 (its launches
+   counted), and `objectstore_tool --op fsck` on the stopped dir reports
+   exactly that blob; everything stopped, each seeded shard on the
+   restarted OSD's disk and two others' equal to the plain version's
+   encode (tolerance 0), and `monstore_tool show-versions` on the mon's
+   dir at the client's last epoch.  MB/s of the writes, seq and the
+   degraded read, the restart-to-clean seconds of the OSD and the mon,
+   every daemon's start-up split (its store's open included), the WAL
+   sizes and statfs per daemon, and every fault count (0).
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -2603,13 +2628,17 @@ def dryrun_leg(name_power: str, dev) -> dict:
 
 class Daemons:
     """`daemon_main` processes of one cluster (a mon and OSDs), each on
-    the card with a keyring and an admin socket; stopped on exit."""
+    the card with a keyring and an admin socket; stopped on exit.  With
+    `data`, each daemon keeps its store in `data/<name>` (`--data-dir`:
+    the mon's LogDB, each OSD's BlueStore).  `tag` names the phase in
+    errors."""
 
-    def __init__(self, work: Path, n_osd: int):
+    def __init__(self, work: Path, n_osd: int, tag: str = "phase 20 (c)",
+                 data: Path | None = None):
         from ceph_tpu_torch.auth import KeyRing
         from ceph_tpu_torch.msg.tcp import pick_free_ports
 
-        self.work, self.n_osd = work, n_osd
+        self.work, self.n_osd, self.tag, self.data = work, n_osd, tag, data
         names = ["mon.0"] + [f"osd.{i}" for i in range(n_osd)]
         ports = pick_free_ports(len(names))
         self.addrs = {n: ["127.0.0.1", p] for n, p in zip(names, ports)}
@@ -2635,7 +2664,12 @@ class Daemons:
                 role, "--rank" if role == "mon" else "--id", ident,
                 "--monmap", str(self.monmap), "--keyring",
                 str(self.keyring_path), "--asok", self.asok(name)]
-        log = open(self.work / f"{name}.log", "w")
+        if self.data is not None:
+            argv += ["--data-dir", str(self.data / name)]
+        # a killed daemon leaves its socket file: serving means a new one
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(self.asok(name))
+        log = open(self.work / f"{name}.log", "a")
         self.spawned[name] = time.time()
         self.procs[name] = subprocess.Popen(
             argv, env=self.env, cwd=self.env["PYTHONPATH"], stdout=log,
@@ -2648,10 +2682,10 @@ class Daemons:
             while not os.path.exists(self.asok(name)):
                 if self.procs[name].poll() is not None:
                     raise AssertionError(
-                        f"phase 20 (c): {name} exited: "
+                        f"{self.tag}: {name} exited: "
                         f"{(self.work / f'{name}.log').read_text()[-2000:]}")
                 if time.monotonic() > end:
-                    raise AssertionError(f"phase 20 (c): {name} not serving "
+                    raise AssertionError(f"{self.tag}: {name} not serving "
                                          f"within {timeout:.0f} s")
                 time.sleep(0.05)
 
@@ -2659,12 +2693,33 @@ class Daemons:
         from ceph_tpu_torch.common.admin_socket import admin_command
         rc, out = admin_command(self.asok(name), cmd)
         if rc != 0:
-            raise AssertionError(f"phase 20 (c): {name} {cmd}: {out}")
+            raise AssertionError(f"{self.tag}: {name} {cmd}: {out}")
+        return out
+
+    def startup(self, name: str) -> dict:
+        """The start-up split of one daemon, in seconds, from its
+        admin socket's stamps."""
+        st = self.command(name, "startup")
+        # a daemon off the card (a CPU rehearsal) has no cuda stamps
+        cuda = st.get("cuda", st["imported"])
+        kernels = st.get("kernels", cuda)
+        store = st.get("store", kernels)
+        out = {"interpreter": st["main"] - self.spawned[name],
+               "imports": st["imported"] - st["main"],
+               "cuda": cuda - st["imported"], "kernels": kernels - cuda}
+        if self.data is not None:
+            out["store"] = store - kernels
+        out["join"] = st["serving"] - store
         return out
 
     def kill(self, name: str) -> None:
         self.procs[name].kill()
         self.procs[name].wait(30)
+
+    def terminate(self, name: str) -> None:
+        """A clean stop: SIGTERM, the daemon unmounts its store."""
+        self.procs[name].terminate()
+        self.procs[name].wait(60)
 
     def live(self) -> list[str]:
         return [n for n, p in self.procs.items() if p.poll() is None]
@@ -2692,7 +2747,7 @@ def _proc_faults(ds: Daemons, names) -> dict:
                                           "recovery_full_rebuild")}
         row["dispatch_errors"] = ds.command(name, "msgr")["dispatch_errors"]
         if any(row.values()):
-            raise AssertionError(f"phase 20 (c): {name} counters {row}")
+            raise AssertionError(f"{ds.tag}: {name} counters {row}")
         out[name] = row
     return out
 
@@ -2716,7 +2771,7 @@ def _bench(ds: Daemons, mode: str) -> dict:
                        capture_output=True, text=True, timeout=300)
     wall = time.monotonic() - t0
     if p.returncode != 0:
-        raise AssertionError(f"phase 20 (c): rados bench {mode} rc "
+        raise AssertionError(f"{ds.tag}: rados bench {mode} rc "
                              f"{p.returncode}:\n{p.stdout}\n{p.stderr[-3000:]}")
     fields = dict(line.split(":", 1) for line in p.stdout.splitlines()
                   if ":" in line)
@@ -2747,17 +2802,7 @@ def process_leg(name_power: str, work: Path) -> dict:
             ds.spawn(name)
         ds.wait_serving(["mon.0"] + osds)
         boot_s = time.monotonic() - t_leg
-        startup = {}
-        for name in ["mon.0"] + osds:
-            st = ds.command(name, "startup")
-            # a daemon off the card (a CPU rehearsal) has no cuda stamps
-            cuda = st.get("cuda", st["imported"])
-            kernels = st.get("kernels", cuda)
-            startup[name] = {
-                "interpreter": st["main"] - ds.spawned[name],
-                "imports": st["imported"] - st["main"],
-                "cuda": cuda - st["imported"], "kernels": kernels - cuda,
-                "join": st["serving"] - kernels}
+        startup = {name: ds.startup(name) for name in ["mon.0"] + osds}
         net = TcpNet({k: tuple(v) for k, v in ds.addrs.items()})
         r = Rados(net, name="client.smoke", op_timeout=CLUSTER_TIMEOUT_S,
                   auth_secret=ds.keyring.get("client.smoke")).connect(60.0)
@@ -2868,6 +2913,336 @@ def tcp_phase(name_power: str, dev, work: Path) -> dict:
     print(f"phase 20: legs {tcp['wall_s']:.1f} + {dry['wall_s']:.1f} + "
           f"{proc['wall_s']:.1f} s; phase {wall:.1f} s on {name_power}")
     return {"tcp": tcp, "dryrun": dry, "processes": proc, "phase_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# The durable cluster: phase 21
+
+DURABLE_OBJECTS = 16             # seeded 4 MiB objects written while down
+DURABLE_SEED = SEED + 21
+DURABLE_CHECKED = 2              # OSD dirs checked besides the restarted one
+
+
+def _osd_sums(ds: Daemons, names) -> dict:
+    """Recovery bytes, full rebuilds and K1 launches summed over the
+    OSDs' admin sockets."""
+    out = {"read": 0, "rebuilt": 0, "full": 0, "k1": 0}
+    for n in names:
+        perf = ds.command(n, "perf dump")
+        out["read"] += perf["recovery_bytes_read"]
+        out["rebuilt"] += perf["recovery_bytes_rebuilt"]
+        out["full"] += perf["recovery_full_rebuild"]
+        out["k1"] += ds.command(n, "kernel launches")["gf_matmul"]
+    return out
+
+
+def _wait_for(pred, what: str, timeout: float = CLUSTER_TIMEOUT_S) -> None:
+    end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError(f"phase 21: {what}")
+        time.sleep(0.05)
+
+
+def _stores_report(data: Path, names) -> dict:
+    """Each stopped daemon's durable files: WAL and snapshot bytes, the
+    block file, and (for an OSD) BlueStore's statfs after a mount."""
+    from ceph_tpu_torch.store import BlueStore
+    out = {}
+    for name in names:
+        kv = data / name / ("kv" if name.startswith("osd.") else "")
+        row = {"wal_B": (kv / "kv.wal").stat().st_size,
+               "snap_B": (kv / "kv.snap").stat().st_size
+               if (kv / "kv.snap").exists() else 0}
+        if name.startswith("osd."):
+            row["block_B"] = (data / name / "block").stat().st_size
+            st = BlueStore(str(data / name))
+            st.mount()
+            row["statfs"] = st.statfs()
+            st.umount()
+        out[name] = row
+    return out
+
+
+def durable_phase(name_power: str, work: Path) -> dict:
+    """Phase 21: a mon (on a LogDB) and 16 OSD processes (on BlueStore),
+    each with --data-dir on this machine's disk, through SIGKILLs and
+    restarts; see the module docstring."""
+    from ceph_tpu_torch.client import Rados
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.msg.tcp import TcpNet
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.osd.ec_backend import pg_cid
+    from ceph_tpu_torch.osd.types import PG
+    from ceph_tpu_torch.store import BlueStore, ObjectId
+
+    work.mkdir(parents=True, exist_ok=True)
+    data = work / "data"
+    t_phase = time.monotonic()
+    df = subprocess.run(["df", "-T", str(work)], capture_output=True,
+                        text=True).stdout.strip().splitlines()
+    for line in df:
+        print(f"phase 21: df -T: {line}")
+    ds = Daemons(work, CLUSTER_OSDS, tag="phase 21", data=data)
+    osds = [f"osd.{i}" for i in range(CLUSTER_OSDS)]
+    names = ["mon.0"] + osds
+    r = None
+    res: dict = {"df": df}
+    try:
+        for name in names:
+            ds.spawn(name)
+        ds.wait_serving(names)
+        res["boot_s"] = time.monotonic() - t_phase
+        startup = {name: ds.startup(name) for name in names}
+        net = TcpNet({k: tuple(v) for k, v in ds.addrs.items()})
+        r = Rados(net, name="client.smoke", op_timeout=CLUSTER_TIMEOUT_S,
+                  auth_secret=ds.keyring.get("client.smoke")).connect(60.0)
+        _wait_for(lambda: sum(r.objecter.osdmap.is_up(o)
+                          for o in range(CLUSTER_OSDS)) == CLUSTER_OSDS,
+              "OSDs never all up")
+        rc, outs, _ = r.mon_command(PROFILE_CMD)
+        if rc != 0:
+            raise AssertionError(f"phase 21: profile set: {outs}")
+        r.pool_create("ecpool", pg_num=CLUSTER_PG_NUM, pool_type="erasure",
+                      erasure_code_profile="tpu_k8m4")
+        pid = r.pool_lookup("ecpool")
+        io = r.open_ioctx("ecpool")
+
+        def clean(names_):
+            return lambda: _proc_clean(ds, names_, r.objecter.osdmap.epoch)
+
+        _wait_for(clean(osds), "the new pool's PGs never peered")
+        # -- 1. rados bench write -------------------------------------------
+        k1 = {}
+        l0 = _osd_sums(ds, osds)["k1"]
+        res["write"] = _bench(ds, "write")
+        k1["bench_write"] = _osd_sums(ds, osds)["k1"] - l0
+        faults = _proc_faults(ds, names)      # before any daemon dies
+        # -- 2. SIGKILL the OSD in the most acting sets, down, write ----------
+        _, count = acting_sets(r.objecter.osdmap, pid, CLUSTER_PG_NUM, PG)
+        victim = max(sorted(o for o in count if o < CLUSTER_OSDS),
+                     key=lambda o: count[o])
+        vname = f"osd.{victim}"
+        live = [n for n in osds if n != vname]
+        ds.kill(vname)
+        rc, outs, _ = r.mon_command({"prefix": "osd down", "ids": [victim]})
+        if rc != 0:
+            raise AssertionError(f"phase 21: osd down: {outs}")
+        _wait_for(lambda: r.objecter.osdmap.is_down(victim), "victim never down")
+        _wait_for(clean(live), "peering after osd down")
+        rng = np.random.default_rng(DURABLE_SEED)
+        seeded = {f"durable_{i}": rng.bytes(REPAIR_OBJECT)
+                  for i in range(DURABLE_OBJECTS)}
+        t0 = time.monotonic()
+        for oid, payload in seeded.items():
+            io.write_full(oid, payload)
+        res["down_write"] = {"wall_s": time.monotonic() - t0,
+                             "MBps": len(seeded) * REPAIR_OBJECT /
+                             (time.monotonic() - t0) / 1e6}
+        # -- 3. restart it on its data dir; log-based recovery to clean ------
+        before = _osd_sums(ds, live)
+        t0 = time.monotonic()
+        ds.spawn(vname)
+        ds.wait_serving([vname])
+        _wait_for(lambda: r.objecter.osdmap.is_up(victim), "victim never up")
+        _wait_for(clean(osds), "recovery after the restart")
+        res["osd_restart_to_clean_s"] = time.monotonic() - t0
+        after = _osd_sums(ds, osds)
+        rec = {k: after[k] - before[k] for k in after}
+        m = r.objecter.osdmap
+        chunk = REPAIR_OBJECT // K
+        missed = sum(chunk for oid in seeded
+                     if victim in m.pg_to_up_acting_osds(
+                         m.pools[pid].raw_pg_to_pg(
+                             m.object_locator_to_pg(oid, pid)))[2])
+        if not rec["rebuilt"] or rec["read"] != K * rec["rebuilt"] or \
+                rec["full"] or rec["rebuilt"] != missed or not rec["k1"]:
+            raise AssertionError(f"phase 21: recovery {rec}, the writes "
+                                 f"{vname} missed {missed} B")
+        k1["recovery"] = rec["k1"]
+        res["recovery"] = rec
+        startup[f"{vname} (restarted)"] = ds.startup(vname)
+        # -- 4. SIGKILL the mon; restart it on its LogDB ----------------------
+        epoch = r.objecter.osdmap.epoch
+        mon_faults = _proc_faults(ds, ["mon.0"])["mon.0"]
+        ds.kill("mon.0")
+        t0 = time.monotonic()
+        ds.spawn("mon.0")
+        ds.wait_serving(["mon.0"])
+        mon_epoch = ds.command("mon.0", "status")["osdmap"]["epoch"]
+        if mon_epoch != epoch:
+            raise AssertionError(f"phase 21: the mon came back at epoch "
+                                 f"{mon_epoch}, not {epoch}")
+        r2 = Rados(TcpNet({k: tuple(v) for k, v in ds.addrs.items()}),
+                   name="client.admin", op_timeout=CLUSTER_TIMEOUT_S,
+                   auth_secret=ds.keyring.get("client.admin")).connect(60.0)
+        try:
+            m2 = r2.objecter.osdmap
+            if m2.epoch != epoch or r2.pool_lookup("ecpool") != pid or \
+                    dict(m2.erasure_code_profiles.get("tpu_k8m4", {})) != \
+                    dict(r.objecter.osdmap.erasure_code_profiles[
+                        "tpu_k8m4"]):
+                raise AssertionError("phase 21: the pool or the profile did "
+                                     "not survive the mon's restart")
+        finally:
+            r2.shutdown()
+        io.write_full("after_mon_restart", b"m" * 4096)
+        if io.read("after_mon_restart") != b"m" * 4096:
+            raise AssertionError("phase 21: IO after the mon's restart")
+        res["mon_restart_to_serving_s"] = time.monotonic() - t0
+        startup["mon.0 (restarted)"] = ds.startup("mon.0")
+        # -- 5. rados bench seq; the seeded objects byte for byte -------------
+        res["seq"] = _bench(ds, "seq")
+        for oid, payload in seeded.items():
+            if io.read(oid) != payload:
+                raise AssertionError(f"phase 21: {oid} read back differs")
+        # -- 6. bitrot under one OSD; a degraded decode on K1; fsck ----------
+        m = r.objecter.osdmap
+        for rot_oid in seeded:
+            pg = m.pools[pid].raw_pg_to_pg(m.object_locator_to_pg(rot_oid,
+                                                                  pid))
+            _, _, acting, primary = m.pg_to_up_acting_osds(pg)
+            shard = next((s for s in range(K)
+                          if acting[s] not in (primary, victim)), None)
+            if shard is not None:
+                break
+        else:
+            raise AssertionError("phase 21: no seeded object has a data "
+                                 "shard off its primary and the victim")
+        rot, rname = acting[shard], f"osd.{acting[shard]}"
+        ds.terminate(rname)
+        rc, outs, _ = r.mon_command({"prefix": "osd down", "ids": [rot]})
+        if rc != 0:
+            raise AssertionError(f"phase 21: osd down: {outs}")
+        down_epoch = r.objecter.osdmap.epoch
+        _wait_for(lambda: r.objecter.osdmap.is_down(rot), "rot OSD never down")
+        # every OSD hears the new map from the restarted mon
+        _wait_for(lambda: all(ds.command(n, "status")["osdmap_epoch"] >=
+                          down_epoch for n in osds if n != rname),
+              "an OSD never heard from the restarted mon")
+        store = BlueStore(str(data / rname))
+        store.mount()
+        rotten = ObjectId(rot_oid, -2, shard)
+        store.corrupt_blob_bytes(pg_cid(pg), rotten)
+        store.umount()
+        ds.spawn(rname)
+        ds.wait_serving([rname])
+        _wait_for(lambda: r.objecter.osdmap.is_up(rot), "rot OSD never up")
+        _wait_for(clean(osds), "peering after the rot OSD's restart")
+        l0 = _osd_sums(ds, osds)["k1"]
+        t0 = time.monotonic()
+        if io.read(rot_oid) != seeded[rot_oid]:
+            raise AssertionError(f"phase 21: {rot_oid} read over bitrot "
+                                 "differs")
+        res["degraded"] = {"wall_s": time.monotonic() - t0,
+                           "MBps": REPAIR_OBJECT /
+                           (time.monotonic() - t0) / 1e6}
+        k1["degraded_decode"] = _osd_sums(ds, osds)["k1"] - l0
+        if not k1["degraded_decode"]:
+            raise AssertionError("phase 21: the read over bitrot launched "
+                                 "no K1 decode")
+        # each daemon's counters: a killed process's (read just before
+        # its kill) summed with its successor's
+        faults["mon.0"] = mon_faults
+        for name, row in _proc_faults(ds, names).items():
+            if name in ("mon.0", vname):
+                row = {k: v + faults[name][k] for k, v in row.items()}
+            faults[name] = row
+        ds.terminate(rname)
+        fsck = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.objectstore_tool",
+             "--data-path", str(data / rname), "--op", "fsck"],
+            env=ds.env, cwd=ds.env["PYTHONPATH"], capture_output=True,
+            text=True, timeout=300)
+        lines = fsck.stdout.splitlines()
+        if fsck.returncode != 1 or len(lines) != 2 or \
+                lines[1] != "fsck: 1 error(s)" or not lines[0].startswith(
+                    f"{pg_cid(pg)}/{rotten}: csum mismatch in blob "):
+            raise AssertionError(f"phase 21: fsck of {rname}: rc "
+                                 f"{fsck.returncode}\n{fsck.stdout}"
+                                 f"{fsck.stderr[-2000:]}")
+        res["fsck"] = lines[0]
+        # -- 7. stop all; shards on disk == the plain encode; the mon's store -
+        final = r.objecter.osdmap
+        epoch = final.epoch
+    finally:
+        if r is not None:
+            r.shutdown()
+        ds.stop()
+    ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M)}, device="cpu")
+    sinfo = ecutil.StripeInfo(K, K * STRIPE_UNIT)
+    holders: dict[int, list] = {}
+    for oid in seeded:
+        pg_ = final.pools[pid].raw_pg_to_pg(final.object_locator_to_pg(oid,
+                                                                      pid))
+        for s, o in enumerate(final.pg_to_up_acting_osds(pg_)[2]):
+            holders.setdefault(o, []).append((oid, pg_, s))
+    others = sorted((o for o in holders if o not in (victim, rot)),
+                    key=lambda o: -len(holders[o]))[:DURABLE_CHECKED]
+    checked = 0
+    want = {oid: ecutil.encode(sinfo, ec_cpu, payload)
+            for oid, payload in seeded.items()}
+    for o in [victim] + others:
+        store = BlueStore(str(data / f"osd.{o}"))
+        store.mount()
+        for oid, pg_, s in holders[o]:
+            got = store.read(pg_cid(pg_), ObjectId(oid, -2, s))
+            if got != want[oid][s]:
+                raise AssertionError(f"phase 21: {oid} shard {s} on osd.{o}'s "
+                                     "disk differs from the plain encode")
+            checked += 1
+        store.umount()
+    vers = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.monstore_tool",
+         str(data / "mon.0"), "show-versions"], env=ds.env,
+        cwd=ds.env["PYTHONPATH"], capture_output=True, text=True,
+        timeout=300)
+    paxos = json.loads(vers.stdout)["paxos"]
+    if vers.returncode or paxos["last_version"] != epoch:
+        raise AssertionError(f"phase 21: monstore_tool show-versions "
+                             f"{vers.stdout} against epoch {epoch}")
+    stores = _stores_report(data, names)
+    wall = time.monotonic() - t_phase
+    for mode in ("write", "seq"):
+        b = res[mode]
+        print(f"phase 21: rados bench {mode} -t {PROC_THREADS} -b "
+              f"{REPAIR_OBJECT}: {b['MBps']} MB/s, {b['ops']} ops, average "
+              f"latency {b['lat_s']} s in {b['run_s']} s (CLI process "
+              f"{b['cli_wall_s']:.1f} s) on {name_power}")
+    print(f"phase 21: {vname} (in {count[victim]} acting sets) SIGKILLed and "
+          f"down; {DURABLE_OBJECTS} seeded {REPAIR_OBJECT} B writes at "
+          f"{res['down_write']['MBps']:.1f} MB/s; restarted on its "
+          f"BlueStore: clean in {res['osd_restart_to_clean_s']:.3f} s, "
+          f"rebuilt {rec['rebuilt']} B (the shards it missed), read/rebuilt "
+          f"{rec['read'] / rec['rebuilt']}, full rebuilds {rec['full']}, K1 "
+          f"{rec['k1']} launches in the OSDs' recovery")
+    print(f"phase 21: mon.0 SIGKILLed and restarted on its LogDB at epoch "
+          f"{mon_epoch}: serving (pool, "
+          f"profile, a write and a read) in "
+          f"{res['mon_restart_to_serving_s']:.3f} s")
+    print(f"phase 21: {rname} stopped, {rot_oid} shard {shard} bitrotted, "
+          f"restarted: read == payload through a K1 decode "
+          f"({k1['degraded_decode']} launches) at "
+          f"{res['degraded']['MBps']:.1f} MB/s; fsck: {res['fsck']}")
+    print(f"phase 21: {checked} shards of the seeded objects on the disks of "
+          f"osd.{victim}, " + ", ".join(f"osd.{o}" for o in others) +
+          f" == the plain version's encode (tolerance 0); monstore_tool "
+          f"show-versions paxos {paxos} == the client's last epoch {epoch}")
+    for name, split in startup.items():
+        print(f"phase 21: {name} start-up " + ", ".join(
+            f"{part} {v:.2f}" for part, v in split.items()) + " s")
+    for name, row in stores.items():
+        print(f"phase 21: {name} on disk: " + ", ".join(
+            f"{k} {v}" for k, v in row.items()))
+    sums = {k: sum(row[k] for row in faults.values())
+            for k in next(iter(faults.values()))}
+    print(f"phase 21: K1 launches in the OSD processes {k1}; fault counts "
+          f"summed over {len(faults)} daemons {sums}; boot "
+          f"{res['boot_s']:.1f} s, phase {wall:.1f} s on {name_power}")
+    res.update({"victim": victim, "launches": k1, "startup": startup,
+                "stores": stores, "faults": sums, "checked_shards": checked,
+                "epoch": epoch, "phase_s": wall})
+    return res
 
 
 def main() -> int:
@@ -3054,11 +3429,20 @@ def main() -> int:
         "legs": tcp["tcp"]["legs"], "recover_s": tcp["tcp"]["recover_s"],
         "bench": tcp["processes"]["bench"],
         "degraded_read": tcp["processes"]["degraded"]}
+    durable = durable_phase(name_power, work / "phase21")
+    kernels[0]["launches_durable"] = durable["launches"]
+    kernels[0]["durable"] = {
+        "bench": {k: durable[k] for k in ("write", "seq")},
+        "degraded_read": durable["degraded"],
+        "osd_restart_to_clean_s": durable["osd_restart_to_clean_s"],
+        "mon_restart_to_serving_s": durable["mon_restart_to_serving_s"],
+        "recovery": durable["recovery"]}
     print(f"chip_smoke: phases 12-14 {tool['wall_s']:.1f} + "
-          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-20 "
+          f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-21 "
           f"{mesh['phase_s']:.1f} + {fabric['phase_s']:.1f} + "
           f"{bench['phase_s']:.1f} + {ec_pg['phase_s']:.1f} + "
-          f"{cluster['phase_s']:.1f} + {tcp['phase_s']:.1f} s; "
+          f"{cluster['phase_s']:.1f} + {tcp['phase_s']:.1f} + "
+          f"{durable['phase_s']:.1f} s; "
           f"{time.monotonic() - t_start:.1f} s in all on {name_power}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

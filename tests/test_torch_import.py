@@ -108,7 +108,12 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.common.admin_socket",
                  "ceph_tpu_torch.tools.daemon_main",
                  "ceph_tpu_torch.tools.rados_cli",
-                 "ceph_tpu_torch.dryrun"):
+                 "ceph_tpu_torch.dryrun",
+                 # the durable stores and the offline tools
+                 "ceph_tpu_torch.kv", "ceph_tpu_torch.store.bluestore",
+                 "ceph_tpu_torch.store.journaled",
+                 "ceph_tpu_torch.tools.objectstore_tool",
+                 "ceph_tpu_torch.tools.monstore_tool"):
         assert name in out["modules"], name
 
 

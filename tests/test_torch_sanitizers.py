@@ -57,6 +57,8 @@ def probe(code: str, **env: str | None) -> subprocess.CompletedProcess:
 PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
                 "osd_min_pg_log_entries", "osd_max_pg_log_entries",
                 "objectstore_debug_inject_read_err",
+                # the durable store's
+                "bluestore_device_bytes",
                 # the cluster's
                 "osd_heartbeat_interval", "osd_heartbeat_grace",
                 "osd_mclock_client_wgt", "osd_mclock_recovery_res",
@@ -69,7 +71,7 @@ PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads 22 options; each is the reference's entry: the
+    """The port reads 23 options; each is the reference's entry: the
     same type, level, default, text, bounds, see-also and runtime
     flag."""
     assert set(options.OPTIONS) == PORT_OPTIONS
@@ -86,7 +88,7 @@ def test_options_schema_equals_reference_but_backend():
 @pytest.mark.parametrize("name,value", [
     ("memstore_device_bytes", "4K"), ("memstore_device_bytes", "2GiB"),
     ("memstore_device_bytes", " 1.5m "), ("memstore_device_bytes", 12345),
-    ("memstore_device_bytes", "lots"),
+    ("memstore_device_bytes", "lots"), ("bluestore_device_bytes", "64M"),
     ("osd_min_pg_log_entries", "100"), ("osd_min_pg_log_entries", -1),
     ("osd_max_pg_log_entries", "7"), ("osd_max_pg_log_entries", "1e3"),
     ("objectstore_debug_inject_read_err", "yes"),
