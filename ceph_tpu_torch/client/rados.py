@@ -8,13 +8,13 @@ object IO; every call is an Objecter op under the hood, so target
 recalc/resend on map changes is inherited.
 
 The port's copy of `ceph_tpu.client.rados` in part: `Rados.connect`,
-`pool_create`, `pool_lookup`, `list_pools`, `mon_command`, `open_ioctx`
-and `shutdown` (cephx through `auth_secret`); `IoCtx.write`,
+`pool_create`, `pool_lookup`, `list_pools`, `mon_command`, `open_ioctx`,
+`pg_scrub` and `shutdown` (cephx through `auth_secret`); `IoCtx.write`,
 `write_full`, `read`, `remove`, `stat`
 and `append`, and the `aio_` forms of those the reference has.  Left
 out: snapshots (pool and self-managed), xattrs, omap, object classes
-(`exec`), watch/notify, `WriteOp` compound operations, object listing
-and `pg_scrub`.
+(`exec`), watch/notify, `WriteOp` compound operations and object
+listing.
 """
 from __future__ import annotations
 
@@ -96,6 +96,21 @@ class Rados:
 
     def open_ioctx(self, pool_name: str) -> "IoCtx":
         return IoCtx(self, self.pool_lookup(pool_name))
+
+    def pg_scrub(self, pool_id: int, ps: int,
+                 repair: bool = False) -> dict:
+        """Deep-scrub one PG at its primary; returns
+        {inconsistent, repaired, unrepairable} (and `verified` after a
+        repair) (ref: `ceph pg deep-scrub` / `ceph pg repair`)."""
+        fut = self.objecter.submit(
+            pool_id, "", "scrub-repair" if repair else "scrub",
+            pg_ps=ps)
+        if not self.objecter.wait_sync(fut.done, self.op_timeout,
+                                       ev=fut._ev):
+            raise TimeoutError("scrub timed out")
+        if fut.result < 0:
+            raise RadosError(fut.errno_name or "EIO")
+        return fut.attrs
 
 
 class IoCtx:

@@ -20,7 +20,10 @@ configures both packages:
   (`mon_min_osdmap_epochs`), pg-stat reports and their staleness, the
   mClock client and recovery classes, backfill reservations and scan
   windows, op tracking (`osd_op_complaint_time`,
-  `osd_op_history_size`) and `blkin_trace_all`.
+  `osd_op_history_size`) and `blkin_trace_all`;
+* the scrub scheduler's (`osd_scrub_auto`, `osd_scrub_min_interval`,
+  `osd_deep_scrub_interval`, `osd_max_scrubs`,
+  `osd_scrub_auto_repair`).
 
 Every other option of the reference's schema configures code the port
 does not have, and is not read here.
@@ -152,6 +155,26 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
            "recovery op-class weight", runtime=True),
     Option("osd_mclock_recovery_lim", T.FLOAT, L.ADVANCED, 200.0,
            "recovery limit, ops/s (0 = unlimited)", runtime=True),
+    # automatic scrub scheduling (ref: options.cc:3351
+    # osd_scrub_min_interval / osd_deep_scrub_interval / osd_max_scrubs)
+    Option("osd_scrub_auto", T.BOOL, L.ADVANCED, True,
+           "schedule scrubs automatically from the heartbeat tick",
+           runtime=True),
+    Option("osd_scrub_min_interval", T.FLOAT, L.ADVANCED, 24 * 3600.0,
+           "seconds between shallow scrubs of a clean PG",
+           runtime=True),
+    Option("osd_deep_scrub_interval", T.FLOAT, L.ADVANCED,
+           7 * 24 * 3600.0,
+           "seconds between deep scrubs of a clean PG", runtime=True),
+    Option("osd_max_scrubs", T.UINT, L.ADVANCED, 1,
+           "concurrent scrubs an OSD will drive or serve",
+           runtime=True),
+    Option("osd_scrub_auto_repair", T.BOOL, L.ADVANCED, True,
+           "repair inconsistencies found by scheduled deep scrubs "
+           "(diverges from the reference default=false: BlueStore "
+           "at-rest checksums make auto-repair the useful default "
+           "here; the repair is re-verified in-round either way)",
+           runtime=True),
     Option("mon_osd_down_out_interval", T.SECS, L.BASIC, 600.0,
            "seconds a down OSD stays in before auto-out",
            runtime=True),

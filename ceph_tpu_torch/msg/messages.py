@@ -8,8 +8,9 @@ the paxos commit pipeline, the cephx handshake (`MAuthRequest`,
 `MAuthReply`) and the heartbeat pings.  Each is registered
 as the reference registers it (the same wire names, versions and field
 order), so a frame written by either package decodes in the other.
-Left out with the services that send them: the replicated sub-ops,
-scrub, snap trim, MDS/fs, config and cluster-log, mgr, mon
+The scrub family (`ScrubReserve`, `ScrubMapRequest`, `ScrubMapReply`)
+carries the EC scrub.  Left out with the services that send them: the
+replicated sub-ops, snap trim, MDS/fs, config and cluster-log, mgr, mon
 quorum (election, lease, forward, sync request) and watch/notify
 messages.
 """
@@ -210,6 +211,18 @@ class BackfillReserve(Message):
 
 
 @dataclass
+class ScrubReserve(Message):
+    """Scrub reservation handshake (ref:
+    src/messages/MOSDScrubReserve.h REQUEST/GRANT/REJECT/RELEASE):
+    a replica serves at most `osd_max_scrubs` concurrent scrubs, so
+    the cluster-wide scrub load is bounded no matter how many
+    primaries come due at once."""
+    pgid: Any = None
+    from_osd: int = -1
+    op: str = "request"          # request|grant|reject|release
+
+
+@dataclass
 class PGRemove(Message):
     """Primary tells a stray (an OSD holding this PG's data but no
     longer in the acting/up set) to delete its copy after the PG goes
@@ -228,6 +241,28 @@ class MOSDPGTemp(Message):
     from_osd: int = -1
     epoch: int = 0
     osds: list = field(default_factory=list)
+
+
+@dataclass
+class ScrubMapRequest(Message):
+    """Primary asks a peer for its scrub map
+    (ref: src/messages/MOSDRepScrub.h; PG::replica_scrub)."""
+    pgid: Any = None
+    deep: bool = True
+
+
+@dataclass
+class ScrubMapReply(Message):
+    """(ref: ScrubMap in src/osd/scrubber_common.h — per-object
+    version/size/digest)."""
+    pgid: Any = None
+    from_osd: int = -1
+    #: oid -> {"version": (e, v), "size": int, "crc": int | None,
+    #:          "ok": bool}  (crc None on shallow scrub)
+    objects: dict = field(default_factory=dict)
+    #: the peer has no state for this PG yet (map lag) — the scrub
+    #: must retry rather than treat every object as missing there
+    absent: bool = False
 
 
 @dataclass

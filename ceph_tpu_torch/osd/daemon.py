@@ -13,18 +13,23 @@ The port's copy of `ceph_tpu.osd.daemon` in part, for erasure-coded
 pools: boot and map handling, client ops (writes, reads, stat, xattr
 reads), the EC sub-op routing, the EC peering statechart with its log
 merge, backfill reservations, pg_temp requests, strays and PG removal,
-the mClock op queue, heartbeats and failure reports, pg-stat reports
-and the optional device-mesh `fabric`.  Every plugin the daemon builds
+the mClock op queue, heartbeats and failure reports, pg-stat reports,
+the EC scrub (the client ops `scrub` / `scrub-repair`, the scheduler on
+the heartbeat tick with its reservations, repair through
+`ECBackend.recover_object` and the chained verify round) and the
+optional device-mesh `fabric`.  Every plugin the daemon builds
 lives on its `device` (cuda unless the caller passes `device="cpu"`).
 One rule differs: a queued recovery item that raises is logged as in
 the reference and also counted in the `queued_op_failures` perf
-counter.  Left out: replicated pools (their PGs are not instantiated),
-scrub, snap trim, object classes, watch/notify, snapshot ops and omap
-reads (a client op the daemon does not carry answers EINVAL), PG split
-on pg_num growth, crash capture, the cluster-log client, centralized
-config and the heartbeat mute hook.  With a `keyring` the daemon signs
-its traffic and verifies inbound (cephx); `start_admin_socket` serves
-perf dump, status, config show/get/set and the op tracker's dumps.
+counter.  Left out: replicated pools (their PGs are not instantiated,
+so the replicated scrub compare is not ported either), snap trim,
+object classes, watch/notify, snapshot ops and omap reads (a client op
+the daemon does not carry answers EINVAL), PG split on pg_num growth,
+crash capture, the cluster-log client (a scrub result goes to the debug
+log only), centralized config and the heartbeat mute hook.  With a
+`keyring` the daemon signs its traffic and verifies inbound (cephx);
+`start_admin_socket` serves perf dump, status, config show/get/set and
+the op tracker's dumps.
 The port adds `tick_errors` to the perf counters: the tick errors a
 daemon process's loop survived (tools/daemon_main.py).  As the
 reference's, the daemon starts on a store that already holds PG
@@ -59,20 +64,21 @@ from ..msg.messages import (BackfillReserve, ECSubRead, ECSubReadReply,
                             MOSDPGTemp, MPGStats, OSDOp, OSDOpReply,
                             PGLogPush, PGLogReq, PGNotify, PGQuery,
                             PGRemove, PGScan, PGScanReply, Ping,
-                            PingReply)
+                            PingReply, ScrubMapReply, ScrubMapRequest,
+                            ScrubReserve)
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..msg.mon_client import MonHunter
 from ..store import MemStore, StoreError, Transaction
 from . import mutations as mut
 from .ec_backend import (ECBackend, ECPGShard, ec_store_inventory,
-                         pg_cid)
+                         pg_cid, spread_tombstones)
 from .ec_peering import ECPGPeering, ECRollbacker
 from .mutations import MutationError
 from .op_queue import MClockQueue
 from .osdmap import OSDMap
 from .peering import CLEAN, GETINFO, GETLOG, GETMISSING, _ev
 from .pg_log import IndexedLog, LogEntryHandler
-from .pg_types import ZERO_VERSION
+from .pg_types import ZERO_VERSION, EVersion
 from .types import PG, POOL_TYPE_ERASURE, cbits, ceph_stable_mod
 
 #: errno-name -> numeric result for client replies (ref: the rc values
@@ -95,6 +101,44 @@ class _PGState:
         self.peering = None
         self.backfilling = False
         self.recovering = False
+        self.scrub = None          # active _ScrubState (primary only)
+        # automatic scrub scheduling (primary only; ref: pg_info_t's
+        # last_scrub_stamp driving OSD::sched_scrub).  Stamps live in
+        # the tick's clock domain (monotonic or simulated) and reset
+        # on daemon restart — the first tick seeds them with a
+        # deterministic per-PG jitter so a cold cluster doesn't scrub
+        # everything at once.
+        self.last_scrub_stamp: float | None = None
+        self.last_deep_scrub_stamp: float | None = None
+        #: remote scrub-reservation grants awaited: set of osds
+        self.scrub_reserving: set | None = None
+        self.scrub_granted: set = set()
+        self.scrub_deep_pending = False
+        self.scrub_backoff_until = 0.0
+
+
+class _ScrubState:
+    """One in-flight scrub round (ref: src/osd/scrubber/pg_scrubber).
+
+    `reply_msg` is None for scheduler-initiated scrubs (no client to
+    answer).  A repair round that actually dispatched repairs chains a
+    VERIFY round (`orig` points back) re-collecting maps so the final
+    result proves the repairs landed."""
+
+    def __init__(self, reply_msg, repair: bool, deep: bool = True,
+                 auto: bool = False):
+        self.reply_msg = reply_msg
+        self.repair = repair
+        self.deep = deep
+        self.auto = auto                      # scheduler-initiated
+        self.orig: "_ScrubState | None" = None  # we verify that round
+        self.pending: set[int] = set()        # osds awaited
+        self.maps: dict[int, dict] = {}       # osd -> scrub map
+        self.repairs_pending = 0
+        self.comparing = False                # reply gate (see
+        self.inconsistent: list[str] = []     # _finish_scrub)
+        self.repaired = 0
+        self.unrepairable: list[str] = []
 
 
 # the PG table is shared between the dispatch thread, the tick thread
@@ -154,6 +198,11 @@ class OSDDaemon(Dispatcher, MonHunter):
         #: without racing the (often sub-tick) hold window
         self.bf_peak_local = 0
         self.bf_peak_remote = 0
+        # scrub reservations (ref: the scrub reserver in OSD.h; both
+        # sides bounded by osd_max_scrubs)
+        self._scrubs_remote: set = set()       # (pg, primary) we serve
+        self.scrub_peak_local = 0
+        self.scrub_peak_remote = 0
         #: cached stray self-notifies: pg -> (PGNotify, primary osd)
         self._stray_notifies: dict = {}
         #: cached transient EC shard views: (pg, shard) -> ECPGShard
@@ -172,7 +221,8 @@ class OSDDaemon(Dispatcher, MonHunter):
             grace=4 * global_config()["osd_heartbeat_interval"])
         # mClock op-class QoS (ref: src/osd/mClockOpClassQueue.h):
         # client ops execute inline and are ACCOUNTED; recovery work is
-        # queued and paced by the two-phase scheduler
+        # queued and paced by the two-phase scheduler (a scrub runs in
+        # dispatch; the reference's "scrub" class is never fed)
         cfg = global_config()
         self.op_queue = MClockQueue()
         self.op_queue.set_class("client",
@@ -459,6 +509,24 @@ class OSDDaemon(Dispatcher, MonHunter):
         if isinstance(msg, PGRemove):
             self._handle_pg_remove(msg)
             return True
+        if isinstance(msg, ScrubMapRequest):
+            st = self.pgs.get(msg.pgid)
+            if st is None or st.shard is None:
+                # map lag: no PG state yet — tell the primary to retry
+                # instead of reading "no objects anywhere"
+                self.ms.connect(msg.src).send_message(ScrubMapReply(
+                    pgid=msg.pgid, from_osd=self.whoami, absent=True))
+            else:
+                self.ms.connect(msg.src).send_message(ScrubMapReply(
+                    pgid=msg.pgid, from_osd=self.whoami,
+                    objects=st.shard.scrub_map(msg.deep)))
+            return True
+        if isinstance(msg, ScrubMapReply):
+            self._handle_scrub_reply(msg)
+            return True
+        if isinstance(msg, ScrubReserve):
+            self._handle_scrub_reserve(msg)
+            return True
         if isinstance(msg, Ping):
             self.ms.connect(msg.src).send_message(
                 PingReply(epoch=self.osdmap.epoch, stamp=msg.stamp))
@@ -503,6 +571,11 @@ class OSDDaemon(Dispatcher, MonHunter):
                                   if self.osdmap.is_up(k[1])]
             if dead:
                 self._grant_queued_reservations()
+            # scrub slots whose requesting primary died reclaim the
+            # same way (no release will ever come)
+            for k in [k for k in self._scrubs_remote
+                      if not self.osdmap.is_up(k[1])]:
+                self._scrubs_remote.discard(k)
             # transient EC views go stale when PG state changes hands
             self._ec_transients.clear()
             self._update_pgs()
@@ -581,6 +654,10 @@ class OSDDaemon(Dispatcher, MonHunter):
                     prior = [o for o in old.acting if o >= 0]
                     if old.peering is not None:
                         old.peering.abort()
+                    # a scrub round dies with its interval: hand back
+                    # replica slots or they leak past the remap
+                    self._release_scrub_slots(pg, old)
+                    old.scrub = None
                     if old.backend is not None:
                         # acting change: abort queued ops so clients
                         # see failures and retry, instead of hanging
@@ -630,6 +707,7 @@ class OSDDaemon(Dispatcher, MonHunter):
                 st = self.pgs.pop(pg)
                 if st.peering is not None:
                     st.peering.abort()
+                self._release_scrub_slots(pg, st)
                 if st.backend is not None:
                     st.backend.fail_in_flight()
         # record this interval's acting sets for the NEXT map's
@@ -704,6 +782,15 @@ class OSDDaemon(Dispatcher, MonHunter):
                              create=create)
             self._ec_transients[key] = view
         return view
+
+    def _push_ec_tombstones(self, pg: PG, st: _PGState, oid: str,
+                            ver: tuple, targets: list[int]) -> None:
+        """Scrub repair's tombstone leg over the acting set (shared
+        implementation with the EC peering statechart)."""
+        b = st.backend
+        spread_tombstones(pg, b.k + b.m, st.shard, self.whoami,
+                          self._make_send_osd(), oid, ver,
+                          {s: st.acting[s] for s in targets})
 
     def pgs_recovering(self) -> int:
         # self-locking: called bare by harnesses/tests while the
@@ -963,6 +1050,333 @@ class OSDDaemon(Dispatcher, MonHunter):
             return self.ms.connect(f"osd.{osd}").send_message(payload)
         return send
 
+    # ------------------------------------------------------------ scrub
+    # Primary-driven deep scrub (ref: src/osd/scrubber/pg_scrubber.cc:
+    # collect replica scrub maps, compare against the authoritative
+    # copy, optionally repair): EC PGs aggregate each shard's local
+    # HashInfo-crc verification and rebuild bad shards through the
+    # recovery path (compiled repair, one K1 launch per object).
+    def _start_scrub(self, pg: PG, st: _PGState, msg,
+                     repair: bool, deep: bool = True,
+                     auto: bool = False) -> None:
+        if st.scrub is not None:
+            self._reply(msg, -16, "EBUSY")
+            return
+        sc = _ScrubState(msg, repair, deep=deep, auto=auto)
+        st.scrub = sc
+        sc.maps[self.whoami] = st.shard.scrub_map(deep=deep)
+        peers = {o for o in st.acting if o >= 0 and o != self.whoami}
+        sc.pending = set(peers)
+        for p in peers:
+            if not self.ms.connect(f"osd.{p}").send_message(
+                    ScrubMapRequest(pgid=pg, deep=deep)):
+                # unreachable peer: abort rather than wedge in
+                # scrubbing state (retry after the remap settles)
+                st.scrub = None
+                self._release_scrub_slots(pg, st)
+                self._reply(msg, -11, "EAGAIN")
+                return
+        if not sc.pending:
+            self._finish_scrub(pg, st)
+
+    # ---------------------------------------- automatic scrub scheduling
+    def _scrubs_driving(self) -> int:
+        return sum(1 for st in self.pgs.values()
+                   if st.scrub is not None or
+                   st.scrub_reserving is not None)
+
+    def _sched_scrub(self, now: float) -> None:
+        """Scheduler pass from the heartbeat tick (ref: OSD.cc:7581
+        OSD::sched_scrub + PG.cc:4276 PG::sched_scrub): pick ONE due,
+        clean, primary PG per tick and start its reservation
+        handshake.  Stamps live in the tick's clock domain; a fresh
+        PG's first stamp carries a deterministic jitter so a cold
+        cluster staggers its first pass (ref: the
+        osd_scrub_interval_randomize_ratio idea)."""
+        cfg = global_config()
+        if not cfg["osd_scrub_auto"]:
+            return
+        if self._scrubs_driving() >= cfg["osd_max_scrubs"]:
+            return
+        min_iv = cfg["osd_scrub_min_interval"]
+        deep_iv = cfg["osd_deep_scrub_interval"]
+        for pg, st in sorted(self.pgs.items()):
+            if st.backend is None or st.scrub is not None or \
+                    st.scrub_reserving is not None:
+                continue
+            if st.recovering or st.backfilling:
+                continue
+            if st.peering is not None and st.peering.phase != CLEAN:
+                continue
+            if now < st.scrub_backoff_until:
+                continue
+            if st.last_scrub_stamp is None:
+                # deterministic per-PG jitter inside one interval
+                j = (hash((pg.pool, pg.ps)) % 1000) / 1000.0
+                st.last_scrub_stamp = now - j * min_iv
+                st.last_deep_scrub_stamp = now - j * deep_iv
+                continue
+            deep = now - st.last_deep_scrub_stamp > deep_iv
+            if not deep and now - st.last_scrub_stamp <= min_iv:
+                continue
+            self._begin_auto_scrub(pg, st, deep=deep)
+            return              # one new handshake per tick
+
+    def _begin_auto_scrub(self, pg: PG, st: _PGState,
+                          deep: bool) -> None:
+        peers = {o for o in st.acting
+                 if o >= 0 and o != self.whoami and
+                 self.osdmap.is_up(o)}
+        st.scrub_deep_pending = deep
+        st.scrub_granted = set()
+        if not peers:
+            st.scrub_reserving = None
+            self._auto_scrub_go(pg, st)
+            return
+        st.scrub_reserving = set(peers)
+        self.scrub_peak_local = max(self.scrub_peak_local,
+                                    self._scrubs_driving())
+        for p in peers:
+            if not self.ms.connect(f"osd.{p}").send_message(
+                    ScrubReserve(pgid=pg, from_osd=self.whoami,
+                                 op="request")):
+                st.scrub_reserving.discard(p)
+        if not st.scrub_reserving:
+            st.scrub_reserving = None
+            self._auto_scrub_go(pg, st)
+
+    def _auto_scrub_go(self, pg: PG, st: _PGState) -> None:
+        deep = st.scrub_deep_pending
+        repair = deep and global_config()["osd_scrub_auto_repair"]
+        self._start_scrub(pg, st, None, repair=repair, deep=deep,
+                          auto=True)
+
+    def _release_scrub_slots(self, pg: PG, st: _PGState) -> None:
+        """Release every replica-side slot this round held or asked
+        for (granted, still-pending, or in flight)."""
+        for p in set(st.scrub_granted) | set(st.scrub_reserving or ()):
+            self.ms.connect(f"osd.{p}").send_message(ScrubReserve(
+                pgid=pg, from_osd=self.whoami, op="release"))
+        st.scrub_reserving = None
+        st.scrub_granted = set()
+
+    def _handle_scrub_reserve(self, msg: ScrubReserve) -> None:
+        key = (msg.pgid, msg.from_osd)
+        if msg.op == "request":
+            limit = global_config()["osd_max_scrubs"]
+            if key in self._scrubs_remote or \
+                    len(self._scrubs_remote) < limit:
+                self._scrubs_remote.add(key)
+                self.scrub_peak_remote = max(self.scrub_peak_remote,
+                                             len(self._scrubs_remote))
+                op = "grant"
+            else:
+                op = "reject"   # saturated: the primary backs off
+            self.ms.connect(msg.src).send_message(ScrubReserve(
+                pgid=msg.pgid, from_osd=self.whoami, op=op))
+            return
+        if msg.op == "release":
+            self._scrubs_remote.discard(key)
+            return
+        st = self.pgs.get(msg.pgid)         # grant | reject
+        if st is None or st.scrub_reserving is None or \
+                msg.from_osd not in st.scrub_reserving:
+            if msg.op == "grant":
+                # unusable grant: hand the slot back or it leaks
+                self.ms.connect(msg.src).send_message(ScrubReserve(
+                    pgid=msg.pgid, from_osd=self.whoami, op="release"))
+            return
+        st.scrub_reserving.discard(msg.from_osd)
+        if msg.op == "grant":
+            st.scrub_granted.add(msg.from_osd)
+            if not st.scrub_reserving:
+                st.scrub_reserving = None
+                self._auto_scrub_go(msg.pgid, st)
+        else:
+            # one reject kills the round: release what we hold and
+            # back off (ref: the REJECT path re-queuing the scrub)
+            self._release_scrub_slots(msg.pgid, st)
+            st.scrub_backoff_until = (self._hb_now or 0.0) + \
+                global_config()["osd_heartbeat_grace"]
+
+    def _handle_scrub_reply(self, msg: ScrubMapReply) -> None:
+        st = self.pgs.get(msg.pgid)
+        if st is None or st.scrub is None or \
+                msg.from_osd not in st.scrub.pending:
+            return
+        if msg.absent:
+            sc = st.scrub
+            st.scrub = None
+            self._reply(sc.reply_msg, -11, "EAGAIN")
+            return
+        st.scrub.pending.discard(msg.from_osd)
+        st.scrub.maps[msg.from_osd] = dict(msg.objects)
+        if not st.scrub.pending:
+            self._finish_scrub(msg.pgid, st)
+
+    def _finish_scrub(self, pg: PG, st: _PGState) -> None:
+        # guard against synchronous repair completions firing the
+        # client reply while the compare loop is still running
+        st.scrub.comparing = True
+        try:
+            if not isinstance(st.shard, ECPGShard):
+                # only EC PGs are instantiated; the replicated compare
+                # (be_select_auth_object over full copies) waits for
+                # the replicated backend
+                raise NotImplementedError(
+                    f"scrub of non-EC pg {pg}: the replicated compare "
+                    f"is not ported")
+            self._scrub_compare_ec(pg, st)
+        finally:
+            if st.scrub is not None:
+                st.scrub.comparing = False
+        self._maybe_scrub_done(pg, st)
+
+    def _scrub_compare_ec(self, pg: PG, st: _PGState) -> None:
+        sc = st.scrub
+        osd_to_shard = {osd: idx for idx, osd in enumerate(st.acting)
+                        if osd >= 0}
+        all_oids = sorted({o for m in sc.maps.values() for o in m})
+        for oid in all_oids:
+            # authoritative (version, whiteout) among healthy entries
+            entries = {osd: m[oid] for osd, m in sc.maps.items()
+                       if oid in m}
+            healthy = [e for e in entries.values() if e["ok"]]
+            auth_ver = max((tuple(e.get("version", (0, 0)))
+                            for e in healthy), default=(0, 0))
+            auth_whiteout = any(
+                e.get("whiteout") for e in healthy
+                if tuple(e.get("version", (0, 0))) == auth_ver)
+            # majority user-xattr digest among healthy current shards
+            # (attrs are replicated on every shard, so a divergent
+            # digest marks that shard inconsistent)
+            attr_counts: dict = {}
+            for e in healthy:
+                if tuple(e.get("version", (0, 0))) == auth_ver and \
+                        e.get("attrs_crc") is not None:
+                    attr_counts[e["attrs_crc"]] = \
+                        attr_counts.get(e["attrs_crc"], 0) + 1
+            auth_attrs = max(attr_counts, key=attr_counts.get) \
+                if attr_counts else None
+            bad_shards = []
+            for osd, m in sc.maps.items():
+                e = m.get(oid)
+                if e is None or not e["ok"] or \
+                        tuple(e.get("version", (0, 0))) < auth_ver or \
+                        bool(e.get("whiteout")) != auth_whiteout or \
+                        (auth_attrs is not None and not auth_whiteout
+                         and e.get("attrs_crc") is not None
+                         and e["attrs_crc"] != auth_attrs):
+                    bad_shards.append(osd_to_shard[osd])
+            if not bad_shards:
+                continue
+            sc.inconsistent.append(oid)
+            if not sc.repair or st.backend is None:
+                continue
+            if auth_whiteout:
+                # the delete is authoritative: spread tombstones, no
+                # data reconstruction
+                self._push_ec_tombstones(pg, st, oid, auth_ver,
+                                         bad_shards)
+                sc.repaired += 1
+                continue
+            if len(bad_shards) > self._ec_m(st):
+                sc.unrepairable.append(oid)
+                continue
+            for s in bad_shards:
+                st.backend.peer_missing[s].add(oid, EVersion(*auth_ver))
+            sc.repairs_pending += 1
+
+            def on_done(ok, oid=oid, pg=pg, st=st):
+                sc2 = st.scrub
+                if sc2 is None:
+                    return
+                sc2.repairs_pending -= 1
+                if ok:
+                    sc2.repaired += 1
+                else:
+                    sc2.unrepairable.append(oid)
+                self._maybe_scrub_done(pg, st)
+
+            st.backend.recover_object(oid, bad_shards, on_done,
+                                      version=EVersion(*auth_ver))
+
+    def _ec_m(self, st: _PGState) -> int:
+        return st.backend.m if st.backend is not None else 0
+
+    def _maybe_scrub_done(self, pg: PG, st: _PGState) -> None:
+        sc = st.scrub
+        if sc is None or sc.pending or sc.repairs_pending or \
+                sc.comparing:
+            return
+        if sc.repair and sc.repaired > 0 and sc.orig is None:
+            # repairs were dispatched: chain a VERIFY round that
+            # re-collects maps and proves they landed (repair is not
+            # fire-and-forget; ref: scrub_finish re-checking through
+            # the recovery machinery, src/osd/PG.cc)
+            st.scrub = None
+            verify = _ScrubState(sc.reply_msg, repair=False,
+                                 deep=sc.deep, auto=sc.auto)
+            verify.orig = sc
+            st.scrub = verify
+            verify.maps[self.whoami] = st.shard.scrub_map(deep=sc.deep)
+            peers = {o for o in st.acting
+                     if o >= 0 and o != self.whoami}
+            verify.pending = set(peers)
+            for p in peers:
+                if not self.ms.connect(f"osd.{p}").send_message(
+                        ScrubMapRequest(pgid=pg, deep=sc.deep)):
+                    verify.pending.discard(p)
+            if not verify.pending:
+                self._finish_scrub(pg, st)
+            return
+        st.scrub = None
+        self._release_scrub_slots(pg, st)
+        if sc.orig is not None:
+            # verify round: the original's repairs count only if this
+            # re-scrub came back clean for them
+            still_bad = set(sc.inconsistent)
+            orig = sc.orig
+            verified = [o for o in set(orig.inconsistent)
+                        if o not in still_bad]
+            result = {
+                "inconsistent": sorted(set(orig.inconsistent)),
+                "repaired": len([o for o in verified
+                                 if o not in set(orig.unrepairable)]),
+                "unrepairable": sorted(set(orig.unrepairable) |
+                                       still_bad),
+                "verified": True,
+            }
+        else:
+            result = {
+                "inconsistent": sorted(set(sc.inconsistent)),
+                "repaired": sc.repaired,
+                "unrepairable": sorted(set(sc.unrepairable)),
+            }
+        # stamps record WHEN the scrub ran (ref: pg_history_t
+        # last_scrub_stamp set at scrub_finish regardless of outcome)
+        # — stamping only clean results would re-scrub a persistently
+        # unrepairable PG every tick forever
+        now = self._hb_now if self._hb_now is not None else 0.0
+        st.last_scrub_stamp = now
+        if sc.deep:
+            st.last_deep_scrub_stamp = now
+        self.clog_scrub_result(pg, result)
+        self._reply(sc.reply_msg, 0, attrs=result)
+
+    def clog_scrub_result(self, pg: PG, result: dict) -> None:
+        """Scrub outcome into the debug log (ref: the scrub-result
+        lines PG::scrub_finish emits; the cluster-log client that also
+        carries them to the mon is not ported)."""
+        if result["inconsistent"]:
+            bad = len(result["inconsistent"])
+            dout("osd", 0).write(
+                "%s: pg %s scrub found %d inconsistent "
+                "(repaired=%s unrepairable=%s verified=%s)",
+                self.name, pg, bad,
+                result["repaired"], result["unrepairable"],
+                bool(result.get("verified")))
+
     # ------------------------------------------------------ heartbeats
     def heartbeat_peers(self) -> set[int]:
         """OSDs sharing PGs with this one (ref: OSD.cc
@@ -992,6 +1406,7 @@ class OSDDaemon(Dispatcher, MonHunter):
                 if st.peering is not None:
                     st.peering.tick(now)
             self._notify_strays(rebuild=False)
+            self._sched_scrub(now)
         # work a peering retry just enqueued drains through the QoS
         # queue now (or arms the pacing timer)
         self._drain_op_queue()
@@ -1083,11 +1498,13 @@ class OSDDaemon(Dispatcher, MonHunter):
                 state.append("degraded")
             elif not st.recovering and not st.backfilling:
                 state.append("clean")
+            if st.scrub is not None:
+                state.append("scrubbing")
             # one collection pass per PG: client objects, logical
             # bytes, and physical store bytes (EC chunk streams)
             n_objs, nbytes, store_b = st.shard.stat_summary()
             order = ["active", "clean", "degraded", "recovering",
-                     "backfilling"]
+                     "backfilling", "scrubbing"]
             pg_stats[str(pg)] = {
                 "state": "+".join(sorted(state, key=order.index)),
                 "num_objects": n_objs, "bytes": nbytes,
@@ -1109,6 +1526,8 @@ class OSDDaemon(Dispatcher, MonHunter):
     # ---------------------------------------------------- client ops
     def _reply(self, msg, result: int, errno_name: str = "",
                data: bytes = b"", attrs: dict | None = None) -> None:
+        if msg is None:
+            return      # scheduler-initiated op: no client to answer
         dur = self.op_tracker.finish((msg.src, msg.tid),
                                      "commit_sent" if result == 0
                                      else f"error:{errno_name}")
@@ -1175,6 +1594,9 @@ class OSDDaemon(Dispatcher, MonHunter):
                             attrs={"size": b.object_size(msg.oid)})
             elif msg.op in ("getxattr", "getxattrs"):
                 self._do_meta_read(st, msg)
+            elif msg.op in ("scrub", "scrub-repair"):
+                self._start_scrub(msg.pgid, st, msg,
+                                  repair=msg.op == "scrub-repair")
             else:
                 self._reply(msg, -22, "EINVAL")
         except MutationError as err:

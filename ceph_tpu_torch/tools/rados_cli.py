@@ -11,10 +11,12 @@ in-process `Rados`.
     rados --monmap mm.json mkpool data 64
     rados --monmap mm.json put data obj ./file
     rados --monmap mm.json --keyring k.json bench data 10 write -t 16
+    rados --monmap mm.json serve put data ckpt ./shard.bin --shard s0
 
 The port's copy of `ceph_tpu.tools.rados_cli` for the verbs the port's
-librados carries: `lspools`, `mkpool`, `put`, `get`, `rm`, `stat` and
-`bench <pool> <seconds> write|seq -b -t [--no-cleanup]`, with
+librados carries: `lspools`, `mkpool`, `put`, `get`, `rm`, `stat`,
+`bench <pool> <seconds> write|seq -b -t [--no-cleanup]` and the paged
+artifact store's `serve put|get|stat|pages`, with
 `--monmap`, `--keyring` and `--timeout`; the output text and return
 codes are the reference's.  Three rules differ, each because the port
 has no replicated pools and no object listing yet:
@@ -30,7 +32,7 @@ has no replicated pools and no object listing yet:
   (cephx) as `client.admin`.
 
 Not ported yet: `rmpool`, `ls`, the xattr and omap verbs, `crash`,
-`telemetry`, `insights`, `trace`, `rgw` and `serve`.
+`telemetry`, `insights`, `trace` and `rgw`.
 """
 from __future__ import annotations
 
@@ -121,6 +123,69 @@ def cmd_rm(r, a, out):
 def cmd_stat(r, a, out):
     st = r.open_ioctx(a.pool).stat(a.obj)
     print(f"{a.pool}/{a.obj} size {st['size']}", file=out)
+
+
+def cmd_serve(r, a, out):
+    """Paged artifact store verbs (serve/): put a checkpoint shard,
+    stream it back through a readahead policy, stat the manifest, or
+    inspect individual pages."""
+    import hashlib
+    from ..serve import ArtifactStore
+
+    def usage(msg):
+        print(f"error: {msg}", file=sys.stderr)
+        return 1
+
+    io = r.open_ioctx(a.pool)
+    st = ArtifactStore(io, page_size=a.page_size)
+    if a.verb == "put":
+        if len(a.args) != 1:
+            return usage("serve put <pool> <name> <infile> "
+                         "[--shard s] [--page-size n]")
+        if a.args[0] == "-":
+            data = sys.stdin.buffer.read()
+        else:
+            with open(a.args[0], "rb") as f:
+                data = f.read()
+        m = st.put(a.name, shards={a.shard: data})
+        si = m.shards[a.shard]
+        print(f"published {a.name} epoch {m.epoch}: shard "
+              f"{a.shard} {si.size} B in {si.n_pages} pages "
+              f"({len(si.vlens)} ragged)", file=out)
+    elif a.verb == "get":
+        if len(a.args) > 1:
+            return usage("serve get <pool> <name> [outfile] "
+                         "[--shard s] [--policy p]")
+        h = st.open(a.name, policy=a.policy)
+        data = h.read_shard(a.shard)
+        h.close()
+        outfile = a.args[0] if a.args else "-"
+        if outfile == "-":
+            out.write(data.decode(errors="replace"))
+        else:
+            with open(outfile, "wb") as f:
+                f.write(data)
+    elif a.verb == "stat":
+        print(json.dumps(st.stat(a.name), indent=1, sort_keys=True),
+              file=out)
+    elif a.verb == "pages":
+        if len(a.args) != 2:
+            return usage("serve pages <pool> <name> <shard> "
+                         "<id,id,...>")
+        shard = a.args[0]
+        try:
+            ids = [int(x) for x in a.args[1].split(",") if x]
+        except ValueError:
+            return usage(f"bad page-id list {a.args[1]!r}")
+        m = st.manifest(a.name)
+        if shard not in m.shards:
+            return usage(f"no shard {shard!r} in {a.name}")
+        blobs = st.fetch_pages(a.name, shard, ids, manifest=m)
+        for pid, blob in zip(ids, blobs):
+            digest = hashlib.sha256(blob).hexdigest()[:16]
+            print(f"page {pid}: {len(blob)} B sha256 {digest}",
+                  file=out)
+    return 0
 
 
 # ---------------------------------------------------------------- bench
@@ -227,6 +292,19 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("pool"), p.add_argument("obj")
     p = sub.add_parser("stat")
     p.add_argument("pool"), p.add_argument("obj")
+    p = sub.add_parser("serve")
+    p.add_argument("verb", choices=["put", "get", "stat", "pages"])
+    p.add_argument("pool")
+    p.add_argument("name", help="artifact name")
+    p.add_argument("args", nargs="*")
+    p.add_argument("--shard", default="shard0",
+                   help="shard name (put/get)")
+    p.add_argument("--page-size", type=int, default=1 << 16,
+                   help="page size for put (readers take it from "
+                        "the manifest)")
+    p.add_argument("--policy", default="checkpoint",
+                   choices=["checkpoint", "kvcache"],
+                   help="readahead policy for get")
     p = sub.add_parser("bench")
     p.add_argument("pool")
     p.add_argument("seconds", type=float)
@@ -253,7 +331,8 @@ def main(argv=None, rados=None, out=None) -> int:
                 return _bench(rados, a, out) or 0
             rc = {"lspools": cmd_lspools, "mkpool": cmd_mkpool,
                   "put": cmd_put, "get": cmd_get, "rm": cmd_rm,
-                  "stat": cmd_stat}[a.cmd](rados, a, out)
+                  "stat": cmd_stat, "serve": cmd_serve}[a.cmd](
+                      rados, a, out)
             return rc or 0
         except RadosError as e:
             print(f"error: {e}", file=sys.stderr)

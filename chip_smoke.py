@@ -57,8 +57,9 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    clock read during the timing;
 10. compiled repair at full width through the user entry points:
    `factory("jerasure", k=4 m=2 reed_sol_van)`, `factory("clay", k=4
-   m=2)` (d=5) and `factory("lrc", k=4 m=2 l=3)` on cuda, 64 objects of
-   4 MiB each (stripe unit 4096 B, 256 stripes), made from the seed and
+   m=2)` (d=5) and `factory("lrc", k=4 m=2 l=3)` on cuda, 32 objects of
+   4 MiB each (stripe unit 4096 B, 256 stripes; cut from 64 to keep the
+   smoke's wall time), made from the seed and
    encoded by ecutil on the host.  Shard 0 is lost; each object's helper
    buffers are cut as an OSD ships them (plan.byte_extents +
    ecutil.expand_stream_extents) and ecutil.compiled_repair_streams
@@ -72,7 +73,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    zeroed before and read after: one launch per repair or bit-matrix
    product.  K1 equals its plain version at every repair shape, two
    with tables above 48 KiB (k_in 256 and 400) included;
-11. time each code's rebuild of its 64 objects on the host clock, split
+11. time each code's rebuild of its 32 objects on the host clock, split
    into gather, copy in, K1 (also by CUDA events), copy back and
    scatter, with the rebuilt MB/s, beside the first (compiling) and
    second pass of phase 10; K1 per launch at each repair shape beside
@@ -86,8 +87,8 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    --show-statistics --show-utilization` over x = 0 .. 1,048,575 for
    rule 0 at num_rep 3 and rule 1 at 12: one K3 launch per (rule,
    num_rep), no scalar fallback, every x of full size; K3 against the
-   plain version on the card over every x of rule 0 and every 8th x of
-   rule 1 (131,072 x over the whole range, cut to keep the smoke's wall
+   plain version on the card over every x of rule 0 and every 16th x of
+   rule 1 (65,536 x over the whole range, cut to keep the smoke's wall
    time; rule 1's text is not held to the plain version), rule 0's text equal
    to the text of the plain version's tables, 256 sampled x equal to
    CrushWrapper.do_rule, and the text equal to CrushTester(device="cpu")'s
@@ -145,7 +146,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    staged decode); shard 0 wiped and recovered through recover_object,
    one compiled repair (one K1 launch) per object and no full rebuild,
    equal to the streams from before, read/rebuilt exactly 8.0; the same
-   recovery for REPAIR_r01.json's jerasure, clay and lrc (the first 32
+   recovery for REPAIR_r01.json's jerasure, clay and lrc (the first 16
    objects each, 4.0 / 2.5 / 3.0); the 64 writes again through ICIFabric over
    ["cuda:0"] * 8, every chunk equal to the host path's.  Write, read,
    degraded-read and rebuilt MB/s on the host clock, K1's CUDA-event
@@ -157,9 +158,23 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    `tpu` k=8 m=4 profile with crush-failure-domain=host and an erasure
    pool of pg_num 32 (Octopus's osd_pool_default_pg_num), as
    __graft_entry__.py:92-183 builds it.  64 objects of 4 MiB written
-   through librados write_full and read back; the OSD in the most acting
-   sets killed and marked down, every object read degraded; the OSD
-   marked out, every PG's EC peering run to CLEAN (the lost shards
+   through librados write_full and read back.  (e) The scheduled scrub:
+   a data shard of one object bitrotted under its OSD's MemStore, then
+   the cluster's heartbeat tick on a sim clock (5 s a tick, both scrub
+   intervals cut to 300 s) and no pg_scrub call, until the scheduled
+   deep scrub of that PG has found the shard, repaired it on K1 and
+   verified it ({"inconsistent": [oid], "repaired": 1, "unrepairable":
+   [], "verified": True}); the shard equal to the plain encode again,
+   every other scrub clean, the reservation peaks within
+   osd_max_scrubs, no OSD marked down.  (d) The paged artifact store:
+   an ArtifactStore with its default layout (64 KiB pages, 1 MiB
+   objects) puts a 256 MiB checkpoint of 4 shards (the last ragged) and
+   a KV pool of 1,024 pages, streams every shard under the `checkpoint`
+   policy and runs 32 waves of 64 seeded page ids through a `kvcache`
+   handle, every byte equal to the put's (pages by sha256).  The OSD in
+   the most acting sets is killed and marked down, every object read
+   degraded, (d)'s streams and waves repeated degraded (K1 decodes
+   counted) and both artifacts deleted; the OSD marked out, every PG's EC peering run to CLEAN (the lost shards
    rebuilt on their new OSDs by the compiled repair, on K1), every
    object read again.  Every read equals its payload, every shard of
    every object on its acting OSD equals ecutil.encode through a
@@ -172,7 +187,9 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    Write, read and degraded-read MB/s, the time from `osd out` to clean
    and the rebuilt MB/s on the host clock, K1's launches and CUDA-event
    share of each leg, recovery's launches split into compile probes and
-   repairs, the messages routed, and the phase's wall.
+   repairs, the messages routed, (d)'s put, stream and degraded-stream
+   MB/s and page-wave p50/p99 healthy and degraded, (e)'s ticks and
+   repair launches, and the phase's wall.
    K1's launch count is zeroed before and read after the phase;
 20. the cluster on its real transport, in three legs.  (a) phase 19's
    cell over TCP (ceph_tpu_torch.dryrun.TcpCluster): the mon, 16 OSDs
@@ -187,8 +204,8 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    encode, and a degraded read.  (c) Ceph's `rados bench` shape: `python
    -m ceph_tpu_torch.tools.daemon_main` mon and 16 OSD processes on the
    card, each with a keyring and an admin socket, a k=8 m=4 pool, the
-   `rados_cli` processes `bench ecpool 8 write -t 16 --no-cleanup` and
-   `bench ecpool 8 seq -t 16` (4 MiB, each read checked against the
+   `rados_cli` processes `bench ecpool 4 write -t 16 --no-cleanup` and
+   `bench ecpool 4 seq -t 16` (4 MiB, each read checked against the
    payload), then the OSD in the most acting sets killed, `osd down`
    and 16 bench objects read degraded.  Bench MB/s, each daemon's
    start-up (interpreter, imports, CUDA context, kernel load, join),
@@ -212,9 +229,14 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    cleanly and marked down, a stored byte of a data shard of a seeded
    object flipped with `corrupt_blob_bytes`, the OSD restarted, the
    object read right through a degraded decode on K1 (its launches
-   counted), and `objectstore_tool --op fsck` on the stopped dir reports
-   exactly that blob; everything stopped, each seeded shard on the
-   restarted OSD's disk and two others' equal to the plain version's
+   counted); `objectstore_tool --op fsck` on the stopped dir, right after
+   the flip, reports exactly that blob; the smoke's client then scrubs
+   the PG over TCP: `pg_scrub` lists exactly that object inconsistent,
+   `pg_scrub(repair=True)` repairs 1 and verifies it, a third scrub is
+   clean, and the primary's K1 launches rise (its admin socket);
+   everything stopped, the repaired shard on the bitrotted OSD's disk
+   equal to the plain encode (sha256), each seeded shard on that disk,
+   the restarted OSD's and two others' equal to the plain version's
    encode (tolerance 0), and `monstore_tool show-versions` on the mon's
    dir at the client's last epoch.  MB/s of the writes, seq and the
    degraded read, the restart-to-clean seconds of the OSD and the mon,
@@ -227,6 +249,7 @@ are the kernel table and {"ok": true, "device": {...}}, both JSON.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import itertools
 import json
@@ -256,7 +279,7 @@ PG_NUM, EC_PG_NUM = 1 << 20, 1 << 16
 EC_K, EC_M = 8, 4
 SAMPLE = 256                     # identity sample per pool, as placement_bench
 PLAIN_SEEDS = 1 << 16
-REPAIR_OBJECTS = 64
+REPAIR_OBJECTS = 32              # per code, cut from 64 (the smoke's wall)
 REPAIR_OBJECT = 4 << 20          # 4 MiB objects
 STRIPE_UNIT = 4096               # osd_pool_erasure_code_stripe_unit default
 REPAIR_CODES = [                 # REPAIR_r01.json's profiles and read/rebuilt
@@ -269,10 +292,11 @@ TOOL_TESTS = [(0, 3), (1, 12)]   # crushtool --test (rule, num_rep)
 TOOL_X = 1 << 20                 # x = 0 .. 1,048,575
 TOOL_SAMPLE = 256                # sampled x per rule against do_rule
 TOOL_PLAIN_CHUNK = 1 << 18       # seeds per pass of the plain version there
-# stride of the x held to the plain version per rule: every x of rule 0;
-# every 8th x of rule 1 (the 12-wide indep rule, 8x rule 0's cost per x),
-# 131,072 x spread over the whole launch, to keep the smoke's wall time
-TOOL_PLAIN_STRIDE = {0: 1, 1: 8}
+# stride of the x held to the plain version per rule: every x of rule 0
+# (its text is held to the plain version's tables); every 16th x of rule
+# 1 (the 12-wide indep rule, 8x rule 0's cost per x), 65,536 x spread
+# over the whole launch, to keep the smoke's wall time
+TOOL_PLAIN_STRIDE = {0: 1, 1: 16}
 TOOL_GUARD_X = 1 << 16           # phase 14's guarded tester run
 TOOL_CPU_X = 1 << 10             # text against CrushTester on the CPU
 TOOL_RULES = """\
@@ -1839,7 +1863,7 @@ def bench_phase(name_power: str) -> dict:
 # The EC placement group's data plane: phase 18
 
 EC_PG_OBJECTS = 64               # 4 MiB objects through ECBackend, tpu
-EC_PG_CODE_OBJECTS = 32          # of them through jerasure, clay and lrc
+EC_PG_CODE_OBJECTS = 16          # of them through jerasure, clay and lrc
 EC_PG_RMW = 16                   # objects given an unaligned overwrite
 EC_PG_PATCH = 100 << 10          # 100 KiB
 EC_PG_KILLED = [1, 9]
@@ -2320,13 +2344,17 @@ def acting_sets(m, pid: int, pg_num: int, PG) -> tuple[dict, dict]:
 
 
 def drive_cluster(c, r, io, objs: dict, tag: str, dev,
-                  snapshot: bool = False) -> dict:
+                  snapshot: bool = False, healthy=None,
+                  degraded=None) -> dict:
     """Writes, reads, the OSD in the most acting sets killed and marked
     down, degraded reads, `osd out` and recovery to clean, reads again;
     K1's launches and CUDA-event share of each leg.  Every read equals
     its payload; read/rebuilt is exactly 8.0 and no rebuild is full.
     With `snapshot`, every shard's bytes before the kill are kept
-    (result "shards": (oid, shard) -> bytes)."""
+    (result "shards": (oid, shard) -> bytes).  `healthy()` runs after
+    the reads and before the kill, `degraded()` after the degraded
+    reads and before `osd out`; their results are returned under the
+    same names."""
     from ceph_tpu_torch.ec.kernels import bitmatmul as bm
     from ceph_tpu_torch.ec.repairc import compiler as repairc_compiler
     from ceph_tpu_torch.osd.types import PG
@@ -2362,6 +2390,7 @@ def drive_cluster(c, r, io, objs: dict, tag: str, dev,
         wall = time.monotonic() - t0
     leg("write", logical, wall, ev, l0)
     reads("read")
+    extra = {"healthy": healthy() if healthy else None}
     # -- the OSD in the most acting sets dies ------------------------------
     pid = r.pool_lookup("ecpool")
     before, count = acting_sets(c.mon.osdmap, pid, CLUSTER_PG_NUM, PG)
@@ -2378,6 +2407,7 @@ def drive_cluster(c, r, io, objs: dict, tag: str, dev,
     _wait(c, lambda: r.objecter.osdmap.is_down(victim) and
           _all_clean(c, r), "peering after osd down", tag=tag)
     reads("degraded_read")
+    extra["degraded"] = degraded() if degraded else None
     # -- out: EC peering rebuilds the lost shards ----------------------------
     read0 = _perf_sum(c, "recovery_bytes_read")
     rebuilt0 = _perf_sum(c, "recovery_bytes_rebuilt")
@@ -2406,7 +2436,7 @@ def drive_cluster(c, r, io, objs: dict, tag: str, dev,
     return {"legs": legs, "victim": victim, "count": count,
             "before": before, "shards": shards, "pid": pid,
             "recover_s": recover_s, "rebuilt": rebuilt, "read": read,
-            "compiles": compiles}
+            "compiles": compiles, **extra}
 
 
 def _shards_on_acting(c, objs: dict, res: dict, tag: str):
@@ -2429,6 +2459,231 @@ def _shards_on_acting(c, objs: dict, res: dict, tag: str):
                                          ObjectId(oid, shard=s))
             yield oid, s, osd, got, res["before"][pg.ps][s], pg
 
+# -- phase 19 (d): the paged artifact store; (e): the scheduled scrub -------
+
+SERVE_SHARDS = 4                 # checkpoint shards of 64 MiB: 256 MiB
+SERVE_SHARD_B = 64 << 20
+SERVE_RAGGED = 4097              # the last shard's missing tail
+SERVE_KV_PAGES = 1024            # KV pool of 64 KiB pages
+SERVE_WAVES = 32                 # page waves per half
+SERVE_WAVE_PAGES = 64            # seeded random page ids per wave
+SCRUB_INTERVAL_S = 300.0         # both scrub intervals in (e), sim clock
+SCRUB_STEP_S = 5.0               # sim seconds per tick
+SCRUB_T0 = 10_000.0
+SCRUB_MAX_TICKS = 200
+
+
+def serve_data(seed: int):
+    """The checkpoint's shards (the last ragged), the KV pool's pages
+    (kept as sha256) and the page waves."""
+    rng = np.random.default_rng(seed)
+    ckpt = {f"shard{i}": rng.bytes(SERVE_SHARD_B - (
+        SERVE_RAGGED if i == SERVE_SHARDS - 1 else 0))
+        for i in range(SERVE_SHARDS)}
+    kv = [rng.bytes(1 << 16) for _ in range(SERVE_KV_PAGES)]
+    waves = [rng.integers(0, SERVE_KV_PAGES, SERVE_WAVE_PAGES).tolist()
+             for _ in range(SERVE_WAVES)]
+    return ckpt, kv, waves
+
+
+def serve_half(store, ckpt: dict, kv_sums: list, waves: list,
+               half: str) -> dict:
+    """Stream every checkpoint shard under `checkpoint`, then the page
+    waves through a fresh `kvcache` handle; every byte is held to what
+    was put (pages by sha256).  Host clock; K1 by CUDA events."""
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+
+    l0 = bm.LAUNCHES["gf_matmul"]
+    with k1_events(bm) as ev:
+        t0 = time.monotonic()
+        h = store.open("ckpt", policy="checkpoint")
+        for name, blob in ckpt.items():
+            if h.read_shard(name) != blob:
+                raise AssertionError(f"phase 19 (d): {half} stream of "
+                                     f"{name} differs")
+        stream_s = time.monotonic() - t0
+        stream_stats = dict(h.stats)
+        h.close()
+        h = store.open("kv", policy="kvcache")
+        lat = []
+        for ids in waves:
+            t1 = time.monotonic()
+            pages = h.get_pages("kv", ids)
+            lat.append(time.monotonic() - t1)
+            for pid, blob in zip(ids, pages):
+                if hashlib.sha256(blob).digest() != kv_sums[pid]:
+                    raise AssertionError(f"phase 19 (d): {half} page "
+                                         f"{pid} differs")
+        kv_stats = dict(h.stats)
+        h.close()
+        wall = time.monotonic() - t0
+    k1 = events_ms(ev)
+    lat.sort()
+    return {"stream_MBps": sum(map(len, ckpt.values())) / stream_s / 1e6,
+            "stream_s": stream_s, "stream_stats": stream_stats,
+            "wave_p50_ms": statistics.median(lat) * 1e3,
+            "wave_p99_ms": lat[-(-len(lat) * 99 // 100) - 1] * 1e3,
+            "kv_stats": kv_stats, "wall_s": wall, "k1_ms": k1,
+            "k1_share": k1 / 1e3 / wall,
+            "launches": bm.LAUNCHES["gf_matmul"] - l0}
+
+
+class ServeLeg:
+    """Phase 19 (d) on the cluster's pool: an ArtifactStore with its
+    default layout (64 KiB pages, 1 MiB objects) holding a 256 MiB
+    checkpoint of 4 shards and a 1,024-page KV pool; `healthy` puts and
+    reads them, `degraded` (the victim down) reads them again and
+    deletes both artifacts, so recovery rebuilds what it did before."""
+
+    def __init__(self, io):
+        from ceph_tpu_torch.serve import ArtifactStore
+
+        self.store = ArtifactStore(io)
+        self.ckpt, self.kv, self.waves = serve_data(SEED + 191)
+        self.kv_sums = [hashlib.sha256(p).digest() for p in self.kv]
+        self.out: dict = {}
+
+    def healthy(self) -> None:
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+
+        l0 = bm.LAUNCHES["gf_matmul"]
+        with k1_events(bm) as ev:
+            t0 = time.monotonic()
+            m = self.store.put("ckpt", shards=self.ckpt)
+            self.store.put("kv", pages={"kv": self.kv})
+            wall = time.monotonic() - t0
+        nbytes = sum(map(len, self.ckpt.values())) + sum(map(len, self.kv))
+        k1 = events_ms(ev)
+        self.out["write"] = {
+            "MBps": nbytes / wall / 1e6, "wall_s": wall, "k1_ms": k1,
+            "k1_share": k1 / 1e3 / wall,
+            "launches": bm.LAUNCHES["gf_matmul"] - l0,
+            "objects": len(m.data_oids()) + len(
+                self.store.manifest("kv").data_oids())}
+        self.out["healthy"] = serve_half(self.store, self.ckpt,
+                                         self.kv_sums, self.waves, "healthy")
+
+    def degraded(self) -> None:
+        self.out["degraded"] = serve_half(self.store, self.ckpt,
+                                          self.kv_sums, self.waves,
+                                          "degraded")
+        if not self.out["degraded"]["launches"]:
+            raise AssertionError("phase 19 (d): the degraded reads "
+                                 "launched no K1 decode")
+        self.out["deleted"] = (self.store.delete("ckpt") +
+                               self.store.delete("kv"))
+
+
+def _scrubbing(c) -> bool:
+    for d in list(c.osds.values()):
+        with d._lock:
+            if any(st.scrub is not None or st.scrub_reserving is not None
+                   for st in d.pgs.values()):
+                return True
+    return False
+
+
+def scrub_leg(c, r, objs: dict) -> dict:
+    """Phase 19 (e): bitrot under one OSD's MemStore, then the heartbeat
+    tick on a sim clock with both scrub intervals cut to
+    SCRUB_INTERVAL_S, and no pg_scrub call: the scheduled deep scrub
+    finds the shard, repairs it on K1 and verifies it; every scrub
+    result is recorded as the primary logs it."""
+    from ceph_tpu_torch.common.options import global_config
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.ec.repairc import compiler as repairc_compiler
+    from ceph_tpu_torch.osd import ec_backend, ecutil
+    from ceph_tpu_torch.store import ObjectId, Transaction
+
+    tag = "phase 19 (e)"
+    cfg = global_config()
+    pid = r.pool_lookup("ecpool")
+    m = c.mon.osdmap
+    oid = next(iter(objs))
+    raw = m.object_locator_to_pg(oid, pid)
+    pg = m.pools[pid].raw_pg_to_pg(raw)
+    _, _, acting, primary = m.pg_to_up_acting_osds(raw)
+    shard = next(s for s in range(K) if acting[s] != primary)
+    cid, soid = ec_backend.pg_cid(pg), ObjectId(oid, shard=shard)
+    mstore = c.osds[acting[shard]].store
+    ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M),
+                                      "technique": "reed_sol_van"},
+                              device="cpu")
+    want = ecutil.encode(ecutil.StripeInfo(K, K * STRIPE_UNIT), ec_cpu,
+                         objs[oid])[shard]
+    if mstore.read(cid, soid) != want:
+        raise AssertionError(f"{tag}: {oid} shard {shard} before the rot")
+    mstore.queue_transaction(Transaction().write(cid, soid, 0, b"BITROT!!"))
+    results: list = []
+    for d in c.osds.values():
+        def record(pg_, result, d=d, orig=d.clog_scrub_result):
+            results.append((d.whoami, pg_, dict(result)))
+            orig(pg_, result)
+        d.clog_scrub_result = record
+    saved = {k: cfg[k] for k in ("osd_scrub_min_interval",
+                                 "osd_deep_scrub_interval")}
+    for k in saved:
+        cfg.set(k, SCRUB_INTERVAL_S)
+    l0 = bm.LAUNCHES["gf_matmul"]
+    comp0 = dict(repairc_compiler.COMPILES)
+    now, found = SCRUB_T0, None
+    try:
+        with k1_events(bm) as ev:
+            t0 = time.monotonic()
+            for ticks in range(1, SCRUB_MAX_TICKS + 1):
+                c.tick(now)
+                now += SCRUB_STEP_S
+                time.sleep(0.01)        # ping replies land in sim time
+                _wait(c, lambda: not _scrubbing(c), "scrubs settled",
+                      tag=tag)
+                found = next((res for _o, pg_, res in results
+                              if pg_ == pg and res["inconsistent"]), None)
+                if found is not None:
+                    break
+            wall = time.monotonic() - t0
+    finally:
+        for k, v in saved.items():
+            cfg.set(k, v)
+        for d in c.osds.values():
+            d.__dict__.pop("clog_scrub_result", None)
+    k1 = events_ms(ev)
+    launches = bm.LAUNCHES["gf_matmul"] - l0
+    probes = repairc_compiler.COMPILES["probe_launches"] - \
+        comp0["probe_launches"]
+    repaired = mstore.read(cid, soid)
+    if found != {"inconsistent": [oid], "repaired": 1, "unrepairable": [],
+                 "verified": True}:
+        raise AssertionError(f"{tag}: the scheduled scrub of pg {pg} gave "
+                             f"{found} in {SCRUB_MAX_TICKS} ticks")
+    if repaired != want or hashlib.sha256(repaired).digest() != \
+            hashlib.sha256(want).digest():
+        raise AssertionError(f"{tag}: {oid} shard {shard} after the repair "
+                             "differs from the plain encode")
+    others = [res for _o, pg_, res in results if pg_ != pg]
+    bad = [res for res in others
+           if res["inconsistent"] or res["unrepairable"]]
+    limit = cfg["osd_max_scrubs"]
+    peak_local = max(d.scrub_peak_local for d in c.osds.values())
+    peak_remote = max(d.scrub_peak_remote for d in c.osds.values())
+    if bad or peak_local > limit or peak_remote > limit or not launches:
+        raise AssertionError(f"{tag}: other results {bad}, peaks "
+                             f"{peak_local}/{peak_remote} (max {limit}), "
+                             f"K1 {launches}")
+    down = [o for o in c.osds if not c.mon.osdmap.is_up(o)]
+    if down:
+        raise AssertionError(f"{tag}: osds {down} marked down by the "
+                             "sim-clock ticks")
+    _faults(c, tag)
+    return {"ticks": ticks, "sim_s": ticks * SCRUB_STEP_S, "wall_s": wall,
+            "scrubs": len(results), "result": found,
+            "unrepairable": sorted({o for _d, _p, res in results
+                                    for o in res["unrepairable"]}),
+            "peak_local": peak_local, "peak_remote": peak_remote,
+            "limit": limit, "launches": launches, "probe_launches": probes,
+            "k1_ms": k1, "pg": str(pg), "primary": primary,
+            "rot_osd": acting[shard], "shard": shard}
+
 
 def cluster_phase(name_power: str, dev) -> dict:
     """Phase 19: the port's cluster on the card (see the module
@@ -2445,8 +2700,16 @@ def cluster_phase(name_power: str, dev) -> dict:
             for i in range(CLUSTER_OBJECTS)}
     c, r, io = _cluster()
     try:
-        res = drive_cluster(c, r, io, objs, "phase 19", dev)
+        serve = ServeLeg(io)
+
+        def healthy():
+            scrub = scrub_leg(c, r, objs)
+            serve.healthy()
+            return scrub
+        res = drive_cluster(c, r, io, objs, "phase 19", dev,
+                            healthy=healthy, degraded=serve.degraded)
         legs = res["legs"]
+        scrub, served = res["healthy"], serve.out
         # -- every shard on its acting OSD == the plain version's encode ---
         ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M),
                                           "technique": "reed_sol_van"},
@@ -2520,9 +2783,39 @@ def cluster_phase(name_power: str, dev) -> dict:
           f"0 reaps; {messages} messages routed; fabric leg {len(fobjs)} "
           f"objects == payloads, stats {stats}, {messages_f} messages; "
           f"phase {wall:.1f} s on {name_power}")
+    w = served["write"]
+    print(f"phase 19 (d): ArtifactStore (64 KiB pages, 1 MiB objects): a "
+          f"{SERVE_SHARDS}-shard checkpoint of "
+          f"{sum(map(len, serve.ckpt.values()))} B and {SERVE_KV_PAGES} KV "
+          f"pages put as {w['objects']} objects at {w['MBps']:.1f} MB/s "
+          f"({w['wall_s']:.3f} s, K1 {w['launches']} launches, "
+          f"{w['k1_share'] * 100:.2f} % by CUDA events) on {name_power}")
+    for half in ("healthy", "degraded"):
+        h = served[half]
+        print(f"phase 19 (d): {half}: stream {h['stream_MBps']:.1f} MB/s "
+              f"({h['stream_s']:.3f} s, cache {h['stream_stats']}); "
+              f"{SERVE_WAVES} kvcache waves of {SERVE_WAVE_PAGES} pages: "
+              f"p50 {h['wave_p50_ms']:.2f} ms, p99 {h['wave_p99_ms']:.2f} "
+              f"ms (cache {h['kv_stats']}); every byte == the put's; K1 "
+              f"{h['launches']} launches, {h['k1_ms']:.3f} ms by CUDA "
+              f"events ({h['k1_share'] * 100:.2f} % of {h['wall_s']:.3f} s) "
+              f"on {name_power}")
+    print(f"phase 19 (d): both artifacts deleted with osd.{victim} down "
+          f"({served['deleted']} objects)")
+    print(f"phase 19 (e): scheduled scrub, no pg_scrub call: pg "
+          f"{scrub['pg']} (primary osd.{scrub['primary']}), shard "
+          f"{scrub['shard']} bitrotted on osd.{scrub['rot_osd']}, found, "
+          f"repaired and verified {scrub['result']} after {scrub['ticks']} "
+          f"ticks ({scrub['sim_s']:.0f} sim s, {scrub['wall_s']:.3f} s on "
+          f"the host clock, {scrub['scrubs']} scrubs in all, unrepairable "
+          f"{scrub['unrepairable']}); shard == the plain encode; peaks "
+          f"local {scrub['peak_local']} / remote {scrub['peak_remote']} <= "
+          f"osd_max_scrubs {scrub['limit']}; K1 {scrub['launches']} "
+          f"launches ({scrub['probe_launches']} compile probes), "
+          f"{scrub['k1_ms']:.3f} ms by CUDA events on {name_power}")
     return {"legs": legs, "recover_s": recover_s, "rebuilt": rebuilt,
             "ratio": read / rebuilt, "messages": messages,
-            "compiles": compiles,
+            "compiles": compiles, "serve": served, "scrub": scrub,
             "fabric_stats": stats, "phase_s": wall}
 
 
@@ -2537,7 +2830,10 @@ def print_legs(tag: str, legs: dict, name_power: str) -> None:
 # ---------------------------------------------------------------------------
 # The cluster on TCP and in processes: phase 20
 
-PROC_BENCH_S = 8                 # seconds of each `rados bench` run
+PROC_BENCH_S = 8                 # seconds of each `rados bench` run (21)
+# 20 (c)'s benches, cut from 8 s: phase 21 repeats the same processes'
+# bench on BlueStore at PROC_BENCH_S
+PROC_BENCH_MEM_S = 4
 PROC_THREADS = 16                # rados bench -t
 PROC_DEGRADED = 16               # bench objects read degraded
 PROC_BOOT_S = 180.0
@@ -2760,10 +3056,10 @@ def _proc_clean(ds: Daemons, names, epoch: int) -> bool:
             sum(s["primary_clean"] for s in st) == CLUSTER_PG_NUM)
 
 
-def _bench(ds: Daemons, mode: str) -> dict:
+def _bench(ds: Daemons, mode: str, seconds: float = PROC_BENCH_S) -> dict:
     argv = [sys.executable, "-m", "ceph_tpu_torch.tools.rados_cli",
             "--monmap", str(ds.monmap), "--keyring", str(ds.keyring_path),
-            "--timeout", "120", "bench", "ecpool", str(PROC_BENCH_S), mode,
+            "--timeout", "120", "bench", "ecpool", str(seconds), mode,
             "-t", str(PROC_THREADS)] + (["--no-cleanup"]
                                          if mode == "write" else [])
     t0 = time.monotonic()
@@ -2832,9 +3128,9 @@ def process_leg(name_power: str, work: Path) -> dict:
                        for n in names)
 
         l0 = launches(osds)
-        bench = {"write": _bench(ds, "write")}
+        bench = {"write": _bench(ds, "write", PROC_BENCH_MEM_S)}
         l1 = launches(osds)
-        bench["seq"] = _bench(ds, "seq")
+        bench["seq"] = _bench(ds, "seq", PROC_BENCH_MEM_S)
         l2 = launches(osds)
         # -- the OSD in the most acting sets dies -----------------------------
         pid = r.pool_lookup("ecpool")
@@ -3125,6 +3421,19 @@ def durable_phase(name_power: str, work: Path) -> dict:
         rotten = ObjectId(rot_oid, -2, shard)
         store.corrupt_blob_bytes(pg_cid(pg), rotten)
         store.umount()
+        fsck = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.objectstore_tool",
+             "--data-path", str(data / rname), "--op", "fsck"],
+            env=ds.env, cwd=ds.env["PYTHONPATH"], capture_output=True,
+            text=True, timeout=300)
+        lines = fsck.stdout.splitlines()
+        if fsck.returncode != 1 or len(lines) != 2 or \
+                lines[1] != "fsck: 1 error(s)" or not lines[0].startswith(
+                    f"{pg_cid(pg)}/{rotten}: csum mismatch in blob "):
+            raise AssertionError(f"phase 21: fsck of {rname}: rc "
+                                 f"{fsck.returncode}\n{fsck.stdout}"
+                                 f"{fsck.stderr[-2000:]}")
+        res["fsck"] = lines[0]
         ds.spawn(rname)
         ds.wait_serving([rname])
         _wait_for(lambda: r.objecter.osdmap.is_up(rot), "rot OSD never up")
@@ -3141,6 +3450,28 @@ def durable_phase(name_power: str, work: Path) -> dict:
         if not k1["degraded_decode"]:
             raise AssertionError("phase 21: the read over bitrot launched "
                                  "no K1 decode")
+        # -- 7. deep scrub, repair and re-scrub over TCP ----------------------
+        pname = f"osd.{primary}"
+        clean_res = {"inconsistent": [], "repaired": 0, "unrepairable": []}
+        expect = [{"inconsistent": [rot_oid], "repaired": 0,
+                   "unrepairable": []},
+                  {"inconsistent": [rot_oid], "repaired": 1,
+                   "unrepairable": [], "verified": True}, clean_res]
+        res["scrubs"] = []
+        p0 = ds.command(pname, "kernel launches")["gf_matmul"]
+        for repair, want_res in zip((False, True, False), expect):
+            t0 = time.monotonic()
+            got = r.pg_scrub(pid, pg.ps, repair=repair)
+            res["scrubs"].append({"repair": repair, "result": got,
+                                  "wall_s": time.monotonic() - t0})
+            if got != want_res:
+                raise AssertionError(f"phase 21: pg_scrub(repair={repair}) "
+                                     f"of pg {pg} gave {got}, not {want_res}")
+        k1["scrub_repair_primary"] = \
+            ds.command(pname, "kernel launches")["gf_matmul"] - p0
+        if not k1["scrub_repair_primary"]:
+            raise AssertionError(f"phase 21: the scrub repair launched no K1 "
+                                 f"on the primary {pname}")
         # each daemon's counters: a killed process's (read just before
         # its kill) summed with its successor's
         faults["mon.0"] = mon_faults
@@ -3148,21 +3479,7 @@ def durable_phase(name_power: str, work: Path) -> dict:
             if name in ("mon.0", vname):
                 row = {k: v + faults[name][k] for k, v in row.items()}
             faults[name] = row
-        ds.terminate(rname)
-        fsck = subprocess.run(
-            [sys.executable, "-m", "ceph_tpu_torch.tools.objectstore_tool",
-             "--data-path", str(data / rname), "--op", "fsck"],
-            env=ds.env, cwd=ds.env["PYTHONPATH"], capture_output=True,
-            text=True, timeout=300)
-        lines = fsck.stdout.splitlines()
-        if fsck.returncode != 1 or len(lines) != 2 or \
-                lines[1] != "fsck: 1 error(s)" or not lines[0].startswith(
-                    f"{pg_cid(pg)}/{rotten}: csum mismatch in blob "):
-            raise AssertionError(f"phase 21: fsck of {rname}: rc "
-                                 f"{fsck.returncode}\n{fsck.stdout}"
-                                 f"{fsck.stderr[-2000:]}")
-        res["fsck"] = lines[0]
-        # -- 7. stop all; shards on disk == the plain encode; the mon's store -
+        # -- 8. stop all; shards on disk == the plain encode; the mon's store -
         final = r.objecter.osdmap
         epoch = final.epoch
     finally:
@@ -3182,7 +3499,17 @@ def durable_phase(name_power: str, work: Path) -> dict:
     checked = 0
     want = {oid: ecutil.encode(sinfo, ec_cpu, payload)
             for oid, payload in seeded.items()}
-    for o in [victim] + others:
+    # the repaired shard, by sha256, on the bitrotted OSD's disk (read
+    # through BlueStore's own checksum check), then every seeded shard
+    # on it, the restarted OSD's and two others'
+    store = BlueStore(str(data / rname))
+    store.mount()
+    healed = hashlib.sha256(store.read(pg_cid(pg), rotten)).hexdigest()
+    store.umount()
+    if healed != hashlib.sha256(want[rot_oid][shard]).hexdigest():
+        raise AssertionError(f"phase 21: the repaired {rot_oid} shard {shard} "
+                             f"on {rname}'s disk differs from the plain encode")
+    for o in [victim, rot] + others:
         store = BlueStore(str(data / f"osd.{o}"))
         store.mount()
         for oid, pg_, s in holders[o]:
@@ -3221,11 +3548,17 @@ def durable_phase(name_power: str, work: Path) -> dict:
           f"profile, a write and a read) in "
           f"{res['mon_restart_to_serving_s']:.3f} s")
     print(f"phase 21: {rname} stopped, {rot_oid} shard {shard} bitrotted, "
-          f"restarted: read == payload through a K1 decode "
-          f"({k1['degraded_decode']} launches) at "
-          f"{res['degraded']['MBps']:.1f} MB/s; fsck: {res['fsck']}")
+          f"fsck: {res['fsck']}; restarted: read == payload through a K1 "
+          f"decode ({k1['degraded_decode']} launches) at "
+          f"{res['degraded']['MBps']:.1f} MB/s")
+    print(f"phase 21: over TCP, pg {pg} (primary osd.{primary}): " +
+          "; ".join(f"pg_scrub(repair={sc['repair']}) {sc['result']} in "
+                    f"{sc['wall_s']:.3f} s" for sc in res["scrubs"]) +
+          f"; K1 {k1['scrub_repair_primary']} launches on the primary; the "
+          f"repaired shard on {rname}'s disk == the plain encode (sha256 "
+          f"{healed[:16]}) on {name_power}")
     print(f"phase 21: {checked} shards of the seeded objects on the disks of "
-          f"osd.{victim}, " + ", ".join(f"osd.{o}" for o in others) +
+          f"osd.{victim}, osd.{rot}, " + ", ".join(f"osd.{o}" for o in others) +
           f" == the plain version's encode (tolerance 0); monstore_tool "
           f"show-versions paxos {paxos} == the client's last epoch {epoch}")
     for name, split in startup.items():
@@ -3417,6 +3750,10 @@ def main() -> int:
     kernels[0]["launches_cluster"] = launches["gf_matmul"]
     kernels[0]["cluster"] = {k: cluster[k] for k in (
         "legs", "recover_s", "rebuilt", "ratio", "messages")}
+    kernels[0]["launches_serve"] = {
+        half: cluster["serve"][half]["launches"]
+        for half in ("write", "healthy", "degraded")}
+    kernels[0]["launches_scheduled_scrub"] = cluster["scrub"]["launches"]
     bm.reset_launches()
     tcp = tcp_phase(name_power, dev, work / "phase20")
     launches = dict(bm.LAUNCHES)

@@ -345,6 +345,11 @@ def test_data_dir_restarts_the_daemon_from_its_dir(durable, name):
     else:
         durable.wait(lambda: durable.r.objecter.osdmap.is_up(
             int(name[4:])), f"{name} never up again")
+        # the client's map marks it up before the OSD itself has that
+        # epoch (its PGs are instantiated when it ingests the map)
+        up_epoch = durable.r.objecter.osdmap.epoch
+        durable.wait(lambda: durable.status(name)["osdmap_epoch"] >=
+                     up_epoch, f"{name} never reached epoch {up_epoch}")
         assert durable.status(name)["num_pgs"] == before["num_pgs"] > 0
     durable.wait(durable.clean, f"never clean after {name} restarted")
     for oid, data in durable.objs.items():

@@ -113,7 +113,12 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.kv", "ceph_tpu_torch.store.bluestore",
                  "ceph_tpu_torch.store.journaled",
                  "ceph_tpu_torch.tools.objectstore_tool",
-                 "ceph_tpu_torch.tools.monstore_tool"):
+                 "ceph_tpu_torch.tools.monstore_tool",
+                 # the paged artifact store and what it stands on
+                 "ceph_tpu_torch.osdc", "ceph_tpu_torch.osdc.striper",
+                 "ceph_tpu_torch.osdc.object_cacher",
+                 "ceph_tpu_torch.serve", "ceph_tpu_torch.serve.manifest",
+                 "ceph_tpu_torch.serve.store"):
         assert name in out["modules"], name
 
 

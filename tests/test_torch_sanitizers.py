@@ -67,11 +67,15 @@ PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
                 "mon_min_osdmap_epochs", "osd_mon_report_interval",
                 "mon_osd_stale_report_grace", "osd_max_backfills",
                 "osd_backfill_scan_max", "osd_op_complaint_time",
-                "osd_op_history_size", "blkin_trace_all"}
+                "osd_op_history_size", "blkin_trace_all",
+                # the scrub scheduler's
+                "osd_scrub_auto", "osd_scrub_min_interval",
+                "osd_deep_scrub_interval", "osd_max_scrubs",
+                "osd_scrub_auto_repair"}
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads 23 options; each is the reference's entry: the
+    """The port reads 28 options; each is the reference's entry: the
     same type, level, default, text, bounds, see-also and runtime
     flag."""
     assert set(options.OPTIONS) == PORT_OPTIONS
