@@ -2,6 +2,7 @@
 librados-like Rados/IoCtx API (ref: src/osdc/Objecter.cc,
 src/librados/).  The port's copy of `ceph_tpu.client`."""
 from .objecter import Objecter, OpFuture
-from .rados import IoCtx, Rados, RadosError
+from .rados import IoCtx, Rados, RadosError, WriteOp
 
-__all__ = ["Objecter", "OpFuture", "Rados", "IoCtx", "RadosError"]
+__all__ = ["Objecter", "OpFuture", "Rados", "IoCtx", "RadosError",
+           "WriteOp"]

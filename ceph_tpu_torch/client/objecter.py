@@ -8,8 +8,10 @@ triggers a rescan — ops whose target changed (or that were parked
 homeless for lack of a primary) are resent (_scan_requests,
 handle_osd_map :1182).  The mon subscription keeps the map fresh.
 
-The port's copy of `ceph_tpu.client.objecter` in part: op targeting,
-per-object ordering, resend on a map change or a reset, the rescan of
+The port's copy of `ceph_tpu.client.objecter` in part: op targeting
+(PG-addressed ops too: `pgls`, which `IoCtx.list_objects` sends to every
+PG of a pool, and `scrub`), per-object ordering, resend on a map change
+or a reset, the rescan of
 parked ops, op timeouts, mon commands and cephx (the MAuthRequest
 handshake, message signing and ticket renewal).  Left out: the linger
 ops of watch/notify, whose OSD side the port's daemon does not carry

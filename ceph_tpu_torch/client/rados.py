@@ -10,11 +10,13 @@ recalc/resend on map changes is inherited.
 The port's copy of `ceph_tpu.client.rados` in part: `Rados.connect`,
 `pool_create`, `pool_lookup`, `list_pools`, `mon_command`, `open_ioctx`,
 `pg_scrub` and `shutdown` (cephx through `auth_secret`); `IoCtx.write`,
-`write_full`, `read`, `remove`, `stat`
-and `append`, and the `aio_` forms of those the reference has.  Left
-out: snapshots (pool and self-managed), xattrs, omap, object classes
-(`exec`), watch/notify, `WriteOp` compound operations and object
-listing.
+`write_full`, `read`, `remove`, `stat`, `append`, `truncate`, `zero`,
+`create`, `operate` with `WriteOp` compound operations, the xattr verbs
+(`set_xattr`, `get_xattr`, `rm_xattr`, `get_xattrs`), the omap verbs
+(replicated pools) and `list_objects`, and the `aio_` forms of those the
+reference has.  Left out: snapshots (pool and self-managed, with the
+write snap context and snap reads), object classes (`exec`) and
+watch/notify.
 """
 from __future__ import annotations
 
@@ -146,6 +148,12 @@ class IoCtx:
         return self.rados.objecter.submit(self.pool_id, oid, "append",
                                           data=data)
 
+    def aio_operate(self, oid: str, op: "WriteOp") -> OpFuture:
+        """Atomic compound mutation (ref: librados
+        ObjectWriteOperation / IoCtx::operate)."""
+        return self.rados.objecter.submit(
+            self.pool_id, oid, "writev", args={"ops": list(op.ops)})
+
     # -- sync ----------------------------------------------------------
     def _wait(self, fut: OpFuture) -> OpFuture:
         ob = self.rados.objecter
@@ -172,5 +180,149 @@ class IoCtx:
         fut = self.rados.objecter.submit(self.pool_id, oid, "stat")
         return self._wait(fut).attrs
 
+    def _sync(self, op: str, oid: str, **kw) -> OpFuture:
+        return self._wait(self.rados.objecter.submit(
+            self.pool_id, oid, op, **kw))
+
     def append(self, oid: str, data: bytes) -> None:
         self._wait(self.aio_append(oid, data))
+
+    def truncate(self, oid: str, size: int) -> None:
+        self._sync("truncate", oid, args={"size": size})
+
+    def zero(self, oid: str, offset: int, length: int) -> None:
+        """Zero a byte range without changing the object size
+        (ref: CEPH_OSD_OP_ZERO)."""
+        self._sync("zero", oid, offset=offset, length=length)
+
+    def create(self, oid: str, exclusive: bool = False) -> None:
+        self._sync("create", oid, args={"exclusive": exclusive})
+
+    def operate(self, oid: str, op: "WriteOp") -> None:
+        self._wait(self.aio_operate(oid, op))
+
+    # -- xattrs (ref: librados::IoCtx::{get,set,rm}xattr) --------------
+    def set_xattr(self, oid: str, name: str, value: bytes) -> None:
+        self._sync("setxattr", oid,
+                   args={"name": name, "value": bytes(value)})
+
+    def get_xattr(self, oid: str, name: str) -> bytes:
+        return self._sync("getxattr", oid,
+                          args={"name": name}).attrs["value"]
+
+    def rm_xattr(self, oid: str, name: str) -> None:
+        self._sync("rmxattr", oid, args={"name": name})
+
+    def get_xattrs(self, oid: str) -> dict[str, bytes]:
+        return self._sync("getxattrs", oid).attrs["xattrs"]
+
+    # -- omap (replicated pools; ref: librados omap op surface) --------
+    def set_omap(self, oid: str, kv: dict[str, bytes]) -> None:
+        self._sync("omap_setkeys", oid, args={"kv": dict(kv)})
+
+    def remove_omap_keys(self, oid: str, keys: list[str]) -> None:
+        self._sync("omap_rmkeys", oid, args={"keys": list(keys)})
+
+    def clear_omap(self, oid: str) -> None:
+        self._sync("omap_clear", oid)
+
+    def set_omap_header(self, oid: str, data: bytes) -> None:
+        self._sync("omap_set_header", oid, args={"data": bytes(data)})
+
+    def get_omap_header(self, oid: str) -> bytes:
+        return self._sync("omap_get_header", oid).attrs["header"]
+
+    def get_omap_vals(self, oid: str, after: str = "",
+                      max_return: int = 1 << 30
+                      ) -> tuple[dict[str, bytes], bool]:
+        """Returns ({key: value}, more) with pagination like
+        rados_omap_get_vals2."""
+        a = self._sync("omap_get_vals", oid,
+                       args={"after": after,
+                             "max": max_return}).attrs
+        return a["vals"], a["more"]
+
+    def get_omap_keys(self, oid: str, after: str = "",
+                      max_return: int = 1 << 30
+                      ) -> tuple[list[str], bool]:
+        a = self._sync("omap_get_keys", oid,
+                       args={"after": after,
+                             "max": max_return}).attrs
+        return a["keys"], a["more"]
+
+    def get_omap_vals_by_keys(self, oid: str,
+                              keys: list[str]) -> dict[str, bytes]:
+        return self._sync("omap_get_vals_by_keys", oid,
+                          args={"keys": list(keys)}).attrs["vals"]
+
+    def list_objects(self) -> list[str]:
+        """Pool object listing: one pgls per PG
+        (ref: librados NObjectIterator -> Objecter pg_read)."""
+        pool = self.rados.objecter.osdmap.pools.get(self.pool_id)
+        if pool is None:
+            raise RadosError("ENOENT", f"pool {self.pool_id} gone")
+        futs = [self.rados.objecter.submit(self.pool_id, "", "pgls",
+                                           pg_ps=ps)
+                for ps in range(pool.pg_num)]
+        names: set[str] = set()
+        for fut in futs:
+            names.update(self._wait(fut).attrs.get("objects", []))
+        return sorted(names)
+
+
+class WriteOp:
+    """A batched atomic mutation (ref: librados
+    ObjectWriteOperation): every queued mutation applies in one
+    transaction on the primary — all replicas/shards see all of it or
+    none of it."""
+
+    def __init__(self):
+        self.ops: list[tuple] = []
+
+    def write(self, data: bytes, offset: int = 0) -> "WriteOp":
+        self.ops.append(("write", offset, bytes(data)))
+        return self
+
+    def write_full(self, data: bytes) -> "WriteOp":
+        self.ops.append(("writefull", bytes(data)))
+        return self
+
+    def append(self, data: bytes) -> "WriteOp":
+        self.ops.append(("append", bytes(data)))
+        return self
+
+    def truncate(self, size: int) -> "WriteOp":
+        self.ops.append(("truncate", int(size)))
+        return self
+
+    def zero(self, offset: int, length: int) -> "WriteOp":
+        self.ops.append(("zero", int(offset), int(length)))
+        return self
+
+    def create(self) -> "WriteOp":
+        self.ops.append(("create",))
+        return self
+
+    def set_xattr(self, name: str, value: bytes) -> "WriteOp":
+        self.ops.append(("setxattrs", {name: bytes(value)}))
+        return self
+
+    def rm_xattr(self, name: str) -> "WriteOp":
+        self.ops.append(("rmxattr", name))
+        return self
+
+    def set_omap(self, kv: dict) -> "WriteOp":
+        self.ops.append(("omap_setkeys", dict(kv)))
+        return self
+
+    def remove_omap_keys(self, keys) -> "WriteOp":
+        self.ops.append(("omap_rmkeys", list(keys)))
+        return self
+
+    def clear_omap(self) -> "WriteOp":
+        self.ops.append(("omap_clear",))
+        return self
+
+    def set_omap_header(self, data: bytes) -> "WriteOp":
+        self.ops.append(("omap_setheader", bytes(data)))
+        return self

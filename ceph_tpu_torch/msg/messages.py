@@ -9,10 +9,11 @@ the paxos commit pipeline, the cephx handshake (`MAuthRequest`,
 as the reference registers it (the same wire names, versions and field
 order), so a frame written by either package decodes in the other.
 The scrub family (`ScrubReserve`, `ScrubMapRequest`, `ScrubMapReply`)
-carries the EC scrub.  Left out with the services that send them: the
-replicated sub-ops, snap trim, MDS/fs, config and cluster-log, mgr, mon
-quorum (election, lease, forward, sync request) and watch/notify
-messages.
+carries both pool types' scrub; the replicated sub-ops (`RepOpWrite`,
+`RepOpReply`) and the replicated peering's `PGMissingReply` and `PGPull`
+carry the replicated pools.  Left out with the services that send them:
+snap trim, MDS/fs, config and cluster-log, mgr, mon quorum (election,
+lease, forward, sync request) and watch/notify messages.
 """
 from __future__ import annotations
 
@@ -95,6 +96,36 @@ class ECSubReadReply(Message):
     buffers_read: dict = field(default_factory=dict)  # oid -> bytes|None
     attrs_read: dict = field(default_factory=dict)    # oid -> attrs|None
     errors: dict = field(default_factory=dict)        # oid -> errno str
+
+
+@dataclass
+class RepOpWrite(Message):
+    """Replica write fan-out for replicated pools
+    (ref: src/messages/MOSDRepOp.h; ReplicatedBackend.cc
+    issue_op/sub_op_modify).  Carries the client op's mutation vector
+    (see osd/mutations.py) — the analogue of MOSDRepOp's serialized
+    ObjectStore::Transaction payload."""
+    pgid: Any = None
+    tid: int = 0
+    oid: str = ""
+    mutations: list = field(default_factory=list)
+    version: Any = None
+    log_entries: list = field(default_factory=list)
+    # snapshot COW decided at the primary (ref: the SnapContext the
+    # primary folds into the repop transaction): clone the pre-write
+    # head as oid@clone_snap covering `clone_covers` snapids
+    clone_snap: Any = None
+    clone_covers: list = field(default_factory=list)
+    snap_seq: int = 0            # pool snap_seq at this write
+
+
+@dataclass
+class RepOpReply(Message):
+    """(ref: src/messages/MOSDRepOpReply.h)."""
+    pgid: Any = None
+    tid: int = 0
+    from_osd: int = -1
+    committed: bool = True
 
 
 @dataclass
@@ -200,6 +231,20 @@ class PGLogPush(Message):
 
 
 @dataclass
+class PGMissingReply(Message):
+    """Replica's missing set after merging the primary's log
+    (GetMissing phase; ref: pg_missing_t exchanged via MOSDPGLog)."""
+    pgid: Any = None
+    from_osd: int = -1
+    #: oid -> (epoch, version) needed
+    missing: dict = field(default_factory=dict)
+    epoch: int = 0
+    #: the replica could not merge (its log raced a trim): the primary
+    #: reclassifies it as a backfill target
+    no_overlap: bool = False
+
+
+@dataclass
 class BackfillReserve(Message):
     """Backfill reservation handshake (ref:
     src/messages/MBackfillReserve.h REQUEST/GRANT/REJECT_TOOFULL/
@@ -241,6 +286,14 @@ class MOSDPGTemp(Message):
     from_osd: int = -1
     epoch: int = 0
     osds: list = field(default_factory=list)
+
+
+@dataclass
+class PGPull(Message):
+    """Primary requests objects it lacks from a holder
+    (ref: src/messages/MOSDPGPull.h)."""
+    pgid: Any = None
+    oids: list = field(default_factory=list)
 
 
 @dataclass

@@ -10,33 +10,41 @@ peers.  All coding math stays inside ECBackend's batched encode/decode
 launches; the daemon is host-side protocol glue.
 
 The port's copy of `ceph_tpu.osd.daemon` in part, for erasure-coded
-pools: boot and map handling, client ops (writes, reads, stat, xattr
-reads), the EC sub-op routing, the EC peering statechart with its log
-merge, backfill reservations, pg_temp requests, strays and PG removal,
-the mClock op queue, heartbeats and failure reports, pg-stat reports,
-the EC scrub (the client ops `scrub` / `scrub-repair`, the scheduler on
-the heartbeat tick with its reservations, repair through
-`ECBackend.recover_object` and the chained verify round) and the
-optional device-mesh `fabric`.  Every plugin the daemon builds
-lives on its `device` (cuda unless the caller passes `device="cpu"`).
-One rule differs: a queued recovery item that raises is logged as in
-the reference and also counted in the `queued_op_failures` perf
-counter.  Left out: replicated pools (their PGs are not instantiated,
-so the replicated scrub compare is not ported either), snap trim,
-object classes, watch/notify, snapshot ops and omap reads (a client op
-the daemon does not carry answers EINVAL), PG split on pg_num growth,
-crash capture, the cluster-log client (a scrub result goes to the debug
-log only), centralized config and the heartbeat mute hook.  With a
-`keyring` the daemon signs its traffic and verifies inbound (cephx);
-`start_admin_socket` serves perf dump, status, config show/get/set and
-the op tracker's dumps.
-The port adds `tick_errors` to the perf counters: the tick errors a
-daemon process's loop survived (tools/daemon_main.py).  As the
-reference's, the daemon starts on a store that already holds PG
-collections, pgmeta omaps and shard logs (a `BlueStore` or
-`JournaledStore` mounted on its data dir after a SIGKILL): each PG's
-shard takes the collection as it is and loads its durable log, so EC
-peering compares real log bounds and rebuilds only what the OSD missed.
+and replicated pools: boot and map handling, client ops (writes and
+compound `writev` ops, reads, stat, xattr and omap reads, `pgls`), the EC
+sub-op routing and the replicated fan-out (`RepOpWrite`, `RepOpReply`),
+both peering statecharts (ECPGPeering, and PGPeering with its GetMissing
+exchange, pulls and pushes) with their log merges, backfill reservations
+and scan windows, pg_temp requests, strays and PG removal, the mClock op
+queue (recovery pulls and pushes ride its recovery class), heartbeats and
+failure reports, pg-stat reports, both pool types' scrub (the client ops
+`scrub` / `scrub-repair`, the scheduler on the heartbeat tick with its
+reservations, EC repair through `ECBackend.recover_object`, replicated
+repair by forced pushes from the primary's copy, and the chained verify
+round) and the optional device-mesh `fabric`.  Every plugin the daemon
+builds lives on its `device` (cuda unless the caller passes
+`device="cpu"`); a replicated PG launches no kernel.  Two rules differ:
+a queued recovery item that raises is logged as in the reference and
+also counted in the `queued_op_failures` perf counter; and a pull that
+finds no PG view to push from is dropped as in the reference and also
+counted in `recovery_push_errors`.  Left out: snap trim and the snapshot
+ops (`rollback`, `list_snaps`), object classes (`exec`), watch/notify (a
+client op the daemon does not carry answers EINVAL), PG split on pg_num
+growth, crash capture, the cluster-log client (a scrub result goes to
+the debug log only), centralized config and the heartbeat mute hook.
+With a `keyring` the daemon signs its traffic and verifies inbound
+(cephx); `start_admin_socket` serves perf dump, status, config
+show/get/set and the op tracker's dumps.
+The port adds to the perf counters `tick_errors` (the tick errors a
+daemon process's loop survived, tools/daemon_main.py) and, for the
+replicated catch-up's accounting, `push_in`, `push_in_bytes` and
+`backfill_push_in` (PGPush messages this OSD applied, their data bytes,
+and those of them a backfill walk sent).  As the reference's, the
+daemon starts on a store that already holds PG collections, pgmeta
+omaps and shard logs (a `BlueStore` or `JournaledStore` mounted on its
+data dir after a SIGKILL): each PG's shard takes the collection as it
+is and loads its durable log, so peering compares real log bounds and
+recovers only what the OSD missed.
 """
 from __future__ import annotations
 
@@ -62,10 +70,11 @@ from ..msg.messages import (BackfillReserve, ECSubRead, ECSubReadReply,
                             ECSubWrite, ECSubWriteReply, MMap,
                             MMonSubscribe, MOSDBoot, MOSDFailure,
                             MOSDPGTemp, MPGStats, OSDOp, OSDOpReply,
-                            PGLogPush, PGLogReq, PGNotify, PGQuery,
-                            PGRemove, PGScan, PGScanReply, Ping,
-                            PingReply, ScrubMapReply, ScrubMapRequest,
-                            ScrubReserve)
+                            PGLogPush, PGLogReq, PGMissingReply,
+                            PGNotify, PGPull, PGPush, PGQuery, PGRemove,
+                            PGScan, PGScanReply, Ping, PingReply,
+                            RepOpReply, RepOpWrite, ScrubMapReply,
+                            ScrubMapRequest, ScrubReserve)
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..msg.mon_client import MonHunter
 from ..store import MemStore, StoreError, Transaction
@@ -76,9 +85,11 @@ from .ec_peering import ECPGPeering, ECRollbacker
 from .mutations import MutationError
 from .op_queue import MClockQueue
 from .osdmap import OSDMap
-from .peering import CLEAN, GETINFO, GETLOG, GETMISSING, _ev
+from .peering import (CLEAN, GETINFO, GETLOG, GETMISSING, PGPeering,
+                      StoreRollbacker, _ev)
 from .pg_log import IndexedLog, LogEntryHandler
 from .pg_types import ZERO_VERSION, EVersion
+from .replicated_backend import ReplicatedBackend, ReplicatedPGShard
 from .types import PG, POOL_TYPE_ERASURE, cbits, ceph_stable_mod
 
 #: errno-name -> numeric result for client replies (ref: the rc values
@@ -92,13 +103,15 @@ class _PGState:
     """One PG's services on this OSD."""
 
     def __init__(self):
-        self.shard = None          # ECPGShard
+        self.shard = None          # ECPGShard | ReplicatedPGShard
         self.backend = None        # primary-only
         self.acting: list[int] = []
         self.acting_primary = -1
         self.up: list[int] = []
-        # peering statechart (primary only): ECPGPeering
-        self.peering = None
+        # peering statechart (primary only): PGPeering for replicated
+        # pools (osd/peering.py), ECPGPeering for erasure pools
+        # (osd/ec_peering.py)
+        self.peering = None        # PGPeering | ECPGPeering | None
         self.backfilling = False
         self.recovering = False
         self.scrub = None          # active _ScrubState (primary only)
@@ -245,10 +258,14 @@ class OSDDaemon(Dispatcher, MonHunter):
                     "map_epochs",
                     # the port's fault counters: rebuilds that took the
                     # full decode + re-encode instead of the compiled
-                    # repair, queued items that raised, and tick errors
-                    # a daemon process's loop survived
+                    # repair, queued items that raised, tick errors a
+                    # daemon process's loop survived, and pulls dropped
+                    # for want of a view to push from
                     "recovery_full_rebuild", "queued_op_failures",
-                    "tick_errors"):
+                    "tick_errors", "recovery_push_errors",
+                    # and the pushes this OSD applied (the replicated
+                    # catch-up's bytes)
+                    "push_in", "push_in_bytes", "backfill_push_in"):
             self.perf.add_u64_counter(key)
         # per-op-class latency histograms (ref: the l_osd_op_*_lat
         # family + mClock op classes)
@@ -432,38 +449,68 @@ class OSDDaemon(Dispatcher, MonHunter):
             if st.backend is not None:
                 st.backend.handle_sub_read_reply(msg)
             return True
+        if isinstance(msg, RepOpWrite):
+            st = self.pgs.get(msg.pgid)
+            if st is not None and st.shard is not None:
+                self.perf.inc("subop_w")
+                sp = self.tracer.start_span(msg.trace, "rep_write")
+                reply = st.shard.handle_rep_write(msg, self.whoami)
+                if sp is not None:
+                    sp.event(f"oid={msg.oid} committed="
+                             f"{reply.committed}")
+                    self.tracer.finish(sp)
+                self.ms.connect(msg.src).send_message(reply)
+            return True
+        if isinstance(msg, RepOpReply):
+            st = self.pgs.get(msg.pgid)
+            if st is not None and st.backend is not None:
+                st.backend.handle_rep_reply(msg)
+            return True
         if isinstance(msg, PGScan):
             # answer from the store even if our map (and PG state) lags
             # the scanner's — an unanswered scan would wedge its
-            # recovery; the store view is the authority anyway.  Only
-            # EC pools exist in the port: a replicated scan finds no
-            # objects.
+            # recovery; the store view is the authority anyway.  The
+            # scanner tags its pool type so only that view is built.
             if msg.ec:
                 reply = PGScanReply(
                     pgid=msg.pgid, from_osd=self.whoami,
                     ec_shards=ec_store_inventory(self.store,
                                                  pg_cid(msg.pgid)))
             else:
+                inv = self._replicated_view(msg.pgid).inventory()
+                if msg.ranged:
+                    inv = {o: v for o, v in inv.items()
+                           if o > msg.begin and
+                           (msg.end == "" or o <= msg.end)}
                 reply = PGScanReply(
-                    pgid=msg.pgid, from_osd=self.whoami,
+                    pgid=msg.pgid, from_osd=self.whoami, objects=inv,
                     ranged=msg.ranged, begin=msg.begin, end=msg.end)
             self.ms.connect(msg.src).send_message(reply)
             return True
         if isinstance(msg, PGScanReply):
             st = self.pgs.get(msg.pgid)
             pr = st.peering if st is not None else None
-            if pr is not None and not msg.ranged:
-                pr.on_primary_backfill_scan(msg)
+            if pr is not None:
+                if msg.ranged:
+                    pr.on_backfill_scan(msg)
+                else:
+                    pr.on_primary_backfill_scan(msg)
             # no peering: a stale reply for a superseded round — drop
             return True
         if isinstance(msg, PGQuery):
             # pg_info from the durable shard log — answerable even
             # with no live PG state (GetInfo queries reach
             # prior-interval holders and map-lagging peers)
-            shard = self._ec_view(msg.pgid)
-            head, tail = shard.log_info()
-            inv = shard.shard_inventory()
-            shards = sorted({s for m_ in inv.values() for s in m_})
+            if msg.ec:
+                shard = self._ec_view(msg.pgid)
+                head, tail = shard.log_info()
+                inv = shard.shard_inventory()
+                shards = sorted({s for m_ in inv.values() for s in m_})
+            else:
+                rshard = self._replicated_view(msg.pgid)
+                head, tail = rshard.log_info()
+                inv = rshard.inventory()
+                shards = []
             self.ms.connect(msg.src).send_message(PGNotify(
                 pgid=msg.pgid, from_osd=self.whoami, epoch=msg.epoch,
                 last_update=head, log_tail=tail,
@@ -479,7 +526,8 @@ class OSDDaemon(Dispatcher, MonHunter):
                     st.peering.on_info(msg)
             return True
         if isinstance(msg, PGLogReq):
-            shard = self._ec_view(msg.pgid)
+            shard = self._ec_view(msg.pgid) if msg.ec \
+                else self._replicated_view(msg.pgid)
             head, tail = shard.log_info()
             since = msg.since if msg.since is not None else tail
             if msg.full:
@@ -501,13 +549,32 @@ class OSDDaemon(Dispatcher, MonHunter):
                 if st is not None and st.peering is not None:
                     st.peering.on_auth_log(msg)
             elif msg.activate:
-                self._ec_replica_merge_log(msg, self.pgs.get(msg.pgid))
+                self._replica_merge_log(msg)
+            return True
+        if isinstance(msg, PGMissingReply):
+            st = self.pgs.get(msg.pgid)
+            if st is not None and st.peering is not None:
+                st.peering.on_missing(msg)
             return True
         if isinstance(msg, BackfillReserve):
             self._handle_backfill_reserve(msg)
             return True
         if isinstance(msg, PGRemove):
             self._handle_pg_remove(msg)
+            return True
+        if isinstance(msg, PGPull):
+            # recovery pushes ride the mClock queue: a storm of pulls
+            # drains at the recovery class's reservation/limit instead
+            # of flooding the wire ahead of client ops
+            for oid in msg.oids:
+                self.op_queue.enqueue(
+                    "recovery",
+                    lambda pgid=msg.pgid, src=msg.src, oid=oid:
+                        self._send_recovery_push(pgid, src, oid))
+            self._drain_op_queue()
+            return True
+        if isinstance(msg, PGPush):
+            self._handle_push(msg)
             return True
         if isinstance(msg, ScrubMapRequest):
             st = self.pgs.get(msg.pgid)
@@ -616,15 +683,14 @@ class OSDDaemon(Dispatcher, MonHunter):
         """Instantiate/refresh services for PGs mapped onto this OSD
         (ref: OSD.cc consume_map -> instantiate PGs).  Membership
         includes the UP set: an up-but-not-acting OSD is a backfill
-        target that must hold live PG state to receive pushes (the
-        pg_temp case where the old set serves while the new up set
-        fills)."""
+        target that must hold live PG state to receive pushes and
+        cursor-gated writes (the pg_temp case where the old set serves
+        while the new up set fills)."""
         m = self.osdmap
         seen: set[PG] = set()
         acting_now: dict[PG, list[int]] = {}
         for pool_id, pool in m.pools.items():
-            if pool.type != POOL_TYPE_ERASURE:
-                continue        # replicated pools are not ported
+            replicated = pool.type != POOL_TYPE_ERASURE
             for ps in range(pool.pg_num):
                 pg = PG(pool_id, ps)
                 up, up_p, acting, acting_p = m.pg_to_up_acting_osds(pg)
@@ -643,6 +709,11 @@ class OSDDaemon(Dispatcher, MonHunter):
                         (st.backend is None) == (acting_p != self.whoami):
                     if st.backend is not None:
                         st.backend.epoch = m.epoch
+                        if isinstance(st.backend, ReplicatedBackend):
+                            st.backend.pool_snap_seq = pool.snap_seq
+                            st.backend.pool_snaps = dict(pool.snaps)
+                            st.backend.pool_removed_snaps = \
+                                set(pool.removed_snaps)
                         if st.peering is not None:
                             # same interval: unwedge phases waiting on
                             # peers that died with this map
@@ -668,39 +739,56 @@ class OSDDaemon(Dispatcher, MonHunter):
                 st.acting = acting
                 st.acting_primary = acting_p
                 st.up = up
-                ec = self._ec_plugin(pool.erasure_code_profile
-                                     or "default")
-                # acting position, or — for an up-but-not-acting
-                # backfill target — the UP position it will serve
-                # once the pg_temp override clears
-                shard_idx = acting.index(self.whoami) \
-                    if self.whoami in acting \
-                    else up.index(self.whoami)
-                st.shard = ECPGShard(
-                    pg, shard_idx, self.store,
-                    ec.get_data_chunk_count(),
-                    ec.get_coding_chunk_count(),
-                    fabric=self.fabric)
-                if acting_p == self.whoami:
-                    st.backend = ECBackend(
-                        pg, ec, whoami=self.whoami, acting=acting,
-                        local_shard=st.shard,
-                        send=self._make_send(pg),
-                        epoch=m.epoch, tid_gen=self._tid_gen,
-                        fabric=self.fabric,
-                        send_osd=self._make_send_osd())
-                    # kernel spans (encode/decode) land in the
-                    # primary daemon's ring
-                    st.backend.tracer = self.tracer
-                    # recovery-bandwidth accounting (sub-chunk
-                    # repair saving shows up here)
-                    st.backend.perf = self.perf
+                if replicated:
+                    st.shard = ReplicatedPGShard(pg, self.store)
+                    if acting_p == self.whoami:
+                        st.backend = ReplicatedBackend(
+                            pg, self.whoami, acting, st.shard,
+                            send=self._make_send_osd(), epoch=m.epoch,
+                            tid_gen=self._tid_gen)
+                        st.backend.pool_snap_seq = pool.snap_seq
+                        st.backend.pool_snaps = dict(pool.snaps)
+                        st.backend.pool_removed_snaps = \
+                            set(pool.removed_snaps)
+                else:
+                    ec = self._ec_plugin(pool.erasure_code_profile
+                                         or "default")
+                    # acting position, or — for an up-but-not-acting
+                    # backfill target — the UP position it will serve
+                    # once the pg_temp override clears
+                    shard_idx = acting.index(self.whoami) \
+                        if self.whoami in acting \
+                        else up.index(self.whoami)
+                    st.shard = ECPGShard(
+                        pg, shard_idx, self.store,
+                        ec.get_data_chunk_count(),
+                        ec.get_coding_chunk_count(),
+                        fabric=self.fabric)
+                    if acting_p == self.whoami:
+                        st.backend = ECBackend(
+                            pg, ec, whoami=self.whoami, acting=acting,
+                            local_shard=st.shard,
+                            send=self._make_send(pg),
+                            epoch=m.epoch, tid_gen=self._tid_gen,
+                            fabric=self.fabric,
+                            send_osd=self._make_send_osd())
+                        # kernel spans (encode/decode) land in the
+                        # primary daemon's ring
+                        st.backend.tracer = self.tracer
+                        # recovery-bandwidth accounting (sub-chunk
+                        # repair saving shows up here)
+                        st.backend.perf = self.perf
                 self.pgs[pg] = st
                 if st.backend is None:
                     continue
-                # new interval: run the peering statechart
-                st.peering = ECPGPeering(self, pg, st,
-                                         prior_acting=prior)
+                # new interval: run the peering statechart (pool-type
+                # specific statechart, shared phases + reservations)
+                if replicated:
+                    st.peering = PGPeering(self, pg, st,
+                                           prior_acting=prior)
+                else:
+                    st.peering = ECPGPeering(self, pg, st,
+                                             prior_acting=prior)
                 st.peering.start()
         for pg in list(self.pgs):
             if pg not in seen:
@@ -762,6 +850,34 @@ class OSDDaemon(Dispatcher, MonHunter):
             self._qos_timer = None
         self._drain_op_queue()
 
+    def _send_recovery_push(self, pgid, src, oid) -> None:
+        """Answer one pulled object with a full-object push (ref:
+        ReplicatedBackend::build_push_op).  A pull that finds no view
+        to push from is dropped, as in the reference (the puller's
+        tick re-drives it), and counted in `recovery_push_errors`."""
+        try:
+            shard = self._replicated_view(pgid)
+        except (KeyError, AttributeError):
+            self.perf.inc("recovery_push_errors")
+            return
+        if not shard.exists(oid):
+            return
+        data, attrs, omap, hdr = shard.push_payload(oid)
+        self.ms.connect(src).send_message(PGPush(
+            pgid=pgid, oid=oid, data=data, size=len(data),
+            version=shard.object_version(oid),
+            attrs=attrs, omap=omap, omap_hdr=hdr,
+            clones=shard.clone_payloads(oid)))
+
+    def _replicated_view(self, pg) -> ReplicatedPGShard:
+        """Current PG shard, or a transient read-only store view when
+        our PG state lags the sender's map (the view never creates the
+        collection)."""
+        st = self.pgs.get(pg)
+        if st is not None and isinstance(st.shard, ReplicatedPGShard):
+            return st.shard
+        return ReplicatedPGShard(pg, self.store, create=False)
+
     def _ec_view(self, pg, shard: int | None = None,
                  create: bool = False) -> ECPGShard:
         """Current EC shard, or a CACHED transient store view (a
@@ -783,6 +899,73 @@ class OSDDaemon(Dispatcher, MonHunter):
             self._ec_transients[key] = view
         return view
 
+    def _apply_push(self, shard: ReplicatedPGShard, oid: str,
+                    data: bytes, version, whiteout: bool,
+                    force: bool = False, attrs: dict | None = None,
+                    omap: dict | None = None,
+                    omap_hdr: bytes = b"",
+                    clones: dict | None = None,
+                    backfill: bool = False) -> None:
+        """Full-object overwrite, but never let an older version clobber
+        newer local data (pushes can race regular writes).  `force`
+        (scrub repair) overwrites a same-version corrupted copy;
+        `backfill` applies unconditionally — the walking primary's
+        interval is authoritative even over a divergent local copy
+        whose version reads newer (pre-trim history from a dead
+        interval), and the cursor gating guarantees no client write
+        for this object can race the push."""
+        ver = tuple(version) if version else (0, 0)
+        inv = shard.inventory().get(oid)
+        if not backfill:
+            if inv is not None and not force and inv[0] >= ver:
+                return
+            if inv is not None and force and inv[0] > ver:
+                return
+        if whiteout:
+            shard.apply_write(oid, 0, b"", True, EVersion(*ver), [])
+            shard.apply_clone_payloads(oid, clones or {})
+            return
+        if inv is not None:
+            # whiteout first: apply_mutations then recreates from a
+            # clean slate, dropping any stale attrs/omap of the old copy
+            shard.apply_write(oid, 0, b"", True, None, [])
+        muts: list[tuple] = [(mut.M_WRITEFULL, data)]
+        if attrs:
+            muts.append((mut.M_SETXATTRS, attrs))
+        if omap:
+            muts.append((mut.M_OMAP_SETKEYS, omap))
+        if omap_hdr:
+            muts.append((mut.M_OMAP_SETHEADER, omap_hdr))
+        shard.apply_mutations(oid, muts, EVersion(*ver), [])
+        shard.apply_clone_payloads(oid, clones or {})
+
+    def _handle_push(self, msg: PGPush) -> None:
+        st = self.pgs.get(msg.pgid)
+        if st is None or not isinstance(st.shard, ReplicatedPGShard):
+            # a delayed push for a PG we no longer own must not write
+            # into the store (a later scan would report it)
+            return
+        t0 = time.perf_counter()
+        self._apply_push(st.shard, msg.oid, msg.data, msg.version,
+                         msg.whiteout, force=msg.force,
+                         attrs=msg.attrs, omap=msg.omap,
+                         omap_hdr=msg.omap_hdr, clones=msg.clones,
+                         backfill=msg.backfill)
+        # recovery-class latency: the apply of one push (pure store
+        # work)
+        self.perf.hobs("op_lat_recovery", time.perf_counter() - t0)
+        self.perf.inc("push_in")
+        self.perf.inc("push_in_bytes", len(msg.data))
+        if msg.backfill:
+            self.perf.inc("backfill_push_in")
+        if msg.version:
+            # clear any missing-set entry this push satisfied (the
+            # replica side of recovery bookkeeping)
+            st.shard.pg_log.recover_got(
+                msg.oid, EVersion(*tuple(msg.version)))
+        if st.peering is not None:
+            st.peering.on_pull_done(msg.oid)
+
     def _push_ec_tombstones(self, pg: PG, st: _PGState, oid: str,
                             ver: tuple, targets: list[int]) -> None:
         """Scrub repair's tombstone leg over the acting set (shared
@@ -800,6 +983,56 @@ class OSDDaemon(Dispatcher, MonHunter):
                        if st.recovering or st.backfilling)
 
     # ------------------------------------------- peering statechart glue
+    def _replica_merge_log(self, msg: PGLogPush) -> None:
+        """Replica side of GetMissing: merge the primary's
+        authoritative log (our own divergent entries resolved by the
+        five-case machinery, store effects via the rollbacker), then
+        report what we now know we lack
+        (ref: PG::merge_log on MOSDPGLog + the activate missing
+        exchange)."""
+        st = self.pgs.get(msg.pgid)
+        pool = self.osdmap.pools.get(msg.pgid.pool)
+        if isinstance(st.shard if st is not None else None,
+                      ECPGShard) or (
+                st is None and pool is not None and
+                pool.type == POOL_TYPE_ERASURE):
+            self._ec_replica_merge_log(msg, st)
+            return
+        if st is not None and isinstance(st.shard, ReplicatedPGShard):
+            shard = st.shard
+        else:
+            # map lag: we may not know we're acting yet; the merge is
+            # durable so the eventual PG state re-loads it
+            shard = ReplicatedPGShard(msg.pgid, self.store)
+        head = msg.head if msg.head is not None else ZERO_VERSION
+        tail = msg.tail if msg.tail is not None else ZERO_VERSION
+        if msg.full:
+            # wholesale adoption closing a backfill: the walk already
+            # made the store match the primary's interval, so the log
+            # simply replaces ours (no overlap requirement)
+            shard.pg_log.log = IndexedLog(list(msg.entries), head=head,
+                                          tail=tail)
+            shard.pg_log.log.can_rollback_to = head
+            shard.pg_log.missing.items.clear()
+            shard.persist_log()
+            self.ms.connect(msg.src).send_message(PGMissingReply(
+                pgid=msg.pgid, from_osd=self.whoami, epoch=msg.epoch))
+            return
+        olog = IndexedLog(list(msg.entries), head=head, tail=tail)
+        try:
+            shard.pg_log.merge_log(olog, StoreRollbacker(shard))
+        except ValueError:
+            self.ms.connect(msg.src).send_message(PGMissingReply(
+                pgid=msg.pgid, from_osd=self.whoami, epoch=msg.epoch,
+                no_overlap=True))
+            return
+        shard.persist_log()
+        missing = {oid: (it.need.epoch, it.need.version)
+                   for oid, it in shard.pg_log.missing.items.items()}
+        self.ms.connect(msg.src).send_message(PGMissingReply(
+            pgid=msg.pgid, from_osd=self.whoami, epoch=msg.epoch,
+            missing=missing))
+
     def _ec_replica_merge_log(self, msg: PGLogPush, st) -> None:
         """EC shard side of log activation: adopt/merge the primary's
         authoritative log so every future interval peers from honest
@@ -932,6 +1165,34 @@ class OSDDaemon(Dispatcher, MonHunter):
             pgid=pg, from_osd=self.whoami, epoch=self.osdmap.epoch,
             osds=[]))
 
+    def _push_object(self, pg: PG, st: _PGState, oid: str, osd: int,
+                     backfill: bool = False) -> None:
+        """One recovery/backfill push (the peering statechart tracks
+        its own completion)."""
+        mine = st.shard.inventory()
+        if oid not in mine:
+            return
+        my_ver, whiteout = mine[oid]
+        if whiteout:
+            data, attrs, omap, hdr = b"", {}, {}, b""
+        else:
+            data, attrs, omap, hdr = st.shard.push_payload(oid)
+        self.perf.inc("recovery_push")
+        self.ms.connect(f"osd.{osd}").send_message(PGPush(
+            pgid=pg, oid=oid, data=data, size=len(data),
+            version=my_ver, whiteout=whiteout, backfill=backfill,
+            attrs=attrs, omap=omap, omap_hdr=hdr,
+            clones=st.shard.clone_payloads(oid)))
+
+    def _push_whiteout(self, pg: PG, oid: str, osd: int,
+                       over_version) -> None:
+        """Authoritative delete for a backfill target's stray object
+        (divergent leftover the walking primary does not know)."""
+        e, v = tuple(over_version)
+        self.ms.connect(f"osd.{osd}").send_message(PGPush(
+            pgid=pg, oid=oid, data=b"", size=0,
+            version=(e, v + 1), whiteout=True, backfill=True))
+
     def _handle_stray_notify(self, msg: PGNotify) -> None:
         """A stray announced itself (ref: the stray-notify ->
         purge_strays flow in PeeringState::activate/Clean).  If the
@@ -952,17 +1213,21 @@ class OSDDaemon(Dispatcher, MonHunter):
                 "%s: stray osd.%d has newer history for pg %s "
                 "(%s > %s): re-peering", self.name, msg.from_osd,
                 msg.pgid, msg.last_update, head)
-            st.peering = ECPGPeering(self, msg.pgid, st,
-                                     prior_acting=[msg.from_osd])
+            if isinstance(st.shard, ECPGShard):
+                st.peering = ECPGPeering(self, msg.pgid, st,
+                                         prior_acting=[msg.from_osd])
+            else:
+                st.peering = PGPeering(self, msg.pgid, st,
+                                       prior_acting=[msg.from_osd])
             st.peering.start()
             return
         self.ms.connect(msg.src).send_message(PGRemove(
             pgid=msg.pgid, epoch=self.osdmap.epoch))
 
     def _notify_strays(self, rebuild: bool = True) -> None:
-        """Announce every EC PG collection we hold but are no longer
+        """Announce every PG collection we hold but are no longer
         mapped to (up OR acting) to its current primary — the stray
-        side of the purge flow.  The candidate scan (store walk +
+        side of the purge flow, both pool types.  The candidate scan (store walk +
         CRUSH + log decode) runs only on map ingest; ticks re-send the
         cached notifies so a primary that was mid-peering on the first
         one hears from us again.  Strays get no writes, so the cached
@@ -979,8 +1244,7 @@ class OSDDaemon(Dispatcher, MonHunter):
                 except ValueError:
                     continue
                 pool = m.pools.get(pg.pool)
-                if pool is None or pg.ps >= pool.pg_num or \
-                        pool.type != POOL_TYPE_ERASURE:
+                if pool is None or pg.ps >= pool.pg_num:
                     continue
                 if pg in self.pgs:
                     continue
@@ -991,16 +1255,26 @@ class OSDDaemon(Dispatcher, MonHunter):
                 if not any(o.name != "pgmeta"
                            for o in self.store.collection_list(cid)):
                     continue
-                eshard = self._ec_view(pg)
-                head, tail = eshard.log_info()
-                einv = eshard.shard_inventory()
+                if pool.type == POOL_TYPE_ERASURE:
+                    eshard = self._ec_view(pg)
+                    head, tail = eshard.log_info()
+                    einv = eshard.shard_inventory()
+                    self._stray_notifies[pg] = PGNotify(
+                        pgid=pg, from_osd=self.whoami, epoch=m.epoch,
+                        last_update=head, log_tail=tail,
+                        have_data=bool(einv), n_objects=len(einv),
+                        stray=True,
+                        shards=sorted({s for sm in einv.values()
+                                       for s in sm})), ap
+                    continue
+                shard = self._replicated_view(pg)
+                head, tail = shard.log_info()
+                inv = shard.inventory()
                 self._stray_notifies[pg] = PGNotify(
                     pgid=pg, from_osd=self.whoami, epoch=m.epoch,
                     last_update=head, log_tail=tail,
-                    have_data=bool(einv), n_objects=len(einv),
-                    stray=True,
-                    shards=sorted({s for sm in einv.values()
-                                   for s in sm})), ap
+                    have_data=bool(inv), n_objects=len(inv),
+                    stray=True), ap
         for pg, (note, ap) in list(self._stray_notifies.items()):
             self.ms.connect(f"osd.{ap}").send_message(note)
 
@@ -1053,9 +1327,11 @@ class OSDDaemon(Dispatcher, MonHunter):
     # ------------------------------------------------------------ scrub
     # Primary-driven deep scrub (ref: src/osd/scrubber/pg_scrubber.cc:
     # collect replica scrub maps, compare against the authoritative
-    # copy, optionally repair): EC PGs aggregate each shard's local
-    # HashInfo-crc verification and rebuild bad shards through the
-    # recovery path (compiled repair, one K1 launch per object).
+    # copy, optionally repair): replicated PGs compare
+    # version/size/crc per copy and repair by forced pushes; EC PGs
+    # aggregate each shard's local HashInfo-crc verification and
+    # rebuild bad shards through the recovery path (compiled repair,
+    # one K1 launch per object).
     def _start_scrub(self, pg: PG, st: _PGState, msg,
                      repair: bool, deep: bool = True,
                      auto: bool = False) -> None:
@@ -1219,18 +1495,67 @@ class OSDDaemon(Dispatcher, MonHunter):
         # client reply while the compare loop is still running
         st.scrub.comparing = True
         try:
-            if not isinstance(st.shard, ECPGShard):
-                # only EC PGs are instantiated; the replicated compare
-                # (be_select_auth_object over full copies) waits for
-                # the replicated backend
-                raise NotImplementedError(
-                    f"scrub of non-EC pg {pg}: the replicated compare "
-                    f"is not ported")
-            self._scrub_compare_ec(pg, st)
+            if isinstance(st.shard, ReplicatedPGShard):
+                self._scrub_compare_replicated(pg, st)
+            else:
+                self._scrub_compare_ec(pg, st)
         finally:
             if st.scrub is not None:
                 st.scrub.comparing = False
         self._maybe_scrub_done(pg, st)
+
+    @staticmethod
+    def _copies_match(a: dict, b: dict) -> bool:
+        return (a["version"] == b["version"] and a["size"] == b["size"]
+                and a["crc"] == b["crc"]
+                and a.get("attrs_crc") == b.get("attrs_crc")
+                and a.get("omap_crc") == b.get("omap_crc")
+                and a.get("clones_crc") == b.get("clones_crc")
+                and a["whiteout"] == b["whiteout"] and b["ok"])
+
+    def _scrub_compare_replicated(self, pg: PG, st: _PGState) -> None:
+        sc = st.scrub
+        all_oids = sorted({o for m in sc.maps.values() for o in m})
+        for oid in all_oids:
+            copies = {osd: m[oid] for osd, m in sc.maps.items()
+                      if oid in m}
+            # authoritative selection: highest version among healthy
+            # copies (ref: PrimaryLogPG::be_select_auth_object)
+            healthy = {o: c for o, c in copies.items() if c["ok"]}
+            if not healthy:
+                sc.inconsistent.append(oid)
+                sc.unrepairable.append(oid)
+                continue
+            auth_osd = max(healthy,
+                           key=lambda o: (tuple(healthy[o]["version"]),
+                                          o == self.whoami))
+            auth = healthy[auth_osd]
+            bad = [osd for osd in sc.maps
+                   if osd not in copies or
+                   not self._copies_match(auth, copies[osd])]
+            if not bad:
+                continue
+            sc.inconsistent.append(oid)
+            if not sc.repair:
+                continue
+            if auth_osd != self.whoami:
+                # repairing from a remote authority needs a pull the
+                # scrub path doesn't do yet
+                sc.unrepairable.append(oid)
+                continue
+            ver = tuple(auth["version"])
+            if auth["whiteout"]:
+                data, attrs, omap, hdr = b"", {}, {}, b""
+            else:
+                data, attrs, omap, hdr = st.shard.push_payload(oid)
+            clones = st.shard.clone_payloads(oid)
+            for osd in bad:
+                self.ms.connect(f"osd.{osd}").send_message(PGPush(
+                    pgid=pg, oid=oid, data=data, size=len(data),
+                    version=ver, whiteout=auth["whiteout"],
+                    force=True, attrs=attrs, omap=omap,
+                    omap_hdr=hdr, clones=clones))
+            sc.repaired += 1    # per object, matching the EC path
 
     def _scrub_compare_ec(self, pg: PG, st: _PGState) -> None:
         sc = st.scrub
@@ -1592,8 +1917,15 @@ class OSDDaemon(Dispatcher, MonHunter):
                     return
                 self._reply(msg, 0,
                             attrs={"size": b.object_size(msg.oid)})
-            elif msg.op in ("getxattr", "getxattrs"):
+            elif msg.op in ("getxattr", "getxattrs", "omap_get_vals",
+                            "omap_get_keys", "omap_get_vals_by_keys",
+                            "omap_get_header"):
                 self._do_meta_read(st, msg)
+            elif msg.op == "pgls":
+                # PG object listing (ref: MOSDOp CEPH_OSD_OP_PGLS /
+                # PrimaryLogPG::do_pg_op)
+                self._reply(msg, 0,
+                            attrs={"objects": st.shard.objects()})
             elif msg.op in ("scrub", "scrub-repair"):
                 self._start_scrub(msg.pgid, st, msg,
                                   repair=msg.op == "scrub-repair")
@@ -1649,25 +1981,71 @@ class OSDDaemon(Dispatcher, MonHunter):
             muts = [tuple(m) for m in a["ops"]]
         else:
             return None
-        return mut.validate(muts, ec_pool=True)
+        return mut.validate(muts, ec_pool=isinstance(st.shard,
+                                                     ECPGShard))
 
     def _do_meta_read(self, st: _PGState, msg: OSDOp) -> None:
-        """xattr reads served from the primary's local shard (attrs
-        are on every EC shard)."""
+        """xattr/omap reads served from the primary's local shard
+        (attrs are on every EC shard; omap is replicated-only)."""
         shard, a = st.shard, msg.args or {}
+        ec = isinstance(shard, ECPGShard)
         if msg.op == "getxattr":
             self._reply(msg, 0, attrs={"value": shard.getxattr(
                 msg.oid, a["name"])})
-        else:
+        elif msg.op == "getxattrs":
             self._reply(msg, 0, attrs={"xattrs": shard.getxattrs(
                 msg.oid)})
+        elif ec:
+            raise MutationError(
+                "EOPNOTSUPP", "erasure-coded pools do not support omap")
+        elif msg.op == "omap_get_header":
+            self._reply(msg, 0,
+                        attrs={"header": shard.omap_get_header(msg.oid)})
+        elif msg.op == "omap_get_vals_by_keys":
+            vals = shard.omap_get(msg.oid)
+            self._reply(msg, 0, attrs={"vals": {
+                k: vals[k] for k in a.get("keys", []) if k in vals}})
+        else:       # omap_get_vals / omap_get_keys with pagination
+            vals = shard.omap_get(msg.oid)
+            after = a.get("after", "")
+            maxn = int(a.get("max", 1 << 30))
+            keys = sorted(k for k in vals if k > after)
+            page, more = keys[:maxn], len(keys) > maxn
+            if msg.op == "omap_get_keys":
+                self._reply(msg, 0, attrs={"keys": page, "more": more})
+            else:
+                self._reply(msg, 0, attrs={
+                    "vals": {k: vals[k] for k in page}, "more": more})
 
     def _object_exists(self, st: _PGState, oid: str) -> bool:
         return st.shard.exists(oid)
 
     def _do_read(self, st: _PGState, msg: OSDOp) -> None:
-        if (msg.args or {}).get("snapid") is not None:
+        b = st.backend
+        snapid = (msg.args or {}).get("snapid")
+        if snapid is not None and not isinstance(
+                st.shard, ReplicatedPGShard):
             self._reply(msg, _ERRNO["EOPNOTSUPP"], "EOPNOTSUPP")
+            return
+        if isinstance(b, ReplicatedBackend):
+            try:
+                if snapid is not None:
+                    res = st.shard.resolve_snap(msg.oid, int(snapid))
+                    if res is None:
+                        self._reply(msg, -2, "ENOENT")
+                        return
+                    if res == "head":
+                        data = b.read(msg.oid, msg.offset, msg.length)
+                    else:
+                        data = st.shard.read_clone(
+                            msg.oid, res, msg.offset, msg.length)
+                else:
+                    data = b.read(msg.oid, msg.offset, msg.length)
+                self.perf.inc("op_r_bytes", len(data))
+                self._reply(msg, 0, data=data)
+            except StoreError as err:
+                self._reply(msg, -2 if err.errno_name == "ENOENT"
+                            else -5, err.errno_name)
             return
         if not self._object_exists(st, msg.oid):
             self._reply(msg, -2, "ENOENT")
@@ -1683,5 +2061,5 @@ class OSDDaemon(Dispatcher, MonHunter):
                 self.perf.inc("op_r_bytes", len(data))
                 self._reply(m, 0, data=data)
 
-        st.backend.objects_read_and_reconstruct(
-            {msg.oid: window}, on_complete, trace=msg.trace)
+        b.objects_read_and_reconstruct({msg.oid: window}, on_complete,
+                                       trace=msg.trace)

@@ -6,7 +6,9 @@ qa/tasks/ceph.py: spin a cluster up, create pools, do IO through
 librados, kill/revive daemons, and let the mon's failure handling and
 the client's resend engine react.
 
-The port's copy of `ceph_tpu.testing.cluster` in part: one mon with
+The port's copy of `ceph_tpu.testing.cluster` in part (replicated and
+erasure pools alike; replicated pools need nothing of the harness beyond
+what EC pools use): one mon with
 `kill_mon` and `revive_mon` (the revived mon resumes from the store the
 killed one kept; give it a `MonitorStore(LogDB(dir))` through
 `mon_store` to have that store on disk), `start_osd`, `kill_osd`,

@@ -28,7 +28,8 @@ wrote (`python -m ceph_tpu_torch.tools.objectstore_tool --data-path
 DIR --op list`).  `--op info` reads the durable log through the EC
 shard's loader, which is the replicated shard's.  Not ported yet, and
 refused in one line: `--op list-snaps` and `--op dump-snap-index` (the
-snap mapper is ported only in part).
+snapshot state they show waits for the slice that ports snapshots and
+the snap trimmer).
 """
 from __future__ import annotations
 

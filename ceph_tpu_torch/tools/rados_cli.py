@@ -14,25 +14,22 @@ in-process `Rados`.
     rados --monmap mm.json serve put data ckpt ./shard.bin --shard s0
 
 The port's copy of `ceph_tpu.tools.rados_cli` for the verbs the port's
-librados carries: `lspools`, `mkpool`, `put`, `get`, `rm`, `stat`,
-`bench <pool> <seconds> write|seq -b -t [--no-cleanup]` and the paged
-artifact store's `serve put|get|stat|pages`, with
-`--monmap`, `--keyring` and `--timeout`; the output text and return
-codes are the reference's.  Three rules differ, each because the port
-has no replicated pools and no object listing yet:
+librados carries: `lspools`, `mkpool` (a replicated pool, as in the
+reference), `rmpool`, `ls`, `put`, `get`, `rm`, `stat`, `setxattr`,
+`getxattr`, `listxattr`, `setomapval`, `listomapvals`, `bench <pool>
+<seconds> write|seq -b -t [--no-cleanup]` (`seq` lists the pool's
+`benchmark_data_*` objects, as the reference does) and the paged
+artifact store's `serve put|get|stat|pages`, with `--monmap`,
+`--keyring` and `--timeout`; the output text and return codes are the
+reference's.  Two rules differ:
 
-* `mkpool` makes an erasure pool on the mon's default profile (the
-  port instantiates only EC placement groups);
-* `bench ... write --no-cleanup` also writes `benchmark_last_metadata`
-  (prefix, object count, size and payload seed), and `bench ... seq`
-  reads the objects it names, as Ceph's obj_bencher does, instead of
-  listing the pool; each read is checked against the payload, which is
-  made from the seed;
+* `bench ... seq` checks every read: it must hold the block size and
+  equal the first read (one write bench stores one payload in every
+  object), and a read that differs fails the run;
 * with a keyring that holds `client.admin`, the client authenticates
   (cephx) as `client.admin`.
 
-Not ported yet: `rmpool`, `ls`, the xattr and omap verbs, `crash`,
-`telemetry`, `insights`, `trace` and `rgw`.
+Not ported yet: `crash`, `telemetry`, `insights`, `trace` and `rgw`.
 """
 from __future__ import annotations
 
@@ -41,10 +38,6 @@ import json
 import os
 import sys
 import time
-
-import numpy as np
-
-METADATA = "benchmark_last_metadata"
 
 
 def _keyring(path: str):
@@ -94,8 +87,24 @@ def cmd_lspools(r, a, out):
 
 
 def cmd_mkpool(r, a, out):
-    r.pool_create(a.pool, pg_num=a.pg_num, pool_type="erasure")
+    r.pool_create(a.pool, pg_num=a.pg_num)
     print(f"successfully created pool {a.pool}", file=out)
+
+
+def cmd_rmpool(r, a, out):
+    rc, outs, _ = r.mon_command(
+        {"prefix": "osd pool delete", "pool": a.pool,
+         "yes_i_really_really_mean_it": True})
+    if rc < 0:
+        print(f"error: {outs}", file=sys.stderr)
+        return
+    print(f"successfully deleted pool {a.pool}", file=out)
+
+
+def cmd_ls(r, a, out):
+    io = r.open_ioctx(a.pool)
+    for o in io.list_objects():
+        print(o, file=out)
 
 
 def cmd_put(r, a, out):
@@ -123,6 +132,31 @@ def cmd_rm(r, a, out):
 def cmd_stat(r, a, out):
     st = r.open_ioctx(a.pool).stat(a.obj)
     print(f"{a.pool}/{a.obj} size {st['size']}", file=out)
+
+
+def cmd_setxattr(r, a, out):
+    r.open_ioctx(a.pool).set_xattr(a.obj, a.name, a.value.encode())
+
+
+def cmd_getxattr(r, a, out):
+    v = r.open_ioctx(a.pool).get_xattr(a.obj, a.name)
+    print(v.decode(errors="replace"), file=out)
+
+
+def cmd_listxattr(r, a, out):
+    for k in sorted(r.open_ioctx(a.pool).get_xattrs(a.obj)):
+        print(k, file=out)
+
+
+def cmd_setomapval(r, a, out):
+    r.open_ioctx(a.pool).set_omap(a.obj, {a.key: a.value.encode()})
+
+
+def cmd_listomapvals(r, a, out):
+    vals, _ = r.open_ioctx(a.pool).get_omap_vals(a.obj)
+    for k in sorted(vals):
+        print(f"{k}\n value ({len(vals[k])} bytes) :", file=out)
+        print(vals[k].decode(errors="replace"), file=out)
 
 
 def cmd_serve(r, a, out):
@@ -191,33 +225,25 @@ def cmd_serve(r, a, out):
 # ---------------------------------------------------------------- bench
 # (ref: src/common/obj_bencher.cc ObjBencher::write_bench /
 #  seq_read_bench: fixed-depth aio pipeline, per-op latency tracking,
-#  bandwidth summary; the metadata object of ObjBencher::write_bench)
-
-def bench_payload(size: int, seed: int) -> bytes:
-    """The bytes every object of one write bench holds."""
-    return np.random.default_rng(seed).integers(
-        0, 256, size, dtype=np.uint8).tobytes()
-
+#  bandwidth summary)
 
 def _bench(r, a, out):
     io = r.open_ioctx(a.pool)
     size, depth, secs = a.block_size, a.concurrency, a.seconds
+    prefix = f"benchmark_data_{os.getpid()}_"
+    payload = os.urandom(size)
+
     if a.mode == "write":
-        seed = os.getpid()
-        prefix = f"benchmark_data_{seed}_"
-        payload = bench_payload(size, seed)
         submit = lambda i: io.aio_write_full(prefix + str(i), payload)
     else:
-        from ..client import RadosError
-        try:
-            meta = json.loads(io.read(METADATA))
-        except RadosError:
+        # seq read over whatever a prior write bench left behind
+        objs = sorted(o for o in io.list_objects()
+                      if o.startswith("benchmark_data_"))
+        if not objs:
             print("no benchmark objects; run write first", file=out)
             return 1
-        size, prefix = meta["size"], meta["prefix"]
-        payload = bench_payload(size, meta["seed"])
-        count = meta["objects"]
-        submit = lambda i: io.aio_read(prefix + str(i % count))
+        submit = lambda i: io.aio_read(objs[i % len(objs)])
+        payload = None              # the first read's bytes
 
     lat: list[float] = []
     t0 = time.monotonic()
@@ -241,10 +267,13 @@ def _bench(r, a, out):
         if fut.result < 0:
             print(f"op failed: {fut.errno_name}", file=out)
             return 1
-        if a.mode == "seq" and fut.data != payload:
-            print("op failed: read data differs from the written "
-                  "payload", file=out)
-            return 1
+        if a.mode == "seq":
+            if payload is None and len(fut.data) == size:
+                payload = fut.data
+            if fut.data != payload:
+                print("op failed: read data differs from the written "
+                      "payload", file=out)
+                return 1
     elapsed = time.monotonic() - t0
     mb = n_done * size / 1e6
     print(f"Total time run:         {elapsed:.4f}", file=out)
@@ -255,18 +284,13 @@ def _bench(r, a, out):
     print(f"Average Latency(s):     {sum(lat) / len(lat):.6f}", file=out)
     print(f"Max latency(s):         {max(lat):.6f}", file=out)
     print(f"Min latency(s):         {min(lat):.6f}", file=out)
-    if a.mode == "write":
-        if a.no_cleanup:
-            io.write_full(METADATA, json.dumps(
-                {"prefix": prefix, "objects": i, "size": size,
-                 "seed": seed}).encode())
-        else:
-            from ..client import RadosError
-            for j in range(i):
-                try:
-                    io.remove(prefix + str(j))
-                except RadosError:
-                    pass        # best-effort cleanup of bench objects
+    if a.mode == "write" and not a.no_cleanup:
+        from ..client import RadosError
+        for j in range(i):
+            try:
+                io.remove(prefix + str(j))
+            except RadosError:
+                pass            # best-effort cleanup of bench objects
     return 0
 
 
@@ -282,6 +306,10 @@ def parser() -> argparse.ArgumentParser:
     p = sub.add_parser("mkpool")
     p.add_argument("pool")
     p.add_argument("pg_num", type=int, nargs="?", default=32)
+    p = sub.add_parser("rmpool")
+    p.add_argument("pool")
+    p = sub.add_parser("ls")
+    p.add_argument("pool")
     p = sub.add_parser("put")
     p.add_argument("pool"), p.add_argument("obj")
     p.add_argument("infile")
@@ -291,6 +319,18 @@ def parser() -> argparse.ArgumentParser:
     p = sub.add_parser("rm")
     p.add_argument("pool"), p.add_argument("obj")
     p = sub.add_parser("stat")
+    p.add_argument("pool"), p.add_argument("obj")
+    p = sub.add_parser("setxattr")
+    p.add_argument("pool"), p.add_argument("obj")
+    p.add_argument("name"), p.add_argument("value")
+    p = sub.add_parser("getxattr")
+    p.add_argument("pool"), p.add_argument("obj"), p.add_argument("name")
+    p = sub.add_parser("listxattr")
+    p.add_argument("pool"), p.add_argument("obj")
+    p = sub.add_parser("setomapval")
+    p.add_argument("pool"), p.add_argument("obj")
+    p.add_argument("key"), p.add_argument("value")
+    p = sub.add_parser("listomapvals")
     p.add_argument("pool"), p.add_argument("obj")
     p = sub.add_parser("serve")
     p.add_argument("verb", choices=["put", "get", "stat", "pages"])
@@ -330,9 +370,13 @@ def main(argv=None, rados=None, out=None) -> int:
             if a.cmd == "bench":
                 return _bench(rados, a, out) or 0
             rc = {"lspools": cmd_lspools, "mkpool": cmd_mkpool,
-                  "put": cmd_put, "get": cmd_get, "rm": cmd_rm,
-                  "stat": cmd_stat, "serve": cmd_serve}[a.cmd](
-                      rados, a, out)
+                  "rmpool": cmd_rmpool, "ls": cmd_ls, "put": cmd_put,
+                  "get": cmd_get, "rm": cmd_rm, "stat": cmd_stat,
+                  "setxattr": cmd_setxattr, "getxattr": cmd_getxattr,
+                  "listxattr": cmd_listxattr,
+                  "setomapval": cmd_setomapval,
+                  "listomapvals": cmd_listomapvals,
+                  "serve": cmd_serve}[a.cmd](rados, a, out)
             return rc or 0
         except RadosError as e:
             print(f"error: {e}", file=sys.stderr)

@@ -4,10 +4,11 @@ path, CRUSH placement, compiled repair, the placement tools (crushtool,
 osdmaptool and the upmap balancer), the device guard, the multi-device EC
 mesh and its OSD-side fabric, the ceph_erasure_code_benchmark CLI, the
 EC placement group's data plane (ECBackend over MemStore), the port's
-own cluster (mon, OSD daemons with EC peering and recovery, librados),
-and that cluster over TCP with cephx, as daemon processes driven by
-`rados bench`, in the port's dry run, and on durable stores through
-SIGKILLs and restarts.
+own cluster (mon, OSD daemons with EC peering and recovery, librados,
+and a replicated pool beside the EC pool), and that cluster over TCP
+with cephx, as daemon processes driven by `rados bench` and the `rados`
+CLI, in the port's dry run, and on durable stores through SIGKILLs and
+restarts.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -166,7 +167,20 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    verified it ({"inconsistent": [oid], "repaired": 1, "unrepairable":
    [], "verified": True}); the shard equal to the plain encode again,
    every other scrub clean, the reservation peaks within
-   osd_max_scrubs, no OSD marked down.  (d) The paged artifact store:
+   osd_max_scrubs, no OSD marked down.  (f) The replicated pool beside
+   the EC pool, made after (e): `reppool`, replicated, pg_num 32, size
+   3, min_size 2 (Octopus's defaults); 64 seeded 4 MiB objects, each one
+   WriteOp of write_full and two xattrs; 16 index objects of 1,024 omap
+   keys (32-byte keys, 64-byte values) and a header; one 16 MiB
+   RadosStriper object; on `ecpool` one WriteOp of data plus an xattr
+   (K1 encodes it); list_objects of both pools equal to what was
+   written.  With the victim below down, every replicated object read
+   degraded (the omap and the striped object too) and 16 more written;
+   after `osd out` each pool's time to clean, the pushes, pulls and
+   bytes, and every replica on its acting OSDs equal to its payload,
+   xattrs and omap (sha256); then one byte of one replica flipped
+   under its MemStore: pg_scrub lists it, pg_scrub(repair=True) repairs
+   and verifies it, a third scrub is clean.  (d) The paged artifact store:
    an ArtifactStore with its default layout (64 KiB pages, 1 MiB
    objects) puts a 256 MiB checkpoint of 4 shards (the last ragged) and
    a KV pool of 1,024 pages, streams every shard under the `checkpoint`
@@ -205,9 +219,13 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    -m ceph_tpu_torch.tools.daemon_main` mon and 16 OSD processes on the
    card, each with a keyring and an admin socket, a k=8 m=4 pool, the
    `rados_cli` processes `bench ecpool 4 write -t 16 --no-cleanup` and
-   `bench ecpool 4 seq -t 16` (4 MiB, each read checked against the
-   payload), then the OSD in the most acting sets killed, `osd down`
-   and 16 bench objects read degraded.  Bench MB/s, each daemon's
+   `bench ecpool 4 seq -t 16` (4 MiB; seq lists the pool and checks each
+   read against the first), then `mkpool reppool 32` (replicated),
+   `bench reppool 4 write -t 16 --no-cleanup`, `bench reppool 4 seq -t
+   16`, `ls`, `setxattr` / `getxattr` / `listxattr`, `setomapval` /
+   `listomapvals` and `rmpool`, each output equal to the reference's
+   text; then the OSD in the most acting sets killed, `osd down` and 16
+   listed bench objects read degraded.  Bench MB/s, each daemon's
    start-up (interpreter, imports, CUDA context, kernel load, join),
    and, through each admin socket, its K1 launches, tick errors, failed
    queued items, full rebuilds and dispatch errors, all of which must
@@ -216,13 +234,18 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
 21. the durable cluster: phase 20 (c)'s mon and 16 OSD processes, each
    with `--data-dir` under ceph_tpu_torch/_build/smoke/phase21/data on
    this machine's disk (`df -T` printed): the mon on a LogDB, every OSD
-   on BlueStore.  `rados bench write --no-cleanup -t 16 -b 4M` for 8 s;
+   on BlueStore, a `reppool` (replicated, pg_num 32) beside the EC pool
+   with one small object in each of its PGs.  `rados bench write
+   --no-cleanup -t 16 -b 4M` for 4 s;
    the OSD in the most acting sets SIGKILLed and marked down (not out),
-   16 seeded 4 MiB objects written while it is down; the OSD restarted
-   on its data dir and timed until every PG is clean: it answers peering
-   from its durable shard log and only the shards it missed are rebuilt
-   (bytes rebuilt equal to them, read/rebuilt exactly 8.0, no full
-   rebuild, K1 launches counted through the admin sockets); the mon
+   16 seeded 4 MiB objects written to each pool while it is down; the
+   OSD restarted on its data dir and timed until every PG is clean: it
+   answers peering from its durable shard log and only the shards it
+   missed are rebuilt (bytes rebuilt equal to them, read/rebuilt exactly
+   8.0, no full rebuild, K1 launches counted through the admin sockets);
+   on `reppool` it catches up from its durable log (GetMissing, pulls
+   over PGPull, pushes after PGMissingReply): the pushes it applied carry
+   exactly the replicas it missed, none of them a backfill push; the mon
    SIGKILLed and restarted on its LogDB at the same epoch with the pool
    and the profile, a new client and the old one served; `rados bench
    seq` and the seeded objects read back byte for byte; one OSD stopped
@@ -237,7 +260,8 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    everything stopped, the repaired shard on the bitrotted OSD's disk
    equal to the plain encode (sha256), each seeded shard on that disk,
    the restarted OSD's and two others' equal to the plain version's
-   encode (tolerance 0), and `monstore_tool show-versions` on the mon's
+   encode (tolerance 0), the replicas the restarted OSD pulled equal to
+   their payloads on its disk, and `monstore_tool show-versions` on the mon's
    dir at the client's last epoch.  MB/s of the writes, seq and the
    degraded read, the restart-to-clean seconds of the OSD and the mon,
    every daemon's start-up split (its store's open included), the WAL
@@ -2246,18 +2270,25 @@ CLUSTER_TIMEOUT_S = 300.0
 
 def _faults(c, tag: str = "phase 19") -> None:
     """Fail at once on a handler error a dispatch thread logged and
-    survived, an OSD the cluster's tick reaped, or a queued item that
-    raised: a kernel or device fault on the cluster's threads must not
-    show only as a stall."""
+    survived, an OSD the cluster's tick reaped, a queued item that
+    raised, a dropped pull or an undecodable purged-snaps cursor: a
+    kernel or device fault on the cluster's threads must not show only
+    as a stall."""
     if c.network.dispatch_errors:
         raise AssertionError(
             f"{tag}: {c.network.dispatch_errors} dispatch errors, the "
             f"last on {c.network.last_dispatch_error}")
     for osd, exc, tb in getattr(c, "reaped", ()):
         raise AssertionError(f"{tag}: osd.{osd} reaped in tick ({exc}):\n{tb}")
+    from ceph_tpu_torch.osd.snap_mapper import PURGED_DECODE_ERRORS
+
     failed = _perf_sum(c, "queued_op_failures")
-    if failed:
-        raise AssertionError(f"{tag}: {failed} failed queued items")
+    dropped = _perf_sum(c, "recovery_push_errors")
+    if failed or dropped or PURGED_DECODE_ERRORS["count"]:
+        raise AssertionError(f"{tag}: {failed} failed queued items, "
+                             f"{dropped} dropped pulls, "
+                             f"{PURGED_DECODE_ERRORS['count']} undecodable "
+                             "purged-snaps cursors")
 
 
 def _wait(c, pred, what: str, timeout: float = CLUSTER_TIMEOUT_S,
@@ -2316,15 +2347,28 @@ def _primaries(c, r) -> dict:
     return out
 
 
-def _all_clean(c, r) -> bool:
+def _clean_pools(c, r) -> set:
+    """The map's pools whose every PG has a primary at the mon's epoch
+    whose peering is CLEAN and which neither recovers nor backfills (one
+    pass over the OSDs)."""
     from ceph_tpu_torch.osd.peering import CLEAN
 
-    prim = _primaries(c, r)
-    epoch = c.mon.osdmap.epoch
-    return (all(d.osdmap.epoch >= epoch for d in list(c.osds.values())) and
-            len(prim) == CLUSTER_PG_NUM and
-            all(st.peering is not None and st.peering.phase == CLEAN
-                for st in prim.values()) and
+    m = c.mon.osdmap
+    if not all(d.osdmap.epoch >= m.epoch for d in list(c.osds.values())):
+        return set()
+    count: dict = {}
+    dirty: set = set()
+    for pg, st in _primaries(c, r).items():
+        count[pg.pool] = count.get(pg.pool, 0) + 1
+        if st.peering is None or st.peering.phase != CLEAN or \
+                st.recovering or st.backfilling:
+            dirty.add(pg.pool)
+    return {p for p, pool in m.pools.items()
+            if p not in dirty and count.get(p, 0) == pool.pg_num}
+
+
+def _all_clean(c, r) -> bool:
+    return (_clean_pools(c, r) == set(c.mon.osdmap.pools) and
             all(d.pgs_recovering() == 0 for d in list(c.osds.values())))
 
 
@@ -2413,13 +2457,25 @@ def drive_cluster(c, r, io, objs: dict, tag: str, dev,
     rebuilt0 = _perf_sum(c, "recovery_bytes_rebuilt")
     l0 = bm.LAUNCHES["gf_matmul"]
     comp0 = dict(repairc_compiler.COMPILES)
+    pools = {name: pid_ for pid_, name in c.mon.osdmap.pool_names.items()}
+    clean_s: dict = {}
+
+    def out_clean() -> bool:
+        # each pool's own time to clean, then the whole cluster's
+        if not c.mon.osdmap.is_out(victim):
+            return False
+        clean = _clean_pools(c, r)
+        for name, pid_ in pools.items():
+            if name not in clean_s and pid_ in clean:
+                clean_s[name] = time.monotonic() - t0
+        return len(clean_s) == len(pools) and _all_clean(c, r)
+
     with k1_events(bm) as ev:
         t0 = time.monotonic()
         rc, outs, _ = r.mon_command({"prefix": "osd out", "ids": [victim]})
         if rc != 0:
             raise AssertionError(f"{tag}: osd out: {outs}")
-        _wait(c, lambda: c.mon.osdmap.is_out(victim) and
-              _all_clean(c, r), "recovery to clean", tag=tag)
+        _wait(c, out_clean, "recovery to clean", tag=tag)
         recover_s = time.monotonic() - t0
     compiles = {key: repairc_compiler.COMPILES[key] - comp0[key]
                 for key in comp0}
@@ -2435,8 +2491,8 @@ def drive_cluster(c, r, io, objs: dict, tag: str, dev,
             f"{full} full rebuilds")
     return {"legs": legs, "victim": victim, "count": count,
             "before": before, "shards": shards, "pid": pid,
-            "recover_s": recover_s, "rebuilt": rebuilt, "read": read,
-            "compiles": compiles, **extra}
+            "recover_s": recover_s, "clean_s": clean_s, "rebuilt": rebuilt,
+            "read": read, "compiles": compiles, **extra}
 
 
 def _shards_on_acting(c, objs: dict, res: dict, tag: str):
@@ -2685,6 +2741,248 @@ def scrub_leg(c, r, objs: dict) -> dict:
             "rot_osd": acting[shard], "shard": shard}
 
 
+# -- phase 19 (f): the replicated pool beside the EC pool ---------------------
+
+REP_PG_NUM = 32                  # osd_pool_default_pg_num (Octopus)
+REP_SIZE, REP_MIN_SIZE = 3, 2    # osd_pool_default_size / _min_size
+REP_OBJECTS = 64                 # 4 MiB objects, each one WriteOp
+REP_DOWN_OBJECTS = 16            # written while the victim is down
+REP_INDEX_OBJECTS = 16           # bucket-index-like omap objects
+REP_INDEX_KEYS = 1024            # 32-byte keys, 64-byte values
+REP_STRIPED_B = 16 << 20         # one RadosStriper object
+
+
+def _rep_xattrs(i: int) -> dict:
+    return {"owner": b"chip_smoke", "seq": str(i).encode()}
+
+
+def _digest(data: bytes, attrs: dict, omap: dict, hdr: bytes) -> str:
+    """sha256 over an object's data, user xattrs, omap and omap header."""
+    h = hashlib.sha256(data)
+    for part in (attrs, omap):
+        for k in sorted(part):
+            h.update(k.encode() + b"\0" + bytes(part[k]) + b"\0")
+        h.update(b"\1")
+    h.update(hdr)
+    return h.hexdigest()
+
+
+class RepLeg:
+    """Phase 19 (f): `reppool` (replicated, pg_num 32, size 3, min_size 2)
+    on phase 19's cluster beside `ecpool`.  `create` and `healthy` run
+    after (e); `degraded` while the victim is down; `verify` after the
+    recovery that `osd out` starts; `scrub` last."""
+
+    def __init__(self, c, r, ec_objs: dict):
+        from ceph_tpu_torch.osdc.striper import StripeLayout
+
+        self.c, self.r, self.ec_objs = c, r, ec_objs
+        rng = np.random.default_rng(SEED + 196)
+        self.objs = {f"rep{i}": rng.bytes(REPAIR_OBJECT)
+                     for i in range(REP_OBJECTS + REP_DOWN_OBJECTS)}
+        self.index = {f"index{i}": {rng.bytes(16).hex(): rng.bytes(64)
+                                    for _ in range(REP_INDEX_KEYS)}
+                      for i in range(REP_INDEX_OBJECTS)}
+        self.striped = rng.bytes(REP_STRIPED_B)
+        self.ec_writeop = rng.bytes(REPAIR_OBJECT)
+        self.layout = StripeLayout(stripe_unit=1 << 16, stripe_count=4,
+                                   object_size=1 << 18)
+        self.out: dict = {}
+
+    def _perf(self) -> dict:
+        # recovery_push counts the pushes primaries send (backfill ones
+        # too); every other push applied answers a pull
+        return {k: _perf_sum(self.c, k) for k in (
+            "recovery_push", "push_in", "push_in_bytes",
+            "backfill_push_in", "recovery_push_errors")}
+
+    def create(self) -> None:
+        t0 = time.monotonic()
+        self.r.pool_create("reppool", pg_num=REP_PG_NUM)
+        self.pid = self.r.pool_lookup("reppool")
+        pool = self.c.mon.osdmap.pools[self.pid]
+        if (pool.type, pool.size, pool.min_size) != (1, REP_SIZE,
+                                                      REP_MIN_SIZE):
+            raise AssertionError(f"phase 19 (f): reppool is type {pool.type} "
+                                 f"size {pool.size}/{pool.min_size}")
+        _wait(self.c, lambda: _all_clean(self.c, self.r),
+              "reppool's PGs peered", tag="phase 19 (f)")
+        self.io = self.r.open_ioctx("reppool")
+        self.out["create_s"] = time.monotonic() - t0
+
+    def _write(self, names) -> float:
+        from ceph_tpu_torch.client import WriteOp
+
+        t0 = time.monotonic()
+        for name in names:
+            i = int(name[3:])
+            op = WriteOp().write_full(self.objs[name])
+            for k, v in _rep_xattrs(i).items():
+                op.set_xattr(k, v)
+            self.io.operate(name, op)
+        return time.monotonic() - t0
+
+    def _read_all(self, names, what: str) -> float:
+        t0 = time.monotonic()
+        for name in names:
+            if self.io.read(name) != self.objs[name]:
+                raise AssertionError(f"phase 19 (f): {what} read of {name} "
+                                     "differs")
+        return time.monotonic() - t0
+
+    def healthy(self) -> None:
+        from ceph_tpu_torch.client import WriteOp
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+        from ceph_tpu_torch.osdc.rados_striper import RadosStriper
+        from ceph_tpu_torch.osdc.striper import Striper
+
+        tag = "phase 19 (f)"
+        self.create()
+        names = [f"rep{i}" for i in range(REP_OBJECTS)]
+        wall = self._write(names)
+        self.out["write"] = {"MBps": len(names) * REPAIR_OBJECT / wall / 1e6,
+                             "wall_s": wall}
+        t0 = time.monotonic()
+        for name, kv in self.index.items():
+            self.io.operate(name, WriteOp().create().set_omap(kv)
+                            .set_omap_header(name.encode()))
+        self.out["index_s"] = time.monotonic() - t0
+        self.striper = RadosStriper(self.io, self.layout)
+        t0 = time.monotonic()
+        self.striper.write("striped", self.striped)
+        self.out["striper_write_s"] = time.monotonic() - t0
+        self.striped_objs = sorted(
+            {f"striped.{n:016x}" for n in {0} | {
+                e.objectno for e in Striper.file_to_extents(
+                    self.layout, 0, REP_STRIPED_B)}})
+        # the EC pool's compound op: data plus an xattr, one K1 encode
+        ec_io = self.r.open_ioctx("ecpool")
+        l0 = bm.LAUNCHES["gf_matmul"]
+        ec_io.operate("ec_writeop", WriteOp().write_full(self.ec_writeop)
+                      .set_xattr("kind", b"writeop"))
+        self.out["ec_writeop_launches"] = bm.LAUNCHES["gf_matmul"] - l0
+        if not self.out["ec_writeop_launches"] or \
+                ec_io.read("ec_writeop") != self.ec_writeop or \
+                ec_io.get_xattr("ec_writeop", "kind") != b"writeop":
+            raise AssertionError(f"{tag}: the EC WriteOp ({self.out}) ")
+        # listing: exactly what was written, in both pools
+        want_rep = sorted(names + list(self.index) + self.striped_objs)
+        want_ec = sorted(list(self.ec_objs) + ["ec_writeop"])
+        t0 = time.monotonic()
+        got_rep, got_ec = self.io.list_objects(), ec_io.list_objects()
+        self.out["list_s"] = time.monotonic() - t0
+        if got_rep != want_rep or got_ec != want_ec:
+            raise AssertionError(f"{tag}: list_objects gave {len(got_rep)} / "
+                                 f"{len(got_ec)} objects, not {len(want_rep)} "
+                                 f"/ {len(want_ec)}")
+        wall = self._read_all(names, "healthy")
+        self.out["read"] = {"MBps": len(names) * REPAIR_OBJECT / wall / 1e6,
+                            "wall_s": wall}
+        if self.striper.read("striped") != self.striped:
+            raise AssertionError(f"{tag}: striped read differs")
+        if self.striper.swallowed:
+            raise AssertionError(f"{tag}: the striper swallowed "
+                                 f"{self.striper.swallowed} errors")
+
+    def degraded(self) -> None:
+        tag = "phase 19 (f)"
+        names = [f"rep{i}" for i in range(REP_OBJECTS)]
+        wall = self._read_all(names, "degraded")
+        self.out["degraded_read"] = {
+            "MBps": len(names) * REPAIR_OBJECT / wall / 1e6, "wall_s": wall}
+        for name, kv in self.index.items():
+            if self.io.get_omap_vals(name) != (kv, False) or \
+                    self.io.get_omap_header(name) != name.encode():
+                raise AssertionError(f"{tag}: degraded omap of {name}")
+        if self.striper.read("striped") != self.striped:
+            raise AssertionError(f"{tag}: degraded striped read differs")
+        down = [f"rep{i}" for i in range(REP_OBJECTS,
+                                         REP_OBJECTS + REP_DOWN_OBJECTS)]
+        wall = self._write(down)
+        self.out["down_write"] = {
+            "MBps": len(down) * REPAIR_OBJECT / wall / 1e6, "wall_s": wall}
+        self.perf0 = self._perf()
+
+    def _replicas(self, oid: str):
+        """(osd, digest) of every acting replica of `oid`."""
+        m = self.c.mon.osdmap
+        raw = m.object_locator_to_pg(oid, self.pid)
+        pg = m.pools[self.pid].raw_pg_to_pg(raw)
+        acting = m.pg_to_up_acting_osds(raw)[2]
+        if len(acting) != REP_SIZE:
+            raise AssertionError(f"phase 19 (f): {oid} acting {acting}")
+        for osd in acting:
+            d = self.c.osds[osd]
+            with d._lock:
+                yield osd, _digest(*d.pgs[pg].shard.push_payload(oid))
+
+    def verify(self, victim: int) -> None:
+        """After recovery to clean: every replica on its acting OSDs
+        equals its payload, xattrs and omap (by sha256)."""
+        tag = "phase 19 (f)"
+        t0 = time.monotonic()
+        perf = self._perf()
+        self.out["recovery"] = {k: perf[k] - self.perf0[k] for k in perf}
+        want = {name: _digest(data, _rep_xattrs(int(name[3:])), {}, b"")
+                for name, data in self.objs.items()}
+        want.update({name: _digest(b"", {}, kv, name.encode())
+                     for name, kv in self.index.items()})
+        for name in self.striped_objs:
+            want[name] = _digest(self.io.read(name),
+                                 self.io.get_xattrs(name), {}, b"")
+        checked = 0
+        for oid, digest in want.items():
+            for osd, got in self._replicas(oid):
+                if osd == victim or got != digest:
+                    raise AssertionError(f"{tag}: {oid} on osd.{osd} differs "
+                                         "from its payload, xattrs and omap")
+                checked += 1
+        if self.striper.read("striped") != self.striped:
+            raise AssertionError(f"{tag}: striped read after recovery")
+        rec = self.out["recovery"]
+        if not rec["push_in"] or rec["recovery_push_errors"]:
+            raise AssertionError(f"{tag}: recovery pushes {rec}")
+        self.out["replicas_checked"] = checked
+        self.out["verify_s"] = time.monotonic() - t0
+
+    def scrub(self) -> None:
+        """Flip one byte of one replica under its MemStore; the scrub
+        lists it, the repair repairs and verifies it, a third scrub is
+        clean."""
+        from ceph_tpu_torch.osd import ec_backend
+        from ceph_tpu_torch.store import ObjectId, Transaction
+
+        tag = "phase 19 (f)"
+        oid = "rep0"
+        m = self.c.mon.osdmap
+        raw = m.object_locator_to_pg(oid, self.pid)
+        pg = m.pools[self.pid].raw_pg_to_pg(raw)
+        _, _, acting, primary = m.pg_to_up_acting_osds(raw)
+        replica = next(o for o in acting if o != primary)
+        store = self.c.osds[replica].store
+        cid = ec_backend.pg_cid(pg)
+        byte = store.read(cid, ObjectId(oid), 4096, 1)
+        store.queue_transaction(Transaction().write(
+            cid, ObjectId(oid), 4096, bytes([byte[0] ^ 0x5A])))
+        want = [{"inconsistent": [oid], "repaired": 0, "unrepairable": []},
+                {"inconsistent": [oid], "repaired": 1, "unrepairable": [],
+                 "verified": True},
+                {"inconsistent": [], "repaired": 0, "unrepairable": []}]
+        self.out["scrubs"] = []
+        for repair, expect in zip((False, True, False), want):
+            t0 = time.monotonic()
+            got = self.r.pg_scrub(self.pid, pg.ps, repair=repair)
+            self.out["scrubs"].append({"repair": repair, "result": got,
+                                       "wall_s": time.monotonic() - t0})
+            if got != expect:
+                raise AssertionError(f"{tag}: pg_scrub(repair={repair}) of pg "
+                                     f"{pg} gave {got}, not {expect}")
+        if dict(self._replicas(oid))[replica] != _digest(
+                self.objs[oid], _rep_xattrs(0), {}, b""):
+            raise AssertionError(f"{tag}: the repaired replica differs")
+        self.out["scrub_pg"] = (str(pg), primary, replica)
+
+
 def cluster_phase(name_power: str, dev) -> dict:
     """Phase 19: the port's cluster on the card (see the module
     docstring)."""
@@ -2701,15 +2999,24 @@ def cluster_phase(name_power: str, dev) -> dict:
     c, r, io = _cluster()
     try:
         serve = ServeLeg(io)
+        rep = RepLeg(c, r, objs)
 
         def healthy():
             scrub = scrub_leg(c, r, objs)
+            rep.healthy()           # (f) after (e): (e) scrubs ecpool alone
             serve.healthy()
             return scrub
+
+        def degraded():
+            rep.degraded()
+            serve.degraded()
         res = drive_cluster(c, r, io, objs, "phase 19", dev,
-                            healthy=healthy, degraded=serve.degraded)
+                            healthy=healthy, degraded=degraded)
         legs = res["legs"]
         scrub, served = res["healthy"], serve.out
+        rep.verify(res["victim"])
+        rep.scrub()
+        _faults(c)
         # -- every shard on its acting OSD == the plain version's encode ---
         ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M),
                                           "technique": "reed_sol_van"},
@@ -2813,9 +3120,42 @@ def cluster_phase(name_power: str, dev) -> dict:
           f"osd_max_scrubs {scrub['limit']}; K1 {scrub['launches']} "
           f"launches ({scrub['probe_launches']} compile probes), "
           f"{scrub['k1_ms']:.3f} ms by CUDA events on {name_power}")
+    ro = rep.out
+    for leg_name in ("write", "read", "degraded_read", "down_write"):
+        lg = ro[leg_name]
+        print(f"phase 19 (f): reppool {leg_name} {lg['MBps']:.1f} MB/s on the "
+              f"host clock ({lg['wall_s']:.3f} s, 4 MiB objects, size "
+              f"{REP_SIZE}) on {name_power}")
+    for pool_name, secs in sorted(res["clean_s"].items()):
+        print(f"phase 19 (f): time to clean after osd out, {pool_name}: "
+              f"{secs:.3f} s on {name_power}")
+    rec = ro["recovery"]
+    print(f"phase 19 (f): reppool recovery after osd out: "
+          f"{rec['push_in']} pushes applied carrying "
+          f"{rec['push_in_bytes']} B: {rec['recovery_push']} sent by "
+          f"primaries ({rec['backfill_push_in']} of them backfill), "
+          f"{rec['push_in'] - rec['recovery_push']} answering pulls; "
+          f"{rec['recovery_push_errors']} dropped pulls; "
+          f"{ro['replicas_checked']} replicas == payload, xattrs and omap "
+          f"(sha256) on their acting OSDs, checked in {ro['verify_s']:.3f} "
+          f"s; the pool made and peered in {ro['create_s']:.3f} s on "
+          f"{name_power}")
+    print(f"phase 19 (f): {REP_INDEX_OBJECTS} index objects of "
+          f"{REP_INDEX_KEYS} omap keys in {ro['index_s']:.3f} s, a "
+          f"{REP_STRIPED_B} B RadosStriper object in "
+          f"{ro['striper_write_s']:.3f} s, both pools listed in "
+          f"{ro['list_s']:.3f} s; the EC WriteOp (data + xattr) launched K1 "
+          f"{ro['ec_writeop_launches']} times on {name_power}")
+    pg_s, prim_s, rep_s = ro["scrub_pg"]
+    print(f"phase 19 (f): replicated scrub of pg {pg_s} (primary osd."
+          f"{prim_s}, one byte flipped on osd.{rep_s}): " + "; ".join(
+              f"pg_scrub(repair={sc['repair']}) {sc['result']} in "
+              f"{sc['wall_s']:.3f} s" for sc in ro["scrubs"]) +
+          f" on {name_power}")
     return {"legs": legs, "recover_s": recover_s, "rebuilt": rebuilt,
             "ratio": read / rebuilt, "messages": messages,
             "compiles": compiles, "serve": served, "scrub": scrub,
+            "replicated": ro, "clean_s": res["clean_s"],
             "fabric_stats": stats, "phase_s": wall}
 
 
@@ -2830,10 +3170,9 @@ def print_legs(tag: str, legs: dict, name_power: str) -> None:
 # ---------------------------------------------------------------------------
 # The cluster on TCP and in processes: phase 20
 
-PROC_BENCH_S = 8                 # seconds of each `rados bench` run (21)
-# 20 (c)'s benches, cut from 8 s: phase 21 repeats the same processes'
-# bench on BlueStore at PROC_BENCH_S
-PROC_BENCH_MEM_S = 4
+# seconds of each `rados bench` run in 20 (c) and 21, cut from the 8 s
+# of the first runs to keep the smoke's wall (PERF.md section 4)
+PROC_BENCH_S = 4
 PROC_THREADS = 16                # rados bench -t
 PROC_DEGRADED = 16               # bench objects read degraded
 PROC_BOOT_S = 180.0
@@ -3034,13 +3373,14 @@ class Daemons:
 
 def _proc_faults(ds: Daemons, names) -> dict:
     """Each daemon's fault counters through its admin socket; fails on
-    any tick error, failed queued item, full rebuild or dispatch
-    error."""
+    any tick error, failed queued item, full rebuild, dropped pull or
+    dispatch error."""
     out = {}
     for name in names:
         perf = ds.command(name, "perf dump")
         row = {k: perf.get(k, 0) for k in ("tick_errors", "queued_op_failures",
-                                          "recovery_full_rebuild")}
+                                          "recovery_full_rebuild",
+                                          "recovery_push_errors")}
         row["dispatch_errors"] = ds.command(name, "msgr")["dispatch_errors"]
         if any(row.values()):
             raise AssertionError(f"{ds.tag}: {name} counters {row}")
@@ -3048,44 +3388,120 @@ def _proc_faults(ds: Daemons, names) -> dict:
     return out
 
 
-def _proc_clean(ds: Daemons, names, epoch: int) -> bool:
+def _proc_clean(ds: Daemons, names, osdmap) -> bool:
+    """Every OSD in `names` at the map's epoch, every PG of its pools
+    with a primary that is clean."""
     st = [ds.command(n, "status") for n in names if n.startswith("osd.")]
-    return (all(s["osdmap_epoch"] >= epoch and s["pgs_recovering"] == 0
+    pgs = sum(p.pg_num for p in osdmap.pools.values())
+    return (all(s["osdmap_epoch"] >= osdmap.epoch and s["pgs_recovering"] == 0
                 for s in st) and
-            sum(s["num_primary"] for s in st) == CLUSTER_PG_NUM and
-            sum(s["primary_clean"] for s in st) == CLUSTER_PG_NUM)
+            sum(s["num_primary"] for s in st) == pgs and
+            sum(s["primary_clean"] for s in st) == pgs)
 
 
-def _bench(ds: Daemons, mode: str, seconds: float = PROC_BENCH_S) -> dict:
-    argv = [sys.executable, "-m", "ceph_tpu_torch.tools.rados_cli",
-            "--monmap", str(ds.monmap), "--keyring", str(ds.keyring_path),
-            "--timeout", "120", "bench", "ecpool", str(seconds), mode,
-            "-t", str(PROC_THREADS)] + (["--no-cleanup"]
-                                         if mode == "write" else [])
+def _cli(ds: Daemons, *argv) -> tuple[str, float]:
+    """One `rados_cli` process with the cluster's monmap and keyring;
+    its stdout and wall.  A non-zero exit fails the phase."""
+    cmd = [sys.executable, "-m", "ceph_tpu_torch.tools.rados_cli",
+           "--monmap", str(ds.monmap), "--keyring", str(ds.keyring_path),
+           "--timeout", "120", *argv]
     t0 = time.monotonic()
-    p = subprocess.run(argv, env=ds.env, cwd=ds.env["PYTHONPATH"],
+    p = subprocess.run(cmd, env=ds.env, cwd=ds.env["PYTHONPATH"],
                        capture_output=True, text=True, timeout=300)
     wall = time.monotonic() - t0
     if p.returncode != 0:
-        raise AssertionError(f"{ds.tag}: rados bench {mode} rc "
+        raise AssertionError(f"{ds.tag}: rados {' '.join(argv)} rc "
                              f"{p.returncode}:\n{p.stdout}\n{p.stderr[-3000:]}")
-    fields = dict(line.split(":", 1) for line in p.stdout.splitlines()
+    return p.stdout, wall
+
+
+def _bench(ds: Daemons, mode: str, seconds: float = PROC_BENCH_S,
+           pool: str = "ecpool") -> dict:
+    out, wall = _cli(ds, "bench", pool, str(seconds), mode, "-t",
+                     str(PROC_THREADS),
+                     *(["--no-cleanup"] if mode == "write" else []))
+    fields = dict(line.split(":", 1) for line in out.splitlines()
                   if ":" in line)
     return {"MBps": float(fields["Bandwidth (MB/sec)"]),
             "ops": int(fields[f"Total {mode}s made"]),
+            "size": int(fields[f"{mode} size"]),
             "lat_s": float(fields["Average Latency(s)"]),
             "run_s": float(fields["Total time run"]), "cli_wall_s": wall}
 
 
+def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
+    """Phase 20 (c)'s replicated verbs, each a `rados_cli` process:
+    `mkpool reppool 32` (a replicated pool), `bench reppool 4 write -t 16
+    --no-cleanup` and `bench reppool 4 seq -t 16` (seq finds its objects
+    by listing), `ls`, `setxattr` / `getxattr` / `listxattr`,
+    `setomapval` / `listomapvals` on a bench object, then `rmpool`;
+    every output held to the reference's text."""
+    tag = ds.tag
+    walls = {}
+
+    def await_pool(present: bool) -> None:
+        end = time.monotonic() + CLUSTER_TIMEOUT_S
+        while ("reppool" in r.objecter.osdmap.pool_names.values()) != present:
+            if time.monotonic() > end:
+                raise AssertionError(f"{tag}: reppool never "
+                                     f"{'in' if present else 'out of'} the map")
+            with contextlib.suppress(TimeoutError):
+                r.objecter.wait_for_map(r.objecter.osdmap.epoch + 1, 1.0)
+
+    out, walls["mkpool"] = _cli(ds, "mkpool", "reppool", str(REP_PG_NUM))
+    if out != "successfully created pool reppool\n":
+        raise AssertionError(f"{tag}: mkpool printed {out!r}")
+    await_pool(True)
+    pool = r.objecter.osdmap.pools[r.pool_lookup("reppool")]
+    if (pool.type, pool.size, pool.min_size) != (1, REP_SIZE, REP_MIN_SIZE):
+        raise AssertionError(f"{tag}: mkpool made type {pool.type} size "
+                             f"{pool.size}/{pool.min_size}")
+    wait_clean("reppool's PGs peered")
+    bench = {"write": _bench(ds, "write", pool="reppool")}
+    bench["seq"] = _bench(ds, "seq", pool="reppool")
+    out, walls["ls"] = _cli(ds, "ls", "reppool")
+    listed = out.split()
+    if len(listed) != bench["write"]["ops"] or not all(
+            o.startswith("benchmark_data_") for o in listed):
+        raise AssertionError(f"{tag}: ls listed {len(listed)} objects for "
+                             f"{bench['write']['ops']} bench writes")
+    obj = listed[0]
+    steps = [(("setxattr", "reppool", obj, "smoke_key", "smoke_value"), ""),
+             (("getxattr", "reppool", obj, "smoke_key"), "smoke_value\n"),
+             (("listxattr", "reppool", obj), "smoke_key\n"),
+             (("setomapval", "reppool", obj, "smoke_omap", "omap_value"), ""),
+             (("listomapvals", "reppool", obj),
+              "smoke_omap\n value (10 bytes) :\nomap_value\n"),
+             (("rmpool", "reppool"), "successfully deleted pool reppool\n")]
+    for argv, want in steps:
+        out, walls[argv[0]] = _cli(ds, *argv)
+        if out != want:
+            raise AssertionError(f"{tag}: rados {' '.join(argv)} printed "
+                                 f"{out!r}, not {want!r}")
+    await_pool(False)
+    wait_clean("the PGs after rmpool")
+    for mode, b in bench.items():
+        print(f"phase 20 (c): rados bench reppool (replicated, size "
+              f"{REP_SIZE}) {mode} -t {PROC_THREADS} -b {b['size']}: "
+              f"{b['MBps']} MB/s, {b['ops']} ops, average latency "
+              f"{b['lat_s']} s in {b['run_s']} s (CLI process "
+              f"{b['cli_wall_s']:.1f} s) on {name_power}")
+    print(f"phase 20 (c): rados_cli processes mkpool (replicated), ls "
+          f"({len(listed)} objects), setxattr, getxattr, listxattr, "
+          f"setomapval, listomapvals, rmpool: text == the reference's; "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()) +
+          f" s on {name_power}")
+    return {"bench": bench, "walls": walls, "listed": len(listed)}
+
+
 def process_leg(name_power: str, work: Path) -> dict:
     """Phase 20 (c): a mon and 16 OSD daemon processes on the card,
-    `rados bench` write then seq through the CLI, then the OSD in the
-    most acting sets killed, marked down, and bench objects read
-    degraded."""
+    `rados bench` write then seq through the CLI, the replicated verbs
+    (`rep_cli`), then the OSD in the most acting sets killed, marked
+    down, and bench objects read degraded."""
     from ceph_tpu_torch.client import Rados
     from ceph_tpu_torch.msg.tcp import TcpNet
     from ceph_tpu_torch.osd.types import PG
-    from ceph_tpu_torch.tools import rados_cli
 
     work.mkdir(parents=True, exist_ok=True)
     t_leg = time.monotonic()
@@ -3116,7 +3532,7 @@ def process_leg(name_power: str, work: Path) -> dict:
 
         def wait_clean(names, what):
             end = time.monotonic() + CLUSTER_TIMEOUT_S
-            while not _proc_clean(ds, names, r.objecter.osdmap.epoch):
+            while not _proc_clean(ds, names, r.objecter.osdmap):
                 if time.monotonic() > end:
                     raise AssertionError(f"phase 20 (c): {what}")
                 time.sleep(0.1)
@@ -3128,10 +3544,23 @@ def process_leg(name_power: str, work: Path) -> dict:
                        for n in names)
 
         l0 = launches(osds)
-        bench = {"write": _bench(ds, "write", PROC_BENCH_MEM_S)}
+        bench = {"write": _bench(ds, "write")}
         l1 = launches(osds)
-        bench["seq"] = _bench(ds, "seq", PROC_BENCH_MEM_S)
+        bench["seq"] = _bench(ds, "seq")
         l2 = launches(osds)
+        rep = rep_cli(ds, r, lambda what: wait_clean(osds, what), name_power)
+        # the bench's objects, found by listing; one payload in all
+        io = r.open_ioctx("ecpool")
+        bench_objs = sorted(o for o in io.list_objects()
+                            if o.startswith("benchmark_data_"))
+        if len(bench_objs) != bench["write"]["ops"]:
+            raise AssertionError(f"phase 20 (c): {len(bench_objs)} bench "
+                                 f"objects listed for {bench['write']['ops']}"
+                                 " writes")
+        payload = io.read(bench_objs[0])
+        if len(payload) != bench["write"]["size"]:
+            raise AssertionError("phase 20 (c): a bench object of "
+                                 f"{len(payload)} B")
         # -- the OSD in the most acting sets dies -----------------------------
         pid = r.pool_lookup("ecpool")
         _, count = acting_sets(r.objecter.osdmap, pid, CLUSTER_PG_NUM, PG)
@@ -3149,14 +3578,12 @@ def process_leg(name_power: str, work: Path) -> dict:
             time.sleep(0.05)
         wait_clean(live, "peering after osd down")
         l3 = launches(live)
-        io = r.open_ioctx("ecpool")
-        meta = json.loads(io.read(rados_cli.METADATA))
-        payload = rados_cli.bench_payload(meta["size"], meta["seed"])
+        n_read = min(PROC_DEGRADED, len(bench_objs))
         t0 = time.monotonic()
-        for i in range(min(PROC_DEGRADED, meta["objects"])):
-            if io.read(meta["prefix"] + str(i)) != payload:
+        for oid in bench_objs[:n_read]:
+            if io.read(oid) != payload:
                 raise AssertionError(f"phase 20 (c): degraded read of bench "
-                                     f"object {i} differs")
+                                     f"object {oid} differs")
         degraded_s = time.monotonic() - t0
         l4 = launches(live)
         faults.update(_proc_faults(ds, ["mon.0"] + live))
@@ -3165,12 +3592,11 @@ def process_leg(name_power: str, work: Path) -> dict:
             r.shutdown()
         ds.stop()
     wall = time.monotonic() - t_leg
-    n_read = min(PROC_DEGRADED, meta["objects"])
-    degraded = {"MBps": n_read * meta["size"] / degraded_s / 1e6,
+    degraded = {"MBps": n_read * len(payload) / degraded_s / 1e6,
                 "wall_s": degraded_s}
     for mode, b in bench.items():
         print(f"phase 20 (c): rados bench {mode} -t {PROC_THREADS} -b "
-              f"{meta['size']}: {b['MBps']} MB/s, {b['ops']} ops, average "
+              f"{b['size']}: {b['MBps']} MB/s, {b['ops']} ops, average "
               f"latency {b['lat_s']} s in {b['run_s']} s (CLI process "
               f"{b['cli_wall_s']:.1f} s) on {name_power}")
     print(f"phase 20 (c): osd.{victim} (in {count[victim]} acting sets) "
@@ -3195,7 +3621,7 @@ def process_leg(name_power: str, work: Path) -> dict:
     if not k1["write"] or not k1["degraded_read"]:
         raise AssertionError(f"phase 20 (c): K1 launches {k1}")
     return {"bench": bench, "degraded": degraded, "startup": startup,
-            "launches": k1,
+            "launches": k1, "replicated": rep,
             "faults": faults, "wall_s": wall, "boot_s": boot_s}
 
 
@@ -3303,11 +3729,25 @@ def durable_phase(name_power: str, work: Path) -> dict:
                       erasure_code_profile="tpu_k8m4")
         pid = r.pool_lookup("ecpool")
         io = r.open_ioctx("ecpool")
+        r.pool_create("reppool", pg_num=REP_PG_NUM)
+        rpid = r.pool_lookup("reppool")
+        rio = r.open_ioctx("reppool")
 
         def clean(names_):
-            return lambda: _proc_clean(ds, names_, r.objecter.osdmap.epoch)
+            return lambda: _proc_clean(ds, names_, r.objecter.osdmap)
 
-        _wait_for(clean(osds), "the new pool's PGs never peered")
+        _wait_for(clean(osds), "the new pools' PGs never peered")
+        # one small object in every reppool PG: every replica's log then
+        # holds history, so a restarted OSD catches up from its log
+        m = r.objecter.osdmap
+        pre, i = {}, 0
+        while len(pre) < REP_PG_NUM:
+            name = f"pre_{i}"
+            pre.setdefault(m.pools[rpid].raw_pg_to_pg(
+                m.object_locator_to_pg(name, rpid)).ps, name)
+            i += 1
+        for name in pre.values():
+            rio.write_full(name, name.encode())
         # -- 1. rados bench write -------------------------------------------
         k1 = {}
         l0 = _osd_sums(ds, osds)["k1"]
@@ -3335,6 +3775,12 @@ def durable_phase(name_power: str, work: Path) -> dict:
         res["down_write"] = {"wall_s": time.monotonic() - t0,
                              "MBps": len(seeded) * REPAIR_OBJECT /
                              (time.monotonic() - t0) / 1e6}
+        t0 = time.monotonic()
+        for oid, payload in seeded.items():
+            rio.write_full(oid, payload)
+        res["rep_down_write"] = {"wall_s": time.monotonic() - t0,
+                                 "MBps": len(seeded) * REPAIR_OBJECT /
+                                 (time.monotonic() - t0) / 1e6}
         # -- 3. restart it on its data dir; log-based recovery to clean ------
         before = _osd_sums(ds, live)
         t0 = time.monotonic()
@@ -3357,6 +3803,39 @@ def durable_phase(name_power: str, work: Path) -> dict:
                                  f"{vname} missed {missed} B")
         k1["recovery"] = rec["k1"]
         res["recovery"] = rec
+        # reppool: the restarted OSD catches up from its durable log
+        # (GetMissing, pulls and pushes), exactly the replicas it missed
+        # it pulls what it missed where it is primary (GetLog, then
+        # PGPull) and is pushed the rest (PGMissingReply, then pushes)
+        rep_missed, as_primary = [], 0
+        for oid in seeded:
+            _, _, acting_, prim_ = m.pg_to_up_acting_osds(
+                m.pools[rpid].raw_pg_to_pg(m.object_locator_to_pg(oid,
+                                                                  rpid)))
+            if victim in acting_:
+                rep_missed.append(oid)
+                as_primary += prim_ == victim
+        # a primary goes clean once its pushes are sent: wait for them
+        _wait_for(lambda: ds.command(vname, "perf dump")["push_in"] >=
+                  len(rep_missed), "the pushes to the restarted OSD")
+        vperf = ds.command(vname, "perf dump")
+        rep_rec = {k: vperf[k] for k in (
+            "push_in", "push_in_bytes", "backfill_push_in",
+            "recovery_push_errors")}
+        rep_rec["pushed"] = sum(
+            ds.command(n, "perf dump")["recovery_push"] for n in live)
+        rep_rec["pulled"] = rep_rec["push_in"] - rep_rec["pushed"]
+        if not rep_missed or rep_rec["push_in"] != len(rep_missed) or \
+                rep_rec["push_in_bytes"] != len(rep_missed) * \
+                REPAIR_OBJECT or rep_rec["backfill_push_in"] or \
+                rep_rec["recovery_push_errors"] or \
+                rep_rec["pulled"] != as_primary:
+            raise AssertionError(f"phase 21: reppool catch-up {rep_rec}, the "
+                                 f"writes {vname} missed {len(rep_missed)} x "
+                                 f"{REPAIR_OBJECT} B, {as_primary} where it "
+                                 "is primary")
+        res["rep_recovery"] = rep_rec
+        res["rep_missed"] = rep_missed
         startup[f"{vname} (restarted)"] = ds.startup(vname)
         # -- 4. SIGKILL the mon; restart it on its LogDB ----------------------
         epoch = r.objecter.osdmap.epoch
@@ -3375,6 +3854,7 @@ def durable_phase(name_power: str, work: Path) -> dict:
         try:
             m2 = r2.objecter.osdmap
             if m2.epoch != epoch or r2.pool_lookup("ecpool") != pid or \
+                    r2.pool_lookup("reppool") != rpid or \
                     dict(m2.erasure_code_profiles.get("tpu_k8m4", {})) != \
                     dict(r.objecter.osdmap.erasure_code_profiles[
                         "tpu_k8m4"]):
@@ -3390,7 +3870,7 @@ def durable_phase(name_power: str, work: Path) -> dict:
         # -- 5. rados bench seq; the seeded objects byte for byte -------------
         res["seq"] = _bench(ds, "seq")
         for oid, payload in seeded.items():
-            if io.read(oid) != payload:
+            if io.read(oid) != payload or rio.read(oid) != payload:
                 raise AssertionError(f"phase 21: {oid} read back differs")
         # -- 6. bitrot under one OSD; a degraded decode on K1; fsck ----------
         m = r.objecter.osdmap
@@ -3518,6 +3998,15 @@ def durable_phase(name_power: str, work: Path) -> dict:
                 raise AssertionError(f"phase 21: {oid} shard {s} on osd.{o}'s "
                                      "disk differs from the plain encode")
             checked += 1
+        if o == victim:
+            # the replicas it pulled, on its disk
+            for oid in res["rep_missed"]:
+                pg_ = final.pools[rpid].raw_pg_to_pg(
+                    final.object_locator_to_pg(oid, rpid))
+                if store.read(pg_cid(pg_), ObjectId(oid)) != seeded[oid]:
+                    raise AssertionError(f"phase 21: reppool {oid} on "
+                                         f"{vname}'s disk differs")
+                checked += 1
         store.umount()
     vers = subprocess.run(
         [sys.executable, "-m", "ceph_tpu_torch.tools.monstore_tool",
@@ -3533,7 +4022,7 @@ def durable_phase(name_power: str, work: Path) -> dict:
     for mode in ("write", "seq"):
         b = res[mode]
         print(f"phase 21: rados bench {mode} -t {PROC_THREADS} -b "
-              f"{REPAIR_OBJECT}: {b['MBps']} MB/s, {b['ops']} ops, average "
+              f"{b['size']}: {b['MBps']} MB/s, {b['ops']} ops, average "
               f"latency {b['lat_s']} s in {b['run_s']} s (CLI process "
               f"{b['cli_wall_s']:.1f} s) on {name_power}")
     print(f"phase 21: {vname} (in {count[victim]} acting sets) SIGKILLed and "
@@ -3543,6 +4032,17 @@ def durable_phase(name_power: str, work: Path) -> dict:
           f"rebuilt {rec['rebuilt']} B (the shards it missed), read/rebuilt "
           f"{rec['read'] / rec['rebuilt']}, full rebuilds {rec['full']}, K1 "
           f"{rec['k1']} launches in the OSDs' recovery")
+    rr = res["rep_recovery"]
+    print(f"phase 21: reppool (replicated, size {REP_SIZE}, pg_num "
+          f"{REP_PG_NUM}) on BlueStore: {DURABLE_OBJECTS} seeded writes with "
+          f"{vname} down at {res['rep_down_write']['MBps']:.1f} MB/s; after "
+          f"the restart it caught up from its durable log: "
+          f"{rr['push_in']} pushes applied ({rr['pulled']} answering its "
+          f"PGPulls where it is primary, {rr['pushed']} pushed by the "
+          f"primaries after its PGMissingReply) carrying "
+          f"{rr['push_in_bytes']} B == the "
+          f"{len(res['rep_missed'])} replicas it missed, "
+          f"{rr['backfill_push_in']} backfill pushes on {name_power}")
     print(f"phase 21: mon.0 SIGKILLed and restarted on its LogDB at epoch "
           f"{mon_epoch}: serving (pool, "
           f"profile, a write and a read) in "

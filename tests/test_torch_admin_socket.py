@@ -3,7 +3,8 @@ daemons' commands on it, mirroring the reference's
 tests/test_admin_socket.py, plus the cross-package check that each
 package's client talks to the other's socket.  The OSD case runs an EC
 k=2 m=1 pool over 4 OSDs where the reference runs a replicated pool
-over 2 (the port instantiates only EC PGs), and its `config set` sets
+over 2 (an EC pool exercises K1 on the card's path too), and its
+`config set` sets
 osd_max_backfills where the reference sets log_level, an option the
 port does not carry."""
 import time

@@ -5,14 +5,13 @@ key server of the other, a signature made by one verifies in the other,
 and a pump-mode `MiniCluster(auth="cephx")` equals the reference's step
 by step, the MAuthRequest/MAuthReply handshake included.
 
-Mirrored with substitutions: `test_entity_class_gating` uses
-ECSubWrite where the reference uses RepOpWrite, and
+Mirrored with substitutions: `test_entity_class_gating` checks
+ECSubWrite beside the reference's RepOpWrite, and
 `test_client_ticket_bound_to_src` uses OSDOp where the reference uses
-MClientCaps (the port carries neither the replicated sub-ops nor the
-MDS's messages yet); `test_cephx_cluster_io` runs an EC k=2 m=1 pool
-over 4 OSDs and leaves out the xattr round trip (the port's librados
-has no xattr calls yet).  Not mirrored: `test_cephx_mds_gate`, which
-needs the MDS and CephFS client the port does not have yet.
+MClientCaps (the port does not carry the MDS's messages yet);
+`test_cephx_cluster_io` runs an EC k=2 m=1 pool over 4 OSDs, with the
+reference's xattr round trip.  Not mirrored: `test_cephx_mds_gate`,
+which needs the MDS and CephFS client the port does not have yet.
 """
 import time
 
@@ -24,7 +23,8 @@ from ceph_tpu_torch.auth import (SERVICE_ENTITY, CephxClient, CephxServer,
                                  CephxVerifier, KeyRing, generate_key)
 from ceph_tpu_torch.msg import encoding as wire
 from ceph_tpu_torch.msg.messages import (ECSubWrite, MAuthRequest,
-                                         MMonSubscribe, MOSDFailure, OSDOp)
+                                         MMonSubscribe, MOSDFailure, OSDOp,
+                                         RepOpWrite)
 from ceph_tpu_torch.msg.messenger import Message
 from ceph_tpu_torch.testing import MiniCluster
 
@@ -85,11 +85,14 @@ def test_entity_class_gating():
     ver = CephxVerifier(kr.get(SERVICE_ENTITY))
     assert not ver.verify(client.sign(_stamp(ECSubWrite(oid="o"),
                                              "client.x")))
+    assert not ver.verify(client.sign(_stamp(RepOpWrite(oid="o"),
+                                             "client.x")))
     assert not ver.verify(client.sign(_stamp(MOSDFailure(target_osd=1),
                                              "client.x")))
     assert ver.verify(client.sign(_stamp(MMonSubscribe(), "client.x", 2)))
     osd = CephxClient.self_mint("osd.1", kr.get(SERVICE_ENTITY))
     assert ver.verify(osd.sign(_stamp(ECSubWrite(oid="o"), "osd.1")))
+    assert ver.verify(osd.sign(_stamp(RepOpWrite(oid="o"), "osd.1")))
 
 
 def test_ticket_renewal():
@@ -154,6 +157,8 @@ def test_cephx_cluster_io():
         io = r.open_ioctx("authp")
         io.write_full("sec", b"signed payload")
         assert io.read("sec") == b"signed payload"
+        io.set_xattr("sec", "k", b"v")
+        assert io.get_xattr("sec", "k") == b"v"
         bad = Rados(c.network, name="client.evil", mon=c.mon_names,
                     auth_secret=generate_key())
         with pytest.raises(PermissionError):

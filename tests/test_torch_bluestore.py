@@ -17,8 +17,8 @@ has a counterpart here (parametrised over the package or the engine
 where cases repeat), except the LogDB cases, which are in
 tests/test_torch_kv.py, and those that drive a cluster: the
 multi-process kill -9 is in tests/test_torch_daemon_main.py, and the
-bitrot that scrub repairs runs here on an erasure pool (the port
-instantiates only EC placement groups), in both packages' clusters, with
+bitrot that scrub repairs runs here on an erasure pool (its repair
+runs on K1), in both packages' clusters, with
 the scrub results and the repaired shard's sha256 held equal.
 """
 import hashlib

@@ -117,6 +117,7 @@ def test_port_imports_without_jax_or_reference():
                  # the paged artifact store and what it stands on
                  "ceph_tpu_torch.osdc", "ceph_tpu_torch.osdc.striper",
                  "ceph_tpu_torch.osdc.object_cacher",
+                 "ceph_tpu_torch.osdc.rados_striper",
                  "ceph_tpu_torch.serve", "ceph_tpu_torch.serve.manifest",
                  "ceph_tpu_torch.serve.store"):
         assert name in out["modules"], name

@@ -6,6 +6,14 @@ same `random.Random(1234)` layouts and ranges on both sides; every
 extent list and every inverse map is equal, and the reference's
 round-trip properties hold on the port's.
 
+RadosStriper: tests/test_compressor_striper.py's `test_rados_striper` on
+a replicated pool of each package's pump-mode MiniCluster (4 OSDs,
+pg_num 8, the port's on `device="cpu"`): every read, the stat, the
+listed RADOS objects, each object's bytes and xattrs on its primary,
+and the removal; and an EC pool of the port's holds the same striped
+object's bytes (object 0's layout and size ride xattrs, which EC pools
+keep too).
+
 ObjectCacher: every case of tests/test_object_cacher.py except the two
 that mount it under rbd and cephfs (neither client is ported).  Each
 case runs against a recording in-memory backing, once over each
@@ -430,3 +438,95 @@ def test_object_cacher_equals_reference(case):
     ref = case("ref").result()
     port = case("port").result()
     assert port == ref
+
+
+# -------------------------------------------------------- RadosStriper
+
+def rados_striper(kind: str, pool_type: str = "replicated") -> dict:
+    import numpy as np
+
+    if kind == "ref":
+        from ceph_tpu.osdc.rados_striper import RadosStriper
+        from ceph_tpu.testing import MiniCluster
+        c = MiniCluster(n_osd=4, threaded=False)
+    else:
+        from ceph_tpu_torch.osdc.rados_striper import RadosStriper
+        from ceph_tpu_torch.testing import MiniCluster
+        c = MiniCluster(n_osd=4, threaded=False, device="cpu")
+    try:
+        c.pump()
+        c.wait_all_up()
+        r = c.rados()
+        if pool_type == "erasure":
+            r.mon_command({"prefix": "osd erasure-code-profile set",
+                           "name": "k2m1",
+                           "profile": {"plugin": "tpu", "k": "2", "m": "1",
+                                       "crush-failure-domain": "host"}})
+            r.pool_create("stp", pg_num=8, pool_type="erasure",
+                          erasure_code_profile="k2m1")
+        else:
+            r.pool_create("stp", pg_num=8)
+        io = r.open_ioctx("stp")
+        st = RadosStriper(io, STRIPER[kind].StripeLayout(
+            stripe_unit=1 << 12, stripe_count=3, object_size=1 << 14))
+        payload = np.random.default_rng(3).integers(
+            0, 256, 150_000, dtype=np.uint8).tobytes()
+        st.write("big", payload)
+        out = {"read": st.read("big") == payload,
+               "window": st.read("big", length=100, offset=70_000),
+               "stat": st.stat("big"),
+               "objects": [o for o in io.list_objects()
+                           if o.startswith("big.")]}
+        out["bytes"] = {o: io.read(o) for o in out["objects"]}
+        out["xattrs"] = io.get_xattrs("big.0000000000000000")
+        st.write("big", b"TAIL", offset=len(payload))
+        out["tail"] = st.read("big")[-4:]
+        out["size_after"] = st.stat("big")["size"]
+        st.remove("big")
+        out["left"] = [o for o in io.list_objects() if o.startswith("big.")]
+        out["swallowed"] = getattr(st, "swallowed", 0)
+        return out
+    finally:
+        c.shutdown()
+
+
+def test_rados_striper_equals_reference():
+    ref, port = rados_striper("ref"), rados_striper("port")
+    assert port == ref
+    # tests/test_compressor_striper.py's assertions
+    assert port["read"] and port["stat"]["size"] == 150_000
+    assert port["stat"]["stripe_count"] == 3
+    assert len(port["objects"]) > 5
+    assert port["tail"] == b"TAIL" and port["left"] == []
+    assert port["swallowed"] == 0
+
+
+def test_rados_striper_on_an_ec_pool():
+    rep, ec = rados_striper("port"), rados_striper("port", "erasure")
+    assert ec == rep
+
+
+def test_rados_striper_counts_swallowed_errors():
+    """Where the reference reads a failed metadata read as ENOENT and
+    drops a failed removal, the port does the same and counts every such
+    error that is not ENOENT or ENODATA."""
+    from ceph_tpu_torch.client import RadosError
+    from ceph_tpu_torch.osdc.rados_striper import RadosStriper
+
+    class FailingIo:
+        def get_xattr(self, oid, name):
+            raise RadosError("EIO", oid)
+
+    st = RadosStriper(FailingIo())
+    with pytest.raises(RadosError) as ei:
+        st.stat("obj")
+    assert ei.value.errno_name == "ENOENT" and st.swallowed == 1
+
+    class MissingIo(FailingIo):
+        def get_xattr(self, oid, name):
+            raise RadosError("ENODATA", oid)
+
+    st = RadosStriper(MissingIo())
+    with pytest.raises(RadosError):
+        st.read("obj")
+    assert st.swallowed == 0

@@ -11,7 +11,10 @@ the same damage done under the stack.  The test compares, at tolerance
 refused scrub, what the client reads back, and the sha256 of every
 shard of the object on its acting OSDs after the repair.
 
-The cases: tests/test_scrub.py's EC ones (a clean scrub; a corrupted
+The cases: tests/test_scrub.py's replicated ones (a corrupted replica
+detected, repaired from the primary's copy by a forced push and verified;
+a replica that lost its copy, pushed back), on a replicated pool `p` of
+pg_num 8 made beside the EC pool; its EC ones (a clean scrub; a corrupted
 shard detected, repaired, verified and read back), and the other EC
 branches of the reference's compare: more than m bad shards
 (unrepairable), a shard that missed a delete (the tombstone leg), a peer
@@ -53,12 +56,13 @@ def make(kind: str):
                    "name": "k2m2", "profile": dict(PROFILE)})
     r.pool_create("ec", pg_num=8, pool_type="erasure",
                   erasure_code_profile="k2m2")
+    r.pool_create("p", pg_num=8)
     c.pump()
     return c, r
 
 
-def locate(c, r, oid):
-    pid = r.pool_lookup("ec")
+def locate(c, r, oid, pool="ec"):
+    pid = r.pool_lookup(pool)
     m = c.mon.osdmap
     raw = m.object_locator_to_pg(oid, pid)
     pg = m.pools[pid].raw_pg_to_pg(raw)
@@ -215,7 +219,61 @@ def second_scrub_busy(kind, c, r):
     return {"futures": [(f.result, f.errno_name, f.attrs) for f in futs]}
 
 
+def replica_sums(c, pg, acting, oid) -> dict:
+    """sha256 of each acting OSD's replica of `oid` (None: absent)."""
+    out = {}
+    for osd in acting:
+        shard = c.osds[osd].pgs[pg].shard
+        out[osd] = hashlib.sha256(shard.read(oid)).hexdigest() \
+            if shard.exists(oid) else None
+    return out
+
+
+def replicated_corrupt_repair(kind, c, r):
+    """tests/test_scrub.py::test_replicated_corruption_detected_and_
+    repaired with every result kept."""
+    io = r.open_ioctx("p")
+    data = b"x" * 4096
+    io.write_full("victim", data)
+    c.pump()
+    pid, pg, acting, primary = locate(c, r, "victim", "p")
+    replica = next(o for o in acting if o != primary)
+    c.osds[replica].store.queue_transaction(STORE[kind].Transaction().write(
+        ECB[kind].pg_cid(pg), STORE[kind].ObjectId("victim"), 0,
+        b"CORRUPT!"))
+    out = {"detect": scrub(r, pid, pg.ps),
+           "bad": c.osds[replica].pgs[pg].shard.read("victim")[:8]}
+    out["repair"] = scrub(r, pid, pg.ps, repair=True)
+    c.pump()
+    out["rescrub"] = scrub(r, pid, pg.ps)
+    out["replicas"] = replica_sums(c, pg, acting, "victim")
+    out["restored"] = set(out["replicas"].values()) == {
+        hashlib.sha256(data).hexdigest()}
+    out["read_equal"] = io.read("victim") == data
+    return out
+
+
+def replicated_missing_copy(kind, c, r):
+    """tests/test_scrub.py::test_replicated_missing_copy_detected: a
+    replica that lost its copy gets it back from the repair."""
+    io = r.open_ioctx("p")
+    io.write_full("half", b"h" * 1024)
+    c.pump()
+    pid, pg, acting, primary = locate(c, r, "half", "p")
+    replica = next(o for o in acting if o != primary)
+    c.osds[replica].store.queue_transaction(
+        STORE[kind].Transaction().remove(ECB[kind].pg_cid(pg),
+                                         STORE[kind].ObjectId("half")))
+    out = {"repair": scrub(r, pid, pg.ps, repair=True)}
+    c.pump()
+    out["replicas"] = replica_sums(c, pg, acting, "half")
+    out["copy"] = c.osds[replica].pgs[pg].shard.read("half")
+    return out
+
+
 SCENARIOS = {
+    "replicated_corrupt_repair": replicated_corrupt_repair,
+    "replicated_missing_copy": replicated_missing_copy,
     "clean": clean_scrub,
     "corrupt_repair_verify": corrupt_repair_verify,
     "unrepairable": unrepairable,
@@ -254,6 +312,21 @@ def test_expected_outcomes():
     assert out["after"]["inconsistent"] == []
     out = run("port", second_scrub_busy)
     assert [f[1] for f in out["futures"]] == ["", "EBUSY"]
+
+
+def test_replicated_expected_outcomes():
+    """The replicated scenarios reach their branches."""
+    out = run("port", replicated_corrupt_repair)
+    assert out["detect"] == {"inconsistent": ["victim"], "repaired": 0,
+                             "unrepairable": []}
+    assert out["bad"] == b"CORRUPT!"
+    assert out["repair"] == {"inconsistent": ["victim"], "repaired": 1,
+                             "unrepairable": [], "verified": True}
+    assert out["rescrub"]["inconsistent"] == []
+    assert out["restored"] and out["read_equal"]
+    out = run("port", replicated_missing_copy)
+    assert out["repair"]["inconsistent"] == ["half"]
+    assert out["copy"] == b"h" * 1024
 
 
 def test_repair_kernel_fault_propagates(monkeypatch):

@@ -1,8 +1,9 @@
 """The port's scrub scheduler held to the reference's, tick for tick.
 
-tests/test_scrub_sched.py's four cases, moved onto an erasure pool (the
-port instantiates only EC placement groups): `tpu` k=2 m=1 over 4 OSDs,
-pg_num 4, with the reference's shortened intervals
+tests/test_scrub_sched.py's four cases as written there, on its
+replicated pool (pg_num 4 over 4 OSDs), and again on an erasure pool:
+`tpu` k=2 m=1 over 4 OSDs, pg_num 4, with the reference's shortened
+intervals
 (`osd_scrub_min_interval` 30 s, `osd_deep_scrub_interval` 60 s), set in
 both packages' configs and restored afterwards.  Each case runs on
 `ceph_tpu.testing.MiniCluster(threaded=False)` and on
@@ -13,8 +14,9 @@ the same simulated clock, and the test compares at tolerance 0:
   stamp's jitter is `hash((pool, ps)) % 1000`, which does not depend on
   PYTHONHASHSEED, so both schedules agree tick for tick);
 * each OSD's reservation peaks, which stay within `osd_max_scrubs`;
-* a bitrotted shard auto-repaired and verified with no `pg_scrub`
-  call: the shard's sha256 equal to its value before the rot, in both;
+* a bitrotted replica or shard auto-repaired and verified with no
+  `pg_scrub` call: its sha256 equal to its value before the rot, in
+  both;
 * an operator repair's result dict with `verified`.
 """
 import hashlib
@@ -52,18 +54,21 @@ def sim_intervals():
             CONFIG[kind]().set(k, v)
 
 
-def make(kind: str):
+def make(kind: str, replicated: bool = False):
     c = RefCluster(n_osd=4, threaded=False) if kind == "ref" else \
         PortCluster(n_osd=4, threaded=False, device="cpu")
     c.pump()
     c.wait_all_up()
     r = c.rados()
-    r.mon_command({"prefix": "osd erasure-code-profile set",
-                   "name": "k2m1",
-                   "profile": {"plugin": "tpu", "k": "2", "m": "1",
-                               "crush-failure-domain": "host"}})
-    r.pool_create("p", pg_num=4, pool_type="erasure",
-                  erasure_code_profile="k2m1")
+    if replicated:
+        r.pool_create("p", pg_num=4)
+    else:
+        r.mon_command({"prefix": "osd erasure-code-profile set",
+                       "name": "k2m1",
+                       "profile": {"plugin": "tpu", "k": "2", "m": "1",
+                                   "crush-failure-domain": "host"}})
+        r.pool_create("p", pg_num=4, pool_type="erasure",
+                      erasure_code_profile="k2m1")
     c.pump()
     return c, r
 
@@ -94,14 +99,22 @@ def peaks(c) -> dict:
             for osd, d in sorted(c.osds.items())}
 
 
+def soid(kind, c, pg, oid, idx):
+    """The stored object: the shard on an EC pool, the whole replica on
+    a replicated one."""
+    ec = c.mon.osdmap.pools[pg.pool].type == 3      # erasure
+    return STORE[kind].ObjectId(oid, shard=idx) if ec \
+        else STORE[kind].ObjectId(oid)
+
+
 def shard_sum(kind, c, pg, osd, idx, oid) -> str:
     data = c._stores[osd].read(ECB[kind].pg_cid(pg),
-                               STORE[kind].ObjectId(oid, shard=idx), 0, 0)
+                               soid(kind, c, pg, oid, idx), 0, 0)
     return hashlib.sha256(data).hexdigest()
 
 
-def run(kind: str, scenario) -> dict:
-    c, r = make(kind)
+def run(kind: str, scenario, replicated: bool = False) -> dict:
+    c, r = make(kind, replicated)
     try:
         return scenario(kind, c, r)
     finally:
@@ -141,7 +154,7 @@ def bitrot_no_operator(kind, c, r):
     idx = acting.index(replica)
     good = shard_sum(kind, c, pg, replica, idx, "victim")
     c.osds[replica].store.queue_transaction(STORE[kind].Transaction().write(
-        ECB[kind].pg_cid(pg), STORE[kind].ObjectId("victim", shard=idx), 0,
+        ECB[kind].pg_cid(pg), soid(kind, c, pg, "victim", idx), 0,
         b"BITROT!!"))
     rotted = shard_sum(kind, c, pg, replica, idx, "victim")
     t = run_idle(c, 3000.0, 4)
@@ -165,7 +178,7 @@ def manual_scrub_verified(kind, c, r):
     idx = acting.index(replica)
     good = shard_sum(kind, c, pg, replica, idx, "manual")
     c.osds[replica].store.queue_transaction(STORE[kind].Transaction().write(
-        ECB[kind].pg_cid(pg), STORE[kind].ObjectId("manual", shard=idx), 0,
+        ECB[kind].pg_cid(pg), soid(kind, c, pg, "manual", idx), 0,
         b"ROT"))
     res = r.pg_scrub(pid, pg.ps, repair=True)
     c.pump()
@@ -188,6 +201,34 @@ def test_scheduler_equals_reference(name):
     ref = run("ref", SCENARIOS[name])
     port = run("port", SCENARIOS[name])
     assert port == ref
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_replicated_scheduler_equals_reference(name):
+    """tests/test_scrub_sched.py's own pool: replicated, pg_num 4."""
+    ref = run("ref", SCENARIOS[name], replicated=True)
+    port = run("port", SCENARIOS[name], replicated=True)
+    assert port == ref
+
+
+def test_replicated_expected_outcomes():
+    """tests/test_scrub_sched.py's assertions on the port's replicated
+    pool."""
+    out = run("port", idle_cluster_scrubs_itself, replicated=True)
+    assert out["seeded"]
+    for key, (last, _deep) in out["seeded"].items():
+        assert out["after"][key][0] > last, f"pg {key} never auto-scrubbed"
+    out = run("port", respects_max_scrubs, replicated=True)
+    assert all(loc <= out["limit"] and rem <= out["limit"]
+               for loc, rem in out["peaks"].values())
+    assert any(rem >= 1 for _loc, rem in out["peaks"].values())
+    out = run("port", bitrot_no_operator, replicated=True)
+    assert out["rotted"] and out["repaired"] and out["read_equal"]
+    assert out["idle"]
+    out = run("port", manual_scrub_verified, replicated=True)
+    assert out["result"] == {"inconsistent": ["manual"], "repaired": 1,
+                             "unrepairable": [], "verified": True}
+    assert out["repaired"] and out["read_equal"]
 
 
 def test_idle_cluster_scrubs_itself():

@@ -1,7 +1,8 @@
 """The port's secure wire mode (ceph_tpu_torch.msg.secure and the sealed
 frames of ceph_tpu_torch.msg.tcp), mirroring the reference's
 tests/test_secure_wire.py case for case (the cluster case on an EC
-k=2 m=1 pool over 4 OSDs, as the port instantiates only EC PGs), plus
+k=2 m=1 pool over 4 OSDs, where the reference's uses a replicated
+one), plus
 the cross-package checks: a frame the port seals opens in the
 reference and the reverse, for the raw session and the per-connection
 KEX protocol, and the sealing is byte-for-byte the reference's under

@@ -1,6 +1,7 @@
 """The port's TCP transport (ceph_tpu_torch.msg.tcp), mirroring the
 reference's tests/test_tcp.py (the cluster case on an EC k=2 m=1 pool
-over 4 OSDs, as the port instantiates only EC PGs; the multi-process
+over 4 OSDs, where the reference's uses a replicated one; the
+multi-process
 case is tests/test_torch_daemon_main.py's), plus the cross-package
 checks: the frames a port endpoint puts on the wire equal the
 reference's byte for byte, plain and compressed; a port TcpMessenger and

@@ -78,8 +78,10 @@ def test_port_registers_the_data_plane_structs():
         "PingReply",
         # the cephx handshake
         "MAuthRequest", "MAuthReply",
-        # the EC scrub
-        "ScrubReserve", "ScrubMapRequest", "ScrubMapReply"}
+        # the scrub
+        "ScrubReserve", "ScrubMapRequest", "ScrubMapReply",
+        # the replicated pools
+        "RepOpWrite", "RepOpReply", "PGMissingReply", "PGPull"}
     ref_schema = ref_wire.registered_schema()
     for name, schema in wire.registered_schema().items():
         assert schema == ref_schema[name], name
