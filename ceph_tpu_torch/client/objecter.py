@@ -29,9 +29,9 @@ from ..common.lockdep import make_lock
 from ..common.log import dout
 from ..common.options import global_config
 from ..common.tracing import Tracer, child_of, current_trace, new_trace
-from ..msg.messages import (MAuthReply, MMap, MMonCommand,
-                            MMonCommandAck, MMonSubscribe, OSDOp,
-                            OSDOpReply)
+from ..msg.messages import (MAuthReply, MGR_UNAVAILABLE_EAGAIN, MMap,
+                            MMonCommand, MMonCommandAck, MMonSubscribe,
+                            OSDOp, OSDOpReply)
 from ..msg.mon_client import MonHunter
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..osd.osdmap import OSDMap
@@ -473,8 +473,14 @@ class Objecter(Dispatcher, MonHunter):
         """Synchronous mon command round-trip.  EAGAIN (-11) answers
         are retried until the deadline: the reference MonClient
         resends commands after an election rather than surfacing the
-        churn to every caller."""
-        deadline = time.monotonic() + timeout
+        churn to every caller.  Mgr-unavailable EAGAINs
+        (MGR_UNAVAILABLE_EAGAIN outs) get only a short grace: it
+        absorbs the fire-and-forget `mgr register` racing a command
+        issued right after mgr start, but a cluster with no mgr at
+        all must answer fast, not spin out the whole deadline."""
+        now = time.monotonic()
+        deadline = now + timeout
+        mgr_deadline = now + min(timeout, 1.0)
         # EAGAIN pacing: an election storm answers every resend with
         # -11; a fixed 0.1s retry re-probed in lockstep with the
         # churn (shared capped-exponential helper instead)
@@ -493,7 +499,11 @@ class Objecter(Dispatcher, MonHunter):
                 raise TimeoutError(
                     f"mon command {cmd.get('prefix')} timed out")
             if slot["r"] == -11:
-                if time.monotonic() < deadline:
+                retry_until = deadline
+                if str(slot["outs"] or "").startswith(
+                        MGR_UNAVAILABLE_EAGAIN):
+                    retry_until = mgr_deadline
+                if time.monotonic() < retry_until:
                     if self.pump_hook is not None:
                         self.pump_hook()   # pump-mode: drive the
                         # election forward instead of sleeping blind

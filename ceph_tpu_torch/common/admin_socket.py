@@ -10,10 +10,10 @@ newline-delimited JSON request {"prefix": ...} -> JSON reply
 Daemons register command handlers; `admin_command()` is the client
 (the `ceph daemon` CLI analogue).
 
-The port's copy of `ceph_tpu.common.admin_socket`, whole, plus
-`register_obs_commands` (the op tracker's dumps, which the reference
-keeps in common/obs.py); the port's mon and OSD daemons register their
-commands on it (`start_admin_socket`).
+The port's copy of `ceph_tpu.common.admin_socket`, whole; the port's
+mon, OSD and mgr daemons register their commands on it
+(`start_admin_socket`), the op tracker's dumps through
+`common/obs.py`.
 """
 from __future__ import annotations
 
@@ -114,27 +114,6 @@ class AdminSocket:
                 rc, out = -22, f"{type(ex).__name__}: {ex}"
         conn.sendall(json.dumps({"rc": rc, "out": out},
                                 default=str).encode() + b"\n")
-
-
-def register_obs_commands(asok: AdminSocket, tracker,
-                          tracer=None) -> None:
-    """The op tracker's dumps (and, given a tracer, its finished spans)
-    on a daemon's admin socket (ref: OSD.cc / Monitor.cc asok
-    registration of dump_ops_in_flight and friends; the reference keeps
-    this in common/obs.py)."""
-    asok.register("dump_ops_in_flight", "ops currently executing",
-                  lambda c: (0, tracker.dump_in_flight()))
-    asok.register("dump_historic_ops", "recently completed ops",
-                  lambda c: (0, tracker.dump_historic()))
-    asok.register("dump_historic_slow_ops",
-                  "recently completed ops over the complaint age",
-                  lambda c: (0, tracker.dump_historic_slow()))
-    asok.register("dump_blocked_ops", "ops over the complaint age",
-                  lambda c: (0, tracker.slow_ops()))
-    if tracer is not None:
-        asok.register("dump_traces", "finished blkin spans "
-                      "(optionally trace_id=...)",
-                      lambda c: (0, tracer.dump(c.get("trace_id"))))
 
 
 def admin_command(path: str, cmd: dict | str,

@@ -23,7 +23,9 @@ configures both packages:
   `osd_op_history_size`) and `blkin_trace_all`;
 * the scrub scheduler's (`osd_scrub_auto`, `osd_scrub_min_interval`,
   `osd_deep_scrub_interval`, `osd_max_scrubs`,
-  `osd_scrub_auto_repair`).
+  `osd_scrub_auto_repair`);
+* the mgr's: the pg_autoscaler's `mon_target_pg_per_osd` and the mon's
+  `mon_mgr_health_grace`, which expires a silent mgr's module health.
 
 Every other option of the reference's schema configures code the port
 does not have, and is not read here.
@@ -201,6 +203,13 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
     Option("blkin_trace_all", T.BOOL, L.DEV, False,
            "trace every client op with distributed spans",
            runtime=True),
+    Option("mon_target_pg_per_osd", T.UINT, L.ADVANCED, 100,
+           "pg_autoscaler target PG replicas per OSD", runtime=True),
+    Option("mon_mgr_health_grace", T.SECS, L.ADVANCED, 60.0,
+           "expire mgr-module health checks (RECENT_CRASH, "
+           "DEVICE_HEALTH...) not re-reported within this window — a "
+           "dead mgr's last report must not warn forever (0 = never "
+           "expire)", runtime=True),
 ]}
 
 

@@ -17,8 +17,13 @@ publication, boot and failure reports, pg_temp requests, pg-stat
 reports and the tick's down-out.  Left out: the elector, leases and
 the peon paths of a multi-mon quorum; the ConfigMonitor, LogMonitor,
 MDSMonitor and CrashService (so `config` subscriptions get no MConfig
-and cluster-log events go to the local log only); mgr command
-proxying and the synchronous `handle_command`.  With a `keyring` it
+and cluster-log events go to the local log only).  The mon's side of
+the mgr is here: `mgr register` names the active mgr, module commands
+(telemetry, insights) are proxied to it as `MMgrCommand` and its reply
+relayed (EAGAIN when none is registered or its connection resets),
+and `mgr health report` merges the mgr's module health into `health`
+until `mon_mgr_health_grace` passes.  `handle_command` is the
+synchronous command path.  With a `keyring` it
 runs the cephx key server and verifies inbound traffic;
 `start_admin_socket` serves status, health, df, pg_stat,
 quorum_status, perf dump, config show and the op tracker's dumps.
@@ -33,6 +38,7 @@ the reference's single mon never hears from them again.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from collections import deque
 
@@ -44,10 +50,10 @@ from ..common.racecheck import shared_state
 from ..common.tracked_op import OpTracker
 from ..crush.wrapper import CrushWrapper
 from ..common.perf_counters import PerfCounters
-from ..msg.messages import (MAuthRequest, MMap, MMonCommand,
-                            MMonCommandAck,
-                            MMonSubscribe, MOSDBoot, MOSDFailure,
-                            MOSDPGTemp, MPGStats)
+from ..msg.messages import (MGR_UNAVAILABLE_EAGAIN, MAuthRequest, MMap,
+                            MMgrCommand, MMgrCommandReply, MMonCommand,
+                            MMonCommandAck, MMonSubscribe, MOSDBoot,
+                            MOSDFailure, MOSDPGTemp, MPGStats)
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..osd.osdmap import (CEPH_OSD_AUTOOUT, CEPH_OSD_EXISTS, CEPH_OSD_IN,
                           CEPH_OSD_UP, OSDMap)
@@ -77,7 +83,8 @@ def build_initial(n_osd: int, osds_per_host: int = 1
 # the down-out table is shared between the dispatch thread (failure
 # reports) and the tick thread (auto-out) — racecheck asserts both
 # sides hold self._lock
-@shared_state(only=("_down_stamp",), mutating=("_down_stamp",))
+@shared_state(only=("_down_stamp", "_module_health"),
+              mutating=("_down_stamp", "_module_health"))
 class Monitor(Dispatcher):
     """mon.<rank> (ref: src/mon/Monitor.h:201)."""
 
@@ -114,6 +121,17 @@ class Monitor(Dispatcher):
         self._subs: dict[str, int] = {}
         # failure reports: target osd -> {reporter: stamp}
         self._failure_reports: dict[int, dict[int, float]] = {}
+        # active mgr (volatile, re-registered every mgr tick): the
+        # routing target for mgr-module commands (ref: MgrMonitor's
+        # active mgr tracking)
+        self._active_mgr: str | None = None
+        # in-flight mgr-proxied commands: tid -> client reply callback
+        self._mgr_proxy: dict[int, object] = {}
+        self._proxy_tids = itertools.count(1)
+        # volatile mgr-module health + its report stamp (expired after
+        # mon_mgr_health_grace so a dead mgr's warnings don't persist)
+        self._module_health: dict[str, dict] = {}
+        self._module_health_stamp: float | None = None
         # cluster statistics digest (ref: src/mon/PGMap.h)
         self.pgmap = PGMap()
         self._down_stamp: dict[int, float] = {}
@@ -152,7 +170,8 @@ class Monitor(Dispatcher):
     def start_admin_socket(self, path: str) -> None:
         """`ceph daemon mon.N <cmd>` endpoint
         (ref: Monitor::do_admin_command)."""
-        from ..common.admin_socket import AdminSocket, register_obs_commands
+        from ..common.admin_socket import AdminSocket
+        from ..common.obs import register_obs_commands
         a = AdminSocket(path)
 
         def _via_preprocess(prefix):
@@ -212,7 +231,23 @@ class Monitor(Dispatcher):
                     kb_used=msg.kb_used, kb_avail=msg.kb_avail,
                     perf=msg.perf, slow_ops=dict(msg.slow_ops or {})))
                 return True
+            if isinstance(msg, MMgrCommandReply):
+                cb = self._mgr_proxy.pop(msg.tid, None)
+                if cb is not None:
+                    cb(msg.result, msg.outs, msg.outb)
+                return True
         return False
+
+    def ms_handle_reset(self, peer: str) -> None:
+        with self._lock:
+            if peer and peer == self._active_mgr:
+                # the active mgr died: fail its in-flight proxied
+                # commands fast instead of letting clients time out
+                self._active_mgr = None
+                for tid in list(self._mgr_proxy):
+                    cb = self._mgr_proxy.pop(tid)
+                    cb(-11, MGR_UNAVAILABLE_EAGAIN
+                       + "active mgr went away", None)
 
     # -------------------------------------------------------- commands
     def _handle_wire_command(self, cmdmap: dict, client: str,
@@ -235,7 +270,13 @@ class Monitor(Dispatcher):
     def _dispatch_command(self, cmdmap: dict, reply_cb) -> None:
         """preprocess locally; stage writes through the change queue
         (ref: Monitor::dispatch_op -> the OSD monitor's preprocess /
-        prepare split)."""
+        prepare split).  Mgr-module prefixes (telemetry/insights) proxy
+        to the registered active mgr instead (ref: the MgrMonitor
+        routing of module commands)."""
+        pfx = str(cmdmap.get("prefix", ""))
+        if pfx.split(" ", 1)[0] in ("telemetry", "insights"):
+            self._proxy_to_mgr(cmdmap, reply_cb)
+            return
         res = self._preprocess_mon_command(cmdmap)
         if res is not None:
             reply_cb(*res)
@@ -252,6 +293,26 @@ class Monitor(Dispatcher):
         self._submit_change(
             lambda: svc.prepare_command(cmdmap), reply_cb, svc)
 
+    def _proxy_to_mgr(self, cmdmap: dict, reply_cb) -> None:
+        """Relay a mgr-module command to the active mgr; its reply
+        (MMgrCommandReply) comes back HERE and we ack the client over
+        our learned connection — the mgr may have no route to an
+        ad-hoc client entity (ref: MgrMonitor + MCommand routing)."""
+        if self._active_mgr is None:
+            reply_cb(-11, MGR_UNAVAILABLE_EAGAIN + "no active mgr",
+                     None)
+            return
+        tid = next(self._proxy_tids)
+        self._mgr_proxy[tid] = reply_cb
+        ok = self.ms.connect(self._active_mgr).send_message(
+            MMgrCommand(tid=tid, cmd=dict(cmdmap)))
+        # a failed send resets synchronously (ms_handle_reset already
+        # failed every proxied tid, including this one)
+        if not ok and self._mgr_proxy.pop(tid, None) is not None:
+            self._active_mgr = None
+            reply_cb(-11, MGR_UNAVAILABLE_EAGAIN
+                     + "active mgr unreachable", None)
+
     # ------------------------------------------- cluster-level commands
     # (ref: Monitor::handle_command's mon-level table — `ceph -s`
     #  Monitor.cc get_cluster_status, health get_health, df from PGMap)
@@ -260,6 +321,25 @@ class Monitor(Dispatcher):
 
     def _preprocess_mon_command(self, cmdmap: dict):
         prefix = cmdmap.get("prefix", "")
+        if prefix == "mgr register":
+            # the active mgr announces itself (volatile; re-sent every
+            # mgr tick) — the routing target for telemetry/insights
+            # command proxying (ref: MgrMonitor beacon handling)
+            self._active_mgr = str(cmdmap.get("name", "")) or None
+            return 0, "", None
+        if prefix == "mgr health report":
+            # volatile module health (devicehealth etc.) — replaces
+            # the previous report wholesale so cleared checks vanish,
+            # and STAMPED so a dead mgr's last report expires after
+            # mon_mgr_health_grace instead of warning forever
+            self._module_health = {
+                str(k): {"severity": str(v.get("severity",
+                                               "HEALTH_WARN")),
+                         "summary": str(v.get("summary", "")),
+                         "detail": list(v.get("detail", []))}
+                for k, v in dict(cmdmap.get("checks", {})).items()}
+            self._module_health_stamp = self.clock()
+            return 0, "", None
         if prefix == "osd perf dump":
             # per-daemon counters as last reported (ref: DaemonState
             # perf_counters aggregation in src/mgr/)
@@ -282,6 +362,16 @@ class Monitor(Dispatcher):
             self.osdmap, self.pgmap, self.quorum(), self.mon_ranks,
             now, stale_after=global_config()
             ["mon_osd_stale_report_grace"], pgs=pgs, slow_ops=slow)
+        # mgr-module health reports merge in (ref: MgrStatMonitor's
+        # health contributions — volatile here rather than paxos'd:
+        # the mgr re-reports every tick).  A report older than
+        # mon_mgr_health_grace is a dead mgr's leftovers: it must not
+        # warn forever (0 = never expire).
+        grace = global_config()["mon_mgr_health_grace"]
+        if self._module_health_stamp is not None and \
+                (grace <= 0 or
+                 now - self._module_health_stamp <= grace):
+            checks.update(self._module_health)
         # own thread-liveness watchdog (ref: "heartbeat_map is_healthy
         # ... had timed out")
         checks.update(self.hbmap.health_check())
@@ -333,6 +423,19 @@ class Monitor(Dispatcher):
                          self.pgmap.df(pgs, up).items()
                          if k != "pools"}},
         }
+
+    def handle_command(self, cmdmap: dict) -> tuple[int, str, object]:
+        """Synchronous command path (tests/CLI): one rank is its own
+        quorum, so a write completes inline."""
+        slot: dict = {}
+        with self._lock:
+            self._dispatch_command(
+                cmdmap, lambda r, outs, outb: slot.update(
+                    r=r, outs=outs, outb=outb))
+        if "r" not in slot:
+            raise RuntimeError(
+                "command awaits a commit; use the wire path")
+        return slot["r"], slot["outs"], slot["outb"]
 
     # ---------------------------------------------- serialized changes
     def _submit_change(self, stage, reply_cb=None, svc=None) -> None:

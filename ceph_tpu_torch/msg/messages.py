@@ -11,9 +11,11 @@ order), so a frame written by either package decodes in the other.
 The scrub family (`ScrubReserve`, `ScrubMapRequest`, `ScrubMapReply`)
 carries both pool types' scrub; the replicated sub-ops (`RepOpWrite`,
 `RepOpReply`) and the replicated peering's `PGMissingReply` and `PGPull`
-carry the replicated pools.  Left out with the services that send them:
-snap trim, MDS/fs, config and cluster-log, mgr, mon quorum (election,
-lease, forward, sync request) and watch/notify messages.
+carry the replicated pools; `MMgrCommand` and `MMgrCommandReply` carry a
+mgr-module command the mon proxies to the active mgr.  Left out with the
+services that send them: snap trim, MDS/fs, config and cluster-log, mon
+quorum (election, lease, forward, sync request) and watch/notify
+messages.
 """
 from __future__ import annotations
 
@@ -422,6 +424,36 @@ class MMonCommandAck(Message):
     result: int = 0
     outs: str = ""                  # human output
     outb: Any = None                # data payload
+
+
+# outs prefix on every -11 the mon emits for mgr-module commands when
+# no live mgr can serve them ("no active mgr" / "went away" /
+# "unreachable").  Unlike election-churn EAGAINs there is no quorum
+# event the client can wait out, so the objecter gives these only a
+# short registration grace instead of its full command deadline.
+MGR_UNAVAILABLE_EAGAIN = "EAGAIN(mgr): "
+
+
+@dataclass
+class MMgrCommand(Message):
+    """Mon -> active mgr: a client command owned by a mgr module
+    (telemetry/insights), proxied by the mon that received it (ref:
+    src/messages/MCommand.h routed via the MgrMonitor's active mgr).
+    The mgr answers the MON (MMgrCommandReply) which relays the ack to
+    the client over its learned connection — the mgr may have no route
+    of its own to an ad-hoc client entity."""
+    tid: int = 0
+    cmd: dict = field(default_factory=dict)
+
+
+@dataclass
+class MMgrCommandReply(Message):
+    """Active mgr -> proxying mon: module command result
+    (ref: src/messages/MCommandReply.h)."""
+    tid: int = 0
+    result: int = 0
+    outs: str = ""
+    outb: Any = None
 
 
 @dataclass

@@ -27,11 +27,19 @@ builds lives on its `device` (cuda unless the caller passes
 a queued recovery item that raises is logged as in the reference and
 also counted in the `queued_op_failures` perf counter; and a pull that
 finds no PG view to push from is dropped as in the reference and also
-counted in `recovery_push_errors`.  Left out: snap trim and the snapshot
-ops (`rollback`, `list_snaps`), object classes (`exec`), watch/notify (a
-client op the daemon does not carry answers EINVAL), PG split on pg_num
-growth, crash capture, the cluster-log client (a scrub result goes to
-the debug log only), centralized config and the heartbeat mute hook.
+counted in `recovery_push_errors`.  A pool's pg_num growth splits the
+PGs this OSD holds in place (`_split_pgs`: objects, their durable log
+entries and snap index move to the child collections in one transaction
+per parent), and a later pgp_num growth reseeds placement, which the
+peering statecharts chase from the prior interval's holders.  One thing
+is the port's own: the daemon keeps each placement seed's raw CRUSH
+result across epochs that leave the CRUSH inputs alone (`_pg_mapping`),
+where the reference maps every PG again on every epoch; the mappings
+are the same.  Left out: snap trim and the snapshot ops (`rollback`,
+`list_snaps`), object classes (`exec`), watch/notify (a client op the
+daemon does not carry answers EINVAL), crash capture, the cluster-log
+client (a scrub result goes to the debug log only), centralized config
+and the heartbeat mute hook.
 With a `keyring` the daemon signs its traffic and verifies inbound
 (cephx); `start_admin_socket` serves perf dump, status, config
 show/get/set and the op tracker's dumps.
@@ -75,6 +83,7 @@ from ..msg.messages import (BackfillReserve, ECSubRead, ECSubReadReply,
                             PGScan, PGScanReply, Ping, PingReply,
                             RepOpReply, RepOpWrite, ScrubMapReply,
                             ScrubMapRequest, ScrubReserve)
+from ..msg import encoding as wire
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..msg.mon_client import MonHunter
 from ..store import MemStore, StoreError, Transaction
@@ -84,12 +93,14 @@ from .ec_backend import (ECBackend, ECPGShard, ec_store_inventory,
 from .ec_peering import ECPGPeering, ECRollbacker
 from .mutations import MutationError
 from .op_queue import MClockQueue
-from .osdmap import OSDMap
+from .osdmap import CEPH_OSD_EXISTS, OSDMap
 from .peering import (CLEAN, GETINFO, GETLOG, GETMISSING, PGPeering,
                       StoreRollbacker, _ev)
 from .pg_log import IndexedLog, LogEntryHandler
 from .pg_types import ZERO_VERSION, EVersion
-from .replicated_backend import ReplicatedBackend, ReplicatedPGShard
+from .replicated_backend import (PGMETA, _TAIL_KEY, ReplicatedBackend,
+                                 ReplicatedPGShard, _log_key)
+from .snap_mapper import SnapMapper
 from .types import PG, POOL_TYPE_ERASURE, cbits, ceph_stable_mod
 
 #: errno-name -> numeric result for client replies (ref: the rc values
@@ -187,6 +198,11 @@ class OSDDaemon(Dispatcher, MonHunter):
         # peering; see _prior_acting_for)
         self._acting_hist: dict[PG, list[int]] = {}
         self._acting_hist_pgnum: dict[int, int] = {}
+        self._pool_pg_num: dict[int, int] = {}   # split detection
+        # raw CRUSH results by (pool, pps) and the inputs they hold for
+        # (see _pg_mapping)
+        self._raw_cache: dict = {}
+        self._raw_inputs: tuple = ()
         self._ecs: dict[str, object] = {}     # profile name -> plugin
         # shared across backend rebuilds: stale sub-replies must never
         # alias a new op's tid
@@ -299,7 +315,8 @@ class OSDDaemon(Dispatcher, MonHunter):
     def start_admin_socket(self, path: str) -> None:
         """`ceph daemon osd.N <cmd>` endpoint
         (ref: OSD::asok_command src/osd/OSD.cc:2712)."""
-        from ..common.admin_socket import AdminSocket, register_obs_commands
+        from ..common.admin_socket import AdminSocket
+        from ..common.obs import register_obs_commands
         a = AdminSocket(path)
 
         def _perf_dump(c):
@@ -660,6 +677,77 @@ class OSDDaemon(Dispatcher, MonHunter):
             self._ecs[profile_name] = ec
         return ec
 
+    def _split_pgs(self) -> None:
+        """PG splitting: when a pool's pg_num grows (pg_autoscaler or
+        operator), locally re-home objects whose placement seed now
+        folds to a child PG (ref: OSD.cc split handling /
+        PG::split_colls — the reference splits collections the same
+        way; cross-OSD placement then converges via normal peering/
+        recovery)."""
+        m = self.osdmap
+        for pool_id, pool in m.pools.items():
+            old = self._pool_pg_num.get(pool_id)
+            self._pool_pg_num[pool_id] = pool.pg_num
+            if old is None or pool.pg_num <= old:
+                continue
+            replicated = pool.type != POOL_TYPE_ERASURE
+            prefix = f"pg_{pool_id}."
+            for cid in list(self.store.list_collections()):
+                if not cid.startswith(prefix):
+                    continue
+                try:
+                    ps = int(cid[len(prefix):], 16)
+                except ValueError:
+                    continue
+                # one batched transaction per source collection: a
+                # per-object txn would fsync the KV WAL once per moved
+                # object on BlueStore
+                txn = Transaction()
+                made: set[str] = set()
+                moved_to: dict[str, str] = {}     # oid -> child cid
+                for oid in list(self.store.collection_list(cid)):
+                    if oid.name == "pgmeta":
+                        continue
+                    raw = m.object_locator_to_pg(oid.name, pool_id)
+                    child = pool.raw_pg_to_pg(raw)
+                    if child.ps == ps:
+                        continue
+                    ccid = f"pg_{child}"
+                    if ccid not in made and \
+                            not self.store.collection_exists(ccid):
+                        txn.create_collection(ccid)
+                        made.add(ccid)
+                    txn.collection_move_rename(cid, oid, ccid, oid)
+                    moved_to[oid.name] = ccid
+                if moved_to:
+                    self._split_pg_log(PG(pool_id, ps), txn, moved_to)
+                    if replicated:
+                        # snap index + purged cursor follow their
+                        # objects (the snap-mapper leg of
+                        # PG::split_into)
+                        SnapMapper(self.store, cid).split_keys(
+                            txn, moved_to)
+                if not txn.empty():
+                    self.store.queue_transaction(txn)
+
+    def _pg_mapping(self, pg: PG) -> tuple[list[int], int, list[int], int]:
+        """`self.osdmap.pg_to_up_acting_osds(pg)`, keeping the raw CRUSH
+        result of each placement seed across epochs that leave the CRUSH
+        inputs alone.  A pgp_num reseed, a balancer round or a thrash
+        brings a burst of pg_temp, upmap and up/down epochs, on each of
+        which every PG of the map is mapped again, and the scalar CRUSH
+        is nearly all of that cost.  `OSDMap.ingest` changes the weights
+        and states in place, so the inputs are copied and compared by
+        value: the CRUSH map, the pools, the OSD weights and which OSDs
+        exist."""
+        m = self.osdmap
+        inputs = (m.crush, tuple(m.pools.items()), tuple(m.osd_weight),
+                  tuple(s & CEPH_OSD_EXISTS for s in m.osd_state))
+        if inputs != self._raw_inputs:
+            self._raw_inputs = inputs
+            self._raw_cache = {}
+        return m.pg_to_up_acting_osds(pg, raw_cache=self._raw_cache)
+
     def _prior_acting_for(self, pg: PG) -> list[int]:
         """The previous interval's acting set for `pg` from the
         acting-set cache the last _update_pgs pass recorded — the
@@ -679,21 +767,68 @@ class OSDDaemon(Dispatcher, MonHunter):
         parent = PG(pg.pool, ceph_stable_mod(pg.ps, old_pg_num, mask))
         return list(self._acting_hist.get(parent, []))
 
+    def _split_pg_log(self, parent: PG, txn: Transaction,
+                      moved_to: dict[str, str]) -> None:
+        """Split the parent's durable pg_log along with its objects
+        (ref: PG::split_into splitting the log): each child gets the
+        entries of the objects it received plus the parent's tail, so
+        every acting member computes identical child log bounds and
+        peering sees real history instead of empty logs."""
+        pool = self.osdmap.pools.get(parent.pool)
+        st = self.pgs.get(parent)
+        if pool is not None and pool.type == POOL_TYPE_ERASURE:
+            # the durable EC shard log shares the pgmeta key format
+            shard = self._ec_view(parent)
+        elif st is not None and isinstance(st.shard,
+                                           ReplicatedPGShard):
+            shard = st.shard
+        else:
+            shard = ReplicatedPGShard(parent, self.store, create=False)
+        log = shard.pg_log.log
+        if not log.entries and log.tail == log.head:
+            return
+        by_child: dict[str, list] = {}
+        keep = []
+        for e in log.entries:
+            ccid = moved_to.get(e.soid)
+            if ccid is None:
+                keep.append(e)
+            else:
+                by_child.setdefault(ccid, []).append(e)
+        for ccid, entries in by_child.items():
+            txn.touch(ccid, PGMETA)
+            txn.omap_setkeys(ccid, PGMETA, dict(
+                {_log_key(e.version): wire.encode(e) for e in entries},
+                **{_TAIL_KEY: wire.encode(log.tail)}))
+        # children that received objects but no log entries still need
+        # the tail marker so their info reflects the parent's history
+        for ccid in set(moved_to.values()) - set(by_child):
+            txn.touch(ccid, PGMETA)
+            txn.omap_setkeys(ccid, PGMETA,
+                             {_TAIL_KEY: wire.encode(log.tail)})
+        if len(keep) != len(log.entries):
+            gone = [e for e in log.entries if e.soid in moved_to]
+            txn.omap_rmkeys(f"pg_{parent}", PGMETA,
+                            [_log_key(e.version) for e in gone])
+            log.entries = keep
+            log.index()
+
     def _update_pgs(self) -> None:
         """Instantiate/refresh services for PGs mapped onto this OSD
-        (ref: OSD.cc consume_map -> instantiate PGs).  Membership
-        includes the UP set: an up-but-not-acting OSD is a backfill
-        target that must hold live PG state to receive pushes and
-        cursor-gated writes (the pg_temp case where the old set serves
-        while the new up set fills)."""
+        (ref: OSD.cc consume_map -> split/instantiate PGs).
+        Membership includes the UP set: an up-but-not-acting OSD is a
+        backfill target that must hold live PG state to receive pushes
+        and cursor-gated writes (the pg_temp case where the old set
+        serves while the new up set fills)."""
         m = self.osdmap
+        self._split_pgs()
         seen: set[PG] = set()
         acting_now: dict[PG, list[int]] = {}
         for pool_id, pool in m.pools.items():
             replicated = pool.type != POOL_TYPE_ERASURE
             for ps in range(pool.pg_num):
                 pg = PG(pool_id, ps)
-                up, up_p, acting, acting_p = m.pg_to_up_acting_osds(pg)
+                up, up_p, acting, acting_p = self._pg_mapping(pg)
                 acting = [-1 if o == CRUSH_ITEM_NONE else o
                           for o in acting]
                 up = [-1 if o == CRUSH_ITEM_NONE else o for o in up]
@@ -1248,7 +1383,7 @@ class OSDDaemon(Dispatcher, MonHunter):
                     continue
                 if pg in self.pgs:
                     continue
-                up, _, acting, ap = m.pg_to_up_acting_osds(pg)
+                up, _, acting, ap = self._pg_mapping(pg)
                 if self.whoami in list(up) + list(acting) or ap < 0 \
                         or ap >= CRUSH_ITEM_NONE:
                     continue
@@ -1285,7 +1420,7 @@ class OSDDaemon(Dispatcher, MonHunter):
         m = self.osdmap
         pool = m.pools.get(msg.pgid.pool)
         if pool is not None:
-            up, _, acting, _ = m.pg_to_up_acting_osds(msg.pgid)
+            up, _, acting, _ = self._pg_mapping(msg.pgid)
             if self.whoami in list(up) + list(acting):
                 return
         st = self.pgs.pop(msg.pgid, None)

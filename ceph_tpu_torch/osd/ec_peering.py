@@ -17,7 +17,10 @@ differ from the reference: only a plan error (`RepairPlanError`) or an
 `ErasureCodeError` sends a compiled repair to the full rebuild, or turns
 a full rebuild's decode into a failed job; a fault of K1's wrapper, its
 launch, its build or the device guard propagates.  Every full rebuild
-bumps the daemon's `recovery_full_rebuild` counter.
+bumps the daemon's `recovery_full_rebuild` counter.  A pgp_num reseed
+runs on the same path: each moved object's shards are gathered across
+the prior interval's holders (at least k of them), decoded and
+re-encoded, K1 on both legs.
 
 Phases (same names, shard-aware semantics):
 
@@ -821,8 +824,7 @@ class ECPGPeering:
         if self.bf_reserved_local:
             self.d.release_local_backfill(self.pg)
             self.bf_reserved_local = False
-        m = self.d.osdmap
-        up, _, acting, _ = m.pg_to_up_acting_osds(self.pg)
+        up, _, acting, _ = self.d._pg_mapping(self.pg)
         current = {o for o in list(up) + list(acting)
                    if 0 <= o < CRUSH_ITEM_NONE}
         if self.pg_temp_requested and self.d.whoami in current:

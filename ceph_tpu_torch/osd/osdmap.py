@@ -150,12 +150,20 @@ class OSDMap:
 
     # ------------------------------------------------------------------
     # pg → osds pipeline
-    def _pg_to_raw_osds(self, pool: PGPool, pg: PG) -> tuple[list[int], int]:
+    def _pg_to_raw_osds(self, pool: PGPool, pg: PG,
+                        cache: dict | None = None) -> tuple[list[int], int]:
         """OSDMap.cc:2232-2250: pps seed, rule mask resolution, crush,
         drop nonexistent.  choose_args are looked up by pool id with the
         default fallback (CrushWrapper::do_rule →
-        choose_args_get_with_fallback, CrushWrapper.h:1574)."""
+        choose_args_get_with_fallback, CrushWrapper.h:1574).  A `cache`
+        keeps the result by (pool, pps); its owner keeps it only while
+        the CRUSH inputs (the CRUSH map, the OSDs' weights and
+        existence, the pool) stay the same."""
         pps = pool.raw_pg_to_pps(pg)
+        if cache is not None:
+            hit = cache.get((pg.pool, pps))
+            if hit is not None:
+                return list(hit), pps
         ruleno = self.crush.find_rule(pool.crush_rule, pool.type, pool.size)
         osds: list[int] = []
         if ruleno >= 0:
@@ -164,6 +172,8 @@ class OSDMap:
                 choose_args=self.crush.choose_args_get_with_fallback(
                     pg.pool))
         self._remove_nonexistent_osds(pool, osds)
+        if cache is not None:
+            cache[(pg.pool, pps)] = tuple(osds)
         return osds, pps
 
     def _remove_nonexistent_osds(self, pool: PGPool,
@@ -290,19 +300,20 @@ class OSDMap:
         self._apply_upmap(pool, pg, raw)
         return raw
 
-    def pg_to_up_acting_osds(self, pg: PG, raw_pg_to_pg: bool = True) \
+    def pg_to_up_acting_osds(self, pg: PG, raw_pg_to_pg: bool = True,
+                             raw_cache: dict | None = None) \
             -> tuple[list[int], int, list[int], int]:
         """OSDMap.cc:2462-2510 _pg_to_up_acting_osds; returns
         (up, up_primary, acting, acting_primary).  With raw_pg_to_pg
         (the default, like the reference) the ps may be a raw hash —
         every stage folds it; with False the ps must already be folded
-        into [0, pg_num)."""
+        into [0, pg_num).  `raw_cache` is `_pg_to_raw_osds`'s."""
         pg = PG(pg.pool, pg.ps & 0xFFFFFFFF)  # ps_t is u32
         pool = self.pools.get(pg.pool)
         if pool is None or (not raw_pg_to_pg and pg.ps >= pool.pg_num):
             return [], -1, [], -1
         acting, acting_primary = self._get_temp_osds(pool, pg)
-        raw, pps = self._pg_to_raw_osds(pool, pg)
+        raw, pps = self._pg_to_raw_osds(pool, pg, raw_cache)
         self._apply_upmap(pool, pg, raw)
         up = self._raw_to_up_osds(pool, raw)
         up_primary = self._pick_primary(up)

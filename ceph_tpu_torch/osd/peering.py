@@ -53,9 +53,12 @@ shard logs, cross-set chunk sources, and reservation-gated chunk
 backfill — sharing this module's phase constants, the daemon's
 reservation pools, and the pg_temp plumbing.
 
-The port's copy of `ceph_tpu.osd.peering`, whole.  The PG split that
-grows a pool's pg_num (and the split children's prior sets it feeds)
-waits for the slice that ports PG split.
+The port's copy of `ceph_tpu.osd.peering`, whole.  A split child (the
+daemon's `_split_pgs` on pg_num growth) starts with its parent's objects
+and log tail and takes its prior set from its parent's seed; a pgp_num
+reseed resolves the prior set under the previous interval, where the
+data still lives, so GetInfo queries the old holders, and the strays
+they leave are purged by PGRemove once the PG is clean.
 """
 from __future__ import annotations
 
@@ -190,8 +193,7 @@ class PGPeering:
             *args)
 
     def _up_acting_peers(self) -> list[int]:
-        m = self.d.osdmap
-        up, _, acting, _ = m.pg_to_up_acting_osds(self.pg)
+        up, _, acting, _ = self.d._pg_mapping(self.pg)
         peers = []
         for o in list(acting) + list(up):
             if 0 <= o < CRUSH_ITEM_NONE and o != self.d.whoami \
@@ -709,8 +711,7 @@ class PGPeering:
             # direct pull converged first: drop the pg_temp request
             self.d.clear_pg_temp(self.pg)
             self.primary_backfill_from = None
-        m = self.d.osdmap
-        up, _, acting, _ = m.pg_to_up_acting_osds(self.pg)
+        up, _, acting, _ = self.d._pg_mapping(self.pg)
         current = {o for o in list(up) + list(acting)
                    if 0 <= o < CRUSH_ITEM_NONE}
         if self.d.whoami in current and set(acting) != set(up):

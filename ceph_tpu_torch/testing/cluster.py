@@ -12,12 +12,12 @@ what EC pools use): one mon with
 `kill_mon` and `revive_mon` (the revived mon resumes from the store the
 killed one kept; give it a `MonitorStore(LogDB(dir))` through
 `mon_store` to have that store on disk), `start_osd`, `kill_osd`,
-`revive_osd`, `rados()`, `pump`, `tick`, `wait_all_up`, `shutdown` and
-the shared `fabric`.  An OSD runs on whatever store `_stores[osd]`
+`revive_osd`, `start_mgr`, `rados()`, `pump`, `tick`, `wait_all_up`,
+`shutdown` and the shared `fabric`.  An OSD runs on whatever store `_stores[osd]`
 holds when it starts (a mounted `BlueStore` or `JournaledStore` for a
 durable one), as the reference's tests use that slot.  The cluster
 runs on its `device` (cuda unless the caller passes `device="cpu"`):
-every OSD builds its plugins there, and so does the mon.  `auth="cephx"` gives
+every OSD builds its plugins there, and so do the mon and the mgr.  `auth="cephx"` gives
 the cluster one keyring (the daemons' keys and the service secret) and
 each `rados()` client a key minted into it; unlike the reference, such
 a client also runs in pump mode, where its MAuthRequest handshake is
@@ -25,8 +25,7 @@ pumped like any other message.  One rule differs: `tick` reaps an OSD
 whose `heartbeat_tick` raises, as the reference does, and also records
 the reap in `reaped` (osd id, exception type, traceback), so a kernel
 fault raised from a ticked peering retry shows.  Left out: multi-mon
-quorums (`n_mon`, `leader`), crash spools, the MDS, mgr and RGW
-helpers.  `revive_mon` also hands the revived mon the cluster's
+quorums (`n_mon`, `leader`), crash spools, the MDS and RGW helpers.  `revive_mon` also hands the revived mon the cluster's
 keyring (the reference's starts it without one), and makes it
 `self.mon` again.
 """
@@ -65,6 +64,7 @@ class MiniCluster:
         self.osds: dict[int, OSDDaemon] = {}
         self._stores: dict[int, object] = {}
         self.clients: list[Rados] = []
+        self.mgr = None
         #: (osd, exception type, traceback) of every OSD `tick` reaped
         self.reaped: list[tuple[int, str, str]] = []
         # cephx: one cluster keyring; daemons get it whole, clients get
@@ -134,6 +134,20 @@ class MiniCluster:
     def revive_osd(self, osd: int) -> OSDDaemon:
         return self.start_osd(osd)
 
+    # ------------------------------------------------------------- mgr
+    def start_mgr(self, **kw):
+        """Start (or restart) the mgr on the cluster's device."""
+        from ..mgr import MgrDaemon
+        if self.mgr is not None:
+            self.mgr.shutdown()
+        kw.setdefault("device", self.device)
+        self.mgr = MgrDaemon(self.network, threaded=self.threaded,
+                             mon=self.mon_names, **kw)
+        self.mgr.init()
+        if not self.threaded:
+            self.pump()
+        return self.mgr
+
     # ---------------------------------------------------------- client
     def rados(self, timeout: float = 30.0) -> Rados:
         name = auth_secret = None
@@ -170,6 +184,8 @@ class MiniCluster:
                 moved += d.ms.poll()
             for c in self.clients:
                 moved += c.objecter.ms.poll()
+            if self.mgr is not None:
+                moved += self.mgr.ms.poll()
             if not moved:
                 break
 
@@ -220,6 +236,8 @@ class MiniCluster:
     def shutdown(self) -> None:
         for c in self.clients:
             c.shutdown()
+        if self.mgr is not None:
+            self.mgr.shutdown()
         for d in list(self.osds.values()):
             d.shutdown()
         for mn in self.mons.values():

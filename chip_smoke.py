@@ -180,11 +180,32 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    bytes, and every replica on its acting OSDs equal to its payload,
    xattrs and omap (sha256); then one byte of one replica flipped
    under its MemStore: pg_scrub lists it, pg_scrub(repair=True) repairs
-   and verifies it, a third scrub is clean.  (d) The paged artifact store:
+   and verifies it, a third scrub is clean.  (g) Elastic pools, after the
+   recovery below, with the victim out: the mgr (MgrDaemon on the card)
+   with its pg_autoscaler and progress; one autoscale tick with the EC
+   pool's bytes splits `ecpool` 32 -> 128 (next_pow2(15 in x 100 / 12);
+   `reppool` stays), every object read back with no byte leaving its
+   OSD; the next tick reseeds pgp_num 128, timed to clean (objects
+   moved, bytes rebuilt, K1 split into compile probes and repairs, full
+   rebuilds by path); one balancer round on K3 (its launches and upmap
+   changes) and clean again; each OSD's `_update_pgs` host time per map
+   epoch; every `ecpool` object read back and every shard on its acting
+   OSD equal to the plain encode, progress's events completed, a mgr
+   health slice carried by the mon's `health`.  Then OSDThrasher (seed
+   SEED, min_in = min_live = 12, EIO injection on `ecpool`) for 8 rounds
+   with two seeded 4 MiB writes between, one shard EIO forced if none
+   was rolled and its objects read around it, heal, and the same
+   checks; then `telemetry show` proxied by the mon to the mgr ("not
+   enabled") and, with the mgr killed, `insights` answered EAGAIN.
+   Every fault count 0 (queued items, dropped pulls, tick and dispatch
+   errors, reaps, compiled repairs that raised, the mgr's failed
+   commands); the sim clock of (e) goes on, each tick waiting for the
+   ping replies that keep a busy OSD from being reported.
+   (d) The paged artifact store:
    an ArtifactStore with its default layout (64 KiB pages, 1 MiB
-   objects) puts a 256 MiB checkpoint of 4 shards (the last ragged) and
+   objects) puts a 128 MiB checkpoint of 4 shards (the last ragged) and
    a KV pool of 1,024 pages, streams every shard under the `checkpoint`
-   policy and runs 32 waves of 64 seeded page ids through a `kvcache`
+   policy and runs 8 waves of 64 seeded page ids through a `kvcache`
    handle, every byte equal to the put's (pages by sha256).  The OSD in
    the most acting sets is killed and marked down, every object read
    degraded, (d)'s streams and waves repeated degraded (K1 decodes
@@ -203,12 +224,13 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    share of each leg, recovery's launches split into compile probes and
    repairs, the messages routed, (d)'s put, stream and degraded-stream
    MB/s and page-wave p50/p99 healthy and degraded, (e)'s ticks and
-   repair launches, and the phase's wall.
-   K1's launch count is zeroed before and read after the phase;
+   repair launches, (g)'s walls and launches, and the phase's wall.
+   K1's and K3's launch counts are zeroed before and read after the
+   phase;
 20. the cluster on its real transport, in three legs.  (a) phase 19's
    cell over TCP (ceph_tpu_torch.dryrun.TcpCluster): the mon, 16 OSDs
    and the client each on its own socket on 127.0.0.1, cephx on and
-   secure mode off (Octopus's defaults), the same 64 x 4 MiB writes,
+   secure mode off (Octopus's defaults), 16 x 4 MiB writes (cut from 64),
    reads, kill, `osd down`, degraded reads, `osd out` and recovery to
    clean; every shard on its acting OSD equal to its bytes before the
    kill; frames and bytes on the wire, cephx signatures verified and
@@ -2266,6 +2288,7 @@ CLUSTER_PG_NUM = 32              # osd_pool_default_pg_num (Octopus)
 CLUSTER_OBJECTS = 64             # 4 MiB objects through librados
 CLUSTER_FABRIC_OBJECTS = 16
 CLUSTER_TIMEOUT_S = 300.0
+TCP_OBJECTS = 16                 # 20 (a)'s objects, cut from 64 (PERF.md 4)
 
 
 def _faults(c, tag: str = "phase 19") -> None:
@@ -2517,11 +2540,11 @@ def _shards_on_acting(c, objs: dict, res: dict, tag: str):
 
 # -- phase 19 (d): the paged artifact store; (e): the scheduled scrub -------
 
-SERVE_SHARDS = 4                 # checkpoint shards of 64 MiB: 256 MiB
-SERVE_SHARD_B = 64 << 20
+SERVE_SHARDS = 4                 # checkpoint shards of 32 MiB: 128 MiB
+SERVE_SHARD_B = 32 << 20         # cut from 64 MiB (the smoke's wall)
 SERVE_RAGGED = 4097              # the last shard's missing tail
 SERVE_KV_PAGES = 1024            # KV pool of 64 KiB pages
-SERVE_WAVES = 32                 # page waves per half
+SERVE_WAVES = 8                  # page waves per half, cut from 32
 SERVE_WAVE_PAGES = 64            # seeded random page ids per wave
 SCRUB_INTERVAL_S = 300.0         # both scrub intervals in (e), sim clock
 SCRUB_STEP_S = 5.0               # sim seconds per tick
@@ -2586,7 +2609,7 @@ def serve_half(store, ckpt: dict, kv_sums: list, waves: list,
 
 class ServeLeg:
     """Phase 19 (d) on the cluster's pool: an ArtifactStore with its
-    default layout (64 KiB pages, 1 MiB objects) holding a 256 MiB
+    default layout (64 KiB pages, 1 MiB objects) holding a 128 MiB
     checkpoint of 4 shards and a 1,024-page KV pool; `healthy` puts and
     reads them, `degraded` (the victim down) reads them again and
     deletes both artifacts, so recovery rebuilds what it did before."""
@@ -2983,6 +3006,504 @@ class RepLeg:
         self.out["scrub_pg"] = (str(pg), primary, replica)
 
 
+# -- phase 19 (g): elastic pools -- the split, the reseed, the mgr, thrash ---
+
+# the autoscaler's pool_bytes, weighted to the EC data pool as the
+# reference's acceptance test (tests/test_ec_peering.py) weights it
+ELASTIC_POOL_BYTES = {"ecpool": 1 << 30}
+ELASTIC_STEP_S = 5.0             # sim s per tick: osd_mon_report_interval
+ELASTIC_TICK_EVERY_S = 0.5       # host s between report ticks while waiting
+THRASH_ROUNDS = 8
+THRASH_WRITES = 2                # seeded 4 MiB objects between actions
+THRASH_MIN = K + M               # min_in and min_live: full-width mappings
+
+
+class SimClock:
+    """One sim clock for (e)'s scrub ticks, (g)'s report ticks and the
+    thrasher's.  A tick returns only once no live OSD would report a
+    live heartbeat peer at a tick the thrasher's step (grace / 2 + 1)
+    later: each has heard the tick's ping reply, or its window for the
+    peer opened within that step (a peer that just came up).  So a peer
+    busy mapping a burst of epochs under the GIL is never reported down
+    by a clock that ran ahead of it.  The thrasher drives its ticks
+    through this object (it passes every other attribute to the
+    cluster)."""
+
+    def __init__(self, c, now: float):
+        self._c, self.now = c, now
+
+    def __getattr__(self, name):
+        return getattr(self._c, name)
+
+    def tick(self, now: float | None = None) -> None:
+        from ceph_tpu_torch.common.options import global_config
+
+        c = self._c
+        now = self.now if now is None else now
+        self.now = max(self.now, now)
+        c.tick(now)
+        floor = now - global_config()["osd_heartbeat_grace"] / 2 + 1
+
+        def heard() -> bool:
+            live = set(c.osds)
+            for d in list(c.osds.values()):
+                with d._lock:
+                    for p in d.heartbeat_peers() & live:
+                        last = d._hb_last.get(p, d._hb_first.get(p, now))
+                        if last < floor:
+                            return False
+            return True
+        _wait(c, heard, "every ping reply of a tick", tag="phase 19 (g)")
+
+    def step(self) -> None:
+        self.tick(self.now + ELASTIC_STEP_S)
+
+
+def _ec_shards_plain(c, pid: int, objs: dict, want: dict, tag: str) -> int:
+    """Every shard of every object on its current acting OSD equals the
+    plain version's encode (`want` caches it by object); returns the
+    shards checked."""
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.osd import ec_backend, ecutil
+    from ceph_tpu_torch.store import ObjectId
+
+    ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M),
+                                      "technique": "reed_sol_van"},
+                              device="cpu")
+    sinfo = ecutil.StripeInfo(K, K * STRIPE_UNIT)
+    m = c.mon.osdmap
+    checked = 0
+    for oid, data in objs.items():
+        if oid not in want:
+            want[oid] = ecutil.encode(sinfo, ec_cpu, data)
+        raw = m.object_locator_to_pg(oid, pid)
+        pg = m.pools[pid].raw_pg_to_pg(raw)
+        acting = m.pg_to_up_acting_osds(raw)[2]
+        for s, osd in enumerate(acting):
+            if osd not in c.osds:
+                raise AssertionError(f"{tag}: {oid} shard {s} maps to "
+                                     f"osd.{osd}, which is not running")
+            got = c.osds[osd].store.read(ec_backend.pg_cid(pg),
+                                         ObjectId(oid, shard=s))
+            if got != want[oid][s]:
+                raise AssertionError(f"{tag}: {oid} shard {s} on osd.{osd} "
+                                     "differs from the plain version's encode")
+            checked += 1
+    return checked
+
+
+def _read_all(io, objs: dict, tag: str) -> None:
+    for oid, data in objs.items():
+        if io.read(oid) != data:
+            raise AssertionError(f"{tag}: {oid} reads back wrong")
+
+
+def _placements(m, pid: int, oids) -> dict:
+    out = {}
+    for oid in oids:
+        raw = m.object_locator_to_pg(oid, pid)
+        out[oid] = list(m.pg_to_up_acting_osds(raw)[2])
+    return out
+
+
+@contextlib.contextmanager
+def rebuild_paths():
+    """Count, within the block, the full rebuilds EC recovery starts
+    (gather k chunks across the old and new sets, decode, re-encode):
+    those with no repair plan to take instead (a pgp_num reseed moves
+    more shards of a PG than m, which no compiled repair covers: the
+    full rebuild is its designed path), and the compiled repairs that
+    raised a plan or code error and so fell back to it, a fault.  The
+    rest fell back on a gap: a helper's chunk read failed (an injected
+    EIO) or its OSD died mid-gather."""
+    from ceph_tpu_torch.ec.interface import ErasureCodeError
+    from ceph_tpu_torch.ec.repairc import RepairPlanError
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.osd.ec_peering import ECPGPeering
+
+    counts = {"full": 0, "no_plan": 0, "repair_errors": 0}
+    try_plan, full = (ECPGPeering._try_subchunk_rebuild,
+                      ECPGPeering._rebuild_full)
+    repair = ecutil.compiled_repair_streams
+
+    def planned(self, *args, **kwargs):
+        ok = try_plan(self, *args, **kwargs)
+        counts["no_plan"] += not ok
+        return ok
+
+    def counted(self, *args, **kwargs):
+        counts["full"] += 1
+        return full(self, *args, **kwargs)
+
+    def repaired(*args, **kwargs):
+        try:
+            return repair(*args, **kwargs)
+        except (RepairPlanError, ErasureCodeError):
+            counts["repair_errors"] += 1
+            raise
+
+    ECPGPeering._try_subchunk_rebuild = planned
+    ECPGPeering._rebuild_full = counted
+    ecutil.compiled_repair_streams = repaired
+    try:
+        yield counts
+    finally:
+        ECPGPeering._try_subchunk_rebuild = try_plan
+        ECPGPeering._rebuild_full = full
+        ecutil.compiled_repair_streams = repair
+
+
+def _elastic_faults(c, mgr, tag: str, paths: dict) -> dict:
+    _faults(c, tag)
+    counts = {"repair_errors": paths["repair_errors"],
+              "queued_op_failures": _perf_sum(c, "queued_op_failures"),
+              "recovery_push_errors": _perf_sum(c, "recovery_push_errors"),
+              "tick_errors": _perf_sum(c, "tick_errors"),
+              "dispatch_errors": c.network.dispatch_errors,
+              "reaped": len(c.reaped),
+              "mgr_failed_commands": mgr.failed_commands}
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: fault counts {counts}")
+    return counts
+
+
+def split_reseed(c, r, io, clock, objs: dict, want: dict,
+                 paths: dict) -> dict:
+    """(g1): the mgr's autoscaler splits `ecpool` to its target, its
+    next tick reseeds pgp_num, then one balancer round on K3."""
+    from ceph_tpu_torch.common.options import global_config
+    from ceph_tpu_torch.crush import batch as cb
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.ec.repairc import compiler as repairc_compiler
+    from ceph_tpu_torch.mgr.pg_autoscaler import next_pow2
+    from ceph_tpu_torch.osd.peering import CLEAN
+
+    tag = "phase 19 (g1)"
+    pid, rpid = r.pool_lookup("ecpool"), r.pool_lookup("reppool")
+    pool_bytes = {r.pool_lookup(n): b for n, b in ELASTIC_POOL_BYTES.items()}
+    # the host time of each OSD's _update_pgs, per map epoch
+    update_s: list = []
+    for d in list(c.osds.values()):
+        def timed(d=d, orig=d._update_pgs):
+            t0 = time.monotonic()
+            orig()
+            update_s.append((d.whoami, d.osdmap.epoch,
+                             time.monotonic() - t0))
+        d._update_pgs = timed
+    mgr = c.start_mgr()
+    mgr.start_pg_autoscaler()
+    mgr.start_progress()
+    _wait(c, lambda: mgr.osdmap.epoch == c.mon.osdmap.epoch,
+          "the mgr's first map", tag=tag)
+
+    def state() -> str:
+        m = c.mon.osdmap
+        prim = _primaries(c, r)
+        busy = sum(1 for st in prim.values()
+                   if st.peering is None or st.peering.phase != CLEAN or
+                   st.recovering or st.backfilling)
+        return (f"e{m.epoch}, OSDs at e{min(d.osdmap.epoch for d in c.osds.values())}"
+                f"..e{max(d.osdmap.epoch for d in c.osds.values())}, "
+                f"pg_temp {len(m.pg_temp)}, {len(prim)} primaries, {busy} "
+                f"not clean, recovering {sum(d.pgs_recovering() for d in c.osds.values())}, "
+                f"_update_pgs {len(update_s)} calls "
+                f"{sum(x for _o, _e, x in update_s):.1f} s")
+
+    def settle(what: str, pred=None) -> None:
+        # report ticks while waiting: progress samples the pg dump they fill
+        last = shown = 0.0
+        t0 = time.monotonic()
+        end = t0 + CLUSTER_TIMEOUT_S
+        while time.monotonic() < end:
+            _faults(c, tag)
+            if _all_clean(c, r) and (pred is None or pred()):
+                return
+            if time.monotonic() - last >= ELASTIC_TICK_EVERY_S:
+                clock.step()
+                mgr.progress_tick()
+                last = time.monotonic()
+            if time.monotonic() - shown >= 15.0:
+                shown = time.monotonic()
+                print(f"{tag}: {what}: {shown - t0:.1f} s, {state()}",
+                      flush=True)
+            time.sleep(0.01)
+        raise AssertionError(f"{tag}: {what} within {CLUSTER_TIMEOUT_S:.0f} "
+                             f"s: {state()}")
+
+    def perf():
+        return {k: _perf_sum(c, k) for k in ("recovery_bytes_rebuilt",
+                                             "recovery_bytes_read",
+                                             "push_in", "push_in_bytes")}
+
+    out: dict = {}
+    # -- the split: pg_num grows, objects move inside each OSD -------------
+    # the target for the EC pool's whole share: 32 -> 128 with 15 OSDs in
+    m = c.mon.osdmap
+    n_in = sum(1 for o in range(m.max_osd) if m.is_in(o))
+    target = next_pow2(int(n_in * global_config()["mon_target_pg_per_osd"]
+                           / (K + M)))
+    p0, l0, e0 = perf(), bm.LAUNCHES["gf_matmul"], m.epoch
+    t0 = time.monotonic()
+    sent = mgr.autoscale_tick(pool_bytes)
+    out["plan"] = mgr.pg_autoscaler.status()
+    plan = {p["pool_name"]: p for p in out["plan"]}
+    if sent != 1 or plan["ecpool"]["target"] != target or \
+            not plan["ecpool"]["would_adjust"] or \
+            plan["reppool"]["would_adjust"]:
+        raise AssertionError(f"{tag}: the autoscaler's plan {out['plan']} "
+                             f"({sent} commands), not {target} for ecpool")
+    settle("the split", lambda: c.mon.osdmap.pools[pid].pg_num == target)
+    out["split_s"] = time.monotonic() - t0
+    _read_all(io, objs, tag)
+    p1 = perf()
+    out["split_epochs"] = c.mon.osdmap.epoch - e0
+    out["split_launches"] = bm.LAUNCHES["gf_matmul"] - l0
+    if any(p1[k] != p0[k] for k in p0):
+        raise AssertionError(f"{tag}: the split moved data between OSDs "
+                             f"({p0} -> {p1})")
+    # -- the reseed: pgp_num follows, data moves to the new placements -----
+    before = _placements(c.mon.osdmap, pid, objs)
+    l0, e0 = bm.LAUNCHES["gf_matmul"], c.mon.osdmap.epoch
+    comp0 = dict(repairc_compiler.COMPILES)
+    t0 = time.monotonic()
+    sent = mgr.autoscale_tick(pool_bytes)
+    if sent != 1:
+        raise AssertionError(f"{tag}: the reseed tick sent {sent} commands")
+    settle("the reseed", lambda: c.mon.osdmap.pools[pid].pgp_num ==
+           target and not c.mon.osdmap.pg_temp)
+    out["reseed_s"] = time.monotonic() - t0
+    out["reseed_epochs"] = c.mon.osdmap.epoch - e0
+    p2 = perf()
+    after = _placements(c.mon.osdmap, pid, objs)
+    out["shards_moved"] = sum(a != b for oid in objs
+                              for a, b in zip(before[oid], after[oid]))
+    out["objects_moved"] = sum(before[oid] != after[oid] for oid in objs)
+    out["rebuilt"] = p2["recovery_bytes_rebuilt"] - p1["recovery_bytes_rebuilt"]
+    out["reseed_launches"] = bm.LAUNCHES["gf_matmul"] - l0
+    out["reseed_probes"] = repairc_compiler.COMPILES["probe_launches"] - \
+        comp0["probe_launches"]
+    if not out["objects_moved"] or not out["rebuilt"] or \
+            not out["reseed_launches"]:
+        raise AssertionError(f"{tag}: the reseed moved {out['objects_moved']}"
+                             f" objects, rebuilt {out['rebuilt']} B, K1 "
+                             f"{out['reseed_launches']}")
+    # -- one balancer round on K3 ----------------------------------------
+    _wait(c, lambda: mgr.osdmap.epoch == c.mon.osdmap.epoch,
+          "the mgr at the reseeded map", tag=tag)
+    k3_0, l0, p2 = cb.LAUNCHES["crush_do_rule"], bm.LAUNCHES["gf_matmul"], perf()
+    e0 = c.mon.osdmap.epoch
+    t0 = time.monotonic()
+    out["upmaps"] = mgr.tick()
+    out["balance_tick_s"] = time.monotonic() - t0
+    out["balance_k3"] = cb.LAUNCHES["crush_do_rule"] - k3_0
+    if not out["balance_k3"] or not out["upmaps"]:
+        raise AssertionError(f"{tag}: the balancer round launched K3 "
+                             f"{out['balance_k3']} times, {out['upmaps']} "
+                             "upmap changes")
+    # the mgr's osd upmap-batch commits asynchronously: wait for its epoch
+    settle("the balanced map", lambda: c.mon.osdmap.epoch > e0 and
+           mgr.osdmap.epoch == c.mon.osdmap.epoch and
+           not c.mon.osdmap.pg_temp)
+    out["balance_epochs"] = c.mon.osdmap.epoch - e0
+    out["balance_s"] = time.monotonic() - t0
+    p3 = perf()
+    out["balance_rebuilt"] = p3["recovery_bytes_rebuilt"] - \
+        p2["recovery_bytes_rebuilt"]
+    out["balance_push_bytes"] = p3["push_in_bytes"] - p2["push_in_bytes"]
+    out["balance_launches"] = bm.LAUNCHES["gf_matmul"] - l0
+    # -- checks ----------------------------------------------------------
+    _read_all(io, objs, tag)
+    out["shards_checked"] = _ec_shards_plain(c, pid, objs, want, tag)
+    for _ in range(3):          # fresh reports retire the last events
+        clock.step()
+        if not mgr.progress_tick():
+            break
+    done = mgr.progress.history()
+    if not done or mgr.progress.ls() or \
+            any(e["progress"] != 1.0 for e in done):
+        raise AssertionError(f"{tag}: progress live {mgr.progress.ls()}, "
+                             f"completed {done}")
+    out["progress"] = [(e["message"], e["peak"]) for e in done]
+    probe = {"MGR_ELASTIC": {"severity": "HEALTH_WARN",
+                             "summary": "phase 19 (g) probe", "detail": []}}
+    mgr.set_health_checks("smoke", probe)
+    seen = r.mon_command({"prefix": "health"})[2]["checks"]
+    mgr.set_health_checks("smoke", {})
+    mgr.observability_tick()
+    gone = r.mon_command({"prefix": "health"})[2]["checks"]
+    if "MGR_ELASTIC" not in seen or "MGR_ELASTIC" in gone:
+        raise AssertionError(f"{tag}: the mon's health {seen} / {gone}")
+    out["faults"] = _elastic_faults(c, mgr, tag, paths)
+    out["full_rebuilds"] = dict(paths)
+    pool = c.mon.osdmap.pools[pid]
+    out["pool"] = (pool.pg_num, pool.pgp_num)
+    out["reppool"] = c.mon.osdmap.pools[rpid].pg_num
+    for d in list(c.osds.values()):
+        d.__dict__.pop("_update_pgs", None)
+    out["update_s"] = update_s
+    return out
+
+
+def thrash_ec(c, r, io, clock, objs: dict, want: dict,
+              paths: dict) -> dict:
+    """(g2): OSDThrasher over `ecpool` with seeded 4 MiB writes between
+    its actions, shard EIO in the mix, then heal and check."""
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.testing import OSDThrasher
+
+    tag = "phase 19 (g2)"
+    pid = r.pool_lookup("ecpool")
+    rng = np.random.default_rng(SEED + 197)
+    written: dict = {}
+    futures: dict = {}
+
+    def between(i):
+        for j in range(THRASH_WRITES):
+            oid = f"thrash{i}_{j}"
+            written[oid] = rng.bytes(REPAIR_OBJECT)
+            futures[oid] = io.aio_write_full(oid, written[oid])
+
+    l0 = bm.LAUNCHES["gf_matmul"]
+    t0 = time.monotonic()
+    thr = OSDThrasher(clock, seed=SEED, min_in=THRASH_MIN,
+                      min_live=THRASH_MIN, ec_pools=["ecpool"], rados=r)
+    thr.now = clock.now
+    thr.do_thrash(THRASH_ROUNDS, between=between)
+    if not thr.injected and not any(e.startswith("eio") for e in thr.log):
+        thr.inject_shard_eio()
+    # read every object with a live EIO mark: the primary decodes around it
+    eio = sorted({soid.name for _osd, _cid, soid in thr.injected})
+    e0 = bm.LAUNCHES["gf_matmul"]
+    everything = {**objs, **written}
+    for oid in eio:
+        fut = futures.get(oid)
+        if fut is not None:
+            _wait(c, fut.done, f"the write of {oid}", tag=tag)
+        if io.read(oid) != everything[oid]:
+            raise AssertionError(f"{tag}: {oid} read around its EIO shard")
+    eio_launches = bm.LAUNCHES["gf_matmul"] - e0
+    thr.heal(timeout_rounds=600)
+    clock.now = max(clock.now, thr.now)
+    _wait(c, lambda: all(f.done() for f in futures.values()),
+          "the thrash writes", tag=tag)
+    failed = {o: f.errno_name for o, f in futures.items() if f.result < 0}
+    if failed:
+        raise AssertionError(f"{tag}: writes failed {failed}; log {thr.log}")
+    _wait(c, lambda: _all_clean(c, r) and not c.mon.osdmap.pg_temp,
+          "clean after heal", tag=tag)
+    wall = time.monotonic() - t0
+    _read_all(io, everything, tag)
+    checked = _ec_shards_plain(c, pid, everything, want, tag)
+    m = c.mon.osdmap
+    if any(not (m.is_up(o) and m.is_in(o)) for o in c.osds):
+        raise AssertionError(f"{tag}: not every OSD up and in after heal")
+    return {"log": list(thr.log), "wall_s": wall, "written": len(written),
+            "launches": bm.LAUNCHES["gf_matmul"] - l0,
+            "eio_objects": eio, "eio_launches": eio_launches,
+            "shards_checked": checked}
+
+
+def mgr_proxy(c, r) -> dict:
+    """(g3): a mgr-module command through the mon, then the mgr killed:
+    the next one answers EAGAIN, it does not hang."""
+    tag = "phase 19 (g3)"
+    t0 = time.monotonic()
+    first = r.mon_command({"prefix": "telemetry show"})
+    first_s = time.monotonic() - t0
+    if first != (-2, "telemetry module not enabled", None):
+        raise AssertionError(f"{tag}: telemetry show through the mon {first}")
+    c.mgr.shutdown()
+    c.mgr = None
+    t0 = time.monotonic()
+    second = r.mon_command({"prefix": "insights"})
+    second_s = time.monotonic() - t0
+    if second[0] != -11 or not second[1].startswith("EAGAIN(mgr): ") or \
+            second_s > 10.0:
+        raise AssertionError(f"{tag}: with the mgr dead: {second} in "
+                             f"{second_s:.3f} s")
+    return {"relayed": first, "relayed_s": first_s, "dead": second,
+            "dead_s": second_s}
+
+
+def elastic_leg(c, r, io, objs: dict, ec_writeop: bytes, victim: int,
+                name_power: str) -> dict:
+    """Phase 19 (g) on phase 19's cluster after its recovery: (g1) split
+    and reseed through the mgr, one balancer round on K3; (g2) the
+    thrasher; (g3) the mgr's command proxy."""
+    t_leg = time.monotonic()
+    objs = {**objs, "ec_writeop": ec_writeop}
+    want: dict = {}
+    clock = SimClock(c, max(c._sim_now or SCRUB_T0, SCRUB_T0) + ELASTIC_STEP_S)
+    with rebuild_paths() as paths:
+        g1 = split_reseed(c, r, io, clock, objs, want, paths)
+        full_g1 = dict(paths)
+        g2 = thrash_ec(c, r, io, clock, objs, want, paths)
+        faults = _elastic_faults(c, c.mgr, "phase 19 (g2)", paths)
+    g2["full_rebuilds"] = {k: paths[k] - full_g1[k] for k in paths}
+    g3 = mgr_proxy(c, r)
+    wall = time.monotonic() - t_leg
+    print(f"phase 19 (g1): pg_autoscaler plan " + "; ".join(
+        f"{p['pool_name']} pg_num {p['pg_num']} -> target {p['target']}"
+        f"{' (adjust)' if p['would_adjust'] else ''}" for p in g1["plan"]) +
+        f"; osd.{victim} out, {len(c.osds)} OSDs in")
+    print(f"phase 19 (g1): split pg_num {CLUSTER_PG_NUM} -> {g1['pool'][0]} in "
+          f"{g1['split_s']:.3f} s ({g1['split_epochs']} epochs, K1 "
+          f"{g1['split_launches']} launches, no byte left its OSD); reseed "
+          f"pgp_num -> {g1['pool'][1]} to clean in {g1['reseed_s']:.3f} s "
+          f"({g1['reseed_epochs']} epochs): {g1['objects_moved']} of "
+          f"{len(objs)} objects moved ({g1['shards_moved']} shards), "
+          f"{g1['rebuilt']} B rebuilt, K1 {g1['reseed_launches']} launches "
+          f"({g1['reseed_probes']} compile probes, "
+          f"{g1['reseed_launches'] - g1['reseed_probes']} repairs, decodes "
+          f"and re-encodes; {g1['full_rebuilds']['full']} full rebuilds, "
+          f"{g1['full_rebuilds']['no_plan']} of them with no repair plan) on "
+          f"{name_power}")
+    print(f"phase 19 (g1): balancer round {g1['balance_tick_s']:.3f} s on "
+          f"the host clock, K3 {g1['balance_k3']} launches, "
+          f"{g1['upmaps']} upmap changes in one osd upmap-batch; clean again "
+          f"in {g1['balance_s']:.3f} s ({g1['balance_epochs']} epochs, "
+          f"{g1['balance_rebuilt']} B rebuilt, "
+          f"{g1['balance_push_bytes']} B pushed, K1 "
+          f"{g1['balance_launches']} launches) on {name_power}")
+    upd = g1["update_s"]
+    per_osd = {}
+    for osd, _epoch, s in upd:
+        per_osd.setdefault(osd, []).append(s)
+    allsec = [s for _o, _e, s in upd]
+    n_pgs = g1["pool"][0] + g1["reppool"]
+    print(f"phase 19 (g1): _update_pgs per map epoch ({n_pgs} PGs, the "
+          f"scalar CRUSH only where its inputs changed; host clock, every "
+          f"OSD thread under one GIL): {len(upd)} calls on "
+          f"{len(per_osd)} OSDs, median {statistics.median(allsec):.4f} s, "
+          f"max {max(allsec):.4f} s, {sum(allsec):.3f} s in all on the host "
+          f"clock; per OSD " + ", ".join(
+              f"osd.{o} {len(v)} x {statistics.median(v):.4f}"
+              for o, v in sorted(per_osd.items())) + f" on {name_power}")
+    print(f"phase 19 (g1): every object read back, {g1['shards_checked']} "
+          f"shards == the plain version's encode; progress completed "
+          f"{g1['progress']}; the mgr's health slice in the mon's health; "
+          f"fault counts {g1['faults']}")
+    print(f"phase 19 (g2): OSDThrasher seed {SEED} min_in/min_live "
+          f"{THRASH_MIN}, {THRASH_ROUNDS} rounds, {g2['written']} x "
+          f"{REPAIR_OBJECT} B written between them: {g2['log']}; heal to "
+          f"clean, {g2['wall_s']:.3f} s in all; K1 {g2['launches']} launches "
+          f"({g2['eio_launches']} reading {g2['eio_objects']} around its EIO "
+          f"shard); {g2['full_rebuilds']['full']} full rebuilds "
+          f"({g2['full_rebuilds']['no_plan']} with no repair plan, the rest "
+          f"after a failed helper read); every "
+          f"object read back and {g2['shards_checked']} shards == the plain "
+          f"encode; fault counts {faults} on {name_power}")
+    print(f"phase 19 (g3): telemetry show through the mon -> "
+          f"{g3['relayed'][:2]} in {g3['relayed_s']:.3f} s; mgr killed, "
+          f"insights -> {g3['dead'][:2]} in {g3['dead_s']:.3f} s; "
+          f"leg (g) {wall:.1f} s on {name_power}")
+    return {"g1": {k: v for k, v in g1.items() if k != "update_s"},
+            "update_s": {"calls": len(upd), "sum": sum(allsec),
+                         "median": statistics.median(allsec),
+                         "max": max(allsec)},
+            "g2": g2, "g3": g3, "wall_s": wall}
+
+
 def cluster_phase(name_power: str, dev) -> dict:
     """Phase 19: the port's cluster on the card (see the module
     docstring)."""
@@ -3036,6 +3557,8 @@ def cluster_phase(name_power: str, dev) -> dict:
         if not moved:
             raise AssertionError("phase 19: no shard moved to a new OSD")
         messages = c.network.routed
+        elastic = elastic_leg(c, r, io, objs, rep.ec_writeop, res["victim"],
+                              name_power)
     finally:
         c.shutdown()
     # -- the fabric leg -------------------------------------------------------
@@ -3156,7 +3679,7 @@ def cluster_phase(name_power: str, dev) -> dict:
             "ratio": read / rebuilt, "messages": messages,
             "compiles": compiles, "serve": served, "scrub": scrub,
             "replicated": ro, "clean_s": res["clean_s"],
-            "fabric_stats": stats, "phase_s": wall}
+            "fabric_stats": stats, "elastic": elastic, "phase_s": wall}
 
 
 def print_legs(tag: str, legs: dict, name_power: str) -> None:
@@ -3183,7 +3706,7 @@ def tcp_leg(name_power: str, dev) -> dict:
     rng = np.random.default_rng(SEED + 20)
     objs = {f"obj{i}": rng.integers(0, 256, REPAIR_OBJECT,
                                     dtype=np.uint8).tobytes()
-            for i in range(CLUSTER_OBJECTS)}
+            for i in range(TCP_OBJECTS)}
     t_leg = time.monotonic()
     c, r, io = _cluster(tcp=True, dev=dev)
     try:
@@ -4083,6 +4606,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ceph_tpu_torch.crush import batch as cb
     from ceph_tpu_torch.ec import gf, registry
     from ceph_tpu_torch.ec.kernels import _build
     from ceph_tpu_torch.ec.kernels import bitmatmul as bm
@@ -4242,12 +4766,22 @@ def main() -> int:
     kernels[0]["ecbackend"] = {k: ec_pg[k] for k in ("rows", "split_s",
                                                       "ratios")}
     bm.reset_launches()
+    cb.reset_launches()
     cluster = cluster_phase(name_power, dev)
-    launches = dict(bm.LAUNCHES)
+    launches = {**bm.LAUNCHES, **cb.LAUNCHES}
     print(f"phase 19: launches {launches}")
     if launches["gf_matmul"] == 0:
         raise AssertionError("the cluster never launched gf_matmul")
+    if launches["crush_do_rule"] == 0:
+        raise AssertionError("the cluster's mgr never launched crush_do_rule")
     kernels[0]["launches_cluster"] = launches["gf_matmul"]
+    k3["launches_cluster"] = launches["crush_do_rule"]
+    kernels[0]["elastic"] = {
+        "g1": cluster["elastic"]["g1"],
+        "update_s": cluster["elastic"]["update_s"],
+        "g2": {k: cluster["elastic"]["g2"][k]
+               for k in ("wall_s", "launches", "eio_launches")},
+        "wall_s": cluster["elastic"]["wall_s"]}
     kernels[0]["cluster"] = {k: cluster[k] for k in (
         "legs", "recover_s", "rebuilt", "ratio", "messages")}
     kernels[0]["launches_serve"] = {

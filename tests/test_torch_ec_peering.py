@@ -7,7 +7,8 @@ reference's MiniCluster with the same inputs: the durable EC shard log,
 the statechart running to CLEAN after an acting change, and backfill
 reservations throttled at `osd_max_backfills` (exercised here by an
 `osd out`, whose replacement shard is a backfill target; the reference
-case grows pgp_num, which needs PG split, not ported yet).
+case grows pgp_num, and the pgp_num growth cases are in
+tests/test_torch_split.py).
 
 Beside them, the fault pins of the port's narrowed catches: a fault of
 K1's wrapper or its launch during a compiled repair, or during the full

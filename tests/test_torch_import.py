@@ -119,7 +119,13 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.osdc.object_cacher",
                  "ceph_tpu_torch.osdc.rados_striper",
                  "ceph_tpu_torch.serve", "ceph_tpu_torch.serve.manifest",
-                 "ceph_tpu_torch.serve.store"):
+                 "ceph_tpu_torch.serve.store",
+                 # the mgr and the thrasher
+                 "ceph_tpu_torch.common.obs",
+                 "ceph_tpu_torch.mgr", "ceph_tpu_torch.mgr.daemon",
+                 "ceph_tpu_torch.mgr.pg_autoscaler",
+                 "ceph_tpu_torch.mgr.progress",
+                 "ceph_tpu_torch.testing.thrasher"):
         assert name in out["modules"], name
 
 

@@ -8,10 +8,10 @@ at tolerance 0: the durable PG log reloaded from the store, the log trim
 bounds, a divergent write rewound on revival, backfill reservations
 throttled at `osd_max_backfills`, the mon's pg_temp plumbing, a pg_temp
 override that heals itself in a live cluster, strays purged after a
-remap, and a ranged PGScan window.  The reference's stray case makes its
-strays by growing pg_num and pgp_num, which needs PG split (not ported
-yet); here an `osd out` makes them.  Its split case (`test_split_and_
-reseed_under_client_io`) waits for PG split.
+remap, and a ranged PGScan window.  Strays are made both ways: by an
+`osd out`, and as the reference's stray case makes them, by growing pg_num
+and then pgp_num; the reference's split and reseed under client IO runs
+here in pump mode, its writer stepping between the map changes.
 """
 import numpy as np
 
@@ -380,6 +380,118 @@ def test_stray_purged_after_remap():
     assert port == ref
     assert port["clean"] and port["reads"]
     assert port["before"][1] and not port["after"][1]
+
+
+def strays_after_reseed(kind):
+    """tests/test_peering.py's own stray case: the strays come from
+    growing pg_num and then pgp_num (the interval moves wholesale)."""
+    c, r = make(kind, 4, "stray", 2)
+    clock = Clock(c)
+    try:
+        io = r.open_ioctx("stray")
+        objs = {f"s{i}": bytes([i]) * 600 for i in range(16)}
+        for k, v in objs.items():
+            io.write_full(k, v)
+        pid = r.pool_lookup("stray")
+        before = {o: sorted(cid for cid in d.store.list_collections()
+                            if cid.startswith(f"pg_{pid}."))
+                  for o, d in c.osds.items()}
+        out = {}
+        for var in ("pg_num", "pgp_num"):
+            rc, outs, _ = r.mon_command({"prefix": "osd pool set",
+                                         "pool": "stray", "var": var,
+                                         "val": "8"})
+            assert rc == 0, outs
+            c.pump()
+            out[var] = settle(c, clock, io, objs)
+        strays, ticks = None, 0
+        while strays != [] and ticks < 60:
+            clock.tick()
+            ticks += 1
+            strays = []
+            for o, d in sorted(c.osds.items()):
+                m = d.osdmap
+                for cid in sorted(d.store.list_collections()):
+                    if not cid.startswith(f"pg_{pid}.") or \
+                            not d.store.collection_list(cid):
+                        continue
+                    ps = int(cid.split(".")[1], 16)
+                    up, _, acting, _ = m.pg_to_up_acting_osds(
+                        NS[kind]["types"].PG(pid, ps))
+                    if o not in list(up) + list(acting):
+                        strays.append((o, cid))
+        after = {o: sorted(cid for cid in d.store.list_collections()
+                           if cid.startswith(f"pg_{pid}."))
+                 for o, d in c.osds.items()}
+        pool = c.mon.osdmap.pools[pid]
+        return {"before": before, "after": after, "strays": strays,
+                "ticks": (out, ticks), "pool": (pool.pg_num, pool.pgp_num),
+                "reads": {k: io.read(k) for k in objs} == objs}
+    finally:
+        c.shutdown()
+
+
+def test_stray_purged_after_reseed():
+    ref, port = both(strays_after_reseed)
+    assert port == ref
+    assert port["strays"] == [] and port["reads"]
+    assert port["pool"] == (8, 8)
+    assert sum(map(len, port["after"].values())) > \
+        sum(map(len, port["before"].values()))
+
+
+def split_under_io(kind):
+    """tests/test_peering.py's split and reseed under client IO, in
+    pump mode: a pool splits 4x while a writer keeps writing between
+    the steps, pgp_num follows, and every object reads back with no
+    pg_temp override left."""
+    c, r = make(kind, 4, "live", 4)
+    clock = Clock(c)
+    try:
+        io = r.open_ioctx("live")
+        rng = np.random.default_rng(11)
+        objs = {f"L{i}": rng.integers(0, 256, 1024,
+                                      dtype=np.uint8).tobytes()
+                for i in range(40)}
+        for k, v in objs.items():
+            io.write_full(k, v)
+        step = [0]
+
+        def write(n):
+            for _ in range(n):
+                i = step[0]
+                k, v = f"W{i % 17}", (b"%06d" % i) * 20
+                io.write_full(k, v)
+                objs[k] = v
+                step[0] += 1
+                c.pump()
+        rc = []
+        for var in ("pg_num", "pgp_num"):
+            write(6)
+            rc.append(r.mon_command({"prefix": "osd pool set",
+                                     "pool": "live", "var": var,
+                                     "val": "16"})[0])
+            write(6)
+            clock.tick(2)
+        ticks = settle(c, clock, io, objs)
+        extra = 0
+        while c.mon.osdmap.pg_temp and extra < 30:
+            clock.tick()
+            extra += 1
+        pool = c.mon.osdmap.pools[r.pool_lookup("live")]
+        return {"rc": rc, "ticks": (ticks, extra),
+                "pool": (pool.pg_num, pool.pgp_num),
+                "temp": sorted(str(k) for k in c.mon.osdmap.pg_temp),
+                "reads": {k: io.read(k) for k in objs} == objs}
+    finally:
+        c.shutdown()
+
+
+def test_split_and_reseed_under_client_io():
+    ref, port = both(split_under_io)
+    assert port == ref
+    assert port["rc"] == [0, 0] and port["pool"] == (16, 16)
+    assert port["temp"] == [] and port["reads"]
 
 
 def ranged_scan(kind):

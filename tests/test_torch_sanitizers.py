@@ -71,11 +71,13 @@ PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
                 # the scrub scheduler's
                 "osd_scrub_auto", "osd_scrub_min_interval",
                 "osd_deep_scrub_interval", "osd_max_scrubs",
-                "osd_scrub_auto_repair"}
+                "osd_scrub_auto_repair",
+                # the mgr's
+                "mon_target_pg_per_osd", "mon_mgr_health_grace"}
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads 28 options; each is the reference's entry: the
+    """The port reads 30 options; each is the reference's entry: the
     same type, level, default, text, bounds, see-also and runtime
     flag."""
     assert set(options.OPTIONS) == PORT_OPTIONS

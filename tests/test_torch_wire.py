@@ -81,7 +81,9 @@ def test_port_registers_the_data_plane_structs():
         # the scrub
         "ScrubReserve", "ScrubMapRequest", "ScrubMapReply",
         # the replicated pools
-        "RepOpWrite", "RepOpReply", "PGMissingReply", "PGPull"}
+        "RepOpWrite", "RepOpReply", "PGMissingReply", "PGPull",
+        # the mgr's command proxy
+        "MMgrCommand", "MMgrCommandReply"}
     ref_schema = ref_wire.registered_schema()
     for name, schema in wire.registered_schema().items():
         assert schema == ref_schema[name], name
