@@ -25,7 +25,11 @@ configures both packages:
   `osd_deep_scrub_interval`, `osd_max_scrubs`,
   `osd_scrub_auto_repair`);
 * the mgr's: the pg_autoscaler's `mon_target_pg_per_osd` and the mon's
-  `mon_mgr_health_grace`, which expires a silent mgr's module health.
+  `mon_mgr_health_grace`, which expires a silent mgr's module health;
+* the fault plane's and crash capture's: `ms_inject_socket_failures`
+  (the messenger's drop shim), `osd_debug_inject_crash_tick` (a crash
+  in an OSD's next tick) and `mgr_crash_warn_recent_interval` (the
+  RECENT_CRASH window).
 
 Every other option of the reference's schema configures code the port
 does not have, and is not read here.
@@ -132,6 +136,10 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
            "racecheck.enable_if_configured() runs "
            "(see common/racecheck.py)",
            see_also=("lockdep",)),
+    # messenger fault injection (ref: options.cc:987)
+    Option("ms_inject_socket_failures", T.UINT, L.DEV, 0,
+           "inject a transport failure every N messages (0=off)",
+           runtime=True),
     Option("memstore_device_bytes", T.SIZE, L.ADVANCED, 1 << 30,
            "capacity reported by MemStore statfs"),
     Option("bluestore_device_bytes", T.SIZE, L.ADVANCED, 0,
@@ -205,6 +213,14 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
            runtime=True),
     Option("mon_target_pg_per_osd", T.UINT, L.ADVANCED, 100,
            "pg_autoscaler target PG replicas per OSD", runtime=True),
+    # mgr crash module (ref: options mgr/crash warn_recent_interval)
+    Option("mgr_crash_warn_recent_interval", T.SECS, L.ADVANCED,
+           14 * 24 * 3600.0,
+           "unarchived crashes newer than this raise RECENT_CRASH "
+           "(ref: mgr/crash warn_recent_interval)", runtime=True),
+    Option("osd_debug_inject_crash_tick", T.BOOL, L.DEV, False,
+           "inject an unhandled exception into the OSD's next "
+           "heartbeat tick (crash-capture exerciser)", runtime=True),
     Option("mon_mgr_health_grace", T.SECS, L.ADVANCED, 60.0,
            "expire mgr-module health checks (RECENT_CRASH, "
            "DEVICE_HEALTH...) not re-reported within this window — a "

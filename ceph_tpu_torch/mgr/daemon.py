@@ -16,11 +16,14 @@ command channel (`_command`, the synchronous `mon_command`), the
 module-command dispatch the mon proxies to it, `tick` (one balancer
 round submitting `osd upmap-batch`), `status`, the pg_autoscaler
 (`start_pg_autoscaler`, `autoscale_tick`), progress (`start_progress`,
-`progress_tick`), `set_health_checks`, the hbmap slice of
-`observability_tick` and the admin socket.  Left out: the crash
-reporter and the crash, telemetry and insights modules (so a telemetry
-or insights command answers the reference's "module not enabled"),
-devicehealth, prometheus and restful.
+`progress_tick`), `set_health_checks`, the crash reporter with its
+messenger hook (`crash post` through the command channel), the crash
+module (`start_crash`; `observability_tick` ticks it, and its
+RECENT_CRASH slice rides the merged module-health report), the hbmap
+slice of `observability_tick` and the admin socket.  Left out: the
+telemetry and insights modules (so a telemetry or insights command
+answers the reference's "module not enabled"), devicehealth,
+prometheus and restful.
 """
 from __future__ import annotations
 
@@ -75,6 +78,9 @@ class MgrDaemon(Dispatcher, MonHunter):
         #: progress module (ref: pybind/mgr/progress); enable with
         #: start_progress(), driven by progress_tick
         self.progress = None
+        #: crash module (ref: pybind/mgr/crash); enable with
+        #: start_crash(), driven by observability_tick
+        self.crash = None
         #: per-module health-check slices, merged into ONE volatile
         #: `mgr health report` so modules never clobber each other
         self._health_reports: dict[str, dict] = {}
@@ -96,6 +102,12 @@ class MgrDaemon(Dispatcher, MonHunter):
         self.asok = None
         self.ms = Messenger.create(network, self.name, threaded=threaded)
         self.ms.add_dispatcher(self)
+        # own-crash capture: the mgr posts its reports over the wire
+        # like any other daemon
+        from ..common.crash import CrashReporter
+        self.crash_reporter = CrashReporter(
+            self.name, post=self._post_crash_meta)
+        self.ms.crash_hook = self.crash_reporter.capture
 
     def _hunt_greeting(self) -> list:
         return [MMonSubscribe(what="osdmap",
@@ -122,6 +134,9 @@ class MgrDaemon(Dispatcher, MonHunter):
             self.ms.connect(m).send_message(MMonCommand(
                 tid=0, cmd={"prefix": "mgr register",
                             "name": self.name}))
+
+    def _post_crash_meta(self, meta: dict) -> None:
+        self._command({"prefix": "crash post", "meta": meta})
 
     def shutdown(self) -> None:
         if self.asok is not None:
@@ -227,6 +242,12 @@ class MgrDaemon(Dispatcher, MonHunter):
             return 0
         return self.progress.tick()
 
+    def start_crash(self, **kw):
+        """Crash-report health agent (ref: pybind/mgr/crash)."""
+        from .crash import CrashModule
+        self.crash = CrashModule(self, **kw)
+        return self.crash
+
     def set_health_checks(self, module: str, checks: dict) -> None:
         """Replace one module's health-check slice and push the MERGED
         report to the mon (ref: MgrModule.set_health_checks — each
@@ -245,11 +266,13 @@ class MgrDaemon(Dispatcher, MonHunter):
 
     def observability_tick(self, now: float | None = None) -> None:
         """One observability round: refresh the volatile mgr
-        registration on every mon, then push the liveness slice (the
-        reference also ticks its crash, insights and telemetry modules
-        here)."""
+        registration on every mon, tick crash (RECENT_CRASH health),
+        then push the liveness slice (the reference also ticks its
+        insights and telemetry modules here)."""
         self.hbmap.reset_timeout(self._hb_handle)
         self._register_mgr()
+        if self.crash is not None:
+            self.crash.tick(now)
         # liveness slice: unhealthy workers ride the same volatile
         # module-health report every other mgr module uses (cleared
         # the moment the worker beats again)

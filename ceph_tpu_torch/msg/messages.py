@@ -12,10 +12,11 @@ The scrub family (`ScrubReserve`, `ScrubMapRequest`, `ScrubMapReply`)
 carries both pool types' scrub; the replicated sub-ops (`RepOpWrite`,
 `RepOpReply`) and the replicated peering's `PGMissingReply` and `PGPull`
 carry the replicated pools; `MMgrCommand` and `MMgrCommandReply` carry a
-mgr-module command the mon proxies to the active mgr.  Left out with the
-services that send them: snap trim, MDS/fs, config and cluster-log, mon
-quorum (election, lease, forward, sync request) and watch/notify
-messages.
+mgr-module command the mon proxies to the active mgr; `MMonElection`,
+`MMonLease`, `MMonLeaseAck`, `MMonForward` and `MPaxosSyncReq` carry a
+multi-mon quorum's election, leases, forwarded commands and catch-up.
+Left out with the services that send them: snap trim, MDS/fs, config
+and cluster-log, and watch/notify messages.
 """
 from __future__ import annotations
 
@@ -482,6 +483,16 @@ class MOSDFailure(Message):
 # --------------------------------------------------------- mon paxos
 
 @dataclass
+class MMonElection(Message):
+    """Leader election (ref: src/messages/MMonElection.h;
+    Elector propose/ack/victory ops)."""
+    op: str = "propose"            # propose | ack | victory
+    epoch: int = 0
+    rank: int = -1                 # sender's rank
+    quorum: list = field(default_factory=list)   # victory: member ranks
+
+
+@dataclass
 class MPaxosBegin(Message):
     """Leader -> peon: accept value at version
     (ref: src/messages/MMonPaxos.h OP_BEGIN; epoch guards a deposed
@@ -514,6 +525,46 @@ class MPaxosStoreSync(Message):
     data: bytes = b""            # wire-encoded store contents
     first_committed: int = 0
     last_committed: int = 0
+
+
+@dataclass
+class MMonLease(Message):
+    """Leader liveness lease to peons
+    (ref: MMonPaxos.h OP_LEASE)."""
+    epoch: int = 0
+    stamp: float = 0.0
+    last_committed: int = 0    # peons behind this request a sync
+    #: the reigning quorum: a recipient NOT listed learns it was left
+    #: out (its election ack never landed) and must re-propose — a
+    #: lease alone is not membership
+    quorum: tuple = ()
+
+
+@dataclass
+class MMonLeaseAck(Message):
+    """Peon lease acknowledgement (ref: MMonPaxos.h OP_LEASE_ACK);
+    carries the peon's paxos state so a freshly elected stale leader
+    learns what it missed before proposing anything."""
+    epoch: int = 0
+    rank: int = -1
+    last_committed: int = 0
+
+
+@dataclass
+class MPaxosSyncReq(Message):
+    """Lagging peon asks the leader for missed commits
+    (ref: Paxos share_state/store sync)."""
+    version: int = 0           # requester's last_committed
+    rank: int = -1
+
+
+@dataclass
+class MMonForward(Message):
+    """Peon forwards a client command to the leader, which replies to
+    the client directly (ref: src/messages/MForward.h)."""
+    tid: int = 0
+    client: str = ""
+    cmd: dict = field(default_factory=dict)
 
 
 # ------------------------------------------------------------- pings
@@ -568,6 +619,7 @@ _VERSIONS: dict[str, tuple[int, int]] = {
     "PGNotify": (2, 1),         # v2: held EC shard indexes
     "PGLogReq": (2, 1),         # v2: EC shard-log view flag
     "MPGStats": (2, 1),         # v2: slow-op summary (SLOW_OPS feed)
+    "MMonLease": (2, 1),        # v2: reigning quorum rides the lease
 }
 
 

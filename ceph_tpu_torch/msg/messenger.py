@@ -5,15 +5,16 @@ Shapes mirrored from the reference (ref: src/msg/Messenger.h —
 `Connection::send_message`; src/msg/Dispatcher.h ms_dispatch/
 ms_handle_reset).  The local backend replaces the AsyncMessenger epoll
 machinery with per-entity queues: a "connection" is a handle onto the
-peer's dispatch queue, and delivery order per (src, dst) pair is FIFO
-like a TCP stream.
+peer's dispatch queue, delivery order per (src, dst) pair is FIFO like
+a TCP stream, and `ms_inject_socket_failures` drops messages the same
+way the reference's injected socket resets lose in-flight traffic
+(ref: src/common/options.cc:987).
 
-The port's copy of `ceph_tpu.msg.messenger`: the in-process transport,
-the cephx signer and verifier hooks, and `Messenger.create` over a
-`TcpNet`, which selects the socket backend (`msg/tcp.py`).  Left out:
-the dispatch thread's crash hook and the `ms_inject_socket_failures`
-shim (its drop rule needs the fault plane's rules, which `faults.py`
-does not carry yet).
+The port's copy of `ceph_tpu.msg.messenger`: the in-process transport
+over the seeded fault plane (`LocalNetwork(fault_seed=)`, the
+`ms_inject_socket_failures` shim rule), the dispatch thread's crash
+hook, the cephx signer and verifier hooks, and `Messenger.create` over a
+`TcpNet`, which selects the socket backend (`msg/tcp.py`).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Callable, Optional
 
 from ..common.lockdep import make_lock
 from ..common.log import dout
+from ..common.options import global_config
 from ..common.racecheck import shared_state
 
 EntityName = str      # "osd.3", "mon.0", "client.4121"
@@ -97,6 +99,10 @@ class Messenger:
         # gates incoming ones (None = auth off; ref: ms_verify_authorizer)
         self.auth_signer = None
         self.auth_verifier = None
+        # crash capture: called with the exception when a dispatcher
+        # blows up on the dispatch thread (the daemon's CrashReporter;
+        # ref: the global handle_fatal_signal crash dump path)
+        self.crash_hook = None
 
     # -- factory (ref: Messenger.cc:21 Messenger::create) ---------------
     @staticmethod
@@ -175,7 +181,7 @@ class Messenger:
                 break
             try:
                 self._deliver(msg)
-            except Exception:
+            except Exception as ex:
                 # log and keep serving, as the reference does, but
                 # count it: a kernel or device fault raised by a
                 # handler must show, not stall the cluster silently
@@ -183,6 +189,14 @@ class Messenger:
                 self.network.note_dispatch_error(self.name, tb)
                 dout("ms", 0).write("dispatch error on %s: %s",
                                     self.name, tb)
+                if self.crash_hook is not None:
+                    try:
+                        self.crash_hook(ex)
+                    except Exception as hex_:
+                        # capture must never re-crash the loop
+                        dout("ms", 0).write(
+                            "%s: crash hook failed: %s", self.name,
+                            hex_)
 
     def _deliver(self, msg: Message) -> None:
         if self.auth_verifier is not None and \
@@ -210,16 +224,22 @@ DROP_RING = 512
 
 @shared_state(only=("_endpoints",), mutating=("_endpoints",))
 class LocalNetwork:
-    """In-process "wire": entity registry + routing.
+    """In-process "wire": entity registry + routing + fault injection.
 
-    One instance per simulated cluster.  Delivery goes through the
-    attached FaultPlane (`faults.py`), which carries no rules in the
-    port yet and so delivers every message at once.  The `filter` hook
-    drops a message and gives both sides `ms_handle_reset`, as the
-    reference's injected socket resets do.  `dispatch_errors` counts
-    the exceptions that threaded dispatch loops logged and survived."""
+    One instance per simulated cluster.  Fault injection is delegated
+    to the attached FaultPlane (`faults.py`): per-link drop
+    probability, partitions, delay, reorder, duplication — all from
+    one seeded RNG.  `ms_inject_socket_failures` survives as a
+    compatibility shim that installs an equivalent all-links drop rule
+    with probability 1/N (ref: src/common/options.cc:987; the
+    reference resets the socket, losing in-flight messages — shim
+    drops likewise give both sides ms_handle_reset, while partition
+    drops stay silent so detection is timeout-driven like a real
+    netsplit).  The `filter` hook drops a message and resets both
+    sides too.  `dispatch_errors` counts the exceptions that threaded
+    dispatch loops logged and survived."""
 
-    def __init__(self):
+    def __init__(self, fault_seed: int = 0):
         from .faults import FaultPlane
         self._endpoints: dict[EntityName, Messenger] = {}
         self._lock = make_lock("msgr.local_network")
@@ -238,8 +258,11 @@ class LocalNetwork:
         #: the traceback of the last one
         self.dispatch_errors = 0
         self.last_dispatch_error = ""
-        self.faults = FaultPlane()
+        self.faults = FaultPlane(seed=fault_seed)
         self.faults.deliver_cb = self._fault_deliver
+        #: ms_inject_socket_failures value the shim rule reflects
+        self._shim_inject = 0
+        self._shim_rule: int | None = None
 
     @property
     def routed(self) -> int:
@@ -266,6 +289,22 @@ class LocalNetwork:
     def lookup(self, name: EntityName) -> Messenger | None:
         with self._lock:
             return self._endpoints.get(name)
+
+    def _sync_inject_shim(self) -> None:
+        """Mirror ms_inject_socket_failures into an equivalent
+        FaultPlane rule: drop 1-in-N becomes probability 1/N on every
+        link (seeded, so bursts are now possible — the modulus never
+        dropped two consecutive messages)."""
+        inject = global_config()["ms_inject_socket_failures"]
+        if inject == self._shim_inject:
+            return
+        self._shim_inject = inject
+        if self._shim_rule is not None:
+            self.faults.remove_rule(self._shim_rule)
+            self._shim_rule = None
+        if inject:
+            self._shim_rule = self.faults.add_rule(
+                "*", "*", drop=1.0 / inject, reset=True)
 
     def _fault_deliver(self, src: EntityName, dst: EntityName,
                        msg: Message) -> None:
@@ -296,6 +335,7 @@ class LocalNetwork:
 
     def route(self, src: EntityName, dst: EntityName,
               msg: Message) -> bool:
+        self._sync_inject_shim()
         if self.filter is not None and \
                 not self.filter(src, dst, msg):
             self._drop(src, dst, msg, reset=True)

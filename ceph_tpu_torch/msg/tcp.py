@@ -24,8 +24,10 @@ reference endpoint talk to each other.  One rule differs: a handler
 error a reader thread logs and serves past is also counted on the net,
 in `dispatch_errors` and `last_dispatch_error` (the names
 `LocalNetwork` uses), and the net counts the frames and bytes its
-endpoints send.  Left out: the fault plane's send-side intercept (the
-port's plane carries no rules yet) and the dispatch crash hook.
+endpoints send.  `TcpNet(faults=)` shares a `FaultPlane` with every
+endpoint on the net, which decides each send before the socket write
+(drop with an optional reset, partition, delay slept out, dup), and a
+handler error on a reader thread goes to the endpoint's `crash_hook`.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import dataclasses
 import socket
 import struct
 import threading
+import time
 import traceback
 
 from ..common.lockdep import make_lock
@@ -85,16 +88,22 @@ class TcpNet:
     The net also carries what its endpoints count: handler errors their
     reader threads logged and served past (`dispatch_errors`, the
     traceback of the last in `last_dispatch_error`), and the frames and
-    bytes they sent (`frames_sent`, `bytes_sent`, headers included)."""
+    bytes they sent (`frames_sent`, `bytes_sent`, headers included).
+    `faults` is an optional shared `FaultPlane` (msg/faults.py)."""
 
     def __init__(self, addr_map: dict[str, tuple[str, int]],
                  secure_secret: str | bytes | None = None,
                  compress: str | None = None,
-                 compress_min: int = 4096):
+                 compress_min: int = 4096,
+                 faults=None):
         self.addr_map = dict(addr_map)
         self.secure_secret = secure_secret
         self.compress = compress
         self.compress_min = compress_min
+        #: optional shared FaultPlane — every endpoint created on this
+        #: net intercepts its sends through it (drop/partition/delay/
+        #: dup; reorder needs a queue transport and is a no-op here)
+        self.faults = faults
         self._lock = make_lock("msgr.tcp_net")
         self.dispatch_errors = 0
         self.last_dispatch_error = ""
@@ -130,6 +139,10 @@ class TcpMessenger:
         self.net = net
         self.name = name
         self.addr_map = dict(net.addr_map)
+        #: send-side fault intercept (msg/faults.py FaultPlane):
+        #: consulted before every socket write, so a partitioned or
+        #: lossy link fails here exactly like the in-process backend
+        self.faults = net.faults
         # secure wire mode (ref: frames_v2 SECURE): every CONNECTION
         # runs its own KEX and seals under per-session, per-direction
         # keys (msg/secure.py SecureConn)
@@ -165,6 +178,8 @@ class TcpMessenger:
         # cephx hooks (same surface as the in-process messenger)
         self.auth_signer = None
         self.auth_verifier = None
+        # crash capture (same surface as the in-process messenger)
+        self.crash_hook = None
 
     # -- messenger surface ----------------------------------------------
     def add_dispatcher(self, d: Dispatcher) -> None:
@@ -315,6 +330,17 @@ class TcpMessenger:
         return sock
 
     def _send(self, peer: str, msg: Message) -> bool:
+        eff = None
+        if self.faults is not None:
+            # decide (and sleep out an injected delay) BEFORE taking
+            # the lock: a delayed link must not stall unrelated peers
+            eff = self.faults.decide(self.name, peer, msg.type_name)
+            if eff.dropped:
+                if eff.reset:
+                    self.handle_reset(peer)
+                return False
+            if eff.delay > 0.0:
+                time.sleep(min(eff.delay, 1.0))
         with self._lock:
             self._seq += 1
             msg = dataclasses.replace(msg, src=self.name, seq=self._seq)
@@ -349,6 +375,10 @@ class TcpMessenger:
                 fresh = True
             try:
                 self._send_sealed(sock, payload)
+                if eff is not None and eff.dup:
+                    # injected duplication: same frame, same seq — the
+                    # receiver sees a TCP-retransmit-style replay
+                    self._send_sealed(sock, payload)
                 return True
             except OSError:
                 (self._learned if learned else self._out).pop(peer, None)
@@ -510,7 +540,7 @@ class TcpMessenger:
             try:
                 if d.ms_dispatch(msg):
                     return
-            except Exception:
+            except Exception as ex:
                 # log and keep serving, as the reference does, but
                 # count it: a kernel or device fault raised by a
                 # handler must show, not stall the cluster silently
@@ -518,6 +548,14 @@ class TcpMessenger:
                 self.net.note_dispatch_error(self.name, tb)
                 dout("ms", 0).write("dispatch error on %s: %s",
                                     self.name, tb)
+                if self.crash_hook is not None:
+                    try:
+                        self.crash_hook(ex)
+                    except Exception as hex_:
+                        # capture must never re-crash the reader
+                        dout("ms", 0).write(
+                            "%s: crash hook failed: %s", self.name,
+                            hex_)
                 return
         dout("ms", 1).write("%s: unhandled message %s from %s",
                             self.name, msg.type_name, msg.src)

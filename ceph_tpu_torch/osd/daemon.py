@@ -23,11 +23,13 @@ reservations, EC repair through `ECBackend.recover_object`, replicated
 repair by forced pushes from the primary's copy, and the chained verify
 round) and the optional device-mesh `fabric`.  Every plugin the daemon
 builds lives on its `device` (cuda unless the caller passes
-`device="cpu"`); a replicated PG launches no kernel.  Two rules differ:
+`device="cpu"`); a replicated PG launches no kernel.  Three rules differ:
 a queued recovery item that raises is logged as in the reference and
-also counted in the `queued_op_failures` perf counter; and a pull that
+also counted in the `queued_op_failures` perf counter; a pull that
 finds no PG view to push from is dropped as in the reference and also
-counted in `recovery_push_errors`.  A pool's pg_num growth splits the
+counted in `recovery_push_errors`; and a live OSD that a new map shows
+down boots again, as Ceph's does, where the reference's stays down
+until it is marked out.  A pool's pg_num growth splits the
 PGs this OSD holds in place (`_split_pgs`: objects, their durable log
 entries and snap index move to the child collections in one transaction
 per parent), and a later pgp_num growth reseeds placement, which the
@@ -37,9 +39,14 @@ result across epochs that leave the CRUSH inputs alone (`_pg_mapping`),
 where the reference maps every PG again on every epoch; the mappings
 are the same.  Left out: snap trim and the snapshot ops (`rollback`,
 `list_snaps`), object classes (`exec`), watch/notify (a client op the
-daemon does not carry answers EINVAL), crash capture, the cluster-log
-client (a scrub result goes to the debug log only), centralized config
-and the heartbeat mute hook.
+daemon does not carry answers EINVAL), the cluster-log client (a scrub
+result goes to the debug log only), centralized config and the
+heartbeat mute hook.  Crash capture is the reference's: an exception
+out of a heartbeat tick or a dispatch thread (or the
+`inject_crash_tick` fault) becomes a crash report, spooled to
+`crash_dir` when one is given and posted to the mon's crash table as a
+`crash post` command, whose ack retires the spool copy; `init` drains
+the spool.
 With a `keyring` the daemon signs its traffic and verifies inbound
 (cephx); `start_admin_socket` serves perf dump, status, config
 show/get/set and the op tracker's dumps.
@@ -76,6 +83,7 @@ from ..ec import registry as ec_registry
 from ..mon.osd_monitor import DEFAULT_EC_PROFILE
 from ..msg.messages import (BackfillReserve, ECSubRead, ECSubReadReply,
                             ECSubWrite, ECSubWriteReply, MMap,
+                            MMonCommand, MMonCommandAck,
                             MMonSubscribe, MOSDBoot, MOSDFailure,
                             MOSDPGTemp, MPGStats, OSDOp, OSDOpReply,
                             PGLogPush, PGLogReq, PGMissingReply,
@@ -175,7 +183,8 @@ class OSDDaemon(Dispatcher, MonHunter):
     def __init__(self, network: LocalNetwork, whoami: int,
                  store: Optional[MemStore] = None, mon="mon.0",
                  threaded: bool = False, perf_collection=None,
-                 fabric=None, device=None, keyring=None):
+                 fabric=None, device=None, keyring=None,
+                 crash_dir: str | None = None):
         self.whoami = whoami
         self.name = f"osd.{whoami}"
         #: where every plugin this daemon builds lives (cuda unless
@@ -296,6 +305,18 @@ class OSDDaemon(Dispatcher, MonHunter):
             from ..auth import attach_cephx
             attach_cephx(self.ms, self.name, keyring)
         self.asok = None
+        # crash capture (ref: mgr/crash ingest + the ceph-crash spool
+        # agent): unhandled tick/dispatch exceptions serialize into
+        # crash metadata, spool to crash_dir (if any), and post to the
+        # mon's crash table; the ack retires the spool copy
+        from ..common.crash import CrashReporter
+        self.crash = CrashReporter(self.name, crash_dir=crash_dir,
+                                   post=self._post_crash_meta)
+        self.ms.crash_hook = self.crash.capture
+        #: fault hook: raise out of the next heartbeat tick (the
+        #: osd_debug_inject_crash_tick analogue, settable per-daemon)
+        self.inject_crash_tick = \
+            bool(global_config()["osd_debug_inject_crash_tick"])
 
     # ------------------------------------------------------------ setup
     def init(self) -> None:
@@ -303,6 +324,14 @@ class OSDDaemon(Dispatcher, MonHunter):
         self.ms.connect(self.mon).send_message(MOSDBoot(osd=self.whoami))
         self.ms.connect(self.mon).send_message(
             MMonSubscribe(what="osdmap", start=1))
+        # next-boot spool drain: crashes captured while the mon was
+        # unreachable post now (the table dedups by crash_id)
+        self.crash.drain()
+
+    def _post_crash_meta(self, meta: dict) -> None:
+        tid = self.crash.alloc_tid(meta["crash_id"])
+        self.ms.connect(self.mon).send_message(MMonCommand(
+            tid=tid, cmd={"prefix": "crash post", "meta": meta}))
 
     def shutdown(self) -> None:
         if self.asok is not None:
@@ -374,6 +403,11 @@ class OSDDaemon(Dispatcher, MonHunter):
     def _dispatch(self, msg: Message) -> bool:
         if isinstance(msg, MMap):
             self._handle_map(msg)
+            return True
+        if isinstance(msg, MMonCommandAck):
+            # only crash posts ride the command channel from an OSD;
+            # a successful ack retires the spooled copy
+            self.crash.on_ack(msg.tid, msg.result)
             return True
         if isinstance(msg, OSDOp):
             self.op_tracker.start(
@@ -663,6 +697,17 @@ class OSDDaemon(Dispatcher, MonHunter):
             # transient EC views go stale when PG state changes hands
             self._ec_transients.clear()
             self._update_pgs()
+            # wrongly marked down: a live OSD that a new epoch shows down
+            # (false failure reports, a healed partition, `osd down`)
+            # announces itself again (ref: OSD.cc _committed_osd_maps
+            # "wrongly marked me down" -> start_boot)
+            me = self.whoami
+            if me in old_up and me < self.osdmap.max_osd and \
+                    self.osdmap.exists(me) and not self.osdmap.is_up(me):
+                dout("osd", 0).write("%s: map e%d wrongly marked me down",
+                                     self.name, self.osdmap.epoch)
+                self.ms.connect(self.mon).send_message(
+                    MOSDBoot(osd=me))
 
     def _ec_plugin(self, profile_name: str):
         ec = self._ecs.get(profile_name)
@@ -1854,7 +1899,23 @@ class OSDDaemon(Dispatcher, MonHunter):
         """Ping peers; report silent ones to the mon after the grace
         window (ref: OSD.cc heartbeat() + heartbeat_check :4583).
         `now` may be simulated time for deterministic tests; stamps
-        echo through PingReply so the clocks stay consistent."""
+        echo through PingReply so the clocks stay consistent.
+
+        Crash-capturing entry: an unhandled exception (or the
+        inject_crash_tick fault) serializes into a crash report —
+        posted to the mon while the messenger still lives — and then
+        propagates, so the harness reaps the daemon like an abort()."""
+        try:
+            if self.inject_crash_tick:
+                self.inject_crash_tick = False
+                raise RuntimeError(
+                    "injected crash (osd_debug_inject_crash_tick)")
+            self._heartbeat_tick(now)
+        except Exception as exc:
+            self.crash.capture(exc)
+            raise
+
+    def _heartbeat_tick(self, now: float | None = None) -> None:
         self._drain_op_queue()      # paced recovery backlog
         now = time.monotonic() if now is None else now
         self.hbmap.reset_timeout(self._hb_handle)

@@ -17,7 +17,11 @@ differ from the reference: only a plan error (`RepairPlanError`) or an
 `ErasureCodeError` sends a compiled repair to the full rebuild, or turns
 a full rebuild's decode into a failed job; a fault of K1's wrapper, its
 launch, its build or the device guard propagates.  Every full rebuild
-bumps the daemon's `recovery_full_rebuild` counter.  A pgp_num reseed
+bumps the daemon's `recovery_full_rebuild` counter.  And a clean primary
+whose map pins the PG to exactly its up set hands the redundant pin
+back (the up set came back to it before the backfill under it ended;
+Ceph's mon drops such pins in `OSDMap::clean_temps`, the reference
+keeps them).  A pgp_num reseed
 runs on the same path: each moved object's shards are gathered across
 the prior interval's holders (at least k of them), decoded and
 re-encoded, K1 on both legs.
@@ -827,14 +831,23 @@ class ECPGPeering:
         up, _, acting, _ = self.d._pg_mapping(self.pg)
         current = {o for o in list(up) + list(acting)
                    if 0 <= o < CRUSH_ITEM_NONE}
+        cleared = False
         if self.pg_temp_requested and self.d.whoami in current:
             # direct convergence won before the override landed
             self.d.clear_pg_temp(self.pg)
             self.pg_temp_requested = False
+            cleared = True
         if self.d.whoami in current and set(acting) != set(up):
             # we are the temp primary and the up set is backfilled:
             # hand the interval back (ref: the pg_temp clear in
             # PeeringState::Clean)
+            self.d.clear_pg_temp(self.pg)
+        elif not cleared and up and \
+                list(self.d.osdmap.pg_temp.get(self.pg, ())) == list(up):
+            # the up set came back to the override before the backfill
+            # under it finished, and the primary that asked for it lost
+            # the PG: hand the redundant override back (ref: Ceph's
+            # OSDMap::clean_temps; the reference keeps it)
             self.d.clear_pg_temp(self.pg)
         for o, info in self.infos.items():
             if o not in current and (info.have_data or

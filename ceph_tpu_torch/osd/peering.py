@@ -53,7 +53,10 @@ shard logs, cross-set chunk sources, and reservation-gated chunk
 backfill — sharing this module's phase constants, the daemon's
 reservation pools, and the pg_temp plumbing.
 
-The port's copy of `ceph_tpu.osd.peering`, whole.  A split child (the
+The port's copy of `ceph_tpu.osd.peering`, whole, with one rule that
+differs: a clean primary whose map pins the PG to exactly its up set
+hands the redundant pin back (Ceph's mon drops such pins in
+`OSDMap::clean_temps`; the reference keeps them).  A split child (the
 daemon's `_split_pgs` on pg_num growth) starts with its parent's objects
 and log tail and takes its prior set from its parent's seed; a pgp_num
 reseed resolves the prior set under the previous interval, where the
@@ -707,15 +710,23 @@ class PGPeering:
         if self.bf_reserved_local:
             self.d.release_local_backfill(self.pg)
             self.bf_reserved_local = False
+        cleared = False
         if self.primary_backfill_from is not None:
             # direct pull converged first: drop the pg_temp request
             self.d.clear_pg_temp(self.pg)
             self.primary_backfill_from = None
+            cleared = True
         up, _, acting, _ = self.d._pg_mapping(self.pg)
         current = {o for o in list(up) + list(acting)
                    if 0 <= o < CRUSH_ITEM_NONE}
         if self.d.whoami in current and set(acting) != set(up):
             # we are the temp primary: hand the interval back
+            self.d.clear_pg_temp(self.pg)
+        elif not cleared and up and \
+                list(self.d.osdmap.pg_temp.get(self.pg, ())) == list(up):
+            # a redundant override (the up set came back to it): hand
+            # it back (ref: Ceph's OSDMap::clean_temps; the reference
+            # keeps it)
             self.d.clear_pg_temp(self.pg)
         for o, info in self.infos.items():
             if o not in current and (info.have_data or

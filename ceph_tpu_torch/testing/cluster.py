@@ -1,19 +1,23 @@
 """MiniCluster: vstart-style single-process cluster harness.
 
-One mon + N OSD daemons + client handles over a LocalNetwork — the
-tier-2 cluster fixture the reference builds with vstart.sh /
-qa/tasks/ceph.py: spin a cluster up, create pools, do IO through
+One mon (or a quorum of them) + N OSD daemons + client handles over a
+LocalNetwork — the tier-2 cluster fixture the reference builds with
+vstart.sh / qa/tasks/ceph.py: spin a cluster up, create pools, do IO through
 librados, kill/revive daemons, and let the mon's failure handling and
 the client's resend engine react.
 
 The port's copy of `ceph_tpu.testing.cluster` in part (replicated and
 erasure pools alike; replicated pools need nothing of the harness beyond
-what EC pools use): one mon with
+what EC pools use): `n_mon` mons (a quorum when more than one, whose
+election settles in the constructor in pump mode) with `leader()`,
 `kill_mon` and `revive_mon` (the revived mon resumes from the store the
-killed one kept; give it a `MonitorStore(LogDB(dir))` through
-`mon_store` to have that store on disk), `start_osd`, `kill_osd`,
-`revive_osd`, `start_mgr`, `rados()`, `pump`, `tick`, `wait_all_up`,
-`shutdown` and the shared `fabric`.  An OSD runs on whatever store `_stores[osd]`
+killed one kept; give a single mon a `MonitorStore(LogDB(dir))` through
+`mon_store` to have that store on disk), the seeded fault plane
+(`fault_seed`, on the cluster's clock), crash spools per mon
+(`mon_crash_dirs`) and per OSD (`start_osd(crash_dir=)`, sticky across
+restarts), `crash_osd`, `start_osd`, `kill_osd`, `revive_osd`,
+`start_mgr`, `rados()`, `pump`, `tick`, `wait_all_up`, `shutdown` and
+the shared `fabric`.  An OSD runs on whatever store `_stores[osd]`
 holds when it starts (a mounted `BlueStore` or `JournaledStore` for a
 durable one), as the reference's tests use that slot.  The cluster
 runs on its `device` (cuda unless the caller passes `device="cpu"`):
@@ -24,10 +28,11 @@ a client also runs in pump mode, where its MAuthRequest handshake is
 pumped like any other message.  One rule differs: `tick` reaps an OSD
 whose `heartbeat_tick` raises, as the reference does, and also records
 the reap in `reaped` (osd id, exception type, traceback), so a kernel
-fault raised from a ticked peering retry shows.  Left out: multi-mon
-quorums (`n_mon`, `leader`), crash spools, the MDS and RGW helpers.  `revive_mon` also hands the revived mon the cluster's
-keyring (the reference's starts it without one), and makes it
-`self.mon` again.
+fault raised from a ticked peering retry shows (the OSD has already
+captured the crash into the mon's crash table, as the reference's
+does).  Left out: the MDS and RGW helpers.  `revive_mon` also hands the
+revived mon the cluster's keyring (the reference's starts it without
+one), and makes it `self.mon` again when `self.mon` is not alive.
 """
 from __future__ import annotations
 
@@ -48,11 +53,15 @@ from ..osd.daemon import OSDDaemon
 class MiniCluster:
     def __init__(self, n_osd: int = 6, osds_per_host: int = 1,
                  threaded: bool = True, fabric=None, device=None,
-                 auth: str = "none", mon_store=None):
+                 auth: str = "none", mon_store=None, n_mon: int = 1,
+                 mon_crash_dirs: dict[int, str] | None = None,
+                 fault_seed: int = 0):
+        if mon_store is not None and n_mon != 1:
+            raise ValueError("mon_store is a single mon's store")
         self.device = _device.resolve(device)
-        self.network = LocalNetwork()
-        # fault-plane delays release against the same clock the mon
-        # ticks on, so a sim-time schedule holds messages sim-time long
+        self.network = LocalNetwork(fault_seed=fault_seed)
+        # fault-plane delays release against the same clock the mons
+        # tick on, so a sim-time schedule holds messages sim-time long
         self.network.faults.clock = self._clock
         self.threaded = threaded
         #: shared ICIFabric — OSDs become device-mesh co-resident and
@@ -60,9 +69,12 @@ class MiniCluster:
         self.fabric = fabric
         self._sim_now: float | None = None
         self.perf_collection = PerfCountersCollection()
-        self.mon_names = ["mon.0"]
+        ranks = list(range(n_mon))
+        self.mon_names = [f"mon.{r}" for r in ranks]
         self.osds: dict[int, OSDDaemon] = {}
         self._stores: dict[int, object] = {}
+        #: per-osd crash-spool dirs, sticky across kill/revive
+        self._crash_dirs: dict[int, str] = {}
         self.clients: list[Rados] = []
         self.mgr = None
         #: (osd, exception type, traceback) of every OSD `tick` reaped
@@ -74,51 +86,75 @@ class MiniCluster:
         if auth == "cephx":
             from ..auth import KeyRing
             self.keyring = KeyRing.generate(
-                ["mon.0"] + [f"osd.{o}" for o in range(n_osd)])
+                self.mon_names + [f"osd.{o}" for o in range(n_osd)])
         self._client_keys = itertools.count(1)
         m, w = build_initial(n_osd, osds_per_host=osds_per_host)
-        self.mon = Monitor(self.network, rank=0,
-                           initial_map=copy.deepcopy(m),
-                           initial_wrapper=copy.deepcopy(w),
-                           store=mon_store,
-                           threaded=threaded, clock=self._clock,
-                           device=self.device, keyring=self.keyring)
-        self.mon.init()
-        self.mons = {0: self.mon}
+        #: per-rank mon crash-spool dirs (the post-election spool
+        #: drain); also honored by revive_mon
+        self._mon_crash_dirs = dict(mon_crash_dirs or {})
+        self.mons: dict[int, Monitor] = {}
+        for r in ranks:
+            self.mons[r] = Monitor(
+                self.network, rank=r, initial_map=copy.deepcopy(m),
+                initial_wrapper=copy.deepcopy(w), store=mon_store,
+                threaded=threaded, clock=self._clock,
+                mon_ranks=ranks if n_mon > 1 else None,
+                device=self.device, keyring=self.keyring,
+                crash_dir=self._mon_crash_dirs.get(r))
+            self.mons[r].init()
+        self.mon = self.mons[0]      # rank 0 wins elections when alive
         self._mon_stores: dict = {}
+        if not threaded and n_mon > 1:
+            self.pump()              # settle the election
         for osd in range(n_osd):
             self.start_osd(osd)
 
     # ------------------------------------------------------------ mons
+    def leader(self) -> Monitor | None:
+        for mn in self.mons.values():
+            if mn.is_leader:
+                return mn
+        return None
+
     def kill_mon(self, rank: int = 0) -> None:
-        """Hard-kill the mon: off the wire, its store kept for
+        """Hard-kill a mon: off the wire, its store kept for
         `revive_mon`."""
         mn = self.mons.pop(rank, None)
         if mn is not None:
             self._mon_stores[rank] = mn.store
             mn.shutdown()
+        if self.mon is mn and self.mons:
+            self.mon = self.mons[min(self.mons)]
 
     def revive_mon(self, rank: int = 0) -> Monitor:
         """Restart a killed mon from its surviving store."""
+        ranks = [int(n.split(".")[1]) for n in self.mon_names]
         mn = Monitor(self.network, rank=rank,
                      store=self._mon_stores.get(rank),
                      threaded=self.threaded, clock=self._clock,
-                     device=self.device, keyring=self.keyring)
+                     mon_ranks=ranks if len(ranks) > 1 else None,
+                     device=self.device, keyring=self.keyring,
+                     crash_dir=self._mon_crash_dirs.get(rank))
         mn.init()
         self.mons[rank] = mn
-        self.mon = mn
+        if self.mon not in self.mons.values():
+            self.mon = mn
         if not self.threaded:
             self.pump()
         return mn
 
     # ------------------------------------------------------------ osds
-    def start_osd(self, osd: int) -> OSDDaemon:
+    def start_osd(self, osd: int,
+                  crash_dir: str | None = None) -> OSDDaemon:
         store = self._stores.get(osd)
+        if crash_dir is not None:
+            self._crash_dirs[osd] = crash_dir
         d = OSDDaemon(self.network, osd, store=store,
                       threaded=self.threaded,
                       perf_collection=self.perf_collection,
                       mon=self.mon_names, fabric=self.fabric,
-                      device=self.device, keyring=self.keyring)
+                      device=self.device, keyring=self.keyring,
+                      crash_dir=self._crash_dirs.get(osd))
         self._stores[osd] = d.store
         d.init()
         self.osds[osd] = d
@@ -133,6 +169,14 @@ class MiniCluster:
 
     def revive_osd(self, osd: int) -> OSDDaemon:
         return self.start_osd(osd)
+
+    def crash_osd(self, osd: int, now: float | None = None) -> None:
+        """Inject a fault into the OSD's next tick: it captures a
+        crash report (backtrace + metadata), posts it to the mon's
+        crash table, and leaves the cluster like an aborted process
+        (store kept for revive_osd)."""
+        self.osds[osd].inject_crash_tick = True
+        self.tick(now)
 
     # ------------------------------------------------------------- mgr
     def start_mgr(self, **kw):
@@ -199,8 +243,9 @@ class MiniCluster:
     def tick(self, now: float | None = None) -> None:
         """One heartbeat round on every live OSD + a mon tick; pumps
         in non-threaded mode so the exchange completes.  An OSD whose
-        tick raises is reaped like an aborted process: off the wire,
-        store kept for a revive, and recorded in `reaped`."""
+        tick raises has already crash-captured (osd/daemon.py
+        heartbeat_tick); it is reaped like an aborted process: off the
+        wire, store kept for a revive, and recorded in `reaped`."""
         if now is not None:
             self._sim_now = now
         for osd, d in list(self.osds.items()):

@@ -18,9 +18,13 @@ Usage:
         [--data-dir osd2 [--objectstore journaled]]
 
 The port's copy of `ceph_tpu.tools.daemon_main` for the mon and OSD
-roles: `--monmap`, `--keyring` (cephx), `--asok` (admin socket),
-`--data-dir` and `--objectstore`, and the monmap's `ms_secure_mode` and
-`ms_compress`.  With `--data-dir` the mon keeps its store in a `LogDB`
+roles: `--monmap` (its `mon_ranks` make the mons a quorum when it
+lists more than one), `--keyring` (cephx), `--asok` (admin socket),
+`--data-dir`, `--objectstore` and `--crash-dir`, and the monmap's
+`ms_secure_mode` and `ms_compress`.  Crash reports spool to
+`--crash-dir`, else to `<data-dir>/crash` (the /var/lib/ceph/crash
+layout), else nowhere (post only); the daemon's crash reporter also
+hooks the process's and its threads' uncaught exceptions.  With `--data-dir` the mon keeps its store in a `LogDB`
 there and an OSD its objects in a `BlueStore` (or, with `--objectstore
 journaled`, a `JournaledStore`), so a daemon killed with SIGKILL and
 started again on the same directory resumes: the mon from its
@@ -41,9 +45,7 @@ device guard and the race checker arm from the environment
 is imported.  One rule
 differs: a tick error the loop logs and survives also counts in the
 daemon's perf counters as `tick_errors` (`perf dump`).  Not ported yet,
-and refused with a one-line error: the `mds` role and `--crash-dir`
-(crash reports; the reference also spools them to `<data-dir>/crash`,
-which the port does not, because `common/crash.py` is not ported).
+and refused with a one-line error: the `mds` role.
 """
 from __future__ import annotations
 
@@ -55,9 +57,6 @@ import time
 
 #: how long an OSD waits for a mon to accept connections before it boots
 MON_WAIT_S = 300.0
-
-#: the reference's options whose modules the port does not carry yet
-NOT_PORTED = {"crash_dir": "--crash-dir (crash reports)"}
 
 
 def load_monmap(path: str) -> dict:
@@ -107,6 +106,17 @@ def wait_for_mon(mm: dict, mons: list[str],
         time.sleep(0.1)
 
 
+def _crash_dir(args) -> str | None:
+    """Spool dir for crash reports: --crash-dir, else <data-dir>/crash
+    (the /var/lib/ceph/crash layout), else none (post-only)."""
+    if getattr(args, "crash_dir", ""):
+        return args.crash_dir
+    if getattr(args, "data_dir", ""):
+        import os
+        return os.path.join(args.data_dir, "crash")
+    return None
+
+
 def _keyring(args):
     if not args.keyring:
         return None
@@ -154,6 +164,7 @@ def run_mon(args, stamps: dict) -> int:
     mm = load_monmap(args.monmap)
     m, w = build_initial(mm.get("n_osd", 0),
                          osds_per_host=mm.get("osds_per_host", 1))
+    ranks = mm.get("mon_ranks", [0])
     keyring = _keyring(args)
     _warm(args.device, stamps)
     store = None
@@ -165,8 +176,11 @@ def run_mon(args, stamps: dict) -> int:
         store = MonitorStore(LogDB(args.data_dir))
     stamps["store"] = time.time()
     mon = Monitor(make_net(mm, keyring), rank=args.rank, initial_map=m,
-                  initial_wrapper=w, store=store, device=args.device,
-                  keyring=keyring)
+                  initial_wrapper=w, store=store,
+                  mon_ranks=ranks if len(ranks) > 1 else None,
+                  device=args.device, keyring=keyring,
+                  crash_dir=_crash_dir(args))
+    mon.crash_reporter.install_excepthook()
     mon.init()
     stamps["serving"] = time.time()
     _admin(mon, args, stamps)
@@ -200,7 +214,9 @@ def run_osd(args, stamps: dict) -> int:
         store.mount()
     stamps["store"] = time.time()
     d = OSDDaemon(make_net(mm, keyring), args.id, store=store, mon=mons,
-                  threaded=True, device=args.device, keyring=keyring)
+                  threaded=True, device=args.device, keyring=keyring,
+                  crash_dir=_crash_dir(args))
+    d.crash.install_excepthook()
     wait_for_mon(mm, mons)
     d.init()
     stamps["serving"] = time.time()
@@ -258,8 +274,8 @@ def parser() -> argparse.ArgumentParser:
                            choices=["bluestore", "journaled"],
                            help="durable engine (journaled = legacy)")
         p.add_argument("--crash-dir", default="",
-                       help="crash-report spool dir (not ported yet; "
-                            "nor is the reference's <data-dir>/crash)")
+                       help="crash-report spool dir (default "
+                            "<data-dir>/crash when --data-dir is set)")
     pd = sub.add_parser("mds")
     pd.add_argument("--rank", type=int, default=0)
     pd.add_argument("--monmap", required=True)
@@ -276,9 +292,6 @@ def main(argv=None) -> int:
     args = parser().parse_args(argv)
     if args.role == "mds":
         raise SystemExit("daemon_main: the mds role is not ported yet")
-    for key, what in NOT_PORTED.items():
-        if getattr(args, key):
-            raise SystemExit(f"daemon_main: {what} is not ported yet")
     return {"mon": run_mon, "osd": run_osd}[args.role](args, stamps)
 
 

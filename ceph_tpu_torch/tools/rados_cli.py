@@ -18,8 +18,9 @@ librados carries: `lspools`, `mkpool` (a replicated pool, as in the
 reference), `rmpool`, `ls`, `put`, `get`, `rm`, `stat`, `setxattr`,
 `getxattr`, `listxattr`, `setomapval`, `listomapvals`, `bench <pool>
 <seconds> write|seq -b -t [--no-cleanup]` (`seq` lists the pool's
-`benchmark_data_*` objects, as the reference does) and the paged
-artifact store's `serve put|get|stat|pages`, with `--monmap`,
+`benchmark_data_*` objects, as the reference does), the paged artifact
+store's `serve put|get|stat|pages` and the mon's crash table (`crash
+ls|ls-new|stat|info|archive|archive-all|prune`), with `--monmap`,
 `--keyring` and `--timeout`; the output text and return codes are the
 reference's.  Two rules differ:
 
@@ -29,7 +30,7 @@ reference's.  Two rules differ:
 * with a keyring that holds `client.admin`, the client authenticates
   (cephx) as `client.admin`.
 
-Not ported yet: `crash`, `telemetry`, `insights`, `trace` and `rgw`.
+Not ported yet: `telemetry`, `insights`, `trace` and `rgw`.
 """
 from __future__ import annotations
 
@@ -157,6 +158,42 @@ def cmd_listomapvals(r, a, out):
     for k in sorted(vals):
         print(f"{k}\n value ({len(vals[k])} bytes) :", file=out)
         print(vals[k].decode(errors="replace"), file=out)
+
+
+# ------------------------------------------------------ crash (mon)
+# (ref: src/ceph.in routing `ceph crash ...` to the mon, which serves
+#  it from its crash table)
+
+def _mon_verb(r, cmd: dict, out) -> int:
+    rc, outs, outb = r.mon_command(cmd)
+    if rc < 0:
+        print(f"error: {outs}", file=sys.stderr)
+        return 1
+    if outb is not None:
+        print(json.dumps(outb, indent=1, sort_keys=True), file=out)
+    elif outs:
+        print(outs, file=out)
+    return 0
+
+
+def cmd_crash(r, a, out):
+    cmd = {"prefix": f"crash {a.verb}"}
+    if a.verb in ("info", "archive"):
+        if not a.arg:
+            print(f"error: crash {a.verb} wants a crash id",
+                  file=sys.stderr)
+            return 1
+        cmd["id"] = a.arg
+    elif a.verb == "prune":
+        # an omitted keep-days must NOT default to 0 — that means
+        # "drop every archived report"
+        try:
+            cmd["keep"] = float(a.arg)
+        except (TypeError, ValueError):
+            print("error: crash prune wants <keep-days> (a number)",
+                  file=sys.stderr)
+            return 1
+    return _mon_verb(r, cmd, out)
 
 
 def cmd_serve(r, a, out):
@@ -332,6 +369,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("key"), p.add_argument("value")
     p = sub.add_parser("listomapvals")
     p.add_argument("pool"), p.add_argument("obj")
+    p = sub.add_parser("crash")
+    p.add_argument("verb", choices=["ls", "ls-new", "stat", "info",
+                                    "archive", "archive-all", "prune"])
+    p.add_argument("arg", nargs="?",
+                   help="crash id (info/archive) or keep-days (prune)")
     p = sub.add_parser("serve")
     p.add_argument("verb", choices=["put", "get", "stat", "pages"])
     p.add_argument("pool")
@@ -376,6 +418,7 @@ def main(argv=None, rados=None, out=None) -> int:
                   "listxattr": cmd_listxattr,
                   "setomapval": cmd_setomapval,
                   "listomapvals": cmd_listomapvals,
+                  "crash": cmd_crash,
                   "serve": cmd_serve}[a.cmd](rados, a, out)
             return rc or 0
         except RadosError as e:

@@ -58,7 +58,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    clock read during the timing;
 10. compiled repair at full width through the user entry points:
    `factory("jerasure", k=4 m=2 reed_sol_van)`, `factory("clay", k=4
-   m=2)` (d=5) and `factory("lrc", k=4 m=2 l=3)` on cuda, 32 objects of
+   m=2)` (d=5) and `factory("lrc", k=4 m=2 l=3)` on cuda, 16 objects of
    4 MiB each (stripe unit 4096 B, 256 stripes; cut from 64 to keep the
    smoke's wall time), made from the seed and
    encoded by ecutil on the host.  Shard 0 is lost; each object's helper
@@ -74,7 +74,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    zeroed before and read after: one launch per repair or bit-matrix
    product.  K1 equals its plain version at every repair shape, two
    with tables above 48 KiB (k_in 256 and 400) included;
-11. time each code's rebuild of its 32 objects on the host clock, split
+11. time each code's rebuild of its 16 objects on the host clock, split
    into gather, copy in, K1 (also by CUDA events), copy back and
    scatter, with the rebuilt MB/s, beside the first (compiling) and
    second pass of phase 10; K1 per launch at each repair shape beside
@@ -192,7 +192,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    epoch; every `ecpool` object read back and every shard on its acting
    OSD equal to the plain encode, progress's events completed, a mgr
    health slice carried by the mon's `health`.  Then OSDThrasher (seed
-   SEED, min_in = min_live = 12, EIO injection on `ecpool`) for 8 rounds
+   SEED, min_in = min_live = 12, EIO injection on `ecpool`) for 4 rounds
    with two seeded 4 MiB writes between, one shard EIO forced if none
    was rolled and its objects read around it, heal, and the same
    checks; then `telemetry show` proxied by the mon to the mgr ("not
@@ -203,9 +203,9 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    ping replies that keep a busy OSD from being reported.
    (d) The paged artifact store:
    an ArtifactStore with its default layout (64 KiB pages, 1 MiB
-   objects) puts a 128 MiB checkpoint of 4 shards (the last ragged) and
+   objects) puts a 64 MiB checkpoint of 4 shards (the last ragged) and
    a KV pool of 1,024 pages, streams every shard under the `checkpoint`
-   policy and runs 8 waves of 64 seeded page ids through a `kvcache`
+   policy and runs 4 waves of 64 seeded page ids through a `kvcache`
    handle, every byte equal to the put's (pages by sha256).  The OSD in
    the most acting sets is killed and marked down, every object read
    degraded, (d)'s streams and waves repeated degraded (K1 decodes
@@ -230,7 +230,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
 20. the cluster on its real transport, in three legs.  (a) phase 19's
    cell over TCP (ceph_tpu_torch.dryrun.TcpCluster): the mon, 16 OSDs
    and the client each on its own socket on 127.0.0.1, cephx on and
-   secure mode off (Octopus's defaults), 16 x 4 MiB writes (cut from 64),
+   secure mode off (Octopus's defaults), 8 x 4 MiB writes (cut from 64),
    reads, kill, `osd down`, degraded reads, `osd out` and recovery to
    clean; every shard on its acting OSD equal to its bytes before the
    kill; frames and bytes on the wire, cephx signatures verified and
@@ -240,10 +240,10 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    encode, and a degraded read.  (c) Ceph's `rados bench` shape: `python
    -m ceph_tpu_torch.tools.daemon_main` mon and 16 OSD processes on the
    card, each with a keyring and an admin socket, a k=8 m=4 pool, the
-   `rados_cli` processes `bench ecpool 4 write -t 16 --no-cleanup` and
-   `bench ecpool 4 seq -t 16` (4 MiB; seq lists the pool and checks each
+   `rados_cli` processes `bench ecpool 2 write -t 16 --no-cleanup` and
+   `bench ecpool 2 seq -t 16` (4 MiB; seq lists the pool and checks each
    read against the first), then `mkpool reppool 32` (replicated),
-   `bench reppool 4 write -t 16 --no-cleanup`, `bench reppool 4 seq -t
+   `bench reppool 2 write -t 16 --no-cleanup`, `bench reppool 2 seq -t
    16`, `ls`, `setxattr` / `getxattr` / `listxattr`, `setomapval` /
    `listomapvals` and `rmpool`, each output equal to the reference's
    text; then the OSD in the most acting sets killed, `osd down` and 16
@@ -258,7 +258,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    this machine's disk (`df -T` printed): the mon on a LogDB, every OSD
    on BlueStore, a `reppool` (replicated, pg_num 32) beside the EC pool
    with one small object in each of its PGs.  `rados bench write
-   --no-cleanup -t 16 -b 4M` for 4 s;
+   --no-cleanup -t 16 -b 4M` for 2 s;
    the OSD in the most acting sets SIGKILLed and marked down (not out),
    16 seeded 4 MiB objects written to each pool while it is down; the
    OSD restarted on its data dir and timed until every PG is clean: it
@@ -284,10 +284,27 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    the restarted OSD's and two others' equal to the plain version's
    encode (tolerance 0), the replicas the restarted OSD pulled equal to
    their payloads on its disk, and `monstore_tool show-versions` on the mon's
-   dir at the client's last epoch.  MB/s of the writes, seq and the
+   dir at the client's last epoch (its paxos holds one commit per map
+   epoch and the crash table's first).  MB/s of the writes, seq and the
    degraded read, the restart-to-clean seconds of the OSD and the mon,
    every daemon's start-up split (its store's open included), the WAL
-   sizes and statfs per daemon, and every fault count (0).
+   sizes and statfs per daemon, and every fault count (0);
+22. chaos on a three-mon quorum: the port's MiniCluster(n_osd=16, one
+   per host, n_mon=3, pump mode, fault_seed=7) on the card, phase 19's
+   `tpu` k=8 m=4 host-domain `ecpool` of pg_num 32, 16 seeded 4 MiB
+   objects, then ChaosRunner(seed=1) on `ecpool` over the reference's
+   schedule (tests/test_chaos.py: mon.2 partitioned from mon.0 and
+   mon.1 at 20 s and healed at 60, osd.3 killed at 80 and revived at
+   120, 2 % seeded Ping loss among the OSDs from 140 to 200) and the
+   primary of chaos_00001 isolated from 220 to 280 s.  run() returns
+   without InvariantViolation (a majority quorum, every PG active+clean,
+   every acked write read back, health clear, an empty crash table);
+   then acked == ops_total > 0, a partition and a drop counted, the 16
+   objects read back byte for byte, K1 launched (split into encodes,
+   decodes and compiled repairs), the crash table empty, every fault
+   count 0 and the leader's quorum [0, 1, 2].  The fault digest and
+   counts, each phase's p50/p99, the elections held, the sim seconds
+   from the mon heal to a full quorum and the leg's host seconds.
 
 Integer outputs are compared exactly (tolerance 0).  The last two lines
 are the kernel table and {"ok": true, "device": {...}}, both JSON.
@@ -325,7 +342,7 @@ PG_NUM, EC_PG_NUM = 1 << 20, 1 << 16
 EC_K, EC_M = 8, 4
 SAMPLE = 256                     # identity sample per pool, as placement_bench
 PLAIN_SEEDS = 1 << 16
-REPAIR_OBJECTS = 32              # per code, cut from 64 (the smoke's wall)
+REPAIR_OBJECTS = 16              # per code, cut from 64, then 32 (the smoke's wall)
 REPAIR_OBJECT = 4 << 20          # 4 MiB objects
 STRIPE_UNIT = 4096               # osd_pool_erasure_code_stripe_unit default
 REPAIR_CODES = [                 # REPAIR_r01.json's profiles and read/rebuilt
@@ -2288,7 +2305,7 @@ CLUSTER_PG_NUM = 32              # osd_pool_default_pg_num (Octopus)
 CLUSTER_OBJECTS = 64             # 4 MiB objects through librados
 CLUSTER_FABRIC_OBJECTS = 16
 CLUSTER_TIMEOUT_S = 300.0
-TCP_OBJECTS = 16                 # 20 (a)'s objects, cut from 64 (PERF.md 4)
+TCP_OBJECTS = 8                  # 20 (a)'s objects, cut from 64, then 16 (PERF.md 4)
 
 
 def _faults(c, tag: str = "phase 19") -> None:
@@ -2314,6 +2331,34 @@ def _faults(c, tag: str = "phase 19") -> None:
                              "purged-snaps cursors")
 
 
+def _cluster_state(c) -> str:
+    """The map and peering state a failed wait leaves behind: the mon's
+    epoch, down and out OSDs, pg_temp, each OSD's epoch, and the primary
+    PGs that are not clean (phase, recovering, backfilling, acting)."""
+    from ceph_tpu_torch.osd.peering import CLEAN
+
+    m = c.mon.osdmap
+    down = [o for o in range(m.max_osd) if not m.is_up(o)]
+    out = [o for o in range(m.max_osd) if not m.is_in(o)]
+    epochs = {o: d.osdmap.epoch for o, d in sorted(c.osds.items())}
+    dirty = []
+    for d in list(c.osds.values()):
+        with d._lock:
+            for pg, st in d.pgs.items():
+                phase = st.peering.phase if st.peering is not None else None
+                if st.backend is not None and (
+                        phase != CLEAN or st.recovering or st.backfilling):
+                    dirty.append(f"{pg}@osd.{d.whoami}:{phase}"
+                                 f"{'+rec' if st.recovering else ''}"
+                                 f"{'+bf' if st.backfilling else ''}"
+                                 f" acting {list(st.acting)}")
+    temps = {str(pg): (list(osds), list(m.pg_to_up_acting_osds(pg)[0]))
+             for pg, osds in m.pg_temp.items()}
+    return (f"mon e{m.epoch}, down {down}, out {out}, pg_temp (pin, up) "
+            f"{temps}, OSD epochs {epochs}, {len(dirty)} primaries "
+            f"not clean: {sorted(dirty)[:12]}")
+
+
 def _wait(c, pred, what: str, timeout: float = CLUSTER_TIMEOUT_S,
           tag: str = "phase 19") -> None:
     end = time.monotonic() + timeout
@@ -2322,7 +2367,11 @@ def _wait(c, pred, what: str, timeout: float = CLUSTER_TIMEOUT_S,
         if pred():
             return
         time.sleep(0.01)
-    raise AssertionError(f"{tag}: {what} within {timeout:.0f} s")
+    try:
+        state = _cluster_state(c)
+    except Exception as ex:          # a TCP cluster has no daemons here
+        state = f"state unavailable ({type(ex).__name__})"
+    raise AssertionError(f"{tag}: {what} within {timeout:.0f} s; {state}")
 
 
 PROFILE_CMD = {"prefix": "osd erasure-code-profile set", "name": "tpu_k8m4",
@@ -2540,11 +2589,11 @@ def _shards_on_acting(c, objs: dict, res: dict, tag: str):
 
 # -- phase 19 (d): the paged artifact store; (e): the scheduled scrub -------
 
-SERVE_SHARDS = 4                 # checkpoint shards of 32 MiB: 128 MiB
-SERVE_SHARD_B = 32 << 20         # cut from 64 MiB (the smoke's wall)
+SERVE_SHARDS = 4                 # checkpoint shards of 16 MiB: 64 MiB
+SERVE_SHARD_B = 16 << 20         # cut from 64, then 32 MiB (the smoke's wall)
 SERVE_RAGGED = 4097              # the last shard's missing tail
 SERVE_KV_PAGES = 1024            # KV pool of 64 KiB pages
-SERVE_WAVES = 8                  # page waves per half, cut from 32
+SERVE_WAVES = 4                  # page waves per half, cut from 32, then 8
 SERVE_WAVE_PAGES = 64            # seeded random page ids per wave
 SCRUB_INTERVAL_S = 300.0         # both scrub intervals in (e), sim clock
 SCRUB_STEP_S = 5.0               # sim seconds per tick
@@ -2609,7 +2658,7 @@ def serve_half(store, ckpt: dict, kv_sums: list, waves: list,
 
 class ServeLeg:
     """Phase 19 (d) on the cluster's pool: an ArtifactStore with its
-    default layout (64 KiB pages, 1 MiB objects) holding a 128 MiB
+    default layout (64 KiB pages, 1 MiB objects) holding a 64 MiB
     checkpoint of 4 shards and a 1,024-page KV pool; `healthy` puts and
     reads them, `degraded` (the victim down) reads them again and
     deletes both artifacts, so recovery rebuilds what it did before."""
@@ -3013,7 +3062,7 @@ class RepLeg:
 ELASTIC_POOL_BYTES = {"ecpool": 1 << 30}
 ELASTIC_STEP_S = 5.0             # sim s per tick: osd_mon_report_interval
 ELASTIC_TICK_EVERY_S = 0.5       # host s between report ticks while waiting
-THRASH_ROUNDS = 8
+THRASH_ROUNDS = 4                # cut from 8 (the smoke's wall with phase 22)
 THRASH_WRITES = 2                # seeded 4 MiB objects between actions
 THRASH_MIN = K + M               # min_in and min_live: full-width mappings
 
@@ -3695,7 +3744,7 @@ def print_legs(tag: str, legs: dict, name_power: str) -> None:
 
 # seconds of each `rados bench` run in 20 (c) and 21, cut from the 8 s
 # of the first runs to keep the smoke's wall (PERF.md section 4)
-PROC_BENCH_S = 4
+PROC_BENCH_S = 2                 # cut from 8, then 4 (PERF.md 4)
 PROC_THREADS = 16                # rados bench -t
 PROC_DEGRADED = 16               # bench objects read degraded
 PROC_BOOT_S = 180.0
@@ -3954,8 +4003,8 @@ def _bench(ds: Daemons, mode: str, seconds: float = PROC_BENCH_S,
 
 def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
     """Phase 20 (c)'s replicated verbs, each a `rados_cli` process:
-    `mkpool reppool 32` (a replicated pool), `bench reppool 4 write -t 16
-    --no-cleanup` and `bench reppool 4 seq -t 16` (seq finds its objects
+    `mkpool reppool 32` (a replicated pool), `bench reppool 2 write -t 16
+    --no-cleanup` and `bench reppool 2 seq -t 16` (seq finds its objects
     by listing), `ls`, `setxattr` / `getxattr` / `listxattr`,
     `setomapval` / `listomapvals` on a bench object, then `rmpool`;
     every output held to the reference's text."""
@@ -4537,7 +4586,9 @@ def durable_phase(name_power: str, work: Path) -> dict:
         cwd=ds.env["PYTHONPATH"], capture_output=True, text=True,
         timeout=300)
     paxos = json.loads(vers.stdout)["paxos"]
-    if vers.returncode or paxos["last_version"] != epoch:
+    # one paxos commit per map epoch, and the crash table's bootstrap
+    # (phase 21 posts no crash)
+    if vers.returncode or paxos["last_version"] != epoch + 1:
         raise AssertionError(f"phase 21: monstore_tool show-versions "
                              f"{vers.stdout} against epoch {epoch}")
     stores = _stores_report(data, names)
@@ -4583,7 +4634,8 @@ def durable_phase(name_power: str, work: Path) -> dict:
     print(f"phase 21: {checked} shards of the seeded objects on the disks of "
           f"osd.{victim}, osd.{rot}, " + ", ".join(f"osd.{o}" for o in others) +
           f" == the plain version's encode (tolerance 0); monstore_tool "
-          f"show-versions paxos {paxos} == the client's last epoch {epoch}")
+          f"show-versions paxos {paxos} == the client's last epoch {epoch} "
+          f"+ the crash table's first commit")
     for name, split in startup.items():
         print(f"phase 21: {name} start-up " + ", ".join(
             f"{part} {v:.2f}" for part, v in split.items()) + " s")
@@ -4599,6 +4651,193 @@ def durable_phase(name_power: str, work: Path) -> dict:
                 "stores": stores, "faults": sums, "checked_shards": checked,
                 "epoch": epoch, "phase_s": wall})
     return res
+
+
+# ---------------------------------------------------------------------------
+# Chaos on a three-mon quorum: phase 22
+
+CHAOS_FAULT_SEED = 7             # MiniCluster(fault_seed=7), tests/test_chaos.py
+CHAOS_RUNNER_SEED = 1            # ChaosRunner(seed=1), tests/test_chaos.py
+CHAOS_OBJECTS = 16               # seeded 4 MiB objects before the schedule
+CHAOS_SCHEDULE = [               # tests/test_chaos.py:84-92, then :120-137
+    {"at": 20.0, "action": "partition", "a": ["mon.2"],
+     "b": ["mon.0", "mon.1"], "label": "mon-minority"},
+    {"at": 60.0, "action": "heal", "target": "mon-minority"},
+    {"at": 80.0, "action": "kill_osd", "osd": 3},
+    {"at": 120.0, "action": "revive_osd", "osd": 3},
+    {"at": 140.0, "action": "drop", "src": "osd.*", "dst": "osd.*",
+     "p": 0.02, "types": ["Ping"], "label": "ping-loss"},
+    {"at": 200.0, "action": "heal", "target": "ping-loss"},
+    {"at": 220.0, "action": "isolate_primary", "oid": "chaos_00001",
+     "label": "primary-cut"},
+    {"at": 280.0, "action": "heal", "target": "primary-cut"},
+]
+
+
+@contextlib.contextmanager
+def k1_by_caller(bm):
+    """Within the block, count K1's launches by the ECUtil entry point
+    that made them: `encode` (client writes and the re-encode of a full
+    rebuild), `decode` (degraded reads and full rebuilds) and `repair`
+    (compiled repairs and their compile probes); `other` is the rest.
+    The count itself stays the wrapper's."""
+    from ceph_tpu_torch.osd import ecutil
+
+    counts = {"encode": 0, "decode": 0, "repair": 0, "other": 0}
+    where: list = []
+    launch = bm.gf_matmul_cuda
+    saved = {name: getattr(ecutil, name) for name in
+             ("encode", "decode_concat", "compiled_repair_streams")}
+    labels = {"encode": "encode", "decode_concat": "decode",
+              "compiled_repair_streams": "repair"}
+
+    def counted(*args, **kwargs):
+        counts[where[-1] if where else "other"] += 1
+        return launch(*args, **kwargs)
+
+    def labelled(name):
+        fn = saved[name]
+
+        def call(*args, **kwargs):
+            where.append(labels[name])
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                where.pop()
+        return call
+
+    bm.gf_matmul_cuda = counted
+    for name in saved:
+        setattr(ecutil, name, labelled(name))
+    try:
+        yield counts
+    finally:
+        bm.gf_matmul_cuda = launch
+        for name, fn in saved.items():
+            setattr(ecutil, name, fn)
+
+
+def chaos_phase(name_power: str) -> dict:
+    """Phase 22 (see the module docstring)."""
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.testing import ChaosRunner, MiniCluster
+
+    tag = "phase 22"
+    t0 = time.monotonic()
+    c = MiniCluster(n_osd=CLUSTER_OSDS, osds_per_host=1, n_mon=3,
+                    threaded=False, fault_seed=CHAOS_FAULT_SEED)
+    try:
+        c.pump()
+        c.wait_all_up()
+        ldr = c.leader()
+        if ldr is None or ldr.quorum() != [0, 1, 2]:
+            raise AssertionError(f"{tag}: no three-mon quorum at start")
+        # elections: the epochs in which some mon won
+        wins: set = set()
+        for mn in c.mons.values():
+            def on_win(epoch, quorum, _win=mn.elector.on_win):
+                wins.add(epoch)
+                _win(epoch, quorum)
+            mn.elector.on_win = on_win
+        # after every tick of the run (sim clock): whether every mon
+        # follows one leader in a quorum of all three
+        agreed: list = []
+        tick = c.tick
+
+        def traced_tick(now=None):
+            tick(now)
+            views = {(mn.leader_rank, mn.elector.electing,
+                      tuple(mn.elector.quorum)) for mn in c.mons.values()}
+            agreed.append((now, len(c.mons) == 3 and len(views) == 1 and
+                           next(iter(views))[1:] == (False, (0, 1, 2))))
+        c.tick = traced_tick
+        r = c.rados(timeout=CLUSTER_TIMEOUT_S)
+        rc, outs, _ = r.mon_command(PROFILE_CMD)
+        if rc != 0:
+            raise AssertionError(f"{tag}: profile set: {outs}")
+        r.pool_create("ecpool", pg_num=CLUSTER_PG_NUM, pool_type="erasure",
+                      erasure_code_profile="tpu_k8m4")
+        c.pump()
+        io = r.open_ioctx("ecpool")
+        rng = np.random.default_rng(SEED + 22)
+        objs = {f"pre{i:02d}": rng.bytes(REPAIR_OBJECT)
+                for i in range(CHAOS_OBJECTS)}
+        with rebuild_paths() as paths, k1_by_caller(bm) as split:
+            t_pre = time.monotonic()
+            for oid, data in objs.items():
+                io.write_full(oid, data)
+            pre_s = time.monotonic() - t_pre
+            pre_split = dict(split)
+            runner = ChaosRunner(c, CHAOS_SCHEDULE, rados=r, pool="ecpool",
+                                 seed=CHAOS_RUNNER_SEED)
+            t_run = time.monotonic()
+            report = runner.run()         # InvariantViolation fails the run
+            run_s = time.monotonic() - t_run
+            for oid, data in objs.items():
+                if io.read(oid) != data:
+                    raise AssertionError(f"{tag}: {oid} reads back wrong")
+        launches = dict(bm.LAUNCHES)
+        if report["acked"] != report["ops_total"] or not report["acked"]:
+            raise AssertionError(f"{tag}: acked {report['acked']} of "
+                                 f"{report['ops_total']} ops")
+        counts = report["fault_counts"]
+        if not counts.get("partition") or not counts.get("drop"):
+            raise AssertionError(f"{tag}: fault counts {counts}")
+        if launches["gf_matmul"] == 0:
+            raise AssertionError(f"{tag}: the leg never launched gf_matmul")
+        ldr = c.leader()
+        rc, _, crashes = ldr.handle_command({"prefix": "crash ls"})
+        rc_q, _, q = ldr.handle_command({"prefix": "quorum_status"})
+        if rc or crashes:
+            raise AssertionError(f"{tag}: crash table {crashes}")
+        if rc_q or q["quorum"] != [0, 1, 2]:
+            raise AssertionError(f"{tag}: final quorum {q}")
+        _faults(c, tag)
+        faults = {"dispatch_errors": c.network.dispatch_errors,
+                  "reaped": len(c.reaped),
+                  "tick_errors": _perf_sum(c, "tick_errors"),
+                  "queued_op_failures": _perf_sum(c, "queued_op_failures"),
+                  "recovery_push_errors": _perf_sum(c,
+                                                    "recovery_push_errors"),
+                  "repair_errors": paths["repair_errors"]}
+        if any(faults.values()):
+            raise AssertionError(f"{tag}: fault counts {faults}")
+        heal_at = runner.start + 60.0         # the mon-minority heal
+        full = [now for now, ok in agreed
+                if now is not None and now > heal_at and ok]
+        heal_to_quorum = full[0] - heal_at if full else None
+        if heal_to_quorum is None:
+            raise AssertionError(f"{tag}: no full quorum after the heal")
+        wall = time.monotonic() - t0
+    finally:
+        c.shutdown()
+    for ph in report["phases"]:
+        print(f"{tag}: phase {ph['phase']}: {ph['ops']} ops, p50 "
+              f"{ph['p50_ms']} ms, p99 {ph['p99_ms']} ms (host clock)")
+    print(f"{tag}: fault digest {report['fault_digest']}, counts "
+          f"{json.dumps(counts, sort_keys=True)}; acked {report['acked']} of "
+          f"{report['ops_total']}")
+    print(f"{tag}: elections won in {len(wins)} epochs (final election "
+          f"epoch {q['election_epoch']}); every mon back in one quorum of "
+          f"three {heal_to_quorum:.1f} sim s after the mon heal; quorum "
+          f"{q['quorum']}, leader mon.{q['leader']}, crash table empty")
+    print(f"{tag}: K1 {launches['gf_matmul']} launches (preload encodes "
+          f"{pre_split['encode']}; in the run encode "
+          f"{split['encode'] - pre_split['encode']}, decode "
+          f"{split['decode'] - pre_split['decode']}, repair "
+          f"{split['repair'] - pre_split['repair']}, other "
+          f"{split['other'] - pre_split['other']}); full rebuilds "
+          f"{paths['full']}; fault counts {faults}")
+    print(f"{tag}: preload {CHAOS_OBJECTS} x 4 MiB {pre_s:.1f} s, run "
+          f"{run_s:.1f} s, leg {wall:.1f} s host clock on {name_power}")
+    return {"report": {k: report[k] for k in (
+                "acked", "ops_total", "fault_digest", "fault_counts",
+                "phases", "events")},
+            "launches": launches["gf_matmul"], "split": dict(split),
+            "preload_split": pre_split, "full_rebuilds": paths["full"],
+            "elections": len(wins), "election_epoch": q["election_epoch"],
+            "heal_to_quorum_sim_s": heal_to_quorum, "faults": faults,
+            "preload_s": pre_s, "run_s": run_s, "phase_s": wall}
 
 
 def main() -> int:
@@ -4808,12 +5047,20 @@ def main() -> int:
         "osd_restart_to_clean_s": durable["osd_restart_to_clean_s"],
         "mon_restart_to_serving_s": durable["mon_restart_to_serving_s"],
         "recovery": durable["recovery"]}
+    bm.reset_launches()
+    chaos = chaos_phase(name_power)
+    launches = dict(bm.LAUNCHES)
+    print(f"phase 22: launches {launches}")
+    kernels[0]["launches_chaos"] = launches["gf_matmul"]
+    kernels[0]["chaos"] = {k: chaos[k] for k in (
+        "split", "full_rebuilds", "elections", "heal_to_quorum_sim_s",
+        "phase_s")}
     print(f"chip_smoke: phases 12-14 {tool['wall_s']:.1f} + "
           f"{balance['phase_s']:.1f} + {guard['wall_s']:.1f} s; phases 15-21 "
           f"{mesh['phase_s']:.1f} + {fabric['phase_s']:.1f} + "
           f"{bench['phase_s']:.1f} + {ec_pg['phase_s']:.1f} + "
           f"{cluster['phase_s']:.1f} + {tcp['phase_s']:.1f} + "
-          f"{durable['phase_s']:.1f} s; "
+          f"{durable['phase_s']:.1f} s; phase 22 {chaos['phase_s']:.1f} s; "
           f"{time.monotonic() - t_start:.1f} s in all on {name_power}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -55,10 +55,9 @@ def test_arguments_and_device_default():
 
 @pytest.mark.parametrize("argv,what", [
     (["mds", "--monmap", "m.json"], "the mds role"),
-    (["osd", "--id", "0", "--monmap", "m.json", "--crash-dir", "c"],
-     "--crash-dir"),
-    (["mon", "--monmap", "m.json", "--data-dir", "d", "--crash-dir", "c"],
-     "--crash-dir"),
+    (["mds", "--monmap", "m.json", "--crash-dir", "c"], "the mds role"),
+    (["mds", "--rank", "1", "--monmap", "m.json", "--keyring", "k.json"],
+     "the mds role"),
 ])
 def test_not_ported_yet_is_refused_in_one_line(argv, what):
     with pytest.raises(SystemExit) as ei:

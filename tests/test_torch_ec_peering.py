@@ -437,3 +437,58 @@ def test_kernel_fault_from_a_ticked_retry_is_reaped_and_recorded(
         assert osd not in c.osds
     finally:
         c.shutdown()
+
+
+def _out_then_in_before_backfill(kind: str):
+    """`osd out` of a PG's first shard holder, three pump rounds (the
+    new primary asks for a pg_temp pin to the old set and starts
+    backfilling), then `osd in` before the backfill ends: the up set
+    comes back to exactly the pin."""
+    cls, kw = (PortCluster, {"device": "cpu"}) if kind == "port" \
+        else (RefCluster, {})
+    c = cls(n_osd=5, threaded=False, **kw)
+    try:
+        c.pump()
+        c.wait_all_up()
+        r = c.rados()
+        r.mon_command({"prefix": "osd erasure-code-profile set",
+                       "name": "k2m1",
+                       "profile": {"plugin": "jerasure", "k": "2",
+                                   "m": "1",
+                                   "crush-failure-domain": "osd"}})
+        r.pool_create("ec", pg_num=8, pool_type="erasure",
+                      erasure_code_profile="k2m1")
+        c.pump()
+        io = r.open_ioctx("ec")
+        objs = {f"o{i}": bytes([i]) * 3000 for i in range(16)}
+        for oid, data in objs.items():
+            io.write_full(oid, data)
+        c.pump()
+        c.mon.handle_command({"prefix": "osd out", "ids": [0]})
+        c.pump(rounds=3)
+        pinned = {str(pg): list(v) for pg, v in c.mon.osdmap.pg_temp.items()}
+        c.mon.handle_command({"prefix": "osd in", "ids": [0]})
+        for t in range(6):
+            c.pump()
+            c.tick(1000.0 + 11 * t)
+        m = c.mon.osdmap
+        left = {str(pg): (list(v), list(m.pg_to_up_acting_osds(pg)[0]))
+                for pg, v in m.pg_temp.items()}
+        return pinned, left, {o: io.read(o) == d for o, d in objs.items()}
+    finally:
+        c.shutdown()
+
+
+def test_redundant_pg_temp_pin_is_handed_back():
+    """A pin the up set came back to before the backfill under it ended
+    stays in the reference's map for good (the primary that asked for it
+    lost the PG, and the new one sees acting == up); the port's clean
+    primary hands it back, as Ceph's mon does in OSDMap::clean_temps.
+    Smoke phase 19 (g2)'s wait for no pg_temp after the thrash's heal
+    met this on the card."""
+    ref_pinned, ref_left, ref_reads = _out_then_in_before_backfill("ref")
+    port_pinned, port_left, port_reads = _out_then_in_before_backfill("port")
+    assert port_pinned == ref_pinned and ref_pinned
+    assert ref_left and all(pin == up for pin, up in ref_left.values())
+    assert port_left == {}
+    assert all(ref_reads.values()) and all(port_reads.values())

@@ -147,3 +147,42 @@ def test_port_sources_name_no_jax_import():
             for mod in mods:
                 top = mod.split(".")[0]
                 assert top not in ("jax", "jaxlib", "ceph_tpu"), (path, mod)
+
+
+FAULT_PLANE_MODULES = ("ceph_tpu_torch.msg.faults",
+                       "ceph_tpu_torch.mon.elector",
+                       "ceph_tpu_torch.mon.crash_service",
+                       "ceph_tpu_torch.common.crash",
+                       "ceph_tpu_torch.mgr.crash",
+                       "ceph_tpu_torch.testing.chaos")
+
+CHAOS_PROBE = textwrap.dedent("""
+    import importlib, json, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    names = json.loads(sys.argv[1])
+    for name in names:
+        importlib.import_module(name)
+    from ceph_tpu_torch.testing import ChaosRunner, MiniCluster
+    c = MiniCluster(n_osd=3, threaded=False, n_mon=3, fault_seed=7,
+                    device="cpu")
+    c.pump()
+    quorum = c.leader().quorum()
+    c.shutdown()
+    leaked = sorted(n for n in sys.modules
+                    if n == "ceph_tpu" or n.startswith("ceph_tpu.")
+                    or n == "jaxlib" or n.startswith("jaxlib."))
+    print(json.dumps({"leaked": leaked, "quorum": quorum}))
+""")
+
+
+def test_fault_plane_quorum_and_crash_modules_import_without_jax():
+    """The fault plane, the elector, crash capture and ChaosRunner import
+    with jax blocked, and a three-mon cluster elects on them, loading
+    nothing of the reference."""
+    import json
+    proc = subprocess.run(
+        [sys.executable, "-c", CHAOS_PROBE, json.dumps(FAULT_PLANE_MODULES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"leaked": [], "quorum": [0, 1, 2]}

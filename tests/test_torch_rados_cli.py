@@ -10,7 +10,9 @@ verbs), `test_bench_write_then_seq` (on a replicated pool, and again on
 an EC pool made through the client, k=2 m=1 on 4 OSDs; `seq` finds the
 objects by listing) and `test_pool_delete` (`rmpool`).  Not mirrored:
 `test_trace_verb_assembles_cross_daemon_tree` (`trace`, not ported), a
-verb refused here as unknown, with `crash`, `telemetry` and `rgw`."""
+verb refused here as unknown, with `insights`, `telemetry` and `rgw`.
+The `crash` verbs are held to the reference's text in
+tests/test_torch_crash.py."""
 import io as iomod
 import json
 import os
@@ -141,7 +143,7 @@ def test_seq_without_a_write_bench_says_so(cluster):
     assert rc == 1 and "no benchmark objects" in out
 
 
-@pytest.mark.parametrize("argv", [["crash", "ls"], ["telemetry"],
+@pytest.mark.parametrize("argv", [["insights"], ["telemetry"],
                                   ["rgw", "realm", "create", "x"],
                                   ["trace", "deadbeef"]])
 def test_verbs_left_out_are_refused(argv):

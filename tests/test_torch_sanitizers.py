@@ -73,11 +73,14 @@ PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
                 "osd_deep_scrub_interval", "osd_max_scrubs",
                 "osd_scrub_auto_repair",
                 # the mgr's
-                "mon_target_pg_per_osd", "mon_mgr_health_grace"}
+                "mon_target_pg_per_osd", "mon_mgr_health_grace",
+                # the fault plane's and crash capture's
+                "ms_inject_socket_failures", "osd_debug_inject_crash_tick",
+                "mgr_crash_warn_recent_interval"}
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads 30 options; each is the reference's entry: the
+    """The port reads 33 options; each is the reference's entry: the
     same type, level, default, text, bounds, see-also and runtime
     flag."""
     assert set(options.OPTIONS) == PORT_OPTIONS

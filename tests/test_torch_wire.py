@@ -83,7 +83,10 @@ def test_port_registers_the_data_plane_structs():
         # the replicated pools
         "RepOpWrite", "RepOpReply", "PGMissingReply", "PGPull",
         # the mgr's command proxy
-        "MMgrCommand", "MMgrCommandReply"}
+        "MMgrCommand", "MMgrCommandReply",
+        # the multi-mon quorum: election, leases, forwarding, catch-up
+        "MMonElection", "MMonLease", "MMonLeaseAck", "MMonForward",
+        "MPaxosSyncReq"}
     ref_schema = ref_wire.registered_schema()
     for name, schema in wire.registered_schema().items():
         assert schema == ref_schema[name], name
