@@ -513,6 +513,11 @@ class Objecter(Dispatcher, MonHunter):
                     continue
             return slot["r"], slot["outs"], slot["outb"]
 
+    def dump_traces(self, trace_id: str | None = None) -> list[dict]:
+        """The client's finished-span ring (the daemon-side analogue
+        is the admin-socket `dump_traces`)."""
+        return self.tracer.dump(trace_id)
+
     def _handle_command_ack(self, msg: MMonCommandAck) -> bool:
         entry = self._pending_cmds.pop(msg.tid, None)
         if entry is None:

@@ -13,7 +13,10 @@ Daemons register command handlers; `admin_command()` is the client
 The port's copy of `ceph_tpu.common.admin_socket`, whole; the port's
 mon, OSD and mgr daemons register their commands on it
 (`start_admin_socket`), the op tracker's dumps through
-`common/obs.py`.
+`common/obs.py`.  One rule differs: the socket path appears only once
+the socket listens (it is bound under `<path>~` and renamed), where the
+reference's path exists from bind on and a connect in between is
+refused.
 """
 from __future__ import annotations
 
@@ -52,8 +55,16 @@ class AdminSocket:
             os.unlink(self.path)
         self._listener = socket.socket(socket.AF_UNIX,
                                        socket.SOCK_STREAM)
-        self._listener.bind(self.path)
+        # bound under a side name and renamed into place once it
+        # listens: a caller that finds the path can connect (between
+        # bind and listen a connect is refused, and a restarted
+        # daemon's first caller waits for the path alone)
+        side = self.path + "~"
+        if os.path.exists(side):
+            os.unlink(side)
+        self._listener.bind(side)
         self._listener.listen(8)
+        os.replace(side, self.path)
         self._running = True
         t = threading.Thread(target=self._accept_loop,
                              name=f"asok-{os.path.basename(self.path)}",

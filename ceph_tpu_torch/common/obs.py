@@ -8,9 +8,7 @@ OpTracker::register_commands style hookup in OSD.cc / MDSDaemon.cc /
 rgw_main.cc); `dump_traces` serves the daemon's blkin span ring.  One
 helper, so mon/mgr/mds/rgw get an identical surface to the OSD's.
 
-The port's copy of `ceph_tpu.common.obs`, whole, with one difference:
-the tracer is optional, because the port's mon keeps no span ring (it
-then serves no `dump_traces`).
+The port's copy of `ceph_tpu.common.obs`, whole.
 """
 from __future__ import annotations
 
@@ -20,7 +18,7 @@ from .tracked_op import OpTracker
 
 
 def register_obs_commands(asok: AdminSocket, tracker: OpTracker,
-                          tracer: Tracer | None = None) -> None:
+                          tracer: Tracer) -> None:
     asok.register("dump_ops_in_flight", "ops currently executing",
                   lambda c: (0, tracker.dump_in_flight()))
     asok.register("dump_historic_ops", "recently completed ops",
@@ -30,7 +28,6 @@ def register_obs_commands(asok: AdminSocket, tracker: OpTracker,
                   lambda c: (0, tracker.dump_historic_slow()))
     asok.register("dump_blocked_ops", "ops over the complaint age",
                   lambda c: (0, tracker.slow_ops()))
-    if tracer is not None:
-        asok.register("dump_traces", "finished blkin spans "
-                      "(optionally trace_id=...)",
-                      lambda c: (0, tracer.dump(c.get("trace_id"))))
+    asok.register("dump_traces", "finished blkin spans "
+                  "(optionally trace_id=...)",
+                  lambda c: (0, tracer.dump(c.get("trace_id"))))

@@ -7,7 +7,7 @@ src/common/config.cc env layer), with the same types, levels, defaults
 and `CEPH_TPU_<NAME>` environment variables, so one environment
 configures both packages:
 
-* `lockdep`, `racecheck` — the sanitizers;
+* `lockdep`, `racecheck`, `errcheck` — the sanitizers;
 * `osd_min_pg_log_entries`, `osd_max_pg_log_entries` — the EC shard's
   durable log trim;
 * `memstore_device_bytes` — MemStore's statfs capacity, and
@@ -24,8 +24,10 @@ configures both packages:
 * the scrub scheduler's (`osd_scrub_auto`, `osd_scrub_min_interval`,
   `osd_deep_scrub_interval`, `osd_max_scrubs`,
   `osd_scrub_auto_repair`);
-* the mgr's: the pg_autoscaler's `mon_target_pg_per_osd` and the mon's
-  `mon_mgr_health_grace`, which expires a silent mgr's module health;
+* the mgr's: the pg_autoscaler's `mon_target_pg_per_osd`, the mon's
+  `mon_mgr_health_grace`, which expires a silent mgr's module health,
+  telemetry's upload target `mgr_telemetry_url` and the insights
+  report's window `mgr_insights_window`;
 * the fault plane's and crash capture's: `ms_inject_socket_failures`
   (the messenger's drop shim), `osd_debug_inject_crash_tick` (a crash
   in an OSD's next tick) and `mgr_crash_warn_recent_interval` (the
@@ -136,6 +138,14 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
            "racecheck.enable_if_configured() runs "
            "(see common/racecheck.py)",
            see_also=("lockdep",)),
+    Option("errcheck", T.BOOL, L.DEV, False,
+           "error-path coverage sanitizer: an import hook recompiles "
+           "instrumented packages with a counter bump at the top of "
+           "every except handler, so coverage_report() can list the "
+           "handlers no test or chaos run has ever entered; read "
+           "when errcheck.enable_if_configured() runs — arm it "
+           "before the modules you want counted import (see "
+           "common/errcheck.py)"),
     # messenger fault injection (ref: options.cc:987)
     Option("ms_inject_socket_failures", T.UINT, L.DEV, 0,
            "inject a transport failure every N messages (0=off)",
@@ -221,6 +231,14 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
     Option("osd_debug_inject_crash_tick", T.BOOL, L.DEV, False,
            "inject an unhandled exception into the OSD's next "
            "heartbeat tick (crash-capture exerciser)", runtime=True),
+    Option("mgr_insights_window", T.SECS, L.ADVANCED, 3600.0,
+           "time window the insights report summarizes (health "
+           "history, osdmap churn, cluster-log counts)", runtime=True),
+    Option("mgr_telemetry_url", T.STR, L.ADVANCED, "",
+           "sink the compiled telemetry report posts to on each "
+           "mgr tick: file://<path> appends JSON lines, "
+           "http(s)://... POSTs; empty = compile only, never send",
+           runtime=True),
     Option("mon_mgr_health_grace", T.SECS, L.ADVANCED, 60.0,
            "expire mgr-module health checks (RECENT_CRASH, "
            "DEVICE_HEALTH...) not re-reported within this window — a "

@@ -19,11 +19,12 @@ round submitting `osd upmap-batch`), `status`, the pg_autoscaler
 `progress_tick`), `set_health_checks`, the crash reporter with its
 messenger hook (`crash post` through the command channel), the crash
 module (`start_crash`; `observability_tick` ticks it, and its
-RECENT_CRASH slice rides the merged module-health report), the hbmap
-slice of `observability_tick` and the admin socket.  Left out: the
-telemetry and insights modules (so a telemetry or insights command
-answers the reference's "module not enabled"), devicehealth,
-prometheus and restful.
+RECENT_CRASH slice rides the merged module-health report), the
+telemetry and insights modules (`start_telemetry`, `start_insights`;
+`observability_tick` ticks them after crash, and the mon proxies their
+commands here), devicehealth (`start_devicehealth`, driven by
+`devicehealth_tick`), the hbmap slice of `observability_tick` and the
+admin socket.  Left out: prometheus and restful.
 """
 from __future__ import annotations
 
@@ -44,10 +45,6 @@ from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..msg.mon_client import MonHunter
 from ..osd.balancer import Balancer
 from ..osd.osdmap import OSDMap
-
-#: mgr modules the reference's mon proxies commands to; none of them is
-#: ported yet, so each answers as the reference's does when disabled
-_PROXIED_MODULES = ("telemetry", "insights")
 
 
 # module state shared between the dispatch thread (command replies,
@@ -78,9 +75,15 @@ class MgrDaemon(Dispatcher, MonHunter):
         #: progress module (ref: pybind/mgr/progress); enable with
         #: start_progress(), driven by progress_tick
         self.progress = None
-        #: crash module (ref: pybind/mgr/crash); enable with
-        #: start_crash(), driven by observability_tick
+        #: devicehealth module (ref: pybind/mgr/devicehealth); enable
+        #: with start_devicehealth(), driven by devicehealth_tick
+        self.devicehealth = None
+        #: observability modules (ref: pybind/mgr/crash, telemetry,
+        #: insights); enable with start_crash()/start_telemetry()/
+        #: start_insights(), driven by observability_tick
         self.crash = None
+        self.telemetry = None
+        self.insights = None
         #: per-module health-check slices, merged into ONE volatile
         #: `mgr health report` so modules never clobber each other
         self._health_reports: dict[str, dict] = {}
@@ -198,14 +201,31 @@ class MgrDaemon(Dispatcher, MonHunter):
                                ) -> tuple[int, str, object]:
         pfx = str(cmd.get("prefix", ""))
         root = pfx.split(" ", 1)[0]
-        if root in _PROXIED_MODULES:
-            return -2, f"{root} module not enabled", None
+        try:
+            if root == "telemetry":
+                if self.telemetry is None:
+                    return -2, "telemetry module not enabled", None
+                return self.telemetry.handle_command(cmd)
+            if root == "insights":
+                if self.insights is None:
+                    return -2, "insights module not enabled", None
+                return self.insights.handle_command(cmd)
+        except (KeyError, ValueError, TypeError) as ex:
+            return -22, f"invalid command arguments: {ex}", None
+        except Exception as ex:
+            # a broken module handler must still ANSWER: with no reply
+            # the client blocks out its 30s deadline and the mon's
+            # _mgr_proxy entry for this tid leaks until our connection
+            # resets
+            dout("mgr", 0).write("%s: module command %r failed: %s",
+                                 self.name, pfx, ex)
+            return -5, f"module command failed: {ex}", None
         return -22, f"unknown mgr command {pfx!r}", None
 
     def mon_command(self, cmd: dict,
                     timeout: float = 30.0) -> tuple[int, str, object]:
-        """Synchronous round-trip (the progress module's command
-        channel)."""
+        """Synchronous round-trip (the command channel of the progress,
+        devicehealth, telemetry and insights modules)."""
         tid = next(self._tid)
         ev, slot = threading.Event(), {}
         with self._lock:
@@ -242,11 +262,33 @@ class MgrDaemon(Dispatcher, MonHunter):
             return 0
         return self.progress.tick()
 
+    def start_devicehealth(self):
+        """Device media-error health (ref: pybind/mgr/devicehealth)."""
+        from .devicehealth import DeviceHealth
+        self.devicehealth = DeviceHealth(self)
+        return self.devicehealth
+
+    def devicehealth_tick(self) -> None:
+        if self.devicehealth is not None:
+            self.devicehealth.tick()
+
     def start_crash(self, **kw):
         """Crash-report health agent (ref: pybind/mgr/crash)."""
         from .crash import CrashModule
         self.crash = CrashModule(self, **kw)
         return self.crash
+
+    def start_telemetry(self, **kw):
+        """Anonymized cluster report (ref: pybind/mgr/telemetry)."""
+        from .telemetry import TelemetryModule
+        self.telemetry = TelemetryModule(self, **kw)
+        return self.telemetry
+
+    def start_insights(self, **kw):
+        """Time-windowed cluster snapshot (ref: pybind/mgr/insights)."""
+        from .insights import InsightsModule
+        self.insights = InsightsModule(self, **kw)
+        return self.insights
 
     def set_health_checks(self, module: str, checks: dict) -> None:
         """Replace one module's health-check slice and push the MERGED
@@ -266,13 +308,18 @@ class MgrDaemon(Dispatcher, MonHunter):
 
     def observability_tick(self, now: float | None = None) -> None:
         """One observability round: refresh the volatile mgr
-        registration on every mon, tick crash (RECENT_CRASH health),
-        then push the liveness slice (the reference also ticks its
-        insights and telemetry modules here)."""
+        registration on every mon, then tick crash (RECENT_CRASH
+        health), insights (history rings), and telemetry (report
+        compile) — the serve-loop slice the reference modules run in
+        their own threads."""
         self.hbmap.reset_timeout(self._hb_handle)
         self._register_mgr()
         if self.crash is not None:
             self.crash.tick(now)
+        if self.insights is not None:
+            self.insights.tick(now)
+        if self.telemetry is not None:
+            self.telemetry.tick(now)
         # liveness slice: unhealthy workers ride the same volatile
         # module-health report every other mgr module uses (cleared
         # the moment the worker beats again)

@@ -30,9 +30,12 @@ reports, the tick's down-out, and the whole multi-mon quorum
 acks, the collect phase of a fresh leader, peon relays and
 `MMonForward`, the store sync (`MPaxosSyncReq`, `MonitorStore.
 import_data`) and the re-election on a stale lease or a reset from the
-leader.  Left out: the ConfigMonitor, LogMonitor and MDSMonitor (so
-`config` subscriptions get no MConfig and cluster-log events go to the
-local log only).  The mon's side of the mgr is here: `mgr register` names the active mgr, module commands
+leader, the ConfigMonitor (`config set|rm|get|dump`, `config`
+subscriptions answered with MConfig and pushed again on every commit)
+and the LogMonitor (daemons' MLog batches committed through paxos and
+acked with MLogAck, the mon's own cluster-log lines, `log`, `log last`
+and `log counts`).  Left out: the MDSMonitor.  The mon's side of the
+mgr is here: `mgr register` names the active mgr, module commands
 (telemetry, insights) are proxied to it as `MMgrCommand` and its reply
 relayed (EAGAIN when none is registered or its connection resets),
 and `mgr health report` merges the mgr's module health into `health`
@@ -40,7 +43,8 @@ until `mon_mgr_health_grace` passes.  `handle_command` is the
 synchronous command path.  With a `keyring` it
 runs the cephx key server and verifies inbound traffic;
 `start_admin_socket` serves status, health, df, pg_stat,
-quorum_status, perf dump, config show and the op tracker's dumps.
+quorum_status, perf dump, config show, the op tracker's dumps and
+`dump_traces`.
 The port adds a perf counter set (`perf`) holding `tick_errors`, the
 tick errors a daemon process's loop survived (tools/daemon_main.py).
 A mon started on a store that holds committed state (a `MonitorStore`
@@ -48,10 +52,11 @@ over `kv.LogDB`) resumes from it, as the reference's does.  One rule
 differs there, for a single mon only: the subscriptions died with the
 old process, so the resumed standalone mon subscribes an entity it
 hears from without one (an OSD's pg-stat report, a client's command)
-and sends it the maps it lacks; the reference's single mon never hears
-from them again.  In a quorum the reference's own remedy holds: the
-daemons' MonHunter hunts to another mon and re-greets, and a revived
-mon catches up through the leader's leases and the store sync.
+and sends it the maps it lacks, and an OSD its centralized config; the
+reference's single mon never hears from them again.  In a quorum the
+reference's own remedy holds: the daemons' MonHunter hunts to another
+mon and re-greets, and a revived mon catches up through the leader's
+leases and the store sync.
 """
 from __future__ import annotations
 
@@ -64,10 +69,12 @@ from ..common.lockdep import make_lock
 from ..common.log import dout
 from ..common.options import global_config
 from ..common.racecheck import shared_state
+from ..common.tracing import Tracer
 from ..common.tracked_op import OpTracker
 from ..crush.wrapper import CrushWrapper
 from ..common.perf_counters import PerfCounters
-from ..msg.messages import (MGR_UNAVAILABLE_EAGAIN, MAuthRequest, MMap,
+from ..msg.messages import (MGR_UNAVAILABLE_EAGAIN, MAuthRequest,
+                            MConfig, MLog, MLogAck, MMap,
                             MMgrCommand, MMgrCommandReply, MMonCommand,
                             MMonCommandAck, MMonElection, MMonForward,
                             MMonLease, MMonLeaseAck, MMonSubscribe,
@@ -77,8 +84,10 @@ from ..msg.messages import (MGR_UNAVAILABLE_EAGAIN, MAuthRequest, MMap,
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..osd.osdmap import (CEPH_OSD_AUTOOUT, CEPH_OSD_EXISTS, CEPH_OSD_IN,
                           CEPH_OSD_UP, OSDMap)
+from .config_monitor import ConfigMonitor
 from .crash_service import CrashService
 from .elector import Elector
+from .log_monitor import LogMonitor
 from .osd_monitor import OSDMonitor
 from .paxos import Paxos
 from .pg_map import OSDStatReport, PGMap, health_checks, health_status
@@ -139,6 +148,8 @@ class Monitor(Dispatcher):
         self.paxos = Paxos(self.store)
         self.osdmon = OSDMonitor(self.paxos, initial_map, initial_wrapper,
                                  device=device)
+        self.configmon = ConfigMonitor(self.paxos)
+        self.logmon = LogMonitor(self.paxos)
         self.crashmon = CrashService(self.paxos)
         self.ms = Messenger.create(network, self.name, threaded=threaded)
         # own-crash capture: a mon IS the crash sink, so its reports
@@ -161,6 +172,8 @@ class Monitor(Dispatcher):
         self.perf.add_u64_counter("tick_errors")
         # osdmap subscribers: entity -> next epoch they need
         self._subs: dict[str, int] = {}
+        # config subscribers: entity -> last version sent
+        self._config_subs: dict[str, int] = {}
         # failure reports: target osd -> {reporter: stamp}
         self._failure_reports: dict[int, dict[int, float]] = {}
         # active mgr (volatile, re-registered every mgr tick): the
@@ -177,10 +190,12 @@ class Monitor(Dispatcher):
         # cluster statistics digest (ref: src/mon/PGMap.h)
         self.pgmap = PGMap()
         self._down_stamp: dict[int, float] = {}
-        # op tracking: an aged command feeds SLOW_OPS (ref: Monitor.cc's
-        # op_tracker member)
+        # op tracking + span ring: an aged command feeds SLOW_OPS, and
+        # the mon serves the same dump_ops_in_flight/dump_traces surface
+        # as every other daemon (ref: Monitor.cc's op_tracker member)
         self.op_tracker = OpTracker(
             history_size=global_config()["osd_op_history_size"])
+        self.tracer = Tracer(self.name)
         # internal thread-liveness watchdog (ref: the ceph-mon's
         # HeartbeatMap wired through Monitor::tick): the tick worker
         # arms on its FIRST tick (a constructed-but-never-ticked mon
@@ -221,6 +236,8 @@ class Monitor(Dispatcher):
     # ------------------------------------------------------------ setup
     def init(self) -> None:
         self.osdmon.init()
+        self.configmon.init()
+        self.logmon.init()
         self.crashmon.init()
         self.ms.start()
         if not self.standalone:
@@ -291,7 +308,7 @@ class Monitor(Dispatcher):
                    lambda c: (0, self.perf.dump()))
         a.register("config show", "live config",
                    lambda c: (0, global_config().dump()))
-        register_obs_commands(a, self.op_tracker)
+        register_obs_commands(a, self.op_tracker, self.tracer)
         a.start()
         self.asok = a
 
@@ -326,6 +343,10 @@ class Monitor(Dispatcher):
         # fresh reign: re-stage on top of the committed state
         self.osdmon.update_from_paxos()
         self.osdmon.create_pending()
+        self.configmon.update_from_paxos()
+        self.configmon.create_pending()
+        self.logmon.update_from_paxos()
+        self.logmon.create_pending()
         self.crashmon.update_from_paxos()
         self.crashmon.create_pending()
         self._persist_elector()
@@ -378,6 +399,8 @@ class Monitor(Dispatcher):
         """A replicated value landed on this peon: refresh the services
         and serve our subscribers."""
         self.osdmon.update_from_paxos()
+        self.configmon.update_from_paxos()
+        self.logmon.update_from_paxos()
         self.crashmon.update_from_paxos()
         self._publish()
 
@@ -410,6 +433,11 @@ class Monitor(Dispatcher):
                 if self._relay_if_peon(msg):
                     return True
                 self._handle_pg_temp(msg)
+                return True
+            if isinstance(msg, MLog):
+                if self._relay_if_peon(msg):
+                    return True
+                self._handle_log(msg)
                 return True
             if isinstance(msg, MPGStats):
                 self._adopt_subscriber(msg.src, msg.epoch)
@@ -584,6 +612,10 @@ class Monitor(Dispatcher):
         """Command prefix -> owning PaxosService (ref:
         Monitor::dispatch_op's service fan-out)."""
         pfx = str(cmdmap.get("prefix", ""))
+        if pfx.startswith("config"):
+            return self.configmon
+        if pfx == "log" or pfx.startswith("log "):
+            return self.logmon
         if pfx == "crash" or pfx.startswith("crash "):
             return self.crashmon
         return self.osdmon
@@ -859,21 +891,41 @@ class Monitor(Dispatcher):
 
     # ---------------------------------------------------- subscriptions
     def _handle_subscribe(self, msg: MMonSubscribe) -> None:
+        if msg.what == "config":
+            self._config_subs[msg.src] = 0
+            self._send_config(msg.src)
+            return
         if msg.what != "osdmap":
-            return      # config/fsmap services are not ported
+            return      # the fsmap service is not ported
         self._subs[msg.src] = msg.start or 1
         self._send_maps(msg.src)
+
+    def _send_config(self, entity: str) -> None:
+        """Push the entity's merged config when it changed since the
+        last push (ref: ConfigMonitor::send_config / check_all_subs)."""
+        ver = self.configmon.get_last_committed()
+        if self._config_subs.get(entity, 0) >= ver:
+            return
+        self._config_subs[entity] = ver
+        self.ms.connect(entity).send_message(MConfig(
+            version=ver,
+            values=self.configmon.entity_config(entity)))
 
     def _adopt_subscriber(self, entity: str, epoch: int | None) -> None:
         """A mon started again on its store lost its subscriptions with
         its process: an entity it hears from without one (an OSD's
         pg-stat report, a client's command) gets the maps past its
         `epoch` (the current full map when the message carries none)
-        and stays subscribed.  A mon that bootstrapped does nothing
-        here."""
+        and stays subscribed; an OSD also gets its centralized config
+        again, which it subscribed to at boot.  A mon that bootstrapped
+        does nothing here."""
         if self._resumed and entity not in self._subs:
             self._subs[entity] = 1 if epoch is None else epoch + 1
             self._send_maps(entity)
+            if entity.startswith("osd.") and \
+                    entity not in self._config_subs:
+                self._config_subs[entity] = 0
+                self._send_config(entity)
 
     def _send_maps(self, entity: str) -> None:
         """Send everything from the subscriber's next epoch to current
@@ -905,6 +957,8 @@ class Monitor(Dispatcher):
         """Push new epochs to all subscribers (post-commit)."""
         for entity in list(self._subs):
             self._send_maps(entity)
+        for entity in list(self._config_subs):
+            self._send_config(entity)
 
     # ------------------------------------------------------------- boot
     def _handle_boot(self, msg: MOSDBoot) -> None:
@@ -993,10 +1047,48 @@ class Monitor(Dispatcher):
 
         self._submit_change(stage)
 
+    def _handle_log(self, msg: MLog) -> None:
+        """Daemon LogClient batch: stage through the logm paxos
+        service and ack the sender's high-water seq once committed
+        (ref: LogMonitor::prepare_log + MLogAck)."""
+        src = msg.src
+        by_name: dict[str, int] = {}
+        for e in msg.entries:
+            n = str(e.get("name", "?"))
+            by_name[n] = max(by_name.get(n, -1), int(e.get("seq", 0)))
+
+        def stage():
+            if not self.logmon.stage_entries(list(msg.entries)):
+                # pure resend: ack again without an empty proposal
+                for n, s in by_name.items():
+                    self.ms.connect(src).send_message(MLogAck(
+                        name=n, last_seq=s))
+                return (1, "", None)
+            return (0, "", None)
+
+        def done(r, _outs, _outb):
+            if r == 0:
+                for n, s in by_name.items():
+                    self.ms.connect(src).send_message(MLogAck(
+                        name=n, last_seq=s))
+
+        self._submit_change(stage, reply_cb=done, svc=self.logmon)
+
     def clog_event(self, level: str, text: str) -> None:
-        """Mon-originated cluster-log entry (osd down/out).  The
-        LogMonitor is not ported: the entry goes to the local log."""
-        dout("mon", 1).write("%s: [%s] %s", self.name, level, text)
+        """Mon-originated cluster-log entry (osd down/out) staged for
+        the next logm proposal (ref: the mon_clog channel in
+        LogMonitor).  Staging happens inside the serialized stage
+        callback so the seq is computed against the pending state it
+        actually lands on."""
+        def stage():
+            seq = self.logmon.last_seq_for(self.name) + 1 + len(
+                [e for e in self.logmon.pending
+                 if e["name"] == self.name])
+            ok = self.logmon.stage_entries([{
+                "seq": seq, "stamp": self.clock(),
+                "name": self.name, "level": level, "text": text}])
+            return (0, "", None) if ok else (1, "", None)
+        self._submit_change(stage, svc=self.logmon)
 
     def _mark_down(self, osd: int) -> None:
         self._failure_reports.pop(osd, None)

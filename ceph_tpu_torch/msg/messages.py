@@ -14,9 +14,11 @@ carries both pool types' scrub; the replicated sub-ops (`RepOpWrite`,
 carry the replicated pools; `MMgrCommand` and `MMgrCommandReply` carry a
 mgr-module command the mon proxies to the active mgr; `MMonElection`,
 `MMonLease`, `MMonLeaseAck`, `MMonForward` and `MPaxosSyncReq` carry a
-multi-mon quorum's election, leases, forwarded commands and catch-up.
-Left out with the services that send them: snap trim, MDS/fs, config
-and cluster-log, and watch/notify messages.
+multi-mon quorum's election, leases, forwarded commands and catch-up;
+`MConfig` carries the centralized config a mon pushes to a daemon, and
+`MLog` and `MLogAck` a daemon's cluster-log batches and their acks.
+Left out with the services that send them: snap trim, MDS/fs and
+watch/notify messages.
 """
 from __future__ import annotations
 
@@ -463,6 +465,31 @@ class MMonSubscribe(Message):
     osdmap updates starting at `start` epoch."""
     what: str = "osdmap"
     start: int = 0
+
+
+@dataclass
+class MConfig(Message):
+    """mon -> daemon: your merged centralized-config view changed
+    (ref: src/messages/MConfig.h)."""
+    version: int = 0
+    values: dict = field(default_factory=dict)
+
+
+@dataclass
+class MLog(Message):
+    """Daemon -> mon cluster-log batch (ref: src/messages/MLog.h
+    carrying LogEntry vectors; src/common/LogClient.cc).  Entries are
+    dicts {seq, stamp, name, level, text}; `seq` is the sender's
+    monotonically increasing counter so the mon can dedup resends."""
+    entries: list = field(default_factory=list)
+
+
+@dataclass
+class MLogAck(Message):
+    """Mon -> daemon ack up to `last_seq` for `name` (ref:
+    src/messages/MLogAck.h); the client trims its resend buffer."""
+    name: str = ""
+    last_seq: int = 0
 
 
 @dataclass

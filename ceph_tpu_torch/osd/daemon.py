@@ -37,13 +37,18 @@ peering statecharts chase from the prior interval's holders.  One thing
 is the port's own: the daemon keeps each placement seed's raw CRUSH
 result across epochs that leave the CRUSH inputs alone (`_pg_mapping`),
 where the reference maps every PG again on every epoch; the mappings
-are the same.  Left out: snap trim and the snapshot ops (`rollback`,
-`list_snaps`), object classes (`exec`), watch/notify (a client op the
-daemon does not carry answers EINVAL), the cluster-log client (a scrub
-result goes to the debug log only), centralized config and the
-heartbeat mute hook.  Crash capture is the reference's: an exception
-out of a heartbeat tick or a dispatch thread (or the
-`inject_crash_tick` fault) becomes a crash report, spooled to
+are the same.  The cluster-log client (`clog`, flushed on every
+heartbeat tick and trimmed by the mon's MLogAck) carries the scrub
+result lines to the mon; the daemon subscribes to its centralized
+config at boot and on a mon hunt, and applies each MConfig view,
+reverting a name that left the view to its default; the pg-stat report
+carries the store's media error counters (`bluestore_csum_errors`,
+`bluestore_read_errors`) for the mgr's devicehealth module.  Left
+out: snap trim and the snapshot ops (`rollback`, `list_snaps`), object
+classes (`exec`), watch/notify (a client op the daemon does not carry
+answers EINVAL) and the heartbeat mute hook.  Crash capture is the
+reference's: an exception out of a heartbeat tick or a dispatch thread
+(or the `inject_crash_tick` fault) becomes a crash report, spooled to
 `crash_dir` when one is given and posted to the mon's crash table as a
 `crash post` command, whose ack retires the spool copy; `init` drains
 the spool.
@@ -73,7 +78,8 @@ from .. import device as _device
 from ..common.heartbeat_map import HeartbeatMap
 from ..common.lockdep import make_lock
 from ..common.log import dout
-from ..common.options import global_config
+from ..common.log_client import LogClient
+from ..common.options import OPTIONS, global_config
 from ..common.perf_counters import global_perf
 from ..common.racecheck import shared_state
 from ..common.tracing import Tracer
@@ -82,8 +88,8 @@ from ..crush.types import CRUSH_ITEM_NONE
 from ..ec import registry as ec_registry
 from ..mon.osd_monitor import DEFAULT_EC_PROFILE
 from ..msg.messages import (BackfillReserve, ECSubRead, ECSubReadReply,
-                            ECSubWrite, ECSubWriteReply, MMap,
-                            MMonCommand, MMonCommandAck,
+                            ECSubWrite, ECSubWriteReply, MConfig,
+                            MLogAck, MMap, MMonCommand, MMonCommandAck,
                             MMonSubscribe, MOSDBoot, MOSDFailure,
                             MOSDPGTemp, MPGStats, OSDOp, OSDOpReply,
                             PGLogPush, PGLogReq, PGMissingReply,
@@ -252,6 +258,14 @@ class OSDDaemon(Dispatcher, MonHunter):
             history_size=global_config()["osd_op_history_size"])
         # blkin-style span sink (ref: OpRequest::pg_trace plumbing)
         self.tracer = Tracer(self.name)
+        # cluster-log channel to the mon (ref: LogClient.cc); the send
+        # resolves self.mon per flush so mon failover just redirects
+        self.clog = LogClient(
+            self.name,
+            lambda m: self.ms.connect(self.mon).send_message(m))
+        #: option names the mon's last config view set (a name that
+        #: leaves the view reverts to its default)
+        self._mon_config_keys: set = set()
         self._op_spans: dict = {}
         self.hbmap = HeartbeatMap()
         self._hb_handle = self.hbmap.add_worker(
@@ -324,6 +338,8 @@ class OSDDaemon(Dispatcher, MonHunter):
         self.ms.connect(self.mon).send_message(MOSDBoot(osd=self.whoami))
         self.ms.connect(self.mon).send_message(
             MMonSubscribe(what="osdmap", start=1))
+        self.ms.connect(self.mon).send_message(
+            MMonSubscribe(what="config"))
         # next-boot spool drain: crashes captured while the mon was
         # unreachable post now (the table dedups by crash_id)
         self.crash.drain()
@@ -384,7 +400,11 @@ class OSDDaemon(Dispatcher, MonHunter):
     def _hunt_greeting(self) -> list:
         return [MOSDBoot(osd=self.whoami),
                 MMonSubscribe(what="osdmap",
-                              start=self.osdmap.epoch + 1)]
+                              start=self.osdmap.epoch + 1),
+                # the new mon's _config_subs doesn't know us: without
+                # re-subscribing, centralized config changes would
+                # silently stop reaching this daemon after a failover
+                MMonSubscribe(what="config")]
 
     def ms_handle_reset(self, peer: str) -> None:
         """Our mon went away: hunt to the next one (shared MonHunter
@@ -403,6 +423,12 @@ class OSDDaemon(Dispatcher, MonHunter):
     def _dispatch(self, msg: Message) -> bool:
         if isinstance(msg, MMap):
             self._handle_map(msg)
+            return True
+        if isinstance(msg, MConfig):
+            self._apply_config(msg)
+            return True
+        if isinstance(msg, MLogAck):
+            self.clog.handle_ack(msg)
             return True
         if isinstance(msg, MMonCommandAck):
             # only crash posts ride the command channel from an OSD;
@@ -658,6 +684,31 @@ class OSDDaemon(Dispatcher, MonHunter):
         return False
 
     # ----------------------------------------------------------- maps
+    def _apply_config(self, msg: MConfig) -> None:
+        """Apply the mon's centralized config view
+        (ref: md_config_t::set_mon_vals — unknown names warn, known
+        names apply, and values ABSENT from the new view revert to
+        their defaults so `config rm` takes effect on running
+        daemons)."""
+        cfg = global_config()
+        for name in self._mon_config_keys - set(msg.values):
+            try:
+                cfg.set(name, OPTIONS[name].default)
+            except (KeyError, ValueError, TypeError):
+                pass
+        applied = set()
+        for name, value in msg.values.items():
+            try:
+                cfg.set(name, value)
+                applied.add(name)
+            except KeyError:
+                dout("osd", 4).write("%s: ignoring unknown config %s",
+                                     self.name, name)
+            except (ValueError, TypeError) as ex:
+                dout("osd", 1).write("%s: bad config %s=%r: %s",
+                                     self.name, name, value, ex)
+        self._mon_config_keys = applied
+
     def _handle_map(self, msg: MMap) -> None:
         with self._lock:
             old_up = {o for o in range(self.osdmap.max_osd)
@@ -1870,9 +1921,8 @@ class OSDDaemon(Dispatcher, MonHunter):
         self._reply(sc.reply_msg, 0, attrs=result)
 
     def clog_scrub_result(self, pg: PG, result: dict) -> None:
-        """Scrub outcome into the debug log (ref: the scrub-result
-        lines PG::scrub_finish emits; the cluster-log client that also
-        carries them to the mon is not ported)."""
+        """Scrub outcome into the cluster log (ref: the scrub-result
+        clog lines PG::scrub_finish emits)."""
         if result["inconsistent"]:
             bad = len(result["inconsistent"])
             dout("osd", 0).write(
@@ -1881,6 +1931,17 @@ class OSDDaemon(Dispatcher, MonHunter):
                 self.name, pg, bad,
                 result["repaired"], result["unrepairable"],
                 bool(result.get("verified")))
+            if result["unrepairable"]:
+                self.clog.error(
+                    f"pg {pg} scrub: {bad} inconsistent, "
+                    f"{len(result['unrepairable'])} unrepairable")
+            elif result.get("verified"):
+                self.clog.warn(
+                    f"pg {pg} scrub: {bad} inconsistent, "
+                    f"{result['repaired']} repaired and re-verified")
+            else:
+                self.clog.warn(
+                    f"pg {pg} scrub: {bad} inconsistent")
 
     # ------------------------------------------------------ heartbeats
     def heartbeat_peers(self) -> set[int]:
@@ -1931,6 +1992,7 @@ class OSDDaemon(Dispatcher, MonHunter):
         # work a peering retry just enqueued drains through the QoS
         # queue now (or arms the pacing timer)
         self._drain_op_queue()
+        self.clog.flush()
         grace = global_config()["osd_heartbeat_grace"]
         # clock-domain sanity: if our own ticks stopped for more than a
         # grace (or time went backwards — e.g. a test switching between
@@ -2033,12 +2095,17 @@ class OSDDaemon(Dispatcher, MonHunter):
                 "acting": list(st.acting), "primary": True}
         fs = self.store.statfs()
         self._refresh_msgr_perf()
+        perf = self.perf.dump()
+        # device-health feed: BlueStore media error counters ride the
+        # perf report (ref: the SMART scrape mgr/devicehealth pulls)
+        for k, v in getattr(self.store, "media_errors", {}).items():
+            perf[f"bluestore_{k}"] = v
         self.ms.connect(self.mon).send_message(MPGStats(
             osd=self.whoami, epoch=self.osdmap.epoch, stamp=now,
             pg_stats=pg_stats, kb_total=fs["total"] // 1024,
             kb_used=fs["used"] // 1024,
             kb_avail=fs["available"] // 1024,
-            perf=self.perf.dump(),
+            perf=perf,
             # SLOW_OPS feed: aged in-flight ops (count + oldest age);
             # a drained tracker reports count 0, clearing the warning
             # on the mon within one report interval

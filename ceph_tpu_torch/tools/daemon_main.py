@@ -40,9 +40,11 @@ returns the wall-clock stamps of that start-up (main entered, torch and
 the daemon's modules imported, CUDA context made, kernels loaded,
 serving), `kernel launches` the process's launch counts and `msgr` the
 messenger's dispatch errors and frames and bytes sent.  The
-device guard and the race checker arm from the environment
-(CEPH_TPU_TORCH_DEVGUARD, CEPH_TPU_RACECHECK) before any daemon module
-is imported.  One rule
+error-path coverage hook, the device guard and the race checker arm
+from the environment (CEPH_TPU_ERRCHECK, CEPH_TPU_TORCH_DEVGUARD,
+CEPH_TPU_RACECHECK) before any daemon module is imported; with
+CEPH_TPU_ERRCHECK_DIR set, the process writes its fired handler counts
+there at exit (`errcheck-<pid>.json`).  One rule
 differs: a tick error the loop logs and survives also counts in the
 daemon's perf counters as `tick_errors` (`perf dump`).  Not ported yet,
 and refused with a one-line error: the `mds` role.
@@ -286,8 +288,14 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     stamps = {"main": time.time()}
-    # arm the device guard and the race checker (each reads the
-    # environment at import) before the daemon modules are imported
+    # the error-path coverage hook first (CEPH_TPU_ERRCHECK, the
+    # `errcheck` option), so the daemon's own imports are instrumented;
+    # with CEPH_TPU_ERRCHECK_DIR set the process dumps its handler
+    # counters there at exit for the parent to merge
+    from ..common import errcheck
+    errcheck.enable_if_configured()
+    # then the device guard and the race checker (each reads the
+    # environment at import), before the daemon modules are imported
     from ..common import devguard, racecheck  # noqa: F401
     args = parser().parse_args(argv)
     if args.role == "mds":

@@ -19,10 +19,13 @@ reference), `rmpool`, `ls`, `put`, `get`, `rm`, `stat`, `setxattr`,
 `getxattr`, `listxattr`, `setomapval`, `listomapvals`, `bench <pool>
 <seconds> write|seq -b -t [--no-cleanup]` (`seq` lists the pool's
 `benchmark_data_*` objects, as the reference does), the paged artifact
-store's `serve put|get|stat|pages` and the mon's crash table (`crash
-ls|ls-new|stat|info|archive|archive-all|prune`), with `--monmap`,
-`--keyring` and `--timeout`; the output text and return codes are the
-reference's.  Two rules differ:
+store's `serve put|get|stat|pages`, the mon's crash table (`crash
+ls|ls-new|stat|info|archive|archive-all|prune`), the mgr modules the
+mon proxies (`telemetry [show|status|on|off|channel]`, `insights`) and
+`trace <id> --asok-dir D`, which needs no cluster: it asks every admin
+socket under D for the trace's spans and prints one span tree; with
+`--monmap`, `--keyring` and `--timeout`; the output text and return
+codes are the reference's.  Two rules differ:
 
 * `bench ... seq` checks every read: it must hold the block size and
   equal the first read (one write bench stores one payload in every
@@ -30,7 +33,7 @@ reference's.  Two rules differ:
 * with a keyring that holds `client.admin`, the client authenticates
   (cephx) as `client.admin`.
 
-Not ported yet: `telemetry`, `insights`, `trace` and `rgw`.
+Not ported yet: `rgw`.
 """
 from __future__ import annotations
 
@@ -160,9 +163,10 @@ def cmd_listomapvals(r, a, out):
         print(vals[k].decode(errors="replace"), file=out)
 
 
-# ------------------------------------------------------ crash (mon)
-# (ref: src/ceph.in routing `ceph crash ...` to the mon, which serves
-#  it from its crash table)
+# ------------------------------------------- crash / telemetry / insights
+# (ref: src/ceph.in routing `ceph crash|telemetry|insights ...` to the
+#  mon, which serves crash from its table and proxies the rest to the
+#  active mgr)
 
 def _mon_verb(r, cmd: dict, out) -> int:
     rc, outs, outb = r.mon_command(cmd)
@@ -194,6 +198,61 @@ def cmd_crash(r, a, out):
                   file=sys.stderr)
             return 1
     return _mon_verb(r, cmd, out)
+
+
+def cmd_telemetry(r, a, out):
+    cmd = {"prefix": f"telemetry {a.verb}"}
+    if a.verb == "channel":
+        if not a.name:
+            print("error: telemetry channel wants <name> [on|off]",
+                  file=sys.stderr)
+            return 1
+        cmd["name"] = a.name
+        cmd["enabled"] = a.state != "off"
+    return _mon_verb(r, cmd, out)
+
+
+def cmd_insights(r, a, out):
+    return _mon_verb(r, {"prefix": "insights"}, out)
+
+
+def cmd_trace(r, a, out):
+    """Assemble one cross-daemon trace: query every daemon's
+    `dump_traces` ring (admin sockets under --asok-dir) by trace_id
+    and print ONE indented span tree with per-span durations (the
+    blkin/zipkin-UI job as a CLI verb)."""
+    import glob
+
+    from ..common.admin_socket import admin_command
+    from ..common.tracing import format_tree, span_tree
+
+    if not a.asok_dir:
+        print("error: trace wants --asok-dir <dir of *.asok>",
+              file=sys.stderr)
+        return 1
+    spans, asked = [], 0
+    for p in sorted(glob.glob(os.path.join(a.asok_dir, "*.asok"))):
+        try:
+            rc, got = admin_command(
+                p, {"prefix": "dump_traces", "trace_id": a.trace_id})
+        except OSError as e:
+            print(f"warning: {p}: {e}", file=sys.stderr)
+            continue
+        asked += 1
+        if rc == 0 and isinstance(got, list):
+            spans.extend(got)
+    if not asked:
+        print(f"error: no *.asok under {a.asok_dir}", file=sys.stderr)
+        return 1
+    if not spans:
+        print(f"no spans found for trace {a.trace_id} "
+              f"({asked} daemons asked)", file=out)
+        return 1
+    print(f"trace {a.trace_id}: {len(spans)} spans from {asked} "
+          f"daemons, {len(span_tree(spans))} root(s)", file=out)
+    for line in format_tree(spans):
+        print(line, file=out)
+    return 0
 
 
 def cmd_serve(r, a, out):
@@ -374,6 +433,18 @@ def parser() -> argparse.ArgumentParser:
                                     "archive", "archive-all", "prune"])
     p.add_argument("arg", nargs="?",
                    help="crash id (info/archive) or keep-days (prune)")
+    p = sub.add_parser("telemetry")
+    p.add_argument("verb", nargs="?", default="show",
+                   choices=["show", "status", "on", "off", "channel"])
+    p.add_argument("name", nargs="?", help="channel name")
+    p.add_argument("state", nargs="?", default="on",
+                   choices=["on", "off"])
+    sub.add_parser("insights")
+    p = sub.add_parser("trace")
+    p.add_argument("trace_id", help="trace id to assemble")
+    p.add_argument("--asok-dir", default="",
+                   help="directory of daemon admin sockets (*.asok) "
+                        "to query dump_traces on")
     p = sub.add_parser("serve")
     p.add_argument("verb", choices=["put", "get", "stat", "pages"])
     p.add_argument("pool")
@@ -401,6 +472,9 @@ def main(argv=None, rados=None, out=None) -> int:
     out = out or sys.stdout
     ap = parser()
     a = ap.parse_args(argv)
+    if a.cmd == "trace":
+        # pure admin-socket verb: needs no cluster connection
+        return cmd_trace(None, a, out) or 0
     own = rados is None
     if own:
         if not a.monmap:
@@ -418,7 +492,8 @@ def main(argv=None, rados=None, out=None) -> int:
                   "listxattr": cmd_listxattr,
                   "setomapval": cmd_setomapval,
                   "listomapvals": cmd_listomapvals,
-                  "crash": cmd_crash,
+                  "crash": cmd_crash, "telemetry": cmd_telemetry,
+                  "insights": cmd_insights,
                   "serve": cmd_serve}[a.cmd](rados, a, out)
             return rc or 0
         except RadosError as e:

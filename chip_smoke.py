@@ -58,7 +58,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    clock read during the timing;
 10. compiled repair at full width through the user entry points:
    `factory("jerasure", k=4 m=2 reed_sol_van)`, `factory("clay", k=4
-   m=2)` (d=5) and `factory("lrc", k=4 m=2 l=3)` on cuda, 16 objects of
+   m=2)` (d=5) and `factory("lrc", k=4 m=2 l=3)` on cuda, 8 objects of
    4 MiB each (stripe unit 4096 B, 256 stripes; cut from 64 to keep the
    smoke's wall time), made from the seed and
    encoded by ecutil on the host.  Shard 0 is lost; each object's helper
@@ -74,7 +74,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    zeroed before and read after: one launch per repair or bit-matrix
    product.  K1 equals its plain version at every repair shape, two
    with tables above 48 KiB (k_in 256 and 400) included;
-11. time each code's rebuild of its 16 objects on the host clock, split
+11. time each code's rebuild of its 8 objects on the host clock, split
    into gather, copy in, K1 (also by CUDA events), copy back and
    scatter, with the rebuilt MB/s, beside the first (compiling) and
    second pass of phase 10; K1 per launch at each repair shape beside
@@ -139,7 +139,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
 18. the EC placement group's data plane (ceph_tpu_torch.osd.ec_backend:
    ECBackend and one ECPGShard per shard over the port's MemStores, wired
    directly) at the pool shape `tpu` k=8 m=4 reed_sol_van on the card,
-   stripe unit 4096 B, 4 MiB objects: 64 objects written through
+   stripe unit 4096 B, 4 MiB objects: 32 objects written through
    submit_transaction, 100 KiB unaligned overwrites in 16 of them, every
    object read back equal to the script's bytes and every shard stream
    equal to ecutil.encode through a device="cpu" plugin (K1's plain
@@ -148,7 +148,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    one compiled repair (one K1 launch) per object and no full rebuild,
    equal to the streams from before, read/rebuilt exactly 8.0; the same
    recovery for REPAIR_r01.json's jerasure, clay and lrc (the first 16
-   objects each, 4.0 / 2.5 / 3.0); the 64 writes again through ICIFabric over
+   objects each, 4.0 / 2.5 / 3.0); the 32 writes again through ICIFabric over
    ["cuda:0"] * 8, every chunk equal to the host path's.  Write, read,
    degraded-read and rebuilt MB/s on the host clock, K1's CUDA-event
    share of each, and a split of one write (merge, ecutil.encode, the
@@ -160,14 +160,18 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    pool of pg_num 32 (Octopus's osd_pool_default_pg_num), as
    __graft_entry__.py:92-183 builds it.  64 objects of 4 MiB written
    through librados write_full and read back.  (e) The scheduled scrub:
-   a data shard of one object bitrotted under its OSD's MemStore, then
-   the cluster's heartbeat tick on a sim clock (5 s a tick, both scrub
-   intervals cut to 300 s) and no pg_scrub call, until the scheduled
-   deep scrub of that PG has found the shard, repaired it on K1 and
-   verified it ({"inconsistent": [oid], "repaired": 1, "unrepairable":
-   [], "verified": True}); the shard equal to the plain encode again,
-   every other scrub clean, the reservation peaks within
-   osd_max_scrubs, no OSD marked down.  (f) The replicated pool beside
+   a data shard of one object bitrotted under its OSD's MemStore, both
+   scrub intervals cut to 300 s by `config set osd` on the mon (every
+   OSD applies the MConfig push; `config get osd.N` answers it for all
+   16), then the cluster's heartbeat tick on a sim clock (5 s a tick)
+   and no pg_scrub call, until the scheduled deep scrub of that PG has
+   found the shard, repaired it on K1 and verified it ({"inconsistent":
+   [oid], "repaired": 1, "unrepairable": [], "verified": True}) and
+   the primary's cluster-log line "pg <pg> scrub: 1 inconsistent, 1
+   repaired and re-verified" is the one scrub line in the mon's `log
+   last 50 warn`; the shard equal to the plain encode again, every
+   other scrub clean, the reservation peaks within osd_max_scrubs, no
+   OSD marked down; `config rm` takes both intervals back.  (f) The replicated pool beside
    the EC pool, made after (e): `reppool`, replicated, pg_num 32, size
    3, min_size 2 (Octopus's defaults); 64 seeded 4 MiB objects, each one
    WriteOp of write_full and two xattrs; 16 index objects of 1,024 omap
@@ -195,15 +199,21 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    SEED, min_in = min_live = 12, EIO injection on `ecpool`) for 4 rounds
    with two seeded 4 MiB writes between, one shard EIO forced if none
    was rolled and its objects read around it, heal, and the same
-   checks; then `telemetry show` proxied by the mon to the mgr ("not
-   enabled") and, with the mgr killed, `insights` answered EAGAIN.
+   checks; then (g3) the mgr's telemetry and insights modules:
+   `telemetry show` proxied by the mon to the mgr answers the report
+   (16 OSDs, both pools, the `tpu` k=8 m=4 profile, a 32-hex-digit
+   cluster id, no host, path, pool or entity name), `telemetry send`
+   writes it to a file:// target under ceph_tpu_torch/_build/smoke,
+   `insights` reports the cluster log's counts over its window (sampled
+   from the start of (g)); with the mgr killed, `insights` is answered
+   EAGAIN.
    Every fault count 0 (queued items, dropped pulls, tick and dispatch
    errors, reaps, compiled repairs that raised, the mgr's failed
    commands); the sim clock of (e) goes on, each tick waiting for the
    ping replies that keep a busy OSD from being reported.
    (d) The paged artifact store:
    an ArtifactStore with its default layout (64 KiB pages, 1 MiB
-   objects) puts a 64 MiB checkpoint of 4 shards (the last ragged) and
+   objects) puts a 32 MiB checkpoint of 4 shards (the last ragged) and
    a KV pool of 1,024 pages, streams every shard under the `checkpoint`
    policy and runs 4 waves of 64 seeded page ids through a `kvcache`
    handle, every byte equal to the put's (pages by sha256).  The OSD in
@@ -246,8 +256,13 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    `bench reppool 2 write -t 16 --no-cleanup`, `bench reppool 2 seq -t
    16`, `ls`, `setxattr` / `getxattr` / `listxattr`, `setomapval` /
    `listomapvals` and `rmpool`, each output equal to the reference's
-   text; then the OSD in the most acting sets killed, `osd down` and 16
-   listed bench objects read degraded.  Bench MB/s, each daemon's
+   text; the write bench's client traces its ops (blkin_trace_all), and
+   `rados_cli trace <id> --asok-dir <dir>` assembles one of its EC
+   writes from the 17 admin sockets into one span tree: the primary's
+   osd_op with its ec_encode_kernel span (K1) and the 11 ec_sub_write
+   spans of the other shards' OSDs, printed; then the OSD in the most
+   acting sets killed, `osd down` and 16 listed bench objects read
+   degraded.  Bench MB/s, each daemon's
    start-up (interpreter, imports, CUDA context, kernel load, join),
    and, through each admin socket, its K1 launches, tick errors, failed
    queued items, full rebuilds and dispatch errors, all of which must
@@ -278,14 +293,27 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    the flip, reports exactly that blob; the smoke's client then scrubs
    the PG over TCP: `pg_scrub` lists exactly that object inconsistent,
    `pg_scrub(repair=True)` repairs 1 and verifies it, a third scrub is
-   clean, and the primary's K1 launches rise (its admin socket);
+   clean, and the primary's K1 launches rise (its admin socket); `osd
+   perf dump` through the mon shows bluestore_csum_errors above 0 for
+   the bitrotted OSD alone (its restarted process counted the real
+   checksum mismatch), and a MgrDaemon with devicehealth, in this
+   process on the cluster's TCP network with its own cephx key (mgr.0
+   in keyring.json), raises DEVICE_HEALTH for exactly that device in the
+   mon's `health` and its warn line in `log last`; `config set osd
+   osd_max_backfills 2` reaches all 16 OSD processes (each admin
+   socket's `config get`) and `config rm` takes it back; that restarted
+   OSD's process alone runs with errcheck armed (CEPH_TPU_ERRCHECK=1,
+   CEPH_TPU_ERRCHECK_DIR): its dump, merged after the stop, gives the
+   fired / total handlers, the fired ones by module, and the sub-read
+   handler that takes BlueStore's checksum mismatch must have fired;
    everything stopped, the repaired shard on the bitrotted OSD's disk
    equal to the plain encode (sha256), each seeded shard on that disk,
    the restarted OSD's and two others' equal to the plain version's
    encode (tolerance 0), the replicas the restarted OSD pulled equal to
    their payloads on its disk, and `monstore_tool show-versions` on the mon's
    dir at the client's last epoch (its paxos holds one commit per map
-   epoch and the crash table's first).  MB/s of the writes, seq and the
+   epoch, the crash table's first and one per commit of the config and
+   the cluster log).  MB/s of the writes, seq and the
    degraded read, the restart-to-clean seconds of the OSD and the mon,
    every daemon's start-up split (its store's open included), the WAL
    sizes and statfs per daemon, and every fault count (0);
@@ -302,7 +330,9 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    then acked == ops_total > 0, a partition and a drop counted, the 16
    objects read back byte for byte, K1 launched (split into encodes,
    decodes and compiled repairs), the crash table empty, every fault
-   count 0 and the leader's quorum [0, 1, 2].  The fault digest and
+   count 0 and the leader's quorum [0, 1, 2]; `log last` answers the same
+   mon-originated lines from each of the three mons, "osd.3 marked down
+   after failure reports from its peers" among them.  The fault digest and
    counts, each phase's p50/p99, the elections held, the sim seconds
    from the mon heal to a full quorum and the leg's host seconds.
 
@@ -319,6 +349,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -342,7 +373,7 @@ PG_NUM, EC_PG_NUM = 1 << 20, 1 << 16
 EC_K, EC_M = 8, 4
 SAMPLE = 256                     # identity sample per pool, as placement_bench
 PLAIN_SEEDS = 1 << 16
-REPAIR_OBJECTS = 16              # per code, cut from 64, then 32 (the smoke's wall)
+REPAIR_OBJECTS = 8               # per code, cut from 64, 32, 16 (the wall)
 REPAIR_OBJECT = 4 << 20          # 4 MiB objects
 STRIPE_UNIT = 4096               # osd_pool_erasure_code_stripe_unit default
 REPAIR_CODES = [                 # REPAIR_r01.json's profiles and read/rebuilt
@@ -1925,7 +1956,7 @@ def bench_phase(name_power: str) -> dict:
 # ---------------------------------------------------------------------------
 # The EC placement group's data plane: phase 18
 
-EC_PG_OBJECTS = 64               # 4 MiB objects through ECBackend, tpu
+EC_PG_OBJECTS = 32               # 4 MiB objects through ECBackend (cut from 64)
 EC_PG_CODE_OBJECTS = 16          # of them through jerasure, clay and lrc
 EC_PG_RMW = 16                   # objects given an unaligned overwrite
 EC_PG_PATCH = 100 << 10          # 100 KiB
@@ -2162,7 +2193,7 @@ def ec_pg_phase(ec, name_power: str, dev) -> dict:
     `tpu` k=8 m=4 reed_sol_van, stripe unit 4096 B, 4 MiB objects: writes,
     an unaligned overwrite of 16 objects, reads, a degraded read with two
     shards down, shard 0 recovered; the same recovery for REPAIR_r01.json's
-    three codes; the 64 writes again through the fabric."""
+    three codes; the writes again through the fabric."""
     from ceph_tpu_torch.dist import ICIFabric
     from ceph_tpu_torch.ec import registry
     from ceph_tpu_torch.ec.kernels import bitmatmul as bm
@@ -2589,8 +2620,8 @@ def _shards_on_acting(c, objs: dict, res: dict, tag: str):
 
 # -- phase 19 (d): the paged artifact store; (e): the scheduled scrub -------
 
-SERVE_SHARDS = 4                 # checkpoint shards of 16 MiB: 64 MiB
-SERVE_SHARD_B = 16 << 20         # cut from 64, then 32 MiB (the smoke's wall)
+SERVE_SHARDS = 4                 # checkpoint shards of 8 MiB: 32 MiB
+SERVE_SHARD_B = 8 << 20          # cut from 64, 32, 16 MiB (the smoke's wall)
 SERVE_RAGGED = 4097              # the last shard's missing tail
 SERVE_KV_PAGES = 1024            # KV pool of 64 KiB pages
 SERVE_WAVES = 4                  # page waves per half, cut from 32, then 8
@@ -2658,7 +2689,7 @@ def serve_half(store, ckpt: dict, kv_sums: list, waves: list,
 
 class ServeLeg:
     """Phase 19 (d) on the cluster's pool: an ArtifactStore with its
-    default layout (64 KiB pages, 1 MiB objects) holding a 64 MiB
+    default layout (64 KiB pages, 1 MiB objects) holding a 32 MiB
     checkpoint of 4 shards and a 1,024-page KV pool; `healthy` puts and
     reads them, `degraded` (the victim down) reads them again and
     deletes both artifacts, so recovery rebuilds what it did before."""
@@ -2743,19 +2774,43 @@ def scrub_leg(c, r, objs: dict) -> dict:
     if mstore.read(cid, soid) != want:
         raise AssertionError(f"{tag}: {oid} shard {shard} before the rot")
     mstore.queue_transaction(Transaction().write(cid, soid, 0, b"BITROT!!"))
+    saved = {k: cfg[k] for k in ("osd_scrub_min_interval",
+                                 "osd_deep_scrub_interval")}
     results: list = []
     for d in c.osds.values():
         def record(pg_, result, d=d, orig=d.clog_scrub_result):
             results.append((d.whoami, pg_, dict(result)))
             orig(pg_, result)
         d.clog_scrub_result = record
-    saved = {k: cfg[k] for k in ("osd_scrub_min_interval",
-                                 "osd_deep_scrub_interval")}
-    for k in saved:
-        cfg.set(k, SCRUB_INTERVAL_S)
+    # both intervals through the mon's centralized config: committed,
+    # pushed to every OSD as MConfig and applied there
+    keys = ("osd_scrub_min_interval", "osd_deep_scrub_interval")
+    t_cfg = time.monotonic()
+    for k in keys:
+        rc, outs, _ = r.mon_command({"prefix": "config set", "who": "osd",
+                                     "name": k,
+                                     "value": str(SCRUB_INTERVAL_S)})
+        if rc != 0:
+            raise AssertionError(f"{tag}: config set osd {k}: {outs}")
+    _wait(c, lambda: all(set(keys) <= d._mon_config_keys
+                         for d in c.osds.values()),
+          "every OSD applied the scrub intervals", tag=tag)
+    cfg_s = time.monotonic() - t_cfg
+    got = {(o, k): c.mon.handle_command({"prefix": "config get",
+                                         "who": f"osd.{o}", "name": k})
+           for o in c.osds for k in keys}
+    if any(v != (0, "", str(SCRUB_INTERVAL_S)) for v in got.values()) or \
+            any(cfg[k] != SCRUB_INTERVAL_S for k in keys):
+        raise AssertionError(f"{tag}: config get {got}")
     l0 = bm.LAUNCHES["gf_matmul"]
     comp0 = dict(repairc_compiler.COMPILES)
-    now, found = SCRUB_T0, None
+    now, found, logged = SCRUB_T0, None, None
+    want_line = f"pg {pg} scrub: 1 inconsistent, 1 repaired and re-verified"
+
+    def scrub_lines():
+        entries = c.mon.handle_command({"prefix": "log last", "num": 50,
+                                        "level": "warn"})[2]
+        return [e for e in entries if " scrub: " in e["text"]]
     try:
         with k1_events(bm) as ev:
             t0 = time.monotonic()
@@ -2765,16 +2820,34 @@ def scrub_leg(c, r, objs: dict) -> dict:
                 time.sleep(0.01)        # ping replies land in sim time
                 _wait(c, lambda: not _scrubbing(c), "scrubs settled",
                       tag=tag)
-                found = next((res for _o, pg_, res in results
-                              if pg_ == pg and res["inconsistent"]), None)
-                if found is not None:
+                if found is None:
+                    found = next((res for _o, pg_, res in results
+                                  if pg_ == pg and res["inconsistent"]),
+                                 None)
+                # the primary's clog line goes out on its next tick
+                if found is not None and any(e["text"] == want_line
+                                             for e in scrub_lines()):
+                    logged = scrub_lines()
                     break
             wall = time.monotonic() - t0
     finally:
-        for k, v in saved.items():
-            cfg.set(k, v)
+        for k in keys:
+            c.mon.handle_command({"prefix": "config rm", "who": "osd",
+                                  "name": k})
         for d in c.osds.values():
             d.__dict__.pop("clog_scrub_result", None)
+    _wait(c, lambda: not any(set(keys) & d._mon_config_keys
+                             for d in c.osds.values()),
+          "every OSD dropped the scrub intervals", tag=tag)
+    if any(cfg[k] != saved[k] for k in keys):
+        raise AssertionError(f"{tag}: after config rm {[cfg[k] for k in keys]}"
+                             f" != the defaults {saved}")
+    if logged is None or [(e["name"], e["level"], e["text"])
+                          for e in logged] != [(f"osd.{primary}", "warn",
+                                                want_line)]:
+        raise AssertionError(f"{tag}: log last 50 warn holds the scrub "
+                             f"lines {logged}, not osd.{primary}'s "
+                             f"{want_line!r} alone")
     k1 = events_ms(ev)
     launches = bm.LAUNCHES["gf_matmul"] - l0
     probes = repairc_compiler.COMPILES["probe_launches"] - \
@@ -2810,7 +2883,8 @@ def scrub_leg(c, r, objs: dict) -> dict:
             "peak_local": peak_local, "peak_remote": peak_remote,
             "limit": limit, "launches": launches, "probe_launches": probes,
             "k1_ms": k1, "pg": str(pg), "primary": primary,
-            "rot_osd": acting[shard], "shard": shard}
+            "rot_osd": acting[shard], "shard": shard, "config_s": cfg_s,
+            "config_osds": len(c.osds), "log_line": logged[0]["text"]}
 
 
 # -- phase 19 (f): the replicated pool beside the EC pool ---------------------
@@ -3242,8 +3316,12 @@ def split_reseed(c, r, io, clock, objs: dict, want: dict,
     mgr = c.start_mgr()
     mgr.start_pg_autoscaler()
     mgr.start_progress()
+    # insights from the start of (g): its window's first sample of the
+    # cluster log's counts is taken here, (g3) reads the window
+    mgr.start_insights()
     _wait(c, lambda: mgr.osdmap.epoch == c.mon.osdmap.epoch,
           "the mgr's first map", tag=tag)
+    mgr.observability_tick()
 
     def state() -> str:
         m = c.mon.osdmap
@@ -3452,15 +3530,76 @@ def thrash_ec(c, r, io, clock, objs: dict, want: dict,
             "shards_checked": checked}
 
 
+def telemetry_report_checks(rep: dict, pools: list) -> list:
+    """The anonymized report's contract on phase 19's cluster; the
+    list of what failed (empty when it holds)."""
+    js = json.dumps(rep, sort_keys=True)
+    names = re.findall(r"\b(?:osd|mon|mgr|client)\.\d+", js)
+    basic = rep.get("basic", {})
+    bad = []
+    if basic.get("osds", {}).get("total") != CLUSTER_OSDS:
+        bad.append(f"osds {basic.get('osds')}")
+    if basic.get("pools", {}).get("count") != len(pools):
+        bad.append(f"pools {basic.get('pools')}")
+    if basic.get("pools", {}).get("ec_profiles") != [
+            {"k": K, "m": M, "plugin": "tpu"}]:
+        bad.append(f"profiles {basic.get('pools', {}).get('ec_profiles')}")
+    if socket.gethostname() in js or "/" in js or names or \
+            any(p in js for p in pools):
+        bad.append(f"names {names} or a host, path or pool name in it")
+    if not re.fullmatch(r"[0-9a-f]{32}", str(rep.get("cluster_id"))):
+        bad.append(f"cluster_id {rep.get('cluster_id')}")
+    return bad
+
+
 def mgr_proxy(c, r) -> dict:
-    """(g3): a mgr-module command through the mon, then the mgr killed:
-    the next one answers EAGAIN, it does not hang."""
+    """(g3): the mgr's telemetry and insights through the mon, a
+    telemetry send to a file:// target, then the mgr killed: the next
+    command answers EAGAIN, it does not hang."""
+    from ceph_tpu_torch.common.options import global_config
+    from ceph_tpu_torch.ec.kernels import _build
+
     tag = "phase 19 (g3)"
+    work = _build.BUILD_DIR / "smoke" / "phase19"
+    mgr = c.mgr
+    t0 = time.monotonic()
+    mgr.start_telemetry()
+    mgr.observability_tick()          # compiles the report, samples insights
+    tick_s = time.monotonic() - t0
     t0 = time.monotonic()
     first = r.mon_command({"prefix": "telemetry show"})
     first_s = time.monotonic() - t0
-    if first != (-2, "telemetry module not enabled", None):
-        raise AssertionError(f"{tag}: telemetry show through the mon {first}")
+    pools = ["ecpool", "reppool"]
+    bad = telemetry_report_checks(first[2] or {}, pools)
+    if first[0] != 0 or bad:
+        raise AssertionError(f"{tag}: telemetry show through the mon "
+                             f"{first[:2]}: {bad}")
+    work.mkdir(parents=True, exist_ok=True)
+    sink = work / "telemetry.jsonl"
+    with contextlib.suppress(FileNotFoundError):
+        sink.unlink()
+    cfg = global_config()
+    cfg.set("mgr_telemetry_url", f"file://{sink}")
+    try:
+        sent = r.mon_command({"prefix": "telemetry send"})
+    finally:
+        cfg.set("mgr_telemetry_url", "")
+    lines = sink.read_text().splitlines() if sink.exists() else []
+    if sent[:2] != (0, "report sent") or \
+            [json.loads(x) for x in lines] != [first[2]]:
+        raise AssertionError(f"{tag}: telemetry send {sent[:2]}, the "
+                             f"target holds {len(lines)} lines")
+    ins = r.mon_command({"prefix": "insights"})
+    samples = list(mgr.insights._log_counts)
+    counts = c.mon.handle_command({"prefix": "log counts"})[2]
+    delta = {lvl: samples[-1][1].get(lvl, 0) - samples[0][1].get(lvl, 0)
+             for lvl in ("warn", "error")}
+    if ins[0] != 0 or ins[2]["cluster_log"] != delta or \
+            samples[-1][1].get("warn", 0) < 1 or \
+            counts.get("warn", 0) < samples[-1][1].get("warn", 0):
+        raise AssertionError(f"{tag}: insights {ins[:2]} cluster_log "
+                             f"{(ins[2] or {}).get('cluster_log')}, samples "
+                             f"{samples}, the mon's counts {counts}")
     c.mgr.shutdown()
     c.mgr = None
     t0 = time.monotonic()
@@ -3470,8 +3609,10 @@ def mgr_proxy(c, r) -> dict:
             second_s > 10.0:
         raise AssertionError(f"{tag}: with the mgr dead: {second} in "
                              f"{second_s:.3f} s")
-    return {"relayed": first, "relayed_s": first_s, "dead": second,
-            "dead_s": second_s}
+    return {"relayed": first[:2], "relayed_s": first_s, "tick_s": tick_s,
+            "basic": first[2]["basic"], "sent": len(lines),
+            "insights": ins[2]["cluster_log"], "log_counts": counts,
+            "samples": len(samples), "dead": second, "dead_s": second_s}
 
 
 def elastic_leg(c, r, io, objs: dict, ec_writeop: bytes, victim: int,
@@ -3542,10 +3683,18 @@ def elastic_leg(c, r, io, objs: dict, ec_writeop: bytes, victim: int,
           f"after a failed helper read); every "
           f"object read back and {g2['shards_checked']} shards == the plain "
           f"encode; fault counts {faults} on {name_power}")
+    b = g3["basic"]
     print(f"phase 19 (g3): telemetry show through the mon -> "
-          f"{g3['relayed'][:2]} in {g3['relayed_s']:.3f} s; mgr killed, "
-          f"insights -> {g3['dead'][:2]} in {g3['dead_s']:.3f} s; "
-          f"leg (g) {wall:.1f} s on {name_power}")
+          f"{g3['relayed']} in {g3['relayed_s']:.3f} s (report compiled in "
+          f"{g3['tick_s']:.3f} s): {b['osds']['total']} OSDs, "
+          f"{b['pools']['count']} pools, EC profiles "
+          f"{b['pools']['ec_profiles']}, no host, path, pool or entity "
+          f"name; telemetry send wrote {g3['sent']} report to a file:// "
+          f"target; insights over {g3['samples']} samples: cluster log "
+          f"{g3['insights']} in the window (the mon's counts "
+          f"{g3['log_counts']}); mgr killed, insights -> "
+          f"{g3['dead'][:2]} in {g3['dead_s']:.3f} s; leg (g) {wall:.1f} s "
+          f"on {name_power}")
     return {"g1": {k: v for k, v in g1.items() if k != "update_s"},
             "update_s": {"calls": len(upd), "sum": sum(allsec),
                          "median": statistics.median(allsec),
@@ -3692,6 +3841,11 @@ def cluster_phase(name_power: str, dev) -> dict:
           f"osd_max_scrubs {scrub['limit']}; K1 {scrub['launches']} "
           f"launches ({scrub['probe_launches']} compile probes), "
           f"{scrub['k1_ms']:.3f} ms by CUDA events on {name_power}")
+    print(f"phase 19 (e): both scrub intervals by `config set osd` on the "
+          f"mon, applied by all {scrub['config_osds']} OSDs (MConfig) in "
+          f"{scrub['config_s']:.3f} s and removed by `config rm` after; "
+          f"log last 50 warn holds the one scrub line "
+          f"{scrub['log_line']!r}")
     ro = rep.out
     for leg_name in ("write", "read", "degraded_read", "down_write"):
         lg = ro[leg_name]
@@ -3854,8 +4008,9 @@ class Daemons:
             "addrs": self.addrs, "mon_ranks": [0], "n_osd": n_osd,
             "osds_per_host": 1}))
         self.keyring_path = work / "keyring.json"
+        # mgr.0: phase 21's devicehealth mgr, in the smoke's process
         self.keyring = KeyRing.generate(names + ["client.admin",
-                                                 "client.smoke"])
+                                                 "client.smoke", "mgr.0"])
         self.keyring.save(str(self.keyring_path))
         self.env = dict(os.environ,
                         PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
@@ -3865,7 +4020,9 @@ class Daemons:
     def asok(self, name: str) -> str:
         return str(self.work / f"{name}.asok")
 
-    def spawn(self, name: str) -> None:
+    def spawn(self, name: str, env: dict | None = None) -> None:
+        """Start one daemon; `env` adds to the environment of this
+        process alone."""
         role, ident = name.split(".")
         argv = [sys.executable, "-m", "ceph_tpu_torch.tools.daemon_main",
                 role, "--rank" if role == "mon" else "--id", ident,
@@ -3879,7 +4036,8 @@ class Daemons:
         log = open(self.work / f"{name}.log", "a")
         self.spawned[name] = time.time()
         self.procs[name] = subprocess.Popen(
-            argv, env=self.env, cwd=self.env["PYTHONPATH"], stdout=log,
+            argv, env={**self.env, **(env or {})},
+            cwd=self.env["PYTHONPATH"], stdout=log,
             stderr=subprocess.STDOUT)
         log.close()
 
@@ -3971,14 +4129,16 @@ def _proc_clean(ds: Daemons, names, osdmap) -> bool:
             sum(s["primary_clean"] for s in st) == pgs)
 
 
-def _cli(ds: Daemons, *argv) -> tuple[str, float]:
+def _cli(ds: Daemons, *argv, env: dict | None = None) -> tuple[str, float]:
     """One `rados_cli` process with the cluster's monmap and keyring;
-    its stdout and wall.  A non-zero exit fails the phase."""
+    its stdout and wall.  A non-zero exit fails the phase.  `env` adds
+    to the process's environment."""
     cmd = [sys.executable, "-m", "ceph_tpu_torch.tools.rados_cli",
            "--monmap", str(ds.monmap), "--keyring", str(ds.keyring_path),
            "--timeout", "120", *argv]
     t0 = time.monotonic()
-    p = subprocess.run(cmd, env=ds.env, cwd=ds.env["PYTHONPATH"],
+    p = subprocess.run(cmd, env={**ds.env, **(env or {})},
+                       cwd=ds.env["PYTHONPATH"],
                        capture_output=True, text=True, timeout=300)
     wall = time.monotonic() - t0
     if p.returncode != 0:
@@ -3988,10 +4148,11 @@ def _cli(ds: Daemons, *argv) -> tuple[str, float]:
 
 
 def _bench(ds: Daemons, mode: str, seconds: float = PROC_BENCH_S,
-           pool: str = "ecpool") -> dict:
+           pool: str = "ecpool", env: dict | None = None) -> dict:
     out, wall = _cli(ds, "bench", pool, str(seconds), mode, "-t",
                      str(PROC_THREADS),
-                     *(["--no-cleanup"] if mode == "write" else []))
+                     *(["--no-cleanup"] if mode == "write" else []),
+                     env=env)
     fields = dict(line.split(":", 1) for line in out.splitlines()
                   if ":" in line)
     return {"MBps": float(fields["Bandwidth (MB/sec)"]),
@@ -3999,6 +4160,43 @@ def _bench(ds: Daemons, mode: str, seconds: float = PROC_BENCH_S,
             "size": int(fields[f"{mode} size"]),
             "lat_s": float(fields["Average Latency(s)"]),
             "run_s": float(fields["Total time run"]), "cli_wall_s": wall}
+
+
+def trace_bench_write(ds: Daemons, osds: list) -> dict:
+    """`rados trace <id> --asok-dir <dir>` on one traced EC write of the
+    write bench: the id of the newest ec_encode_kernel span in the first
+    OSD ring that holds one, the tree assembled by a CLI process from
+    every admin socket (the mon's and the OSDs')."""
+    tag = "phase 20 (c)"
+    newest = None
+    for name in osds:
+        # a ring lists its spans as they finished: the last is the newest
+        enc = [sp for sp in ds.command(name, "dump_traces")
+               if sp["name"] == "ec_encode_kernel"]
+        if enc:
+            newest = (name, enc[-1])
+            break
+    if newest is None:
+        raise AssertionError(f"{tag}: no ec_encode_kernel span in any ring")
+    tid = newest[1]["trace_id"]
+    out, wall = _cli(ds, "trace", tid, "--asok-dir", str(ds.work))
+    lines = out.splitlines()
+    tree = [ln for ln in lines[1:] if not ln.lstrip().startswith("@")]
+    head = re.fullmatch(rf"trace {tid}: (\d+) spans from (\d+) daemons, "
+                        r"(\d+) root\(s\)", lines[0] if lines else "")
+    roots = [ln for ln in tree if not ln.startswith(" ")]
+    subs = [ln for ln in tree if ln.startswith("  ec_sub_write [osd.")]
+    enc = [ln for ln in tree
+           if ln.startswith(f"  ec_encode_kernel [{newest[0]}]")]
+    if head is None or int(head.group(2)) != len(osds) + 1 or \
+            head.group(3) != "1" or len(roots) != 1 or \
+            not roots[0].startswith(f"osd_op:write_full [{newest[0]}]") or \
+            len(enc) != 1 or len(subs) != K + M - 1 or \
+            len({ln.split("[")[1] for ln in subs}) != K + M - 1:
+        raise AssertionError(f"{tag}: rados trace {tid}:\n{out}")
+    return {"trace_id": tid, "primary": int(newest[0].split(".")[1]),
+            "spans": int(head.group(1)), "asked": int(head.group(2)),
+            "sub_writes": len(subs), "wall_s": wall, "tree": tree}
 
 
 def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
@@ -4116,8 +4314,12 @@ def process_leg(name_power: str, work: Path) -> dict:
                        for n in names)
 
         l0 = launches(osds)
-        bench = {"write": _bench(ds, "write")}
+        # the write bench's client traces every op (blkin_trace_all):
+        # each daemon keeps the spans of its part in its ring
+        bench = {"write": _bench(ds, "write",
+                                 env={"CEPH_TPU_BLKIN_TRACE_ALL": "1"})}
         l1 = launches(osds)
+        trace = trace_bench_write(ds, osds)
         bench["seq"] = _bench(ds, "seq")
         l2 = launches(osds)
         rep = rep_cli(ds, r, lambda what: wait_clean(osds, what), name_power)
@@ -4171,6 +4373,15 @@ def process_leg(name_power: str, work: Path) -> dict:
               f"{b['size']}: {b['MBps']} MB/s, {b['ops']} ops, average "
               f"latency {b['lat_s']} s in {b['run_s']} s (CLI process "
               f"{b['cli_wall_s']:.1f} s) on {name_power}")
+    print(f"phase 20 (c): `rados trace {trace['trace_id']} --asok-dir` over "
+          f"{trace['asked']} admin sockets in {trace['wall_s']:.1f} s (CLI "
+          f"process): one write_full of the traced write bench, "
+          f"{trace['spans']} spans in one tree: the primary osd."
+          f"{trace['primary']}'s osd_op with its ec_encode_kernel (K1) and "
+          f"{trace['sub_writes']} ec_sub_write spans on the other shards' "
+          f"OSDs:")
+    for line in trace["tree"]:
+        print(f"phase 20 (c):   {line}")
     print(f"phase 20 (c): osd.{victim} (in {count[victim]} acting sets) "
           f"killed and down: {n_read} bench objects read degraded == "
           f"payload at {degraded['MBps']:.1f} MB/s ({degraded_s:.3f} s) on "
@@ -4194,6 +4405,7 @@ def process_leg(name_power: str, work: Path) -> dict:
         raise AssertionError(f"phase 20 (c): K1 launches {k1}")
     return {"bench": bench, "degraded": degraded, "startup": startup,
             "launches": k1, "replicated": rep,
+            "trace": {k: v for k, v in trace.items() if k != "tree"},
             "faults": faults, "wall_s": wall, "boot_s": boot_s}
 
 
@@ -4256,6 +4468,133 @@ def _stores_report(data: Path, names) -> dict:
             st.umount()
         out[name] = row
     return out
+
+
+def device_health_leg(ds: Daemons, r, rot: int, osds: list) -> dict:
+    """Phase 21's media-error feed: `osd perf dump` through the mon
+    shows the bitrotted OSD's checksum mismatches and no other's; then
+    a MgrDaemon with devicehealth, in this process on the cluster's TCP
+    network with its own cephx key, raises DEVICE_HEALTH for exactly
+    that device and logs the warn line."""
+    from ceph_tpu_torch.auth import attach_cephx
+    from ceph_tpu_torch.mgr import MgrDaemon
+    from ceph_tpu_torch.msg.tcp import TcpNet
+
+    tag = "phase 21"
+    t0 = time.monotonic()
+    feed: dict = {}
+
+    def reported():
+        rc, _, perf = r.mon_command({"prefix": "osd perf dump"})
+        if rc != 0 or len(perf) != len(osds):
+            return False
+        feed.clear()
+        feed.update({n: perf[n].get("bluestore_csum_errors")
+                     for n in sorted(perf)})
+        return feed[f"osd.{rot}"] >= 1
+    _wait_for(reported, "the bitrotted OSD's csum errors in osd perf dump")
+    feed_s = time.monotonic() - t0
+    if any(v != 0 for n, v in feed.items() if n != f"osd.{rot}"):
+        raise AssertionError(f"{tag}: bluestore_csum_errors {feed}")
+    t0 = time.monotonic()
+    mgr = MgrDaemon(TcpNet({k: tuple(v) for k, v in ds.addrs.items()}),
+                    threaded=True)
+    attach_cephx(mgr.ms, mgr.name, ds.keyring.subset(mgr.name))
+    try:
+        mgr.init()
+        dh = mgr.start_devicehealth()
+        ticks = 0
+        while ticks < 3:
+            ticks += 1
+            mgr.devicehealth_tick()
+            if any(d["health"] != "GOOD" for d in dh.ls()):
+                break
+        unhealthy = [d["device"] for d in dh.ls() if d["health"] != "GOOD"]
+        check = r.mon_command({"prefix": "health"})[2]["checks"].get(
+            "DEVICE_HEALTH")
+        line = f"device osd.{rot}-dev on osd.{rot} reports " \
+            f"{feed[f'osd.{rot}']}"
+        logged = [e["text"] for e in r.mon_command(
+            {"prefix": "log last", "num": 50, "level": "warn"})[2]
+            if e["name"] == "mgr.devicehealth"]
+    finally:
+        mgr.shutdown()
+    mgr_s = time.monotonic() - t0
+    if unhealthy != [f"osd.{rot}-dev"] or check is None or \
+            check.get("summary") != "1 devices reporting media errors" or \
+            len(logged) != 1 or not logged[0].startswith(line):
+        raise AssertionError(f"{tag}: devicehealth {unhealthy}, health "
+                             f"{check}, log {logged}")
+    return {"csum": {n: v for n, v in feed.items() if v} or feed,
+            "feed_s": feed_s, "unhealthy": unhealthy,
+            "check": check["summary"], "ticks": ticks, "mgr_s": mgr_s,
+            "line": logged[0]}
+
+
+def config_leg(ds: Daemons, r, osds: list) -> dict:
+    """`config set osd osd_max_backfills 2` through the mon reaches
+    every OSD process over TCP (each admin socket's `config get`), and
+    `config rm` takes it back to the default."""
+    from ceph_tpu_torch.common.options import OPTIONS
+
+    name = "osd_max_backfills"
+    default = OPTIONS[name].default
+
+    def everywhere(value):
+        return lambda: all(ds.command(n, {"prefix": "config get",
+                                          "var": name}) == value
+                           for n in osds)
+    t0 = time.monotonic()
+    rc, outs, _ = r.mon_command({"prefix": "config set", "who": "osd",
+                                 "name": name, "value": "2"})
+    if rc != 0:
+        raise AssertionError(f"phase 21: config set: {outs}")
+    _wait_for(everywhere(2), "osd_max_backfills 2 in every OSD process",
+              timeout=60.0)
+    set_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    rc, outs, _ = r.mon_command({"prefix": "config rm", "who": "osd",
+                                 "name": name})
+    if rc != 0:
+        raise AssertionError(f"phase 21: config rm: {outs}")
+    _wait_for(everywhere(default), "osd_max_backfills back to its default",
+              timeout=60.0)
+    return {"osds": len(osds), "applied": 2, "set_s": set_s,
+            "reverted": default, "rm_s": time.monotonic() - t0}
+
+
+def errcheck_report(errdir: Path) -> dict:
+    """The restarted OSD's errcheck dump: fired over total handlers of
+    the port, the fired handlers by module, and the handler that takes
+    a shard read's StoreError (BlueStore's checksum mismatch) in
+    ECPGShard.handle_sub_read."""
+    import inspect
+
+    import ceph_tpu_torch
+    from ceph_tpu_torch.common import errcheck
+    from ceph_tpu_torch.osd.ec_backend import ECPGShard
+
+    dumps = sorted(errdir.glob("errcheck-*.json"))
+    if len(dumps) != 1:
+        raise AssertionError(f"phase 21: errcheck dumps {dumps}")
+    fired = errcheck.merge_dir(str(errdir))
+    pkg = Path(ceph_tpu_torch.__file__).parent
+    rep = errcheck.coverage_report(str(pkg), "ceph_tpu_torch", fired)
+    src, first = inspect.getsourcelines(ECPGShard.handle_sub_read)
+    sub_read = [ln for mod, ln, catches in errcheck.handler_census(
+        str(pkg), "ceph_tpu_torch")
+        if mod == "ceph_tpu_torch.osd.ec_backend"
+        and first <= ln < first + len(src) and catches == "StoreError"]
+    key = ("ceph_tpu_torch.osd.ec_backend", sub_read[0], "StoreError")
+    if not fired.get(key):
+        raise AssertionError(f"phase 21: errcheck: the sub-read StoreError "
+                             f"handler {key} never fired: {sorted(fired)}")
+    by_module = sorted(((m.removeprefix("ceph_tpu_torch."), st["fired"])
+                        for m, st in rep["modules"].items() if st["fired"]),
+                       key=lambda x: (-x[1], x[0]))
+    return {"fired": rep["handlers_fired"], "total": rep["handlers_total"],
+            "csum_handler": f"ec_backend.py:{key[1]}",
+            "csum_fired": fired[key], "by_module": by_module}
 
 
 def durable_phase(name_power: str, work: Path) -> dict:
@@ -4486,8 +4825,16 @@ def durable_phase(name_power: str, work: Path) -> dict:
                                  f"{fsck.returncode}\n{fsck.stdout}"
                                  f"{fsck.stderr[-2000:]}")
         res["fsck"] = lines[0]
-        ds.spawn(rname)
+        # errcheck armed in this restarted OSD's process alone: its
+        # fired handlers are dumped to errdir when it stops
+        errdir = work / "errcheck"
+        shutil.rmtree(errdir, ignore_errors=True)
+        errdir.mkdir(parents=True)
+        t0 = time.monotonic()
+        ds.spawn(rname, env={"CEPH_TPU_ERRCHECK": "1",
+                             "CEPH_TPU_ERRCHECK_DIR": str(errdir)})
         ds.wait_serving([rname])
+        res["errcheck_serving_s"] = time.monotonic() - t0
         _wait_for(lambda: r.objecter.osdmap.is_up(rot), "rot OSD never up")
         _wait_for(clean(osds), "peering after the rot OSD's restart")
         l0 = _osd_sums(ds, osds)["k1"]
@@ -4524,6 +4871,9 @@ def durable_phase(name_power: str, work: Path) -> dict:
         if not k1["scrub_repair_primary"]:
             raise AssertionError(f"phase 21: the scrub repair launched no K1 "
                                  f"on the primary {pname}")
+        # -- 7b. the media-error feed, devicehealth, config over TCP ----------
+        res["device_health"] = device_health_leg(ds, r, rot, osds)
+        res["config"] = config_leg(ds, r, osds)
         # each daemon's counters: a killed process's (read just before
         # its kill) summed with its successor's
         faults["mon.0"] = mon_faults
@@ -4585,12 +4935,19 @@ def durable_phase(name_power: str, work: Path) -> dict:
          str(data / "mon.0"), "show-versions"], env=ds.env,
         cwd=ds.env["PYTHONPATH"], capture_output=True, text=True,
         timeout=300)
-    paxos = json.loads(vers.stdout)["paxos"]
-    # one paxos commit per map epoch, and the crash table's bootstrap
-    # (phase 21 posts no crash)
-    if vers.returncode or paxos["last_version"] != epoch + 1:
+    shown = json.loads(vers.stdout)
+    paxos = shown["paxos"]
+    # one paxos commit per map epoch, the crash table's bootstrap
+    # (phase 21 posts no crash) and one per commit of the config and
+    # the cluster log, each of which keeps v_<n>, last_ and
+    # first_committed
+    commits = {svc: shown.get(svc, {}).get("keys", 2) - 2
+               for svc in ("config", "logm")}
+    if vers.returncode or paxos["last_version"] != \
+            epoch + 1 + sum(commits.values()):
         raise AssertionError(f"phase 21: monstore_tool show-versions "
                              f"{vers.stdout} against epoch {epoch}")
+    errcheck = errcheck_report(errdir)
     stores = _stores_report(data, names)
     wall = time.monotonic() - t_phase
     for mode in ("write", "seq"):
@@ -4635,7 +4992,28 @@ def durable_phase(name_power: str, work: Path) -> dict:
           f"osd.{victim}, osd.{rot}, " + ", ".join(f"osd.{o}" for o in others) +
           f" == the plain version's encode (tolerance 0); monstore_tool "
           f"show-versions paxos {paxos} == the client's last epoch {epoch} "
-          f"+ the crash table's first commit")
+          f"+ the crash table's first commit + the commits of config and "
+          f"the cluster log {commits}")
+    dh = res["device_health"]
+    print(f"phase 21: osd perf dump through the mon: "
+          f"bluestore_csum_errors {dh['csum']} (osd.{rot} alone, a real "
+          f"checksum mismatch), in {dh['feed_s']:.3f} s; a MgrDaemon with "
+          f"devicehealth in this process (TCP, cephx as mgr.0): "
+          f"DEVICE_HEALTH {dh['check']} for {dh['unhealthy']} after "
+          f"{dh['ticks']} tick(s) ({dh['mgr_s']:.3f} s), log last: "
+          f"{dh['line']!r}")
+    cf = res["config"]
+    print(f"phase 21: config set osd osd_max_backfills 2 over TCP: all "
+          f"{cf['osds']} OSD processes' `config get` show {cf['applied']} "
+          f"in {cf['set_s']:.3f} s; config rm: back to {cf['reverted']} in "
+          f"{cf['rm_s']:.3f} s")
+    print(f"phase 21: errcheck in osd.{rot}'s restarted process "
+          f"(serving in {res['errcheck_serving_s']:.2f} s): "
+          f"{errcheck['fired']} of {errcheck['total']} handlers fired; the "
+          f"BlueStore checksum-mismatch read path's "
+          f"{errcheck['csum_handler']} fired {errcheck['csum_fired']} times; "
+          f"by module " + ", ".join(f"{m} {n}" for m, n in
+                                    errcheck["by_module"]))
     for name, split in startup.items():
         print(f"phase 21: {name} start-up " + ", ".join(
             f"{part} {v:.2f}" for part, v in split.items()) + " s")
@@ -4649,7 +5027,8 @@ def durable_phase(name_power: str, work: Path) -> dict:
           f"{res['boot_s']:.1f} s, phase {wall:.1f} s on {name_power}")
     res.update({"victim": victim, "launches": k1, "startup": startup,
                 "stores": stores, "faults": sums, "checked_shards": checked,
-                "epoch": epoch, "phase_s": wall})
+                "epoch": epoch, "phase_s": wall, "errcheck": errcheck,
+                "paxos_commits": commits})
     return res
 
 
@@ -4792,6 +5171,19 @@ def chaos_phase(name_power: str) -> dict:
             raise AssertionError(f"{tag}: crash table {crashes}")
         if rc_q or q["quorum"] != [0, 1, 2]:
             raise AssertionError(f"{tag}: final quorum {q}")
+        # the mons' own cluster-log lines, committed through paxos:
+        # each of the three mons answers `log last` with the same
+        mon_logs = {rank: [(e["name"], e["level"], e["text"], e["stamp"])
+                           for e in mn.handle_command(
+                               {"prefix": "log last", "num": 500})[2]
+                           if e["name"].startswith("mon.")]
+                    for rank, mn in sorted(c.mons.items())}
+        mon_lines = [(lvl, text) for _n, lvl, text, _t in
+                     mon_logs[ldr.rank]]
+        if len({tuple(v) for v in mon_logs.values()}) != 1 or \
+                ("warn", "osd.3 marked down after failure reports from its "
+                 "peers") not in mon_lines:
+            raise AssertionError(f"{tag}: the mons' log lines {mon_logs}")
         _faults(c, tag)
         faults = {"dispatch_errors": c.network.dispatch_errors,
                   "reaped": len(c.reaped),
@@ -4821,6 +5213,9 @@ def chaos_phase(name_power: str) -> dict:
           f"epoch {q['election_epoch']}); every mon back in one quorum of "
           f"three {heal_to_quorum:.1f} sim s after the mon heal; quorum "
           f"{q['quorum']}, leader mon.{q['leader']}, crash table empty")
+    print(f"{tag}: log last from each of the {len(mon_logs)} mons: the same "
+          f"{len(mon_lines)} mon-originated lines: " +
+          "; ".join(f"[{lvl}] {text}" for lvl, text in mon_lines))
     print(f"{tag}: K1 {launches['gf_matmul']} launches (preload encodes "
           f"{pre_split['encode']}; in the run encode "
           f"{split['encode'] - pre_split['encode']}, decode "
@@ -4836,6 +5231,7 @@ def chaos_phase(name_power: str) -> dict:
             "launches": launches["gf_matmul"], "split": dict(split),
             "preload_split": pre_split, "full_rebuilds": paths["full"],
             "elections": len(wins), "election_epoch": q["election_epoch"],
+            "mon_log_lines": mon_lines,
             "heal_to_quorum_sim_s": heal_to_quorum, "faults": faults,
             "preload_s": pre_s, "run_s": run_s, "phase_s": wall}
 

@@ -6,7 +6,8 @@ k=2 m=1 pool over 4 OSDs where the reference runs a replicated pool
 over 2 (an EC pool exercises K1 on the card's path too), and its
 `config set` sets
 osd_max_backfills where the reference sets log_level, an option the
-port does not carry."""
+port does not carry.  One more case pins the port's own rule: the
+socket's path appears only once it listens."""
 import time
 
 from ceph_tpu.common import admin_socket as ref_asok
@@ -33,6 +34,34 @@ def test_admin_socket_roundtrip(tmp_path):
         assert rc == 0 and "echo" in out
     finally:
         a.shutdown()
+
+
+def test_path_appears_only_once_the_socket_listens(tmp_path, monkeypatch):
+    """A caller that finds the path can connect: the socket listens
+    under a side name before it is renamed to the path (a stale side
+    file from a killed daemon is replaced)."""
+    import os
+    import socket
+
+    sock = str(tmp_path / "b.asok")
+    (tmp_path / "b.asok~").write_text("stale")
+    seen = []
+
+    class Probe(socket.socket):
+        def listen(self, *a):
+            seen.append(os.path.exists(sock))
+            super().listen(*a)
+    monkeypatch.setattr(socket, "socket", Probe)
+    a = AdminSocket(sock)
+    a.start()
+    monkeypatch.undo()
+    try:
+        assert seen == [False]
+        assert os.path.exists(sock) and not os.path.exists(sock + "~")
+        assert admin_command(sock, "help")[0] == 0
+    finally:
+        a.shutdown()
+    assert not os.path.exists(sock)
 
 
 def test_op_tracker():

@@ -10,7 +10,10 @@ acked and total ops, fault digest, fault counts, per-phase op counts and
 events (the per-phase latencies are host-clock times, compared to
 nothing).  Smoke phase 22's schedule runs the same way at the smallest
 width that places its `tpu` pool (5 OSDs, k=2 m=1, failure domain osd):
-the same report and the same bytes back in both packages.  The TCP
+the same report and the same bytes back in both packages, and each of
+the three mons answering `log last` with the same mon-originated lines,
+which are the reference's but for the auto-out of the isolated primary
+that the port's rule below boots again.  The TCP
 transport's fault intercept (`TcpNet(faults=)`) partitions and drops on
 loopback alike in both packages.  The last case pins the port's one
 rule that differs: an OSD that a new map wrongly shows down boots again.
@@ -213,16 +216,35 @@ def test_phase22_schedule_at_small_width():
             rep = comparable(ns["runner"](c, PHASE22, rados=r,
                                           pool="ecpool", seed=1).run())
             ldr = c.leader()
+            # the mons' own cluster-log lines, as each mon answers them
+            logs = [[(e["name"], e["level"], e["text"], e["stamp"])
+                     for e in mn.handle_command(
+                         {"prefix": "log last", "num": 500})[2]
+                     if e["name"].startswith("mon.")]
+                    for _rank, mn in sorted(c.mons.items())]
+            mon_logs[ns["cluster"].__module__] = logs
             return (rep, {oid: io.read(oid) for oid in objs},
                     ldr.handle_command({"prefix": "quorum_status"})[2],
                     ldr.handle_command({"prefix": "crash ls"})[2])
         finally:
             c.shutdown()
+    mon_logs = {}
     rep, back, q, crashes = both(s)
     assert rep["acked"] == rep["ops_total"] > 0
     assert rep["fault_counts"]["partition"] > 0
     assert rep["fault_counts"]["drop"] > 0
     assert back == objs and crashes == [] and q["quorum"] == [0, 1, 2]
+    ref, port = (mon_logs[NS[k]["cluster"].__module__] for k in ("ref",
+                                                                 "port"))
+    assert port[0] == port[1] == port[2] and ref[0] == ref[1] == ref[2]
+    # one rule differs: the isolated primary, marked down while alive,
+    # boots again in the port (Ceph's "wrongly marked me down") and is
+    # never auto-marked out; the reference's stays down until it is
+    assert port[0] == [e for e in ref[0]
+                       if e[2] != "osd.4 auto-marked out after staying "
+                       "down past the interval"]
+    assert ("warn", "osd.3 marked down after failure reports from its "
+            "peers") in [(lvl, text) for _n, lvl, text, _t in port[0]]
 
 
 def test_unknown_action_and_crash_table_invariant():

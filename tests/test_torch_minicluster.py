@@ -19,9 +19,8 @@ test compares, at tolerance 0:
 * every live OSD's op, sub-op, map and recovery counters (recovery
   bytes read over rebuilt is k, and the port takes no full rebuild);
 * the message trace under `pump`: (source, destination, type) of every
-  message routed, in order.  Masked there, because the port leaves out
-  the services behind them: the reference's `config` subscriptions and
-  their MConfig replies, and its cluster-log traffic (MLog, MLogAck).
+  message routed, in order, the `config` subscriptions with their
+  MConfig replies and the cluster-log traffic (MLog, MLogAck) included.
 
 Two shapes: k=2 m=2 over 7 OSDs (the reference's tests/test_ec_peering.py
 shape, 16 objects of 2-3 KB) and `tpu` k=8 m=4 over 16 OSDs with
@@ -40,7 +39,6 @@ from ceph_tpu_torch.testing import MiniCluster as PortCluster
 
 NONE = 0x7FFFFFFF
 PG = {"ref": RefPG, "port": PortPG}
-MASKED = {"MConfig", "MLog", "MLogAck"}
 COUNTERS = ("op", "op_r", "op_w", "op_w_bytes", "op_r_bytes", "subop_w",
             "map_epochs", "recovery_pull", "recovery_bytes_read",
             "recovery_bytes_rebuilt")
@@ -74,9 +72,6 @@ def make(kind: str, shape: dict, threaded: bool = False):
     trace = []
 
     def record(src, dst, msg):
-        if msg.type_name in MASKED or (
-                msg.type_name == "MMonSubscribe" and msg.what == "config"):
-            return True
         trace.append((_norm(src), _norm(dst), msg.type_name))
         return True
     c.network.filter = record

@@ -8,11 +8,14 @@ Mirrored: `test_pool_and_object_lifecycle` (on a replicated pool, made
 by `mkpool` as in the reference, with `ls` and the xattr and omap
 verbs), `test_bench_write_then_seq` (on a replicated pool, and again on
 an EC pool made through the client, k=2 m=1 on 4 OSDs; `seq` finds the
-objects by listing) and `test_pool_delete` (`rmpool`).  Not mirrored:
-`test_trace_verb_assembles_cross_daemon_tree` (`trace`, not ported), a
-verb refused here as unknown, with `insights`, `telemetry` and `rgw`.
-The `crash` verbs are held to the reference's text in
-tests/test_torch_crash.py."""
+objects by listing), `test_pool_delete` (`rmpool`) and
+`test_trace_verb_assembles_cross_daemon_tree` (`trace` over the
+daemons' admin sockets; on an EC pool too, where the tree holds the
+primary's encode span and one sub-write span per peer shard, and its
+shape equals the reference's).  `rgw` is not ported: the verb is refused
+here as unknown.  The `crash` verbs are held to the reference's text in
+tests/test_torch_crash.py, `telemetry` and `insights` in
+tests/test_torch_telemetry.py."""
 import io as iomod
 import json
 import os
@@ -143,13 +146,96 @@ def test_seq_without_a_write_bench_says_so(cluster):
     assert rc == 1 and "no benchmark objects" in out
 
 
-@pytest.mark.parametrize("argv", [["insights"], ["telemetry"],
-                                  ["rgw", "realm", "create", "x"],
-                                  ["trace", "deadbeef"]])
+@pytest.mark.parametrize("argv", [["rgw", "realm", "create", "x"]])
 def test_verbs_left_out_are_refused(argv):
     with pytest.raises(SystemExit) as ei:
         main(argv, rados=object())
     assert ei.value.code == 2
+
+
+def traced_write(c, r, cfg, pool, oid, data, asok):
+    """Admin sockets on every daemon under `asok`, then one traced
+    write; returns the client's root span's trace id."""
+    for osd, d in c.osds.items():
+        d.start_admin_socket(str(asok / f"osd{osd}.asok"))
+    c.mon.start_admin_socket(str(asok / "mon0.asok"))
+    cfg.set("blkin_trace_all", True)
+    try:
+        r.open_ioctx(pool).write_full(oid, data)
+    finally:
+        cfg.set("blkin_trace_all", False)
+    roots = [s for s in r.objecter.dump_traces()
+             if s["name"] == "objecter_op:write_full"
+             and oid in str(s["events"])]
+    assert roots
+    return roots[-1]["trace_id"]
+
+
+def shape(out: str, tid: str) -> list:
+    """The printed tree without durations, event stamps and ids."""
+    lines = []
+    for ln in out.replace(tid, "TID").splitlines():
+        if ln.lstrip().startswith("@"):
+            continue
+        lines.append(ln.rsplit(" ", 1)[0] if ln.endswith("s") else ln)
+    return lines
+
+
+def test_trace_verb_assembles_cross_daemon_tree(cluster, tmp_path):
+    """`rados trace <id> --asok-dir D` queries every daemon's
+    dump_traces ring over the admin sockets and prints ONE indented
+    span tree with per-span durations."""
+    from ceph_tpu_torch.common.options import global_config
+
+    c, r = cluster
+    run(r, "mkpool", "trp", "8")
+    asok = tmp_path / "asoks"
+    asok.mkdir()
+    tid = traced_write(c, r, global_config(), "trp", "traced-cli",
+                       b"cli trace" * 100, asok)
+    rc, out = run(r, "trace", tid, "--asok-dir", str(asok))
+    assert rc == 0, out
+    assert "osd_op:write_full" in out and "rep_write" in out
+    assert "  " in out and "s" in out
+    rc, out = run(r, "trace", "deadbeef00000000", "--asok-dir", str(asok))
+    assert rc == 1 and "no spans found" in out
+    assert run(r, "trace", tid)[0] == 1
+    assert run(r, "trace", tid, "--asok-dir", str(tmp_path))[0] == 1
+
+
+def test_trace_of_an_ec_write_equals_the_references(tmp_path):
+    """One traced write to a k=2 m=1 pool: the assembled tree holds the
+    primary's encode span and a sub-write span per peer shard, and its
+    shape (spans, services, nesting) equals the reference's."""
+    from ceph_tpu.common.options import global_config as ref_config
+    from ceph_tpu_torch.common.options import global_config as port_config
+
+    def s(kind):
+        cli, cfg, cls = {"ref": (ref_cli, ref_config, RefCluster),
+                         "port": (main, port_config, MiniCluster)}[kind]
+        kw = {} if kind == "ref" else {"device": "cpu"}
+        c = cls(n_osd=4, threaded=True, **kw)
+        try:
+            c.wait_all_up()
+            r = c.rados()
+            make_ec_pool(r, "trec", pg_num=8)
+            asok = tmp_path / kind
+            asok.mkdir()
+            tid = traced_write(c, r, cfg(), "trec", "traced-ec",
+                               bytes(range(256)) * 40, asok)
+            rc, out = run(r, "trace", tid, "--asok-dir", str(asok),
+                          cli=cli if kind == "port" else cli.main)
+            return rc, shape(out, tid)
+        finally:
+            c.shutdown()
+    ref, port = s("ref"), s("port")
+    assert port == ref
+    rc, lines = port
+    assert rc == 0 and lines[0].startswith("trace TID: ")
+    assert sum("ec_encode_kernel" in ln for ln in lines) == 1
+    # the primary applies its own shard in place: one sub-write span
+    # for each of the other k + m - 1 shards
+    assert sum("ec_sub_write" in ln for ln in lines) == 2
 
 
 def test_text_and_codes_equal_the_references(tmp_path):

@@ -86,7 +86,9 @@ def test_port_registers_the_data_plane_structs():
         "MMgrCommand", "MMgrCommandReply",
         # the multi-mon quorum: election, leases, forwarding, catch-up
         "MMonElection", "MMonLease", "MMonLeaseAck", "MMonForward",
-        "MPaxosSyncReq"}
+        "MPaxosSyncReq",
+        # centralized config and the cluster log
+        "MConfig", "MLog", "MLogAck"}
     ref_schema = ref_wire.registered_schema()
     for name, schema in wire.registered_schema().items():
         assert schema == ref_schema[name], name
@@ -142,6 +144,27 @@ def test_message_frame_equals_the_references():
     bad[12] ^= 1
     with pytest.raises(wire.WireError, match="crc"):
         wire.decode_message(bytes(bad))
+
+
+@pytest.mark.parametrize("msg", [
+    messages.MConfig(version=4, values={"osd_max_backfills": "2",
+                                        "mon_lease": "7"}),
+    messages.MLog(entries=[{"seq": 0, "stamp": 1.25, "name": "osd.3",
+                            "level": "warn", "text": "pg 1.0 scrub: 1 "
+                            "inconsistent, 1 repaired and re-verified"}]),
+    messages.MLogAck(name="osd.3", last_seq=0)],
+    ids=["MConfig", "MLog", "MLogAck"])
+def test_config_and_log_frames_equal_the_references(msg):
+    """The centralized-config push and the cluster log's batch and ack:
+    the reference's schema, and a frame either package decodes."""
+    name = type(msg).__name__
+    assert wire.registered_schema()[name] == \
+        ref_wire.registered_schema()[name]
+    frame = wire.encode_message(msg)
+    ref_msg = ref_wire.decode_message(frame)
+    assert type(ref_msg).__name__ == name
+    assert ref_wire.encode_message(ref_msg) == frame
+    assert wire.decode_message(frame) == msg
 
 
 @pytest.mark.parametrize("value", [
