@@ -12,10 +12,10 @@ The port's copy of `ceph_tpu.client.objecter` in part: op targeting
 (PG-addressed ops too: `pgls`, which `IoCtx.list_objects` sends to every
 PG of a pool, and `scrub`), per-object ordering, resend on a map change
 or a reset, the rescan of
-parked ops, op timeouts, mon commands and cephx (the MAuthRequest
-handshake, message signing and ticket renewal).  Left out: the linger
-ops of watch/notify, whose OSD side the port's daemon does not carry
-yet.
+parked ops, op timeouts, mon commands, cephx (the MAuthRequest
+handshake, message signing and ticket renewal) and the linger of
+watch/notify (a watch registers again when its object's primary moves
+or resets).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from ..common.options import global_config
 from ..common.tracing import Tracer, child_of, current_trace, new_trace
 from ..msg.messages import (MAuthReply, MGR_UNAVAILABLE_EAGAIN, MMap,
                             MMonCommand, MMonCommandAck, MMonSubscribe,
-                            OSDOp, OSDOpReply)
+                            MWatchNotify, OSDOp, OSDOpReply)
 from ..msg.mon_client import MonHunter
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..osd.osdmap import OSDMap
@@ -120,6 +120,10 @@ class Objecter(Dispatcher, MonHunter):
         # write and silently win)
         self._obj_active: dict[tuple, int] = {}   # (pool, oid) -> tid
         self._obj_wait: dict[tuple, list] = {}
+        # linger state: cookie -> watch registration
+        # (ref: Objecter::LingerOp — watches re-register when the
+        # object's primary moves)
+        self.watches: dict[str, dict] = {}
         self._rescan_timer = None
         self._pending_cmds: dict = {}
         #: non-threaded harnesses set this to a network pump callable;
@@ -199,6 +203,8 @@ class Objecter(Dispatcher, MonHunter):
         if isinstance(msg, OSDOpReply):
             self._handle_reply(msg)
             return True
+        if isinstance(msg, MWatchNotify):
+            return self._handle_watch_notify(msg)
         if isinstance(msg, MMonCommandAck):
             return self._handle_command_ack(msg)
         return False
@@ -232,6 +238,11 @@ class Objecter(Dispatcher, MonHunter):
             return
         osd = int(peer[4:])
         with self._lock:
+            # a reset peer lost its in-memory watch state even if it
+            # comes back as the same primary: force re-registration
+            for w in self.watches.values():
+                if w.get("osd") == osd:
+                    w["osd"] = None
             for op in list(self.in_flight.values()):
                 if op.target_osd != osd:
                     continue
@@ -287,6 +298,7 @@ class Objecter(Dispatcher, MonHunter):
                 self._send_op(op)
             else:
                 self.homeless.append(op)
+        self._relinger()
 
     # ------------------------------------------------------ target calc
     def _calc_target(self, op: _Op) -> None:
@@ -348,9 +360,15 @@ class Objecter(Dispatcher, MonHunter):
             self._launch(o)
         return fut
 
+    #: ops exempt from per-object ordering: a notify_ack must never
+    #: queue behind the notify op that is waiting for it (self-notify
+    #: would deadlock until timeout), and watch re-registrations must
+    #: not park behind in-flight writes
+    _UNORDERED_OPS = frozenset({"notify_ack", "watch"})
+
     @classmethod
     def _obj_key(cls, op: _Op):
-        if op.unordered:
+        if op.op in cls._UNORDERED_OPS or op.unordered:
             return None
         return (op.pool, op.oid) if op.oid else None
 
@@ -427,6 +445,60 @@ class Objecter(Dispatcher, MonHunter):
             length=op.length, data=op.data, args=args,
             trace=child_of(op.trace)))
 
+    # ---------------------------------------------------- watch/notify
+    # (ref: Objecter linger ops + librados watch/notify API)
+    def watch_register(self, pool: int, oid: str, cookie: str,
+                       cb) -> OpFuture:
+        with self._lock:
+            self.watches[cookie] = {"pool": pool, "oid": oid,
+                                    "cb": cb, "osd": None}
+        return self.submit(pool, oid, "watch",
+                           args={"cookie": cookie, "action": "watch"})
+
+    def watch_unregister(self, pool: int, oid: str,
+                         cookie: str) -> OpFuture:
+        with self._lock:
+            self.watches.pop(cookie, None)
+        return self.submit(pool, oid, "watch",
+                           args={"cookie": cookie, "action": "unwatch"})
+
+    def _handle_watch_notify(self, msg: MWatchNotify) -> bool:
+        with self._lock:
+            w = self.watches.get(msg.cookie)
+        if w is None:
+            return True
+        try:
+            reply = w["cb"](msg.notify_id, msg.notifier, msg.payload)
+        except Exception:
+            dout("client", 0).write("%s: watch callback error on %s",
+                                    self.name, msg.oid)
+            reply = None
+        self.submit(w["pool"], msg.oid, "notify_ack",
+                    args={"notify_id": msg.notify_id,
+                          "cookie": msg.cookie, "reply": reply})
+        return True
+
+    def _relinger(self) -> None:
+        """Re-register watches whose primary moved (lock held) — the
+        new primary has no in-memory Watch state, so the client
+        re-establishes it like the reference's linger resend
+        (Objecter::_linger_submit on map change)."""
+        for cookie, w in list(self.watches.items()):
+            try:
+                raw = self.osdmap.object_locator_to_pg(w["oid"],
+                                                       w["pool"])
+                _, _, _, primary = self.osdmap.pg_to_up_acting_osds(raw)
+            except KeyError:
+                continue
+            if primary < 0 or not self.osdmap.is_up(primary):
+                # no live primary: whoever comes back (even the same
+                # OSD, restarted with empty watch state) must get a
+                # fresh registration
+                w["osd"] = None
+            elif primary != w.get("osd"):
+                self.submit(w["pool"], w["oid"], "watch",
+                            args={"cookie": cookie, "action": "watch"})
+
     def _handle_reply(self, msg: OSDOpReply) -> None:
         with self._lock:
             op = self.in_flight.get(msg.tid)
@@ -442,6 +514,16 @@ class Objecter(Dispatcher, MonHunter):
                 self._schedule_rescan()
                 return
             del self.in_flight[op.tid]
+            if op.op == "watch" and op.args.get("action") == "watch":
+                # registration is confirmed only by a successful reply
+                # — recording it at send time would let a failed
+                # re-registration (e.g. ENOENT on a recovering
+                # primary) kill the watch silently, since _relinger
+                # would see the target as already covered
+                w = self.watches.get(op.args.get("cookie"))
+                if w is not None:
+                    w["osd"] = op.target_osd if msg.result == 0 \
+                        else None
             self._complete_op(op, msg)
 
     def _schedule_rescan(self, delay: float = 0.05) -> None:

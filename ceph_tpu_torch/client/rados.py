@@ -7,23 +7,29 @@ Objecter + mon session; IoCtx binds a pool and exposes synchronous
 object IO; every call is an Objecter op under the hood, so target
 recalc/resend on map changes is inherited.
 
-The port's copy of `ceph_tpu.client.rados` in part: `Rados.connect`,
+The port's copy of `ceph_tpu.client.rados`: `Rados.connect`,
 `pool_create`, `pool_lookup`, `list_pools`, `mon_command`, `open_ioctx`,
 `pg_scrub` and `shutdown` (cephx through `auth_secret`); `IoCtx.write`,
-`write_full`, `read`, `remove`, `stat`, `append`, `truncate`, `zero`,
-`create`, `operate` with `WriteOp` compound operations, the xattr verbs
-(`set_xattr`, `get_xattr`, `rm_xattr`, `get_xattrs`), the omap verbs
-(replicated pools) and `list_objects`, and the `aio_` forms of those the
-reference has.  Left out: snapshots (pool and self-managed, with the
-write snap context and snap reads), object classes (`exec`) and
-watch/notify.
+`write_full`, `read` (at a pool snapshot with `snapid=`), `remove`,
+`stat`, `append`, `truncate`, `zero`, `create`, `operate` with `WriteOp`
+compound operations, the xattr verbs (`set_xattr`, `get_xattr`,
+`rm_xattr`, `get_xattrs`), the omap verbs (replicated pools),
+`list_objects`, pool and self-managed snapshots (`snap_create` ...
+`list_snaps`, the write snap context of `set_write_snapc`), watch/notify
+(`watch`, `unwatch`, `notify`), object-class calls (`exec`), and the
+`aio_` forms of those the reference has.
 """
 from __future__ import annotations
 
+import itertools
 import time
 
 from ..msg.messenger import LocalNetwork
 from .objecter import Objecter, OpFuture
+
+#: watch-cookie mint (process-wide: cookies must be unique per client
+#: name even when several IoCtx instances race)
+_cookie_seq = itertools.count(1)
 
 ERRNO = {"EIO": 5, "ENOENT": 2, "EINVAL": 22, "ESTALE": 116}
 
@@ -121,38 +127,62 @@ class IoCtx:
     def __init__(self, rados: Rados, pool_id: int):
         self.rados = rados
         self.pool_id = pool_id
+        #: self-managed write SnapContext (ref: rados_ioctx_
+        #: selfmanaged_snap_set_write_ctx): when set, it rides with
+        #: every mutation from this IoCtx instead of the pool's
+        self.write_snapc: dict | None = None
+
+    def set_write_snapc(self, seq: int, snaps) -> None:
+        """(ref: selfmanaged_snap_set_write_ctx)."""
+        self.write_snapc = {"seq": int(seq),
+                            "snaps": sorted(int(s) for s in snaps)}
+
+    def _margs(self, extra: dict | None = None) -> dict | None:
+        """args for a mutating op: inject the self-managed snapc."""
+        if self.write_snapc is None:
+            return extra
+        out = dict(extra or {})
+        out["snapc"] = self.write_snapc
+        return out
 
     # -- async ---------------------------------------------------------
     def aio_write(self, oid: str, data: bytes, offset: int = 0
                   ) -> OpFuture:
         return self.rados.objecter.submit(self.pool_id, oid, "write",
-                                          offset=offset, data=data)
+                                          offset=offset, data=data,
+                                          args=self._margs())
 
     def aio_write_full(self, oid: str, data: bytes) -> OpFuture:
         return self.rados.objecter.submit(self.pool_id, oid,
-                                          "write_full", data=data)
+                                          "write_full", data=data,
+                                          args=self._margs())
 
     def aio_read(self, oid: str, length: int = 0, offset: int = 0,
+                 snapid: int | None = None,
                  unordered: bool = False) -> OpFuture:
         """`unordered=True` skips per-object op ordering so N reads of
         one object parallelize — only for objects immutable while the
-        reads are in flight."""
+        reads are in flight (serve artifact pages)."""
+        args = {"snapid": snapid} if snapid is not None else None
         return self.rados.objecter.submit(self.pool_id, oid, "read",
                                           offset=offset, length=length,
+                                          args=args,
                                           unordered=unordered)
 
     def aio_remove(self, oid: str) -> OpFuture:
-        return self.rados.objecter.submit(self.pool_id, oid, "delete")
+        return self.rados.objecter.submit(self.pool_id, oid, "delete",
+                                          args=self._margs())
 
     def aio_append(self, oid: str, data: bytes) -> OpFuture:
         return self.rados.objecter.submit(self.pool_id, oid, "append",
-                                          data=data)
+                                          data=data, args=self._margs())
 
     def aio_operate(self, oid: str, op: "WriteOp") -> OpFuture:
         """Atomic compound mutation (ref: librados
         ObjectWriteOperation / IoCtx::operate)."""
         return self.rados.objecter.submit(
-            self.pool_id, oid, "writev", args={"ops": list(op.ops)})
+            self.pool_id, oid, "writev",
+            args=self._margs({"ops": list(op.ops)}))
 
     # -- sync ----------------------------------------------------------
     def _wait(self, fut: OpFuture) -> OpFuture:
@@ -170,8 +200,12 @@ class IoCtx:
     def write_full(self, oid: str, data: bytes) -> None:
         self._wait(self.aio_write_full(oid, data))
 
-    def read(self, oid: str, length: int = 0, offset: int = 0) -> bytes:
-        return self._wait(self.aio_read(oid, length, offset)).data
+    def read(self, oid: str, length: int = 0, offset: int = 0,
+             snapid: int | None = None) -> bytes:
+        """snapid reads the object's state at that pool snapshot
+        (ref: IoCtx::snap_set_read + read)."""
+        return self._wait(self.aio_read(oid, length, offset,
+                                        snapid)).data
 
     def remove(self, oid: str) -> None:
         self._wait(self.aio_remove(oid))
@@ -181,6 +215,11 @@ class IoCtx:
         return self._wait(fut).attrs
 
     def _sync(self, op: str, oid: str, **kw) -> OpFuture:
+        # snapc is injected unconditionally: mutating ops need it for
+        # COW and the OSD ignores it on reads — an allowlist here
+        # would silently drop it for any op added later
+        if self.write_snapc is not None:
+            kw["args"] = self._margs(kw.get("args"))
         return self._wait(self.rados.objecter.submit(
             self.pool_id, oid, op, **kw))
 
@@ -200,6 +239,137 @@ class IoCtx:
 
     def operate(self, oid: str, op: "WriteOp") -> None:
         self._wait(self.aio_operate(oid, op))
+
+    # -- pool snapshots (ref: librados IoCtx::snap_* family) -----------
+    _MON_ERRNO = {-2: "ENOENT", -17: "EEXIST", -22: "EINVAL",
+                  -95: "EOPNOTSUPP"}
+
+    def snap_create(self, name: str) -> None:
+        """(ref: rados_ioctx_snap_create -> osd pool mksnap)."""
+        pool = self._pool_name()
+        rc, outs, _ = self.rados.mon_command(
+            {"prefix": "osd pool mksnap", "pool": pool, "snap": name})
+        if rc < 0:
+            raise RadosError(self._MON_ERRNO.get(rc, "EINVAL"), outs)
+        # wait for the map carrying the snap (snap_lookup + the COW
+        # context both come from it)
+        if not self.rados.objecter.wait_sync(
+                lambda: name in self.list_pool_snaps().values(),
+                self.rados.op_timeout):
+            raise TimeoutError(f"snap {name} never appeared in map")
+
+    def snap_remove(self, name: str) -> None:
+        pool = self._pool_name()
+        rc, outs, _ = self.rados.mon_command(
+            {"prefix": "osd pool rmsnap", "pool": pool, "snap": name})
+        if rc < 0:
+            raise RadosError(self._MON_ERRNO.get(rc, "EINVAL"), outs)
+        if not self.rados.objecter.wait_sync(
+                lambda: name not in self.list_pool_snaps().values(),
+                self.rados.op_timeout):
+            raise TimeoutError(f"snap {name} never left the map")
+
+    def snap_lookup(self, name: str) -> int:
+        """snap name -> snapid from the client's map
+        (ref: rados_ioctx_snap_lookup)."""
+        pool = self.rados.objecter.osdmap.pools.get(self.pool_id)
+        for sid, n in (pool.snaps if pool else {}).items():
+            if n == name:
+                return sid
+        raise RadosError("ENOENT", f"snap {name}")
+
+    def list_pool_snaps(self) -> dict[int, str]:
+        pool = self.rados.objecter.osdmap.pools.get(self.pool_id)
+        return dict(pool.snaps) if pool else {}
+
+    def snap_rollback(self, oid: str, snap_name: str) -> None:
+        """(ref: rados_ioctx_snap_rollback)."""
+        self._sync("rollback", oid,
+                   args={"snapid": self.snap_lookup(snap_name)})
+
+    def selfmanaged_snap_create(self) -> int:
+        """Allocate a client-managed snapid (ref:
+        rados_ioctx_selfmanaged_snap_create); the caller maintains the
+        write snapc via set_write_snapc."""
+        rc, outs, sid = self.rados.mon_command(
+            {"prefix": "osd pool selfmanaged-snap create",
+             "pool": self._pool_name()})
+        if rc < 0:
+            raise RadosError(self._MON_ERRNO.get(rc, "EINVAL"), outs)
+        return int(sid)
+
+    def selfmanaged_snap_remove(self, snapid: int) -> None:
+        rc, outs, _ = self.rados.mon_command(
+            {"prefix": "osd pool selfmanaged-snap rm",
+             "pool": self._pool_name(), "snapid": int(snapid)})
+        if rc < 0:
+            raise RadosError(self._MON_ERRNO.get(rc, "EINVAL"), outs)
+
+    def rollback_to_snapid(self, oid: str, snapid: int) -> None:
+        """Self-managed rollback by raw snapid."""
+        self._sync("rollback", oid, args={"snapid": int(snapid)})
+
+    def list_snaps(self, oid: str) -> dict:
+        """Per-object snapshot state: clone tags -> covered snapids
+        (ref: rados_ioctx_snap_list / listsnaps)."""
+        return self._sync("list_snaps", oid).attrs
+
+    def _pool_name(self) -> str:
+        m = self.rados.objecter.osdmap
+        name = m.pool_names.get(self.pool_id)
+        if name is None:
+            raise RadosError("ENOENT", f"pool {self.pool_id}")
+        return name
+
+    # -- watch/notify (ref: librados IoCtx::watch2/notify2/unwatch2) ---
+    def watch(self, oid: str, callback, cookie: str | None = None
+              ) -> str:
+        """Register `callback(notify_id, notifier, payload) -> reply`
+        on the object; returns the watch cookie.  The watch survives
+        primary moves (client-side linger re-registration)."""
+        cookie = cookie or \
+            f"{self.rados.objecter.name}.w{next(_cookie_seq)}"
+        fut = self.rados.objecter.watch_register(
+            self.pool_id, oid, cookie, callback)
+        try:
+            self._wait(fut)
+        except Exception:
+            self.rados.objecter.watches.pop(cookie, None)
+            raise
+        return cookie
+
+    def unwatch(self, oid: str, cookie: str) -> None:
+        self._wait(self.rados.objecter.watch_unregister(
+            self.pool_id, oid, cookie))
+
+    def notify(self, oid: str, payload=None, timeout: float = 10.0
+               ) -> tuple[dict, list]:
+        """Fan a notification out to every watcher; returns
+        (replies, timed_out) keyed "client/cookie"."""
+        fut = self.rados.objecter.submit(
+            self.pool_id, oid, "notify",
+            args={"payload": payload, "timeout": timeout})
+        ob = self.rados.objecter
+        if not ob.wait_sync(fut.done,
+                            max(self.rados.op_timeout, timeout + 5.0),
+                            ev=fut._ev):
+            raise TimeoutError("notify timed out")
+        if fut.result < 0:
+            raise RadosError(fut.errno_name or "EIO")
+        return fut.attrs["replies"], fut.attrs["timeouts"]
+
+    def exec(self, oid: str, cls: str, method: str, indata=None):
+        """Invoke an object-class method on the object's primary OSD
+        (ref: librados IoCtx::exec / CEPH_OSD_OP_CALL)."""
+        return self._sync("exec", oid,
+                          args={"cls": cls, "method": method,
+                                "indata": indata}).attrs.get("out")
+
+    def aio_exec(self, oid: str, cls: str, method: str,
+                 indata=None) -> OpFuture:
+        return self.rados.objecter.submit(
+            self.pool_id, oid, "exec",
+            args={"cls": cls, "method": method, "indata": indata})
 
     # -- xattrs (ref: librados::IoCtx::{get,set,rm}xattr) --------------
     def set_xattr(self, oid: str, name: str, value: bytes) -> None:

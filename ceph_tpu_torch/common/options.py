@@ -21,6 +21,8 @@ configures both packages:
   mClock client and recovery classes, backfill reservations and scan
   windows, op tracking (`osd_op_complaint_time`,
   `osd_op_history_size`) and `blkin_trace_all`;
+* the snap trimmer's (`osd_max_trimming_pgs`,
+  `osd_pg_max_concurrent_snap_trims`, `osd_snap_trim_sleep`);
 * the scrub scheduler's (`osd_scrub_auto`, `osd_scrub_min_interval`,
   `osd_deep_scrub_interval`, `osd_max_scrubs`,
   `osd_scrub_auto_repair`);
@@ -41,7 +43,7 @@ from __future__ import annotations
 import enum
 import os
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 
 class OptionType(enum.Enum):
@@ -211,6 +213,14 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
            runtime=True),
     Option("osd_backfill_scan_max", T.UINT, L.ADVANCED, 512,
            "objects per ranged backfill scan chunk", runtime=True),
+    Option("osd_max_trimming_pgs", T.UINT, L.ADVANCED, 2,
+           "PGs an OSD will snap-trim concurrently; PGs past the "
+           "cap report snaptrim_wait until a slot frees", runtime=True),
+    Option("osd_pg_max_concurrent_snap_trims", T.UINT, L.ADVANCED, 2,
+           "clone trims in flight per trimming PG", runtime=True),
+    Option("osd_snap_trim_sleep", T.SECS, L.ADVANCED, 0.0,
+           "seconds between clone trims (throttles trim against "
+           "client IO; 0 = unthrottled)", runtime=True),
     Option("osd_op_complaint_time", T.SECS, L.ADVANCED, 30.0,
            "in-flight op age that counts as slow: feeds each "
            "daemon's dump_blocked_ops and the cluster SLOW_OPS "
@@ -253,6 +263,7 @@ class Config:
 
     def __init__(self):
         self._values: dict[str, Any] = {}
+        self._observers: dict[str, list[Callable[[str, Any], None]]] = {}
         # env source: CEPH_TPU_<NAME>=value (ref env layer of config.cc)
         for name, opt in OPTIONS.items():
             env = os.environ.get("CEPH_TPU_" + name.upper())
@@ -270,10 +281,23 @@ class Config:
         return {name: self.get(name) for name in sorted(OPTIONS)}
 
     def set(self, name: str, value) -> None:
+        """Set a value; observers of the name hear a change."""
         opt = OPTIONS.get(name)
         if opt is None:
             raise KeyError(f"unknown option {name!r}")
-        self._values[name] = opt.parse(value)
+        parsed = opt.parse(value)
+        old = self.get(name)
+        self._values[name] = parsed
+        if parsed != old:
+            for cb in self._observers.get(name, []):
+                cb(name, parsed)
+
+    def observe(self, name: str, cb: Callable[[str, Any], None]) -> None:
+        """Call `cb(name, value)` on each change of the option
+        (ref: md_config_obs_t)."""
+        if name not in OPTIONS:
+            raise KeyError(f"unknown option {name!r}")
+        self._observers.setdefault(name, []).append(cb)
 
 
 _global_config: Config | None = None

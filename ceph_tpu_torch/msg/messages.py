@@ -16,9 +16,11 @@ mgr-module command the mon proxies to the active mgr; `MMonElection`,
 `MMonLease`, `MMonLeaseAck`, `MMonForward` and `MPaxosSyncReq` carry a
 multi-mon quorum's election, leases, forwarded commands and catch-up;
 `MConfig` carries the centralized config a mon pushes to a daemon, and
-`MLog` and `MLogAck` a daemon's cluster-log batches and their acks.
-Left out with the services that send them: snap trim, MDS/fs and
-watch/notify messages.
+`MLog` and `MLogAck` a daemon's cluster-log batches and their acks;
+`SnapTrim`, `SnapTrimReply` and `SnapTrimPurged` carry the snap
+trimmer's clone trims, their acks and the purged-snaps cursor, and
+`MWatchNotify` a notify to a watching client.  Left out with the
+service that sends them: the MDS/fs messages.
 """
 from __future__ import annotations
 
@@ -294,6 +296,48 @@ class MOSDPGTemp(Message):
 
 
 @dataclass
+class SnapTrim(Message):
+    """Primary -> replica: apply one clone-trim decision for a removed
+    snapshot (the repop the SnapTrimmer statechart issues, ref:
+    PrimaryLogPG::trim_object building the trim transaction; statechart
+    src/osd/PrimaryLogPG.h:1578).  The receiver drops `snap` from the
+    clone's covers and physically deletes the clone once no covered
+    snap remains — idempotent, so a promoted primary re-driving the
+    tail of a dead primary's round converges instead of erroring."""
+    pgid: Any = None
+    tid: int = 0
+    oid: str = ""
+    snap: int = 0
+    clone: int = 0
+    from_osd: int = -1
+
+
+@dataclass
+class SnapTrimReply(Message):
+    """Replica ack for one SnapTrim (the sub-op reply leg the trim
+    statechart waits on before advancing its cursor)."""
+    pgid: Any = None
+    tid: int = 0
+    from_osd: int = -1
+    committed: bool = True
+
+
+@dataclass
+class SnapTrimPurged(Message):
+    """Primary -> replicas: `snaps` are fully trimmed in this PG —
+    reconcile any local leftovers, then record them in the durable
+    purged_snaps interval set (ref: the purged_snaps update in
+    PrimaryLogPG::snap_trimmer / pg_info_t).  Every shard carries the
+    cursor so ANY of them can resume the subsystem as primary after a
+    failover; the whole purged set travels as one message so the
+    per-interval re-announce costs one send per peer, not one per
+    snap."""
+    pgid: Any = None
+    snaps: list = field(default_factory=list)
+    from_osd: int = -1
+
+
+@dataclass
 class PGPull(Message):
     """Primary requests objects it lacks from a holder
     (ref: src/messages/MOSDPGPull.h)."""
@@ -473,6 +517,18 @@ class MConfig(Message):
     (ref: src/messages/MConfig.h)."""
     version: int = 0
     values: dict = field(default_factory=dict)
+
+
+@dataclass
+class MWatchNotify(Message):
+    """OSD -> watching client: a notify fired on an object you watch
+    (ref: src/messages/MWatchNotify.h)."""
+    pool: int = -1
+    oid: str = ""
+    notify_id: int = 0
+    cookie: str = ""
+    notifier: str = ""
+    payload: Any = None
 
 
 @dataclass

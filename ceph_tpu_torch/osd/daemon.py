@@ -43,10 +43,23 @@ result lines to the mon; the daemon subscribes to its centralized
 config at boot and on a mon hunt, and applies each MConfig view,
 reverting a name that left the view to its default; the pg-stat report
 carries the store's media error counters (`bluestore_csum_errors`,
-`bluestore_read_errors`) for the mgr's devicehealth module.  Left
-out: snap trim and the snapshot ops (`rollback`, `list_snaps`), object
-classes (`exec`), watch/notify (a client op the daemon does not carry
-answers EINVAL) and the heartbeat mute hook.  Crash capture is the
+`bluestore_read_errors`) for the mgr's devicehealth module.  On a
+replicated pool the daemon also runs the snap trimmer (the SnapTrimmer
+statechart on the heartbeat tick: `osd_max_trimming_pgs` reservations,
+`osd_pg_max_concurrent_snap_trims` in flight, `osd_snap_trim_sleep`
+pacing through the op queue's `snaptrim` class, the durable cursor in
+each shard's snap index, `SnapTrim`/`SnapTrimReply`/`SnapTrimPurged`
+to the replicas), the snapshot ops `rollback` and `list_snaps`, and
+object-class calls (`exec`, the `cls` package, whose queued mutations
+commit atomically with the call's snap context); an EC pool refuses all
+three with EOPNOTSUPP, as the reference's does.  Watch/notify runs on
+both pool types (watchers held in memory on the primary, `MWatchNotify`
+fan-out, acks and timeouts); one rule differs there: a new interval
+that keeps this OSD the PG's primary keeps its watchers, where the
+reference's fresh PG state drops them while its client, seeing the
+same primary, never registers again.  A client op the daemon does not
+know answers EINVAL.  `inject_heartbeat_mute` makes the daemon ignore
+pings (a hung OSD).  Crash capture is the
 reference's: an exception out of a heartbeat tick or a dispatch thread
 (or the `inject_crash_tick` fault) becomes a crash report, spooled to
 `crash_dir` when one is given and posted to the mon's crash table as a
@@ -57,8 +70,9 @@ With a `keyring` the daemon signs its traffic and verifies inbound
 show/get/set and the op tracker's dumps.
 The port adds to the perf counters `tick_errors` (the tick errors a
 daemon process's loop survived, tools/daemon_main.py) and, for the
-replicated catch-up's accounting, `push_in`, `push_in_bytes` and
-`backfill_push_in` (PGPush messages this OSD applied, their data bytes,
+replicated catch-up's accounting, `push_in`, `push_in_bytes`,
+`push_in_clone_bytes` and `backfill_push_in` (PGPush messages this OSD
+applied, their head data bytes, the snapshot clone bytes they carried,
 and those of them a backfill walk sent).  As the reference's, the
 daemon starts on a store that already holds PG collections, pgmeta
 omaps and shard logs (a `BlueStore` or `JournaledStore` mounted on its
@@ -75,6 +89,7 @@ import traceback
 from typing import Optional
 
 from .. import device as _device
+from ..cls import ClsError, MethodContext, class_handler
 from ..common.heartbeat_map import HeartbeatMap
 from ..common.lockdep import make_lock
 from ..common.log import dout
@@ -91,12 +106,13 @@ from ..msg.messages import (BackfillReserve, ECSubRead, ECSubReadReply,
                             ECSubWrite, ECSubWriteReply, MConfig,
                             MLogAck, MMap, MMonCommand, MMonCommandAck,
                             MMonSubscribe, MOSDBoot, MOSDFailure,
-                            MOSDPGTemp, MPGStats, OSDOp, OSDOpReply,
-                            PGLogPush, PGLogReq, PGMissingReply,
-                            PGNotify, PGPull, PGPush, PGQuery, PGRemove,
-                            PGScan, PGScanReply, Ping, PingReply,
-                            RepOpReply, RepOpWrite, ScrubMapReply,
-                            ScrubMapRequest, ScrubReserve)
+                            MOSDPGTemp, MPGStats, MWatchNotify, OSDOp,
+                            OSDOpReply, PGLogPush, PGLogReq,
+                            PGMissingReply, PGNotify, PGPull, PGPush,
+                            PGQuery, PGRemove, PGScan, PGScanReply, Ping,
+                            PingReply, RepOpReply, RepOpWrite,
+                            ScrubMapReply, ScrubMapRequest, ScrubReserve,
+                            SnapTrim, SnapTrimPurged, SnapTrimReply)
 from ..msg import encoding as wire
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
 from ..msg.mon_client import MonHunter
@@ -153,6 +169,25 @@ class _PGState:
         self.scrub_granted: set = set()
         self.scrub_deep_pending = False
         self.scrub_backoff_until = 0.0
+        # watch/notify (primary only; in-memory like the reference's
+        # Watch objects on the PG — clients re-establish via linger
+        # when the primary moves, ref: src/osd/Watch.cc; a new
+        # interval under the same primary inherits them, _update_pgs)
+        self.watchers: dict[str, dict[tuple, dict]] = {}
+        # snaptrim statechart (primary only; ref: the SnapTrimmer
+        # states src/osd/PrimaryLogPG.h:1578 — NotTrimming/
+        # WaitReservation/Trimming/...): None | "wait" (queued on the
+        # osd_max_trimming_pgs reserver) | "trimming" | "error".
+        # The durable cursor lives in the shard's snap_mapper, NOT
+        # here — this object dies with the interval and the promoted
+        # primary resumes from the persisted index.
+        self.snaptrim: str | None = None
+        self.snaptrim_state: dict | None = None
+        self.snaptrim_backoff_until = 0.0
+        #: removed-snaps view already verified fully purged — skips
+        #: the per-tick durable-cursor read until the pool's
+        #: removed_snaps set changes (it only ever grows)
+        self.snaptrim_done_for: frozenset | None = None
 
 
 class _ScrubState:
@@ -179,10 +214,12 @@ class _ScrubState:
         self.unrepairable: list[str] = []
 
 
-# the PG table is shared between the dispatch thread, the tick thread
-# and the pacing timer — racecheck asserts every post-publish access
-# holds self._lock (the map mutates through reads, so reads count)
-@shared_state(only=("pgs",), mutating=("pgs",))
+# the PG table and in-flight notify map are shared between the
+# dispatch thread, the tick thread, the pacing timer and watch-notify
+# timers — racecheck asserts every post-publish access holds
+# self._lock (both maps mutate through reads, so reads count)
+@shared_state(only=("pgs", "_notifies"),
+              mutating=("pgs", "_notifies"))
 class OSDDaemon(Dispatcher, MonHunter):
     """osd.<id> (ref: src/osd/OSD.h:1036)."""
 
@@ -228,6 +265,10 @@ class OSDDaemon(Dispatcher, MonHunter):
         self._hb_first: dict[int, float] = {}  # peer -> first ping time
         self._hb_reported: set[int] = set()
         self._hb_now: float | None = None      # our last tick stamp
+        #: test/fault hook: when True the daemon ignores incoming pings
+        #: (a "hung" osd — the heartbeat_inject_failure analogue,
+        #: ref: src/common/options.cc:774)
+        self.inject_heartbeat_mute = False
         # backfill reservations (ref: the AsyncReserver pair in OSD.h:
         # local_reserver + remote_reserver, both osd_max_backfills
         # wide).  Requests past capacity QUEUE and are granted as
@@ -252,6 +293,10 @@ class OSDDaemon(Dispatcher, MonHunter):
         #: cached transient EC shard views: (pg, shard) -> ECPGShard
         #: (dropped on map ingest; see _ec_view)
         self._ec_transients: dict = {}
+        # in-flight notifies: notify_id -> state
+        # (ref: src/osd/Watch.cc Notify)
+        self._notifies: dict[int, dict] = {}
+        self._notify_ids = itertools.count(1)
         self._last_stat_report = 0.0
         # in-flight/historic op tracking (ref: src/common/TrackedOp.h)
         self.op_tracker = OpTracker(
@@ -284,6 +329,17 @@ class OSDDaemon(Dispatcher, MonHunter):
             "recovery", reservation=cfg["osd_mclock_recovery_res"],
             weight=cfg["osd_mclock_recovery_wgt"], limit=rec_lim,
             burst=max(8.0, rec_lim / 4) if rec_lim > 0 else 64.0)
+        # snaptrim rides the QoS queue too: osd_snap_trim_sleep maps
+        # to a rate limit (1/sleep trims per second, burst 1) so trim
+        # storms are paced against client IO instead of racing it
+        # (ref: the osd_snap_trim_sleep wait in the trimmer statechart)
+        self._apply_snap_trim_sleep(cfg["osd_snap_trim_sleep"])
+        cfg.observe("osd_snap_trim_sleep",
+                    lambda _k, v: self._apply_snap_trim_sleep(v))
+        #: PGs this OSD is actively snap-trimming (the
+        #: osd_max_trimming_pgs reserver; PGs past the cap report
+        #: snaptrim_wait until a slot frees)
+        self._trimming_pgs: set = set()
         self._qos_timer: threading.Timer | None = None
         # op counters (ref: src/osd/osd_perf_counters.cc l_osd_op*);
         # multi-cluster harnesses pass their own collection so two
@@ -303,12 +359,14 @@ class OSDDaemon(Dispatcher, MonHunter):
                     "recovery_full_rebuild", "queued_op_failures",
                     "tick_errors", "recovery_push_errors",
                     # and the pushes this OSD applied (the replicated
-                    # catch-up's bytes)
-                    "push_in", "push_in_bytes", "backfill_push_in"):
+                    # catch-up's bytes, snapshot clones apart)
+                    "push_in", "push_in_bytes", "push_in_clone_bytes",
+                    "backfill_push_in"):
             self.perf.add_u64_counter(key)
         # per-op-class latency histograms (ref: the l_osd_op_*_lat
         # family + mClock op classes)
-        for key in ("op_lat_client", "op_lat_recovery"):
+        for key in ("op_lat_client", "op_lat_recovery",
+                    "op_lat_snaptrim"):
             self.perf.add_latency_histogram(key)
         # messenger drops seen by the shared network: a monotonic
         # total exported through the normal perf-dump path
@@ -671,9 +729,30 @@ class OSDDaemon(Dispatcher, MonHunter):
         if isinstance(msg, ScrubReserve):
             self._handle_scrub_reserve(msg)
             return True
+        if isinstance(msg, SnapTrim):
+            # replica leg: apply through the current shard or a
+            # transient store view (map lag must not stall the trim;
+            # the apply is durable either way)
+            ok = self._replicated_view(msg.pgid).apply_snap_trim(
+                msg.oid, msg.snap, msg.clone)
+            self.ms.connect(msg.src).send_message(SnapTrimReply(
+                pgid=msg.pgid, tid=msg.tid, from_osd=self.whoami,
+                committed=ok))
+            return True
+        if isinstance(msg, SnapTrimReply):
+            self._handle_trim_reply(msg)
+            # an ack unblocks the next queued trim: drain now (or arm
+            # the osd_snap_trim_sleep pacing timer) instead of waiting
+            # a whole heartbeat
+            self._drain_op_queue()
+            return True
+        if isinstance(msg, SnapTrimPurged):
+            self._handle_trim_purged(msg)
+            return True
         if isinstance(msg, Ping):
-            self.ms.connect(msg.src).send_message(
-                PingReply(epoch=self.osdmap.epoch, stamp=msg.stamp))
+            if not self.inject_heartbeat_mute:
+                self.ms.connect(msg.src).send_message(
+                    PingReply(epoch=self.osdmap.epoch, stamp=msg.stamp))
             return True
         if isinstance(msg, PingReply):
             if msg.src.startswith("osd."):
@@ -960,6 +1039,10 @@ class OSDDaemon(Dispatcher, MonHunter):
                     # replica slots or they leak past the remap
                     self._release_scrub_slots(pg, old)
                     old.scrub = None
+                    # a trim round dies with its interval too — its
+                    # durable cursor survives in the snap index, so
+                    # the new interval's primary resumes it
+                    self._trimming_pgs.discard(pg)
                     if old.backend is not None:
                         # acting change: abort queued ops so clients
                         # see failures and retry, instead of hanging
@@ -970,6 +1053,13 @@ class OSDDaemon(Dispatcher, MonHunter):
                 st.acting = acting
                 st.acting_primary = acting_p
                 st.up = up
+                if old is not None and old.acting_primary == self.whoami \
+                        and acting_p == self.whoami:
+                    # still the primary: the watches stay with the PG.
+                    # The client re-registers only when the primary
+                    # moves, so a new interval under the same primary
+                    # (an up-set change, a pg_temp) must not drop them
+                    st.watchers = old.watchers
                 if replicated:
                     st.shard = ReplicatedPGShard(pg, self.store)
                     if acting_p == self.whoami:
@@ -1027,6 +1117,7 @@ class OSDDaemon(Dispatcher, MonHunter):
                 if st.peering is not None:
                     st.peering.abort()
                 self._release_scrub_slots(pg, st)
+                self._trimming_pgs.discard(pg)
                 if st.backend is not None:
                     st.backend.fail_in_flight()
         # record this interval's acting sets for the NEXT map's
@@ -1187,6 +1278,8 @@ class OSDDaemon(Dispatcher, MonHunter):
         self.perf.hobs("op_lat_recovery", time.perf_counter() - t0)
         self.perf.inc("push_in")
         self.perf.inc("push_in_bytes", len(msg.data))
+        self.perf.inc("push_in_clone_bytes", sum(
+            len(c["data"]) for c in (msg.clones or {}).get("items", [])))
         if msg.backfill:
             self.perf.inc("backfill_push_in")
         if msg.version:
@@ -1613,6 +1706,11 @@ class OSDDaemon(Dispatcher, MonHunter):
                 continue
             if st.recovering or st.backfilling:
                 continue
+            if st.snaptrim == "trimming":
+                # trim mutates clone state mid-walk; a concurrent
+                # scrub would flag transient divergence (the
+                # reference serializes the two the same way)
+                continue
             if st.peering is not None and st.peering.phase != CLEAN:
                 continue
             if now < st.scrub_backoff_until:
@@ -1943,6 +2041,262 @@ class OSDDaemon(Dispatcher, MonHunter):
                 self.clog.warn(
                     f"pg {pg} scrub: {bad} inconsistent")
 
+    # ---------------------------------------------------------- snaptrim
+    # Primary-driven background snapshot reclamation (ref: the
+    # SnapTrimmer statechart src/osd/PrimaryLogPG.h:1578 and
+    # PrimaryLogPG::trim_object).  The durable snap index written
+    # alongside every clone (osd/snap_mapper.py) is walked for each
+    # snapid in pool.removed_snaps not yet in the PG's purged_snaps
+    # interval set; each clone trim is applied locally + fanned to the
+    # acting replicas as one idempotent transaction, so a primary kill
+    # mid-round resumes on the promoted primary exactly where the
+    # index says — no re-deletes, no leaked clones.
+    def _apply_snap_trim_sleep(self, sleep) -> None:
+        lim = (1.0 / float(sleep)) if float(sleep) > 0 else 0.0
+        self.op_queue.set_class("snaptrim", weight=1.0, limit=lim,
+                                burst=1.0 if lim > 0 else 64.0)
+
+    def _handle_trim_purged(self, msg: SnapTrimPurged) -> None:
+        shard = self._replicated_view(msg.pgid)
+        if not self.store.collection_exists(shard.cid):
+            return
+        # reconcile before recording: a replica that was down for the
+        # trim round still holds the clones — its own index says
+        # exactly which, so trim them locally (normally a no-op)
+        # rather than leaking them behind a cursor that claims done.
+        # A snap is recorded purged ONLY if every local apply
+        # succeeded — a failed trim must stay visible to a future
+        # promotion of this shard.
+        ps = shard.purged_snaps()
+        done = []
+        for snap in msg.snaps:
+            if snap in ps:
+                continue        # already reconciled
+            ok = True
+            for oid, clone in shard.snap_mapper.objects_for_snap(snap):
+                ok = shard.apply_snap_trim(oid, snap, clone) and ok
+            if ok:
+                done.append(snap)
+        if done:
+            shard.snap_mapper.mark_purged_many(done)
+
+    def _sched_snaptrim(self, now: float) -> None:
+        """Scheduler pass from the heartbeat tick: start/queue trim
+        rounds on clean primary PGs with outstanding removed snaps,
+        and re-drive in-flight trims whose acks were lost."""
+        cfg = global_config()
+        for pg, st in sorted(self.pgs.items()):
+            if st.backend is None or \
+                    not isinstance(st.shard, ReplicatedPGShard):
+                continue
+            if st.snaptrim == "trimming":
+                self._retick_trim(pg, st)
+                continue
+            pool = self.osdmap.pools.get(pg.pool)
+            if pool is None:
+                continue
+            removed = frozenset(pool.removed_snaps)
+            if not removed or removed == st.snaptrim_done_for:
+                if st.snaptrim is not None:
+                    st.snaptrim = None
+                continue
+            if st.peering is None or st.peering.phase != CLEAN or \
+                    st.recovering or st.backfilling or \
+                    st.scrub is not None:
+                continue
+            if st.snaptrim == "error" and \
+                    now < st.snaptrim_backoff_until:
+                continue
+            purged = st.shard.purged_snaps()
+            to_trim = sorted(s for s in removed if s not in purged)
+            if not to_trim:
+                # once per interval (the memo resets with _PGState):
+                # re-announce the purged set — ONE message per peer —
+                # so a replica that was down for a past round
+                # reconciles its leftovers; snap trims write no
+                # pg-log entries, so log-driven recovery alone would
+                # never re-visit them
+                for o in st.acting:
+                    if o >= 0 and o != self.whoami:
+                        self.ms.connect(f"osd.{o}").send_message(
+                            SnapTrimPurged(pgid=pg,
+                                           snaps=sorted(removed),
+                                           from_osd=self.whoami))
+                st.snaptrim = None
+                st.snaptrim_done_for = removed
+                continue
+            if len(self._trimming_pgs) >= cfg["osd_max_trimming_pgs"]:
+                # reservation-gated like backfill: report the queue
+                # position as a PG state instead of stampeding
+                st.snaptrim = "wait"
+                continue
+            self._start_pg_trim(pg, st, to_trim)
+
+    def _retick_trim(self, pg: PG, st: _PGState) -> None:
+        """Lost-ack re-drive: an in-flight trim whose replica ack
+        never arrived (dropped connection, killed peer) is re-sent
+        after a few ticks — the apply is idempotent, and peers that
+        left the map are dropped from the pending set."""
+        ts = st.snaptrim_state
+        if ts is None:
+            return
+        done = []
+        for tid, ent in list(ts["inflight"].items()):
+            if ent["pending"] is None:
+                continue          # still queued behind the throttle
+            ent["ticks"] += 1
+            if ent["ticks"] < 3:
+                continue
+            ent["ticks"] = 0
+            for o in list(ent["pending"]):
+                if not self.osdmap.is_up(o):
+                    ent["pending"].discard(o)
+                    continue
+                self.ms.connect(f"osd.{o}").send_message(SnapTrim(
+                    pgid=pg, tid=tid, oid=ent["oid"],
+                    snap=ent["snap"], clone=ent["clone"],
+                    from_osd=self.whoami))
+            if not ent["pending"]:
+                done.append(tid)
+        for tid in done:
+            ts["inflight"].pop(tid, None)
+        if done:
+            self._trim_advance(pg, st)
+
+    def _start_pg_trim(self, pg: PG, st: _PGState,
+                       to_trim: list[int]) -> None:
+        st.snaptrim = "trimming"
+        self._trimming_pgs.add(pg)
+        st.snaptrim_state = {"pending_snaps": list(to_trim),
+                             "snap": None, "queue": [],
+                             "inflight": {}}
+        dout("osd", 4).write("%s: pg %s snaptrim starts: snaps %s",
+                             self.name, pg, to_trim)
+        self._trim_advance(pg, st)
+
+    def _trim_advance(self, pg: PG, st: _PGState) -> None:
+        """Drain the current snap's work-list (bounded by
+        osd_pg_max_concurrent_snap_trims in flight), record the
+        durable purged mark when a snap's last clone is gone, move to
+        the next snap, finish when none remain."""
+        ts = st.snaptrim_state
+        if ts is None:
+            return
+        max_inflight = \
+            global_config()["osd_pg_max_concurrent_snap_trims"]
+        while True:
+            if ts["snap"] is None:
+                if not ts["pending_snaps"]:
+                    if not ts["inflight"]:
+                        self._finish_pg_trim(pg, st)
+                    return
+                ts["snap"] = ts["pending_snaps"].pop(0)
+                # the index IS the cursor: a resumed round only sees
+                # the entries the dead primary never trimmed
+                ts["queue"] = st.shard.snap_mapper.objects_for_snap(
+                    ts["snap"])
+            while ts["queue"] and len(ts["inflight"]) < max_inflight:
+                oid, clone = ts["queue"].pop(0)
+                self._dispatch_trim(pg, st, ts["snap"], oid, clone)
+            if ts["queue"] or ts["inflight"]:
+                return
+            # snap complete on every acting shard: durable cursor
+            # everywhere, so ANY shard can resume as primary
+            snap = ts["snap"]
+            ts["snap"] = None
+            st.shard.mark_purged(snap)
+            for o in st.acting:
+                if o >= 0 and o != self.whoami:
+                    self.ms.connect(f"osd.{o}").send_message(
+                        SnapTrimPurged(pgid=pg, snaps=[snap],
+                                       from_osd=self.whoami))
+            dout("osd", 4).write("%s: pg %s snap %d purged",
+                                 self.name, pg, snap)
+
+    def _dispatch_trim(self, pg: PG, st: _PGState, snap: int,
+                       oid: str, clone: int) -> None:
+        tid = next(self._tid_gen)
+        st.snaptrim_state["inflight"][tid] = {
+            "snap": snap, "oid": oid, "clone": clone,
+            "pending": None, "ticks": 0, "t0": time.monotonic()}
+        # ride the QoS queue: osd_snap_trim_sleep paces the drain
+        self.op_queue.enqueue(
+            "snaptrim", lambda pg=pg, tid=tid: self._send_trim(pg, tid))
+
+    def _send_trim(self, pg: PG, tid: int) -> None:
+        with self._lock:
+            st = self.pgs.get(pg)
+            if st is None or st.snaptrim_state is None:
+                return          # interval changed while queued
+            ts = st.snaptrim_state
+            ent = ts["inflight"].get(tid)
+            if ent is None:
+                return
+            if not st.shard.apply_snap_trim(ent["oid"], ent["snap"],
+                                            ent["clone"]):
+                self._trim_failed(pg, st)
+                return
+            ent["pending"] = set()
+            for o in st.acting:
+                if o < 0 or o == self.whoami:
+                    continue
+                if self.ms.connect(f"osd.{o}").send_message(SnapTrim(
+                        pgid=pg, tid=tid, oid=ent["oid"],
+                        snap=ent["snap"], clone=ent["clone"],
+                        from_osd=self.whoami)):
+                    ent["pending"].add(o)
+                # unreachable peer: proceed without it — when it
+                # returns, peering recovery adopts the authoritative
+                # clone set (apply_clone_payloads re-indexes), so the
+                # stale clone cannot outlive the reconcile
+            if not ent["pending"]:
+                ts["inflight"].pop(tid, None)
+                self._trim_done_lat(ent)
+                self._trim_advance(pg, st)
+
+    def _handle_trim_reply(self, m: SnapTrimReply) -> None:
+        st = self.pgs.get(m.pgid)
+        if st is None or st.snaptrim_state is None:
+            return
+        ts = st.snaptrim_state
+        ent = ts["inflight"].get(m.tid)
+        if ent is None or ent["pending"] is None:
+            return
+        if m.from_osd not in ent["pending"]:
+            return
+        if not m.committed:
+            self._trim_failed(m.pgid, st)
+            return
+        ent["pending"].discard(m.from_osd)
+        if not ent["pending"]:
+            ts["inflight"].pop(m.tid, None)
+            self._trim_done_lat(ent)
+            self._trim_advance(m.pgid, st)
+
+    def _trim_done_lat(self, ent: dict) -> None:
+        """snaptrim-class latency: dispatch -> every shard committed
+        (includes the QoS-queue pacing, which IS the interesting part
+        of trim latency under osd_snap_trim_sleep)."""
+        self.perf.hobs("op_lat_snaptrim", time.monotonic() - ent["t0"])
+
+    def _trim_failed(self, pg: PG, st: _PGState) -> None:
+        """A shard could not apply a trim: back off and retry a fresh
+        round next tick-window (the durable index means nothing is
+        lost — the retry re-walks exactly the remaining entries)."""
+        st.snaptrim = "error"
+        st.snaptrim_state = None
+        self._trimming_pgs.discard(pg)
+        st.snaptrim_backoff_until = (self._hb_now or 0.0) + \
+            global_config()["osd_heartbeat_grace"]
+        self.clog.error(f"pg {pg} snaptrim failed; backing off")
+
+    def _finish_pg_trim(self, pg: PG, st: _PGState) -> None:
+        st.snaptrim = None
+        st.snaptrim_state = None
+        self._trimming_pgs.discard(pg)
+        dout("osd", 4).write("%s: pg %s snaptrim complete", self.name,
+                             pg)
+
     # ------------------------------------------------------ heartbeats
     def heartbeat_peers(self) -> set[int]:
         """OSDs sharing PGs with this one (ref: OSD.cc
@@ -1989,8 +2343,9 @@ class OSDDaemon(Dispatcher, MonHunter):
                     st.peering.tick(now)
             self._notify_strays(rebuild=False)
             self._sched_scrub(now)
-        # work a peering retry just enqueued drains through the QoS
-        # queue now (or arms the pacing timer)
+            self._sched_snaptrim(now)
+        # work a peering retry or the trim scheduler just enqueued
+        # drains through the QoS queue now (or arms the pacing timer)
         self._drain_op_queue()
         self.clog.flush()
         grace = global_config()["osd_heartbeat_grace"]
@@ -2083,11 +2438,19 @@ class OSDDaemon(Dispatcher, MonHunter):
                 state.append("clean")
             if st.scrub is not None:
                 state.append("scrubbing")
+            if st.snaptrim == "trimming":
+                state.append("snaptrim")
+            elif st.snaptrim == "wait":
+                state.append("snaptrim_wait")
+            elif st.snaptrim == "error":
+                state.append("snaptrim_error")
             # one collection pass per PG: client objects, logical
-            # bytes, and physical store bytes (EC chunk streams)
+            # bytes, and physical store bytes (heads + snap clones +
+            # EC chunk streams)
             n_objs, nbytes, store_b = st.shard.stat_summary()
             order = ["active", "clean", "degraded", "recovering",
-                     "backfilling", "scrubbing"]
+                     "backfilling", "scrubbing", "snaptrim",
+                     "snaptrim_wait", "snaptrim_error"]
             pg_stats[str(pg)] = {
                 "state": "+".join(sorted(state, key=order.index)),
                 "num_objects": n_objs, "bytes": nbytes,
@@ -2184,6 +2547,12 @@ class OSDDaemon(Dispatcher, MonHunter):
                             "omap_get_keys", "omap_get_vals_by_keys",
                             "omap_get_header"):
                 self._do_meta_read(st, msg)
+            elif msg.op in ("rollback", "list_snaps"):
+                self._do_snap_op(st, msg)
+            elif msg.op == "exec":
+                self._do_exec(st, msg)
+            elif msg.op in ("watch", "notify", "notify_ack"):
+                self._do_watch_notify(st, msg)
             elif msg.op == "pgls":
                 # PG object listing (ref: MOSDOp CEPH_OSD_OP_PGLS /
                 # PrimaryLogPG::do_pg_op)
@@ -2246,6 +2615,167 @@ class OSDDaemon(Dispatcher, MonHunter):
             return None
         return mut.validate(muts, ec_pool=isinstance(st.shard,
                                                      ECPGShard))
+
+    def _do_exec(self, st: _PGState, msg: OSDOp) -> None:
+        """CEPH_OSD_OP_CALL: run an object-class method on the primary
+        (ref: PrimaryLogPG.cc do_osd_ops OP_CALL -> ClassHandler;
+        method API src/objclass/objclass.h).  Queued mutations commit
+        atomically through the backend pipeline; the method's output
+        rides back in the reply."""
+        a = msg.args or {}
+        if isinstance(st.shard, ECPGShard):
+            self._reply(msg, _ERRNO["EOPNOTSUPP"], "EOPNOTSUPP")
+            return
+        try:
+            _flags, fn = class_handler.resolve(a["cls"], a["method"])
+            ctx = MethodContext(st.shard, msg.oid)
+            out = fn(ctx, a.get("indata"))
+        except ClsError as err:
+            self._reply(msg, _ERRNO.get(err.errno_name, -22),
+                        err.errno_name)
+            return
+        except Exception:
+            # malformed indata (missing keys, wrong types) is wire
+            # input: answer EINVAL, never leave the op unreplied
+            dout("osd", 1).write("%s: cls %s.%s raised", self.name,
+                                 a.get("cls"), a.get("method"))
+            self._reply(msg, -22, "EINVAL")
+            return
+        if not ctx.mutations:
+            self._reply(msg, 0, attrs={"out": out})
+            return
+        muts = mut.validate(ctx.mutations, ec_pool=False)
+        st.backend.submit_transaction(
+            msg.oid, muts,
+            lambda ok, m=msg, o=out: self._reply(
+                m, 0 if ok else -116, "" if ok else "ESTALE",
+                attrs={"out": o}),
+            snapc=a.get("snapc"))
+
+    # ---------------------------------------------------- watch/notify
+    # (ref: src/osd/Watch.cc Watch/Notify; PrimaryLogPG do_osd_ops
+    # CEPH_OSD_OP_WATCH / handle_watch_timeout; MWatchNotify fan-out)
+    def _do_watch_notify(self, st: _PGState, msg: OSDOp) -> None:
+        a = msg.args or {}
+        if msg.op == "watch":
+            key = (msg.src, a["cookie"])
+            if a.get("action", "watch") == "watch":
+                if not self._object_exists(st, msg.oid):
+                    self._reply(msg, -2, "ENOENT")
+                    return
+                st.watchers.setdefault(msg.oid, {})[key] = {
+                    "client": msg.src, "cookie": a["cookie"]}
+            else:
+                st.watchers.get(msg.oid, {}).pop(key, None)
+            self._reply(msg, 0)
+        elif msg.op == "notify":
+            self._start_notify(st, msg, a)
+        else:                                   # notify_ack
+            nid = a["notify_id"]
+            state = self._notifies.get(nid)
+            if state is not None:
+                key = (msg.src, a["cookie"])
+                if key in state["pending"]:
+                    state["pending"].discard(key)
+                    state["replies"][f"{msg.src}/{a['cookie']}"] = \
+                        a.get("reply")
+            self._reply(msg, 0)
+            if state is not None:
+                self._maybe_notify_done(nid)
+
+    def _start_notify(self, st: _PGState, msg: OSDOp, a: dict) -> None:
+        watchers = dict(st.watchers.get(msg.oid, {}))
+        if not watchers:
+            self._reply(msg, 0, attrs={"replies": {}, "timeouts": []})
+            return
+        nid = next(self._notify_ids)
+        # every watcher is pending BEFORE any send: an ack can arrive
+        # on another connection's reader thread the instant the send
+        # completes, and must find its key present
+        state = {"msg": msg, "pending": set(watchers), "replies": {},
+                 "timeouts": [], "done": False, "timer": None}
+        self._notifies[nid] = state
+        for key, w in watchers.items():
+            wn = MWatchNotify(pool=msg.pgid.pool, oid=msg.oid,
+                              notify_id=nid, cookie=w["cookie"],
+                              notifier=msg.src,
+                              payload=a.get("payload"))
+            if not self.ms.connect(w["client"]).send_message(wn):
+                # watcher endpoint is gone: reap the watch (the
+                # reference expires it via handle_watch_timeout)
+                st.watchers.get(msg.oid, {}).pop(key, None)
+                state["pending"].discard(key)
+                state["timeouts"].append(f"{key[0]}/{key[1]}")
+        t = threading.Timer(float(a.get("timeout", 10.0)),
+                            self._notify_timeout, args=(nid,))
+        t.daemon = True
+        state["timer"] = t
+        t.start()
+        self._maybe_notify_done(nid)
+
+    def _notify_timeout(self, nid: int) -> None:
+        with self._lock:
+            state = self._notifies.get(nid)
+            if state is None or state["done"]:
+                return
+            state["timeouts"].extend(
+                f"{c}/{k}" for c, k in sorted(state["pending"]))
+            state["pending"].clear()
+        self._maybe_notify_done(nid)
+
+    def _maybe_notify_done(self, nid: int) -> None:
+        with self._lock:
+            state = self._notifies.get(nid)
+            if state is None or state["pending"] or state["done"]:
+                return
+            state["done"] = True
+            del self._notifies[nid]
+            if state["timer"] is not None:
+                state["timer"].cancel()
+        self._reply(state["msg"], 0,
+                    attrs={"replies": state["replies"],
+                           "timeouts": state["timeouts"]})
+
+    # -------------------------------------------------- pool snapshots
+    def _do_snap_op(self, st: _PGState, msg: OSDOp) -> None:
+        """rollback / list_snaps (ref: CEPH_OSD_OP_ROLLBACK ->
+        PrimaryLogPG::_rollback_to; list_snaps from the SnapSet)."""
+        if isinstance(st.shard, ECPGShard):
+            self._reply(msg, _ERRNO["EOPNOTSUPP"], "EOPNOTSUPP")
+            return
+        a = msg.args or {}
+        if msg.op == "list_snaps":
+            oi = st.shard.head_oi(msg.oid)
+            if not oi:
+                self._reply(msg, -2, "ENOENT")
+                return
+            self._reply(msg, 0, attrs={
+                "clones": st.shard.clone_tags(msg.oid),
+                "head_exists": not oi.get("whiteout", False),
+                "snap_seq": oi.get("snap_seq", 0)})
+            return
+        snapid = int(a["snapid"])
+        res = st.shard.resolve_snap(msg.oid, snapid)
+        snapc = a.get("snapc")
+        if res == "head":
+            self._reply(msg, 0)            # head already == snap state
+        elif res is None:
+            # object absent at that snap: rollback removes the head
+            # (ref: _rollback_to's whiteout path)
+            if self._object_exists(st, msg.oid):
+                st.backend.submit_transaction(
+                    msg.oid, [(mut.M_DELETE,)],
+                    lambda ok, m=msg: self._reply(
+                        m, 0 if ok else -116, "" if ok else "ESTALE"),
+                    snapc=snapc)
+            else:
+                self._reply(msg, 0)
+        else:
+            st.backend.submit_transaction(
+                msg.oid, [(mut.M_ROLLBACK, res)],
+                lambda ok, m=msg: self._reply(
+                    m, 0 if ok else -116, "" if ok else "ESTALE"),
+                snapc=snapc)
 
     def _do_meta_read(self, st: _PGState, msg: OSDOp) -> None:
         """xattr/omap reads served from the primary's local shard

@@ -13,8 +13,9 @@ pool types and both packages.
 The port's copy of `ceph_tpu.osd.replicated_backend`: host code, as the
 reference's is; a replicated pool launches no kernel.  Snapshot clones
 (COW on a pool snap, clone pushes, `apply_snap_trim`) are carried as
-the reference carries them; the snap trimmer that drives
-`apply_snap_trim` waits for the slice that ports snapshots.
+the reference carries them; the daemon's snap trimmer drives
+`apply_snap_trim` on the primary and, through `SnapTrim`, on each
+replica.
 """
 from __future__ import annotations
 

@@ -16,6 +16,11 @@ layout: `block` + `kv/`):
                                   the disk-swap / PG-rescue flow the
                                   reference tool exists for
     --op remove  --pgid P         delete a PG collection outright
+    --op list-snaps --pgid P      per-object snapshot state: clone
+                                  tags, covered snapids, presence
+    --op dump-snap-index --pgid P the durable snaptrim state: the
+                                  snap->clone index awaiting trim (the
+                                  crash-resume cursor) + purged_snaps
 
 The export blob uses the typed wire codec, so it round-trips the
 exact ObjectIds (snap clones included) and the pg_log omap that
@@ -26,10 +31,7 @@ The port's copy of `ceph_tpu.tools.objectstore_tool`: the same verbs,
 text output and export blob, byte for byte, on a store either package
 wrote (`python -m ceph_tpu_torch.tools.objectstore_tool --data-path
 DIR --op list`).  `--op info` reads the durable log through the EC
-shard's loader, which is the replicated shard's.  Not ported yet, and
-refused in one line: `--op list-snaps` and `--op dump-snap-index` (the
-snapshot state they show waits for the slice that ports snapshots and
-the snap trimmer).
+shard's loader, which is the replicated shard's.
 """
 from __future__ import annotations
 
@@ -38,15 +40,12 @@ import json
 import sys
 
 from ..msg import encoding as wire
-from ..osd.ec_backend import ECPGShard, pg_cid
+from ..osd.ec_backend import OI_ATTR, ECPGShard, pg_cid
+from ..osd.snap_mapper import SnapMapper
 from ..osd.types import PG
-from ..store import BlueStore, StoreError, Transaction
+from ..store import BlueStore, ObjectId, StoreError, Transaction
 
 EXPORT_VERSION = 1
-
-#: the reference's verbs the port does not carry yet
-NOT_PORTED = {"list-snaps": "--op list-snaps",
-              "dump-snap-index": "--op dump-snap-index"}
 
 
 def _open_store(path: str) -> BlueStore:
@@ -158,6 +157,64 @@ def remove_pg(store, pg: PG) -> int:
     return len(objs)
 
 
+def list_snaps(store, pg: PG) -> list[dict]:
+    """Per-object snapshot state: head snap_seq, clone tags + the
+    snapids each clone covers, and whether the clone object actually
+    exists — the offline view of the SnapSet scrub compares."""
+    cid = _pg_cid(pg)
+    if not store.collection_exists(cid):
+        raise StoreError("ENOENT", f"pg {pg}")
+    out = []
+    for oid in sorted(store.collection_list(cid),
+                      key=lambda o: (o.name, o.snap)):
+        if oid.name == "pgmeta" or oid.snap != -2:
+            continue
+        try:
+            oi = dict(store.getattr(cid, oid, OI_ATTR))
+        except StoreError:
+            continue
+        clones = {int(t): list(c)
+                  for t, c in oi.get("clones", {}).items()}
+        if not clones and not oi.get("snap_seq"):
+            continue
+        out.append({
+            "oid": oid.name,
+            "snap_seq": oi.get("snap_seq", 0),
+            "whiteout": bool(oi.get("whiteout")),
+            "clones": {
+                str(t): {"covers": c,
+                         "present": store.exists(
+                             cid, ObjectId(oid.name, snap=t))}
+                for t, c in sorted(clones.items())},
+        })
+    return out
+
+
+def dump_snap_index(store, pg: PG) -> dict:
+    """The durable snaptrim state: the snap->clone index entries still
+    awaiting trim (the resume cursor) + the purged_snaps interval set
+    — what a promoted primary would act on."""
+    cid = _pg_cid(pg)
+    if not store.collection_exists(cid):
+        raise StoreError("ENOENT", f"pg {pg}")
+    sm = SnapMapper(store, cid)
+    return {"pgid": str(pg), "index": sm.dump(),
+            "purged_snaps": sm.purged_snaps().to_list()}
+
+
+def remove_pg(store, pg: PG) -> int:
+    cid = _pg_cid(pg)
+    if not store.collection_exists(cid):
+        raise StoreError("ENOENT", f"pg {pg}")
+    objs = store.collection_list(cid)
+    txn = Transaction()
+    for oid in objs:
+        txn.remove(cid, oid)
+    txn.remove_collection(cid)
+    store.queue_transaction(txn)
+    return len(objs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ceph-tpu-torch-objectstore-tool")
     ap.add_argument("--data-path", required=True,
@@ -174,9 +231,6 @@ def main(argv=None) -> int:
                     help="(fsck) placeholder — errors are reported; "
                          "repair rides scrub in a live cluster")
     a = ap.parse_args(argv)
-    if a.op in NOT_PORTED:
-        raise SystemExit(f"objectstore_tool: {NOT_PORTED[a.op]} is not "
-                         "ported yet")
     store = _open_store(a.data_path)
     try:
         if a.op == "list":
@@ -206,6 +260,12 @@ def main(argv=None) -> int:
         elif a.op == "remove":
             n = remove_pg(store, _parse_pgid(a.pgid))
             print(f"removed {a.pgid}: {n} object(s)")
+        elif a.op == "list-snaps":
+            for ent in list_snaps(store, _parse_pgid(a.pgid)):
+                print(json.dumps(ent))
+        elif a.op == "dump-snap-index":
+            print(json.dumps(dump_snap_index(store,
+                                             _parse_pgid(a.pgid))))
         return 0
     except StoreError as ex:
         print(f"error: {ex}", file=sys.stderr)

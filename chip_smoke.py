@@ -88,10 +88,10 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    --show-statistics --show-utilization` over x = 0 .. 1,048,575 for
    rule 0 at num_rep 3 and rule 1 at 12: one K3 launch per (rule,
    num_rep), no scalar fallback, every x of full size; K3 against the
-   plain version on the card over every x of rule 0 and every 16th x of
-   rule 1 (65,536 x over the whole range, cut to keep the smoke's wall
-   time; rule 1's text is not held to the plain version), rule 0's text equal
-   to the text of the plain version's tables, 256 sampled x equal to
+   plain version on the card over every 4th x of rule 0 and every 16th
+   x of rule 1 (262,144 and 65,536 x over the whole range, cut to keep
+   the smoke's wall time, so neither text is held to the plain
+   version's tables), 256 sampled x equal to
    CrushWrapper.do_rule, and the text equal to CrushTester(device="cpu")'s
    at 1,024 x; K3 by CUDA events in the tool's run, and the split of one
    more run with each piece a lap of it (map load, then
@@ -105,7 +105,7 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    pg_to_up_acting_osds after the Incremental, Balancer.score()'s stddev
    lower after; the split of one more pass, each piece a lap of it
    (update, calc_pg_upmaps's timings: clone, _build_pgs_by_osd, search;
-   apply_incremental, second update); then at 1,000 OSDs / 32,768 PGs
+   apply_incremental, second update); then at 500 OSDs / 16,384 PGs
    the command file from the card equals the one from `--device cpu`;
 14. the device guard (ceph_tpu_torch.common.devguard): first the host
    cost per call of K1's wrapper, the operator's launch() and the
@@ -139,16 +139,17 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
 18. the EC placement group's data plane (ceph_tpu_torch.osd.ec_backend:
    ECBackend and one ECPGShard per shard over the port's MemStores, wired
    directly) at the pool shape `tpu` k=8 m=4 reed_sol_van on the card,
-   stripe unit 4096 B, 4 MiB objects: 32 objects written through
-   submit_transaction, 100 KiB unaligned overwrites in 16 of them, every
+   stripe unit 4096 B, 4 MiB objects: 16 objects (cut from 64, then 32)
+   written through submit_transaction, a 100 KiB unaligned overwrite in
+   each, every
    object read back equal to the script's bytes and every shard stream
    equal to ecutil.encode through a device="cpu" plugin (K1's plain
    version); shards 1 and 9 down and every object read degraded (K1's
    staged decode); shard 0 wiped and recovered through recover_object,
    one compiled repair (one K1 launch) per object and no full rebuild,
    equal to the streams from before, read/rebuilt exactly 8.0; the same
-   recovery for REPAIR_r01.json's jerasure, clay and lrc (the first 16
-   objects each, 4.0 / 2.5 / 3.0); the 32 writes again through ICIFabric over
+   recovery for REPAIR_r01.json's jerasure, clay and lrc (the 16
+   objects each, 4.0 / 2.5 / 3.0); the 16 writes again through ICIFabric over
    ["cuda:0"] * 8, every chunk equal to the host path's.  Write, read,
    degraded-read and rebuilt MB/s on the host clock, K1's CUDA-event
    share of each, and a split of one write (merge, ecutil.encode, the
@@ -184,7 +185,30 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    bytes, and every replica on its acting OSDs equal to its payload,
    xattrs and omap (sha256); then one byte of one replica flipped
    under its MemStore: pg_scrub lists it, pg_scrub(repair=True) repairs
-   and verifies it, a third scrub is clean.  (g) Elastic pools, after the
+   and verifies it, a third scrub is clean.  On `reppool`, before the
+   victim dies: pool snap s19, 16 of its objects (those the victim holds
+   first) overwritten with new seeded payloads and an xattr (COW clones
+   on every replica), one removed, one created after; every object at
+   s19 equal to its first payload (sha256), the heads to the new ones,
+   the removed one ENOENT at head, the late one ENOENT at s19,
+   list_snaps exactly the clones; snap_rollback of one object restores
+   its data and xattrs; `ecpool` answers EOPNOTSUPP to snap_create,
+   selfmanaged_snap_create and exec; the object classes: an exclusive
+   lock taken and released by two clients, refcount get/put (the last
+   put removes the object), version gating, 16 concurrent aio_exec
+   numops adds that all land, 1,024 cls log entries added, listed by
+   marker and trimmed, and every replica of those objects equal; 4 more
+   librados clients each watch 2 `ecpool` and 2 `reppool` objects (one
+   of each on the victim's PGs where there is one) and 64 notifies,
+   timed, collect every reply.  After the recovery: the watches whose
+   primary moved are on the new primaries and a notify round gets all
+   16 replies, a watcher client shut down is reported timed out (2 s
+   timeout), every object at s19 equal to its first payload again (the
+   clone bytes the pushes carried counted), then snap_remove(s19) and
+   the heartbeat tick on the sim clock (osd_snap_trim_sleep 0; the
+   replicas' trim acks dropped for the first tick, so `df` shows the
+   trimming PGs) until every PG's snap index is empty, `df` shows no
+   trimming PG and `reppool`'s store bytes equal its bytes.  (g) Elastic pools, after the
    recovery below, with the victim out: the mgr (MgrDaemon on the card)
    with its pg_autoscaler and progress; one autoscale tick with the EC
    pool's bytes splits `ecpool` 32 -> 128 (next_pow2(15 in x 100 / 12);
@@ -290,7 +314,11 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    object flipped with `corrupt_blob_bytes`, the OSD restarted, the
    object read right through a degraded decode on K1 (its launches
    counted); `objectstore_tool --op fsck` on the stopped dir, right after
-   the flip, reports exactly that blob; the smoke's client then scrubs
+   the flip, reports exactly that blob (before that stop the client
+   took pool snap s21 on `reppool` and overwrote the object of each of
+   the OSD's `reppool` PGs: `objectstore_tool --op list-snaps` and
+   `--op dump-snap-index` on the stopped dir list exactly those clones
+   and index entries); the smoke's client then scrubs
    the PG over TCP: `pg_scrub` lists exactly that object inconsistent,
    `pg_scrub(repair=True)` repairs 1 and verifies it, a third scrub is
    clean, and the primary's K1 launches rise (its admin socket); `osd
@@ -386,11 +414,11 @@ TOOL_TESTS = [(0, 3), (1, 12)]   # crushtool --test (rule, num_rep)
 TOOL_X = 1 << 20                 # x = 0 .. 1,048,575
 TOOL_SAMPLE = 256                # sampled x per rule against do_rule
 TOOL_PLAIN_CHUNK = 1 << 18       # seeds per pass of the plain version there
-# stride of the x held to the plain version per rule: every x of rule 0
-# (its text is held to the plain version's tables); every 16th x of rule
-# 1 (the 12-wide indep rule, 8x rule 0's cost per x), 65,536 x spread
-# over the whole launch, to keep the smoke's wall time
-TOOL_PLAIN_STRIDE = {0: 1, 1: 16}
+# stride of the x held to the plain version per rule, to keep the smoke's
+# wall time: every 4th x of rule 0 (cut from every x, PERF.md section 4);
+# every 16th x of rule 1 (the 12-wide indep rule, 8x rule 0's cost per
+# x); 262,144 and 65,536 x spread over the whole launch
+TOOL_PLAIN_STRIDE = {0: 4, 1: 16}
 TOOL_GUARD_X = 1 << 16           # phase 14's guarded tester run
 TOOL_CPU_X = 1 << 10             # text against CrushTester on the CPU
 TOOL_RULES = """\
@@ -418,7 +446,7 @@ rule ec_k8m4 {
 UPMAP_MAX, UPMAP_DEVIATION = 10, 5   # osdmaptool's --upmap defaults
 # the card-against-CPU balancer map, cut from 65,536 PGs to keep phases
 # 12-14 short (the CPU side is the plain version)
-CROSS_OSD, CROSS_PG = 1000, 1 << 15
+CROSS_OSD, CROSS_PG = 500, 1 << 14    # cut from 1,000 and 1 << 15
 MESH_WAYS = (1, 2, 4)            # shard_ways of the one-card mesh
 MESH_PATTERN_S = 16              # stripes per two-erasure pattern
 FABRIC_OBJECTS = 64              # 4 MiB objects through the fabric
@@ -1584,7 +1612,7 @@ def balancer_phase(name_power: str, dev, work: Path) -> dict:
           + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
           + f", the rest {wall_pass - sum(split.values()):.3f} s")
 
-    # card against CPU at 1,000 OSDs: the same command file, byte for byte
+    # card against CPU at 500 OSDs: the same command file, byte for byte
     small = str(work / "om_small.json")
     run_cli(osdmaptool.main, ["--createsimple", str(CROSS_OSD),
                               "--osds-per-host", str(OSDS_PER_HOST),
@@ -1956,7 +1984,7 @@ def bench_phase(name_power: str) -> dict:
 # ---------------------------------------------------------------------------
 # The EC placement group's data plane: phase 18
 
-EC_PG_OBJECTS = 32               # 4 MiB objects through ECBackend (cut from 64)
+EC_PG_OBJECTS = 16               # 4 MiB objects through ECBackend (cut from 64, 32)
 EC_PG_CODE_OBJECTS = 16          # of them through jerasure, clay and lrc
 EC_PG_RMW = 16                   # objects given an unaligned overwrite
 EC_PG_PATCH = 100 << 10          # 100 KiB
@@ -2490,6 +2518,11 @@ def acting_sets(m, pid: int, pg_num: int, PG) -> tuple[dict, dict]:
     return before, count
 
 
+def _victim(count: dict) -> int:
+    """The OSD in the most acting sets (the lowest id among equals)."""
+    return max(sorted(count), key=lambda o: count[o])
+
+
 def drive_cluster(c, r, io, objs: dict, tag: str, dev,
                   snapshot: bool = False, healthy=None,
                   degraded=None) -> dict:
@@ -2541,7 +2574,7 @@ def drive_cluster(c, r, io, objs: dict, tag: str, dev,
     # -- the OSD in the most acting sets dies ------------------------------
     pid = r.pool_lookup("ecpool")
     before, count = acting_sets(c.mon.osdmap, pid, CLUSTER_PG_NUM, PG)
-    victim = max(sorted(count), key=lambda o: count[o])
+    victim = _victim(count)
     shards = {}
     if snapshot:
         res = {"pid": pid, "victim": -1, "before": before}
@@ -2931,6 +2964,10 @@ class RepLeg:
                       for i in range(REP_INDEX_OBJECTS)}
         self.striped = rng.bytes(REP_STRIPED_B)
         self.ec_writeop = rng.bytes(REPAIR_OBJECT)
+        #: each head's user xattrs; the snapshot leg changes some heads
+        #: and removes one (`removed`)
+        self.attrs = {name: _rep_xattrs(int(name[3:])) for name in self.objs}
+        self.removed: set = set()
         self.layout = StripeLayout(stripe_unit=1 << 16, stripe_count=4,
                                    object_size=1 << 18)
         self.out: dict = {}
@@ -2940,7 +2977,8 @@ class RepLeg:
         # too); every other push applied answers a pull
         return {k: _perf_sum(self.c, k) for k in (
             "recovery_push", "push_in", "push_in_bytes",
-            "backfill_push_in", "recovery_push_errors")}
+            "push_in_clone_bytes", "backfill_push_in",
+            "recovery_push_errors")}
 
     def create(self) -> None:
         t0 = time.monotonic()
@@ -2961,9 +2999,8 @@ class RepLeg:
 
         t0 = time.monotonic()
         for name in names:
-            i = int(name[3:])
             op = WriteOp().write_full(self.objs[name])
-            for k, v in _rep_xattrs(i).items():
+            for k, v in self.attrs[name].items():
                 op.set_xattr(k, v)
             self.io.operate(name, op)
         return time.monotonic() - t0
@@ -3032,7 +3069,8 @@ class RepLeg:
 
     def degraded(self) -> None:
         tag = "phase 19 (f)"
-        names = [f"rep{i}" for i in range(REP_OBJECTS)]
+        names = [f"rep{i}" for i in range(REP_OBJECTS)
+                 if f"rep{i}" not in self.removed]
         wall = self._read_all(names, "degraded")
         self.out["degraded_read"] = {
             "MBps": len(names) * REPAIR_OBJECT / wall / 1e6, "wall_s": wall}
@@ -3069,8 +3107,9 @@ class RepLeg:
         t0 = time.monotonic()
         perf = self._perf()
         self.out["recovery"] = {k: perf[k] - self.perf0[k] for k in perf}
-        want = {name: _digest(data, _rep_xattrs(int(name[3:])), {}, b"")
-                for name, data in self.objs.items()}
+        want = {name: _digest(data, self.attrs[name], {}, b"")
+                for name, data in self.objs.items()
+                if name not in self.removed}
         want.update({name: _digest(b"", {}, kv, name.encode())
                      for name, kv in self.index.items()})
         for name in self.striped_objs:
@@ -3124,9 +3163,426 @@ class RepLeg:
                 raise AssertionError(f"{tag}: pg_scrub(repair={repair}) of pg "
                                      f"{pg} gave {got}, not {expect}")
         if dict(self._replicas(oid))[replica] != _digest(
-                self.objs[oid], _rep_xattrs(0), {}, b""):
+                self.objs[oid], self.attrs[oid], {}, b""):
             raise AssertionError(f"{tag}: the repaired replica differs")
         self.out["scrub_pg"] = (str(pg), primary, replica)
+
+
+# -- phase 19 (f): snapshots, object classes and watch/notify ----------------
+
+SNAP_OVERWRITES = 16             # reppool objects overwritten under s19
+WATCH_CLIENTS = 4                # extra librados clients, each on 4 objects
+WATCH_NOTIFIES = 64              # timed notifies, every reply collected
+WATCH_TIMEOUT_S = 2.0            # the dead watcher's notify
+CLS_AIO_ADDS = 16                # concurrent numops adds on one key
+CLS_LOG_ENTRIES = 1024           # cls log entries added, listed and trimmed
+CLS_LOG_PAGE = 128               # entries per list / trim call
+TRIM_MAX_TICKS = 60              # sim-clock ticks the trim may take
+
+
+def _sha(data: bytes) -> bytes:
+    return hashlib.sha256(data).digest()
+
+
+def _errno(fn, *args, **kw) -> str:
+    """The RadosError errno name `fn` raised, or "ok"."""
+    from ceph_tpu_torch.client import RadosError
+
+    try:
+        fn(*args, **kw)
+    except RadosError as e:
+        return e.errno_name
+    return "ok"
+
+
+class SnapLeg:
+    """Phase 19 (f)'s snapshot, object-class and watch/notify legs on
+    reppool beside ecpool.  `before_kill` runs after RepLeg.healthy and
+    before the victim dies; `after_clean` after the recovery to clean
+    that `osd out` starts, and before RepLeg.verify."""
+
+    def __init__(self, c, r, rep, ec_objs: dict):
+        self.c, self.r, self.rep, self.ec_objs = c, r, rep, ec_objs
+        self.rng = np.random.default_rng(SEED + 198)
+        self.names = [f"rep{i}" for i in range(REP_OBJECTS)]
+        self.first = {n: _sha(rep.objs[n]) for n in self.names}
+        self.out: dict = {}
+
+    # -- before the kill ----------------------------------------------------
+    def before_kill(self, victim: int) -> None:
+        # the overwritten objects: those the victim holds a replica of
+        # first, so the recovery after `osd out` has clones to push
+        m, pid = self.c.mon.osdmap, self.rep.pid
+        held = [n for n in self.names if victim in m.pg_to_up_acting_osds(
+            m.object_locator_to_pg(n, pid))[2]]
+        self.over = (held + [n for n in self.names
+                             if n not in held])[:SNAP_OVERWRITES]
+        self.new = {n: self.rng.bytes(REPAIR_OBJECT) for n in self.over}
+        self.gone = [n for n in self.names if n not in self.over][-1]
+        self.rolled = self.over[-1]
+        self.rolled_data = self.rep.objs[self.rolled]
+        self.late = self.rng.bytes(REPAIR_OBJECT)
+        self.snapshot()
+        self.refusals()
+        self.clients = [self.r] + [
+            self.c.rados(timeout=CLUSTER_TIMEOUT_S)
+            for _ in range(WATCH_CLIENTS)]
+        self.object_classes()
+        self.watch(victim)
+
+    def snapshot(self) -> None:
+        from ceph_tpu_torch.client import WriteOp
+
+        tag, io, rep = "phase 19 (f)", self.rep.io, self.rep
+        t0 = time.monotonic()
+        io.snap_create("s19")
+        self.sid = io.snap_lookup("s19")
+        self.out["snap_create_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        for n in self.over:
+            io.operate(n, WriteOp().write_full(self.new[n])
+                       .set_xattr("seq", b"after s19"))
+        self.out["clone_s"] = time.monotonic() - t0
+        io.remove(self.gone)
+        io.write_full("rep_late", self.late)
+        for n in self.over:
+            rep.objs[n] = self.new[n]
+            rep.attrs[n] = {**rep.attrs[n], "seq": b"after s19"}
+        rep.removed.add(self.gone)
+        rep.objs["rep_late"], rep.attrs["rep_late"] = self.late, {}
+        t0 = time.monotonic()
+        self._check_s19(tag)
+        self.out["s19_read_s"] = time.monotonic() - t0
+        for n in self.over:
+            if _sha(io.read(n)) != _sha(self.new[n]):
+                raise AssertionError(f"{tag}: head of {n} after the overwrite")
+        if _errno(io.read, self.gone) != "ENOENT" or \
+                _errno(io.read, "rep_late", snapid=self.sid) != "ENOENT":
+            raise AssertionError(f"{tag}: {self.gone} at head or rep_late at "
+                                 "s19 is readable")
+        want = {self.sid: [self.sid]}
+        for n in self.names + ["rep_late"]:
+            clones = io.list_snaps(n)["clones"]
+            if clones != (want if n in self.over or n == self.gone else {}):
+                raise AssertionError(f"{tag}: list_snaps({n}) = {clones}")
+        self.out["clones"] = self._clone_objects(tag)
+        # rollback: data and xattrs of s19 again
+        t0 = time.monotonic()
+        io.snap_rollback(self.rolled, "s19")
+        self.out["rollback_s"] = time.monotonic() - t0
+        first_attrs = _rep_xattrs(int(self.rolled[3:]))
+        if _sha(io.read(self.rolled)) != self.first[self.rolled] or \
+                io.get_xattrs(self.rolled) != first_attrs:
+            raise AssertionError(f"{tag}: rollback of {self.rolled}")
+        rep.attrs[self.rolled] = first_attrs
+        rep.objs[self.rolled] = self.rolled_data
+
+    def _check_s19(self, tag: str) -> None:
+        io = self.rep.io
+        for n in self.names:
+            if _sha(io.read(n, snapid=self.sid)) != self.first[n]:
+                raise AssertionError(f"{tag}: {n} at s19 differs from its "
+                                     "first payload")
+
+    def _clone_objects(self, tag: str) -> int:
+        """Clone objects of s19 on reppool's acting OSDs: one per replica
+        of each object the snap kept apart from its head."""
+        from ceph_tpu_torch.osd import ec_backend
+        from ceph_tpu_torch.store import ObjectId
+
+        m, pid = self.c.mon.osdmap, self.rep.pid
+        found = 0
+        for n in self.over + [self.gone]:
+            raw = m.object_locator_to_pg(n, pid)
+            cid = ec_backend.pg_cid(m.pools[pid].raw_pg_to_pg(raw))
+            for osd in m.pg_to_up_acting_osds(raw)[2]:
+                found += self.c.osds[osd].store.exists(
+                    cid, ObjectId(n, snap=self.sid))
+        if found != (SNAP_OVERWRITES + 1) * REP_SIZE:
+            raise AssertionError(f"{tag}: {found} clone objects on the "
+                                 "acting OSDs")
+        return found
+
+    def refusals(self) -> None:
+        ec_io = self.r.open_ioctx("ecpool")
+        oid = next(iter(self.ec_objs))
+        got = {"snap_create": _errno(ec_io.snap_create, "s19_ec"),
+               "selfmanaged_snap_create": _errno(
+                   ec_io.selfmanaged_snap_create),
+               "exec": _errno(ec_io.exec, oid, "lock", "get_info",
+                              {"name": "l"})}
+        if set(got.values()) != {"EOPNOTSUPP"}:
+            raise AssertionError(f"phase 19 (f): ecpool answered {got}")
+        self.out["refusals"] = got
+
+    def object_classes(self) -> None:
+        tag, io = "phase 19 (f)", self.rep.io
+        other = self.clients[1].open_ioctx("reppool")
+        times = {}
+        t0 = time.monotonic()
+        lk = {"name": "l19", "type": "exclusive", "cookie": "c"}
+        me, them = self.r.objecter.name, self.clients[1].objecter.name
+        steps = [
+            (io, "lock", dict(lk, client=me), "ok"),
+            (other, "lock", dict(lk, client=them), "EBUSY"),
+            (io, "unlock", {"name": "l19", "client": me, "cookie": "c"},
+             "ok"),
+            (other, "lock", dict(lk, client=them), "ok"),
+            (other, "unlock", {"name": "l19", "client": them,
+                               "cookie": "c"}, "ok")]
+        for ctx, method, ind, want in steps:
+            got = _errno(ctx.exec, "cls_lock", "lock", method, ind)
+            if got != want:
+                raise AssertionError(f"{tag}: lock.{method} {ind} -> {got}")
+        times["lock"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        io.write_full("cls_ref", b"shared")
+        for tg in ("t1", "t2"):
+            io.exec("cls_ref", "refcount", "get", {"tag": tg})
+        refs = io.exec("cls_ref", "refcount", "read", {})["refs"]
+        for tg in ("t1", "t2"):
+            io.exec("cls_ref", "refcount", "put", {"tag": tg})
+        if refs != ["t1", "t2"] or _errno(io.read, "cls_ref") != "ENOENT":
+            raise AssertionError(f"{tag}: refcount {refs}")
+        times["refcount"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        io.write_full("cls_ver", b"v")
+        io.exec("cls_ver", "version", "set", {"ver": 5})
+        io.exec("cls_ver", "version", "inc", {})
+        gate = [_errno(io.exec, "cls_ver", "version", "check",
+                       {"ver": v, "cond": "eq"}) for v in (6, 7)]
+        io.exec("cls_ver", "version", "inc", {"ver": 6, "cond": "eq"})
+        ver = io.exec("cls_ver", "version", "read", {})["ver"]
+        if gate != ["ok", "ECANCELED"] or ver != 7:
+            raise AssertionError(f"{tag}: version gate {gate}, ver {ver}")
+        times["version"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        futs = [io.aio_exec("cls_num", "numops", "add",
+                            {"key": "c", "value": 1})
+                for _ in range(CLS_AIO_ADDS)]
+        outs = sorted(io._wait(f).attrs["out"]["value"] for f in futs)
+        count = io.get_omap_vals("cls_num")[0].get("c")
+        if outs != list(range(1, CLS_AIO_ADDS + 1)) or \
+                count != str(CLS_AIO_ADDS).encode():
+            raise AssertionError(f"{tag}: numops adds {outs}, omap {count}")
+        times["numops"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        for s in range(0, CLS_LOG_ENTRIES, CLS_LOG_PAGE):
+            io.exec("cls_log", "log", "add", {"entries": [
+                {"timestamp": float(i), "section": "smoke",
+                 "name": f"e{i}", "data": i}
+                for i in range(s, s + CLS_LOG_PAGE)]})
+        listed, marker = [], ""
+        while True:
+            page = io.exec("cls_log", "log", "list",
+                           {"marker": marker, "max_entries": CLS_LOG_PAGE})
+            listed += [e["name"] for e in page["entries"]]
+            if not page["truncated"]:
+                break
+            marker = page["marker"]
+        info = io.exec("cls_log", "log", "info", {})
+        trimmed = 0
+        while True:
+            n = io.exec("cls_log", "log", "trim",
+                        {"to_time": float(CLS_LOG_ENTRIES)})["trimmed"]
+            if not n:
+                break
+            trimmed += n
+        left = io.exec("cls_log", "log", "list", {})["entries"]
+        if listed != [f"e{i}" for i in range(CLS_LOG_ENTRIES)] or \
+                info["entries"] != CLS_LOG_ENTRIES or \
+                trimmed != CLS_LOG_ENTRIES or left:
+            raise AssertionError(f"{tag}: cls log listed {len(listed)}, "
+                                 f"info {info}, trimmed {trimmed}, left "
+                                 f"{len(left)}")
+        times["log"] = time.monotonic() - t0
+        # every replica of the class objects holds the same data, xattrs
+        # and omap
+        for oid in ("cls_lock", "cls_ver", "cls_num", "cls_log"):
+            digests = {d for _osd, d in self.rep._replicas(oid)}
+            if len(digests) != 1:
+                raise AssertionError(f"{tag}: the replicas of {oid} differ")
+        self.out["cls_s"] = times
+
+    def _watched(self, victim: int) -> list:
+        """Two ecpool and two reppool objects; in each pool, one whose
+        primary is the victim (so its watches must move) when one is."""
+        m = self.c.mon.osdmap
+        out = []
+        for pool, names in (("ecpool", list(self.ec_objs)),
+                            ("reppool", [n for n in self.names
+                         if n not in self.over and n != self.gone])):
+            pid = self.r.pool_lookup(pool)
+            prim = {n: m.pg_to_up_acting_osds(
+                m.object_locator_to_pg(n, pid))[3] for n in names}
+            moving = [n for n in names if prim[n] == victim][:1]
+            out += [(pool, n) for n in moving + [
+                n for n in names if n not in moving][:2 - len(moving)]]
+        return out
+
+    def _notify(self, ioctxs: dict, oid: str, pool: str, payload,
+                want_from, timeout: float = 10.0) -> tuple:
+        replies, timeouts = ioctxs[pool].notify(oid, payload=payload,
+                                                timeout=timeout)
+        want = {f"{self.clients[i].objecter.name}/w19.{i}.{oid}":
+                {"client": i, "n": payload["n"]} for i in want_from}
+        if replies != want:
+            raise AssertionError(f"phase 19 (f): notify {payload} on "
+                                 f"{pool}/{oid}: replies {replies}, not "
+                                 f"{want}; timed out {timeouts}")
+        return True, timeouts
+
+    def watch(self, victim: int) -> None:
+        tag = "phase 19 (f)"
+        self.watched = self._watched(victim)
+        self.got: list = []
+        for i, cl in enumerate(self.clients[1:], 1):
+            for pool, oid in self.watched:
+                def cb(nid, notifier, payload, i=i):
+                    self.got.append(i)
+                    return {"client": i, "n": payload["n"]}
+                cl.open_ioctx(pool).watch(oid, cb, cookie=f"w19.{i}.{oid}")
+        self.ioctxs = {p: self.r.open_ioctx(p) for p in ("ecpool", "reppool")}
+        everyone = range(1, WATCH_CLIENTS + 1)
+        lat = []
+        for k in range(WATCH_NOTIFIES):
+            pool, oid = self.watched[k % len(self.watched)]
+            t0 = time.monotonic()
+            ok, timeouts = self._notify(self.ioctxs, oid, pool, {"n": k},
+                                        everyone)
+            lat.append(time.monotonic() - t0)
+            if not ok or timeouts:
+                raise AssertionError(f"{tag}: notify {k} on {pool}/{oid}: "
+                                     f"replies short, timeouts {timeouts}")
+        if len(self.got) != WATCH_NOTIFIES * WATCH_CLIENTS:
+            raise AssertionError(f"{tag}: {len(self.got)} callbacks")
+        lat.sort()
+        self.out["notify"] = {
+            "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+            "watches": len(self.watched) * WATCH_CLIENTS}
+        m = self.c.mon.osdmap
+        self.primaries = {oid: m.pg_to_up_acting_osds(m.object_locator_to_pg(
+            oid, self.r.pool_lookup(pool)))[3] for pool, oid in self.watched}
+
+    # -- after the recovery to clean -----------------------------------------
+    def after_clean(self) -> None:
+        tag = "phase 19 (f)"
+        self.relinger(tag)
+        t0 = time.monotonic()
+        self._check_s19(tag)
+        self.out["s19_read_after_s"] = time.monotonic() - t0
+        self.out["clones_after"] = self._clone_objects(tag)
+
+    def relinger(self, tag: str) -> None:
+        m = self.c.mon.osdmap
+        now = {oid: m.pg_to_up_acting_osds(m.object_locator_to_pg(
+            oid, self.r.pool_lookup(pool)))[3] for pool, oid in self.watched}
+        moved = [oid for oid in now if now[oid] != self.primaries[oid]]
+        if not moved:
+            raise AssertionError(f"{tag}: no watched object's primary "
+                                 f"moved ({now})")
+
+        def registered() -> bool:
+            for i, cl in enumerate(self.clients[1:], 1):
+                for oid in now:
+                    w = cl.objecter.watches.get(f"w19.{i}.{oid}")
+                    if w is None or w["osd"] != now[oid]:
+                        return False
+            return True
+        t0 = time.monotonic()
+        _wait(self.c, registered, "the watches re-registered", tag=tag)
+        self.out["relinger_s"] = time.monotonic() - t0
+        everyone = range(1, WATCH_CLIENTS + 1)
+        replies = 0
+        for k, (pool, oid) in enumerate(self.watched):
+            ok, timeouts = self._notify(self.ioctxs, oid, pool,
+                                        {"n": 1000 + k}, everyone)
+            if not ok or timeouts:
+                raise AssertionError(f"{tag}: notify after the move on "
+                                     f"{pool}/{oid}: timeouts {timeouts}")
+            replies += WATCH_CLIENTS
+        # a watcher client that dies shows up among the timed out
+        dead = self.clients.pop()
+        dead_i = WATCH_CLIENTS
+        dead.shutdown()
+        pool, oid = self.watched[0]
+        t0 = time.monotonic()
+        ok, timeouts = self._notify(self.ioctxs, oid, pool, {"n": 2000},
+                                    range(1, dead_i),
+                                    timeout=WATCH_TIMEOUT_S)
+        self.out["dead_notify_s"] = time.monotonic() - t0
+        if not ok or timeouts != [f"{dead.objecter.name}/w19.{dead_i}.{oid}"]:
+            raise AssertionError(f"{tag}: the dead watcher's notify: "
+                                 f"timeouts {timeouts}")
+        for i, cl in enumerate(self.clients[1:], 1):
+            for p, o in self.watched:
+                cl.open_ioctx(p).unwatch(o, f"w19.{i}.{o}")
+            cl.shutdown()
+        self.out["moved"] = {"objects": len(moved),
+                             "watches": len(moved) * WATCH_CLIENTS,
+                             "replies": replies, "timed_out": timeouts}
+
+    def trim(self) -> None:
+        """snap_remove("s19"), then the heartbeat tick on a sim clock
+        until every PG's snap index is empty, `df` shows no trimming PG
+        and reppool's store bytes are its logical bytes again.  The
+        replicas' trim acks are held for the first tick, so the trimming
+        state reaches a pg-stat report before the round completes."""
+        from ceph_tpu_torch.common.options import global_config
+        from ceph_tpu_torch.msg.messages import SnapTrimReply
+        from ceph_tpu_torch.osd.snap_mapper import SnapMapper
+
+        tag = "phase 19 (f)"
+        if global_config()["osd_snap_trim_sleep"] != 0:
+            raise AssertionError(f"{tag}: osd_snap_trim_sleep is not 0")
+        c, io, pid = self.c, self.rep.io, self.rep.pid
+
+        def index() -> int:
+            n = 0
+            for d in list(c.osds.values()):
+                with d._lock:
+                    for pg, st in d.pgs.items():
+                        if pg.pool == pid:
+                            n += len(SnapMapper(d.store, st.shard.cid).dump())
+            return n
+
+        def df() -> dict:
+            return c.mon.handle_command({"prefix": "df"})[2]["pools"].get(
+                "reppool", {})
+        entries = index()
+        clock = SimClock(c, max(c._sim_now or SCRUB_T0, SCRUB_T0) +
+                         ELASTIC_STEP_S)
+        t0 = time.monotonic()
+        io.snap_remove("s19")
+        c.network.filter = lambda src, dst, msg: \
+            not isinstance(msg, SnapTrimReply)
+        try:
+            clock.step()
+            _wait(c, lambda: df().get("snaptrim_pgs", 0) > 0,
+                  "df shows PGs in snaptrim", tag=tag)
+        finally:
+            c.network.filter = None
+        seen = df()["snaptrim_pgs"]
+        for ticks in range(2, TRIM_MAX_TICKS + 1):
+            clock.step()
+            d = df()
+            if not index() and d["snaptrim_pgs"] == 0 and \
+                    abs(d["store_bytes"] - d["bytes"]) <= 1:
+                break
+        else:
+            raise AssertionError(f"{tag}: trim not done in {TRIM_MAX_TICKS} "
+                                 f"ticks: index {index()}, df {df()}")
+        wall = time.monotonic() - t0
+        for n in self.names + ["rep_late"]:
+            if n != self.gone and io.list_snaps(n)["clones"]:
+                raise AssertionError(f"{tag}: {n} keeps clones after the trim")
+        if _errno(io.read, self.over[0], snapid=self.sid) == "ok":
+            raise AssertionError(f"{tag}: s19 still readable after the trim")
+        self.out["trim"] = {"ticks": ticks, "sim_s": ticks * ELASTIC_STEP_S,
+                            "wall_s": wall, "index_entries": entries,
+                            "snaptrim_pgs_seen": seen, "df": df()}
+        _faults(c, tag)
 
 
 # -- phase 19 (g): elastic pools -- the split, the reseed, the mgr, thrash ---
@@ -3717,24 +4173,36 @@ def cluster_phase(name_power: str, dev) -> dict:
             for i in range(CLUSTER_OBJECTS)}
     c, r, io = _cluster()
     try:
+        from ceph_tpu_torch.osd.types import PG
+
         serve = ServeLeg(io)
         rep = RepLeg(c, r, objs)
 
         def healthy():
             scrub = scrub_leg(c, r, objs)
             rep.healthy()           # (f) after (e): (e) scrubs ecpool alone
+            # the victim drive_cluster picks next: the OSD in the most
+            # acting sets of ecpool
+            snap.before_kill(_victim(acting_sets(
+                c.mon.osdmap, r.pool_lookup("ecpool"), CLUSTER_PG_NUM,
+                PG)[1]))
             serve.healthy()
             return scrub
 
         def degraded():
             rep.degraded()
             serve.degraded()
+        snap = SnapLeg(c, r, rep, objs)
         res = drive_cluster(c, r, io, objs, "phase 19", dev,
                             healthy=healthy, degraded=degraded)
         legs = res["legs"]
         scrub, served = res["healthy"], serve.out
+        snap.after_clean()
         rep.verify(res["victim"])
+        if not rep.out["recovery"]["push_in_clone_bytes"]:
+            raise AssertionError("phase 19 (f): the recovery pushed no clone")
         rep.scrub()
+        snap.trim()
         _faults(c)
         # -- every shard on its acting OSD == the plain version's encode ---
         ec_cpu = registry.factory("tpu", {"k": str(K), "m": str(M),
@@ -3878,10 +4346,49 @@ def cluster_phase(name_power: str, dev) -> dict:
               f"pg_scrub(repair={sc['repair']}) {sc['result']} in "
               f"{sc['wall_s']:.3f} s" for sc in ro["scrubs"]) +
           f" on {name_power}")
+    so = snap.out
+    print(f"phase 19 (f): pool snap s19 on reppool in "
+          f"{so['snap_create_s']:.3f} s; {SNAP_OVERWRITES} x {REPAIR_OBJECT} B "
+          f"overwritten under it in {so['clone_s']:.3f} s (COW), one removed, "
+          f"one created after: {so['clones']} clone objects on the acting "
+          f"OSDs; every s19 read == its first payload (sha256, "
+          f"{so['s19_read_s']:.3f} s), heads == the new payloads, the removed "
+          f"one ENOENT at head, the late one ENOENT at s19, list_snaps == the "
+          f"clones; snap_rollback of one object (data and xattrs) in "
+          f"{so['rollback_s']:.3f} s on {name_power}")
+    print(f"phase 19 (f): ecpool refuses {sorted(so['refusals'])} with "
+          f"EOPNOTSUPP; cls on reppool: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in so["cls_s"].items()) +
+          f" (an exclusive lock between two clients, refcount get/put, "
+          f"version gating, {CLS_AIO_ADDS} concurrent numops adds, "
+          f"{CLS_LOG_ENTRIES} log entries added, listed by marker and "
+          f"trimmed; every replica's omap equal) on {name_power}")
+    nt, mv = so["notify"], so["moved"]
+    print(f"phase 19 (f): {WATCH_CLIENTS} watcher clients, {nt['watches']} "
+          f"watches on 2 ecpool and 2 reppool objects; {WATCH_NOTIFIES} "
+          f"notifies, every reply collected: p50 {nt['p50_ms']:.3f} ms, p99 "
+          f"{nt['p99_ms']:.3f} ms on the host clock on {name_power}")
+    print(f"phase 19 (f): after the kill, out and clean: {mv['watches']} "
+          f"watches on {mv['objects']} objects whose primary moved "
+          f"re-registered in {so['relinger_s']:.3f} s and a notify round got "
+          f"all {mv['replies']} replies; a dead watcher timed out "
+          f"({mv['timed_out']}, {WATCH_TIMEOUT_S} s timeout, "
+          f"{so['dead_notify_s']:.3f} s); every s19 read == its first payload "
+          f"again ({so['clones_after']} clone objects on the acting OSDs); "
+          f"clone bytes pushed {ro['recovery']['push_in_clone_bytes']} on "
+          f"{name_power}")
+    tr = so["trim"]
+    print(f"phase 19 (f): snap_remove(s19): {tr['index_entries']} snap index "
+          f"entries trimmed in {tr['ticks']} ticks ({tr['sim_s']:.0f} sim s, "
+          f"{tr['wall_s']:.3f} s on the host clock, osd_snap_trim_sleep 0); "
+          f"df snaptrim_pgs {tr['snaptrim_pgs_seen']} along the way, then "
+          f"{tr['df']['snaptrim_pgs']}; reppool store_bytes "
+          f"{tr['df']['store_bytes']} vs bytes {tr['df']['bytes']} on "
+          f"{name_power}")
     return {"legs": legs, "recover_s": recover_s, "rebuilt": rebuilt,
             "ratio": read / rebuilt, "messages": messages,
             "compiles": compiles, "serve": served, "scrub": scrub,
-            "replicated": ro, "clean_s": res["clean_s"],
+            "replicated": ro, "snapshots": so, "clean_s": res["clean_s"],
             "fabric_stats": stats, "elastic": elastic, "phase_s": wall}
 
 
@@ -4597,6 +5104,40 @@ def errcheck_report(errdir: Path) -> dict:
             "csum_fired": fired[key], "by_module": by_module}
 
 
+def snap_tool_leg(path: Path, snapped: dict, snap: int) -> dict:
+    """`objectstore_tool --op list-snaps` and `--op dump-snap-index` on a
+    stopped OSD's dir, for each of its reppool PGs: exactly the one clone
+    of pool snap `snap` and its index entry.  The tool's CLI runs in this
+    process (a process per call would cost seconds of imports each)."""
+    from ceph_tpu_torch.tools import objectstore_tool
+
+    def tool(op: str, pg) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = objectstore_tool.main(["--data-path", str(path), "--op", op,
+                                        "--pgid", f"{pg.pool}.{pg.ps:x}"])
+        if rc != 0:
+            raise AssertionError(f"phase 21: objectstore_tool --op {op} "
+                                 f"--pgid {pg} gave rc {rc}")
+        return buf.getvalue()
+    t0 = time.monotonic()
+    for pg, name in snapped.items():
+        snaps = [json.loads(line) for line in
+                 tool("list-snaps", pg).splitlines()]
+        want = [{"oid": name, "snap_seq": snap, "whiteout": False,
+                 "clones": {str(snap): {"covers": [snap], "present": True}}}]
+        index = json.loads(tool("dump-snap-index", pg))
+        want_index = {"pgid": str(pg), "purged_snaps": [], "index": [
+            {"snap": snap, "clone": snap, "oid": name, "covers": [snap]}]}
+        if snaps != want or index != want_index:
+            raise AssertionError(f"phase 21: pg {pg} on {path.name}: "
+                                 f"list-snaps {snaps}, dump-snap-index "
+                                 f"{index}")
+    if not snapped:
+        raise AssertionError(f"phase 21: {path.name} holds no reppool PG")
+    return {"pgs": len(snapped), "wall_s": time.monotonic() - t0}
+
+
 def durable_phase(name_power: str, work: Path) -> dict:
     """Phase 21: a mon (on a LogDB) and 16 OSD processes (on BlueStore),
     each with --data-dir on this machine's disk, through SIGKILLs and
@@ -4797,6 +5338,16 @@ def durable_phase(name_power: str, work: Path) -> dict:
             raise AssertionError("phase 21: no seeded object has a data "
                                  "shard off its primary and the victim")
         rot, rname = acting[shard], f"osd.{acting[shard]}"
+        # a pool snap on reppool, then the object of each of the OSD's
+        # reppool PGs overwritten: one clone per PG on its dir
+        t0 = time.monotonic()
+        rio.snap_create("s21")
+        s21 = rio.snap_lookup("s21")
+        snapped = {PG(rpid, ps): name for ps, name in sorted(pre.items())
+                   if rot in m.pg_to_up_acting_osds(PG(rpid, ps))[2]}
+        for name in snapped.values():
+            rio.write_full(name, name.encode() + b" after s21")
+        res["snap21_s"] = time.monotonic() - t0
         ds.terminate(rname)
         rc, outs, _ = r.mon_command({"prefix": "osd down", "ids": [rot]})
         if rc != 0:
@@ -4825,6 +5376,7 @@ def durable_phase(name_power: str, work: Path) -> dict:
                                  f"{fsck.returncode}\n{fsck.stdout}"
                                  f"{fsck.stderr[-2000:]}")
         res["fsck"] = lines[0]
+        res["snap_tool"] = snap_tool_leg(data / rname, snapped, s21)
         # errcheck armed in this restarted OSD's process alone: its
         # fired handlers are dumped to errdir when it stops
         errdir = work / "errcheck"
@@ -4982,6 +5534,12 @@ def durable_phase(name_power: str, work: Path) -> dict:
           f"fsck: {res['fsck']}; restarted: read == payload through a K1 "
           f"decode ({k1['degraded_decode']} launches) at "
           f"{res['degraded']['MBps']:.1f} MB/s")
+    st = res["snap_tool"]
+    print(f"phase 21: pool snap s21 on reppool and the object of each of "
+          f"{rname}'s {st['pgs']} reppool PGs overwritten in "
+          f"{res['snap21_s']:.3f} s before its clean stop; on its dir "
+          f"objectstore_tool --op list-snaps and --op dump-snap-index list "
+          f"exactly those clones and index entries ({st['wall_s']:.3f} s)")
     print(f"phase 21: over TCP, pg {pg} (primary osd.{primary}): " +
           "; ".join(f"pg_scrub(repair={sc['repair']}) {sc['result']} in "
                     f"{sc['wall_s']:.3f} s" for sc in res["scrubs"]) +

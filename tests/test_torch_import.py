@@ -125,7 +125,12 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.mgr", "ceph_tpu_torch.mgr.daemon",
                  "ceph_tpu_torch.mgr.pg_autoscaler",
                  "ceph_tpu_torch.mgr.progress",
-                 "ceph_tpu_torch.testing.thrasher"):
+                 "ceph_tpu_torch.testing.thrasher",
+                 # object classes
+                 "ceph_tpu_torch.cls", "ceph_tpu_torch.cls.lock",
+                 "ceph_tpu_torch.cls.refcount", "ceph_tpu_torch.cls.version",
+                 "ceph_tpu_torch.cls.log", "ceph_tpu_torch.cls.numops",
+                 "ceph_tpu_torch.cls.queue"):
         assert name in out["modules"], name
 
 
@@ -186,3 +191,43 @@ def test_fault_plane_quorum_and_crash_modules_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"leaked": [], "quorum": [0, 1, 2]}
+
+
+CLS_PROBE = textwrap.dedent("""
+    import json, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    from ceph_tpu_torch.cls import ClsError, class_handler
+    methods = {}
+    for name in ("lock", "refcount", "version", "log", "numops", "queue"):
+        class_handler._load(name)
+    for cls, method in sorted(class_handler._methods):
+        methods.setdefault(cls, []).append(method)
+    try:
+        class_handler.resolve("rgw", "bucket_list")
+        rgw = "resolved"
+    except ClsError as e:
+        rgw = e.errno_name
+    leaked = sorted(n for n in sys.modules
+                    if n == "ceph_tpu" or n.startswith("ceph_tpu."))
+    print(json.dumps({"methods": methods, "rgw": rgw, "leaked": leaked}))
+""")
+
+
+def test_cls_classes_load_without_jax_or_reference():
+    """Every object class the port carries loads with jax blocked and
+    registers the reference's methods; `rgw` is refused."""
+    import json
+
+    from ceph_tpu import cls as ref_cls
+    proc = subprocess.run([sys.executable, "-c", CLS_PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == [] and out["rgw"] == "EOPNOTSUPP"
+    for name in out["methods"]:
+        ref_cls.class_handler._load(name)
+    want = {}
+    for cls, method in sorted(ref_cls.class_handler._methods):
+        if cls != "rgw":
+            want.setdefault(cls, []).append(method)
+    assert out["methods"] == want

@@ -9,14 +9,16 @@ with one bitrotted blob), `export` (whose blobs are equal byte for
 byte) and, on copies of the directory, `import` and `remove` (after
 which the copies' files are equal); and the mon tool's `dump`,
 `show-versions`, `get`, `get-osdmap` and `rebuild` (whose output
-directories are equal).  The snap verbs the port does not carry yet are
-refused in one line.  Then the reference's PG-rescue flow
+directories are equal); and the snap verbs `list-snaps` and
+`dump-snap-index` on a stopped directory with a clone that either
+package wrote.  Then the reference's PG-rescue flow
 (tests/test_offline_tools.py::test_pg_export_import_rescues_killed_osd)
 runs on an EC pool: every PG of a killed OSD is exported from its store
 into a fresh one, the OSD is revived on it and peers from the imported
 history, and every object reads back with that OSD's shards needed.
 """
 import hashlib
+import json
 import os
 import shutil
 
@@ -189,14 +191,63 @@ def test_fsck_reports_the_bitrotted_blob(dirs, tmp_path, capsys):
     assert lines[0].startswith(f"{cid}/{victim}: csum mismatch in blob ")
 
 
+def snap_dir(path, writer: str):
+    """A stopped BlueStore dir with clones, as
+    tests/test_offline_tools.py::test_objectstore_tool_snap_index_ops
+    makes it: one head, a COW write that keeps clone 7 covering snaps
+    {6, 7}, and snap 3 purged; written by either package's shard."""
+    if writer == "ref":
+        from ceph_tpu import store as st_mod
+        from ceph_tpu.osd import mutations as mut
+        from ceph_tpu.osd.pg_types import EVersion, MODIFY, PGLogEntry
+        from ceph_tpu.osd.replicated_backend import ReplicatedPGShard
+        from ceph_tpu.osd.types import PG as PGT
+    else:
+        from ceph_tpu_torch import store as st_mod
+        from ceph_tpu_torch.osd import mutations as mut
+        from ceph_tpu_torch.osd.pg_types import EVersion, MODIFY, PGLogEntry
+        from ceph_tpu_torch.osd.replicated_backend import ReplicatedPGShard
+        PGT = PG
+    st = st_mod.BlueStore(str(path))
+    st.mkfs()
+    st.mount()
+    shard = ReplicatedPGShard(PGT(5, 0x1), st)
+    shard.apply_write("snappy", 0, b"v1" * 50, False, EVersion(2, 1),
+                      [PGLogEntry(MODIFY, "snappy", EVersion(2, 1))])
+    shard.apply_mutations(
+        "snappy", [(mut.M_WRITEFULL, b"v2" * 50)],
+        EVersion(2, 2), [PGLogEntry(MODIFY, "snappy", EVersion(2, 2))],
+        clone_snap=7, clone_covers=[6, 7], snap_seq=7)
+    shard.apply_write("plain", 0, b"p" * 10, False, EVersion(2, 3),
+                      [PGLogEntry(MODIFY, "plain", EVersion(2, 3))])
+    shard.mark_purged(3)
+    st.umount()
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
 @pytest.mark.parametrize("op", ["list-snaps", "dump-snap-index"])
-def test_snap_verbs_refused_in_one_line(dirs, op):
-    with pytest.raises(SystemExit) as ei:
-        port_os_tool.main(["--data-path", str(dirs / "osd0"), "--op", op,
-                           "--pgid", "1.0"])
-    msg = str(ei.value.code)
-    assert f"--op {op}" in msg and "not ported yet" in msg and \
-        "\n" not in msg
+def test_snap_verbs_text_equals_reference(tmp_path, capsys, writer, op):
+    """Each snap verb prints the reference tool's text on one stopped
+    BlueStore dir with a clone, and leaves the dir as it was; a PG the
+    store lacks fails in both."""
+    path = tmp_path / "osd2"
+    snap_dir(path, writer)
+    before = tree(path)
+    data = ["--data-path", str(path), "--op", op]
+    rc, out, _ = both(capsys, "os", data + ["--pgid", "5.1"])
+    assert rc == 0 and tree(path) == before
+    if op == "list-snaps":
+        ents = [json.loads(line) for line in out.splitlines()]
+        assert [e["oid"] for e in ents] == ["snappy"]
+        assert ents[0]["clones"] == {"7": {"covers": [6, 7],
+                                           "present": True}}
+    else:
+        dump = json.loads(out)
+        assert {(e["snap"], e["clone"]) for e in dump["index"]} == \
+            {(6, 7), (7, 7)}
+        assert dump["purged_snaps"] == [[3, 3]]
+    rc, out, err = both(capsys, "os", data + ["--pgid", "5.2"])
+    assert rc == 1 and out == "" and "ENOENT" in err
 
 
 def test_monstore_tool_text_equals_reference(dirs, tmp_path, capsys):

@@ -21,6 +21,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -153,9 +154,30 @@ def test_verbs_left_out_are_refused(argv):
     assert ei.value.code == 2
 
 
+def wait_pool_clean(c, r, pool, timeout=60.0):
+    """Until every PG of `pool` has a primary whose peering is clean: a
+    write to a PG still peering is answered ESTALE and sent again, which
+    puts a second root in its trace."""
+    pid = r.pool_lookup(pool)
+    pg_num = r.objecter.osdmap.pools[pid].pg_num
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        prim = [st for d in list(c.osds.values())
+                for pg, st in list(d.pgs.items())
+                if pg.pool == pid and st.backend is not None]
+        if len(prim) == pg_num and all(
+                st.peering is not None and st.peering.phase == "clean"
+                and not st.recovering for st in prim):
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"pool {pool} never clean")
+
+
 def traced_write(c, r, cfg, pool, oid, data, asok):
     """Admin sockets on every daemon under `asok`, then one traced
-    write; returns the client's root span's trace id."""
+    write once the pool is clean; returns the client's root span's
+    trace id."""
+    wait_pool_clean(c, r, pool)
     for osd, d in c.osds.items():
         d.start_admin_socket(str(asok / f"osd{osd}.asok"))
     c.mon.start_admin_socket(str(asok / "mon0.asok"))

@@ -79,11 +79,14 @@ PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
                 "mgr_crash_warn_recent_interval",
                 # the error-path coverage sanitizer, telemetry's upload
                 # target and the insights window
-                "errcheck", "mgr_telemetry_url", "mgr_insights_window"}
+                "errcheck", "mgr_telemetry_url", "mgr_insights_window",
+                # the snap trimmer's
+                "osd_max_trimming_pgs", "osd_pg_max_concurrent_snap_trims",
+                "osd_snap_trim_sleep"}
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads 36 options; each is the reference's entry: the
+    """The port reads 39 options; each is the reference's entry: the
     same type, level, default, text, bounds, see-also and runtime
     flag."""
     assert set(options.OPTIONS) == PORT_OPTIONS
@@ -550,3 +553,24 @@ def test_decode_table_cache_unlocked_access_trips(clean_reports):
     c = Leaky(capacity=8)
     c.put("a", object())
     assert isinstance(_in_thread(c.drop), RaceError)
+
+
+def test_config_observers_like_the_reference():
+    """An observer hears each change of its option (the snap trimmer's
+    pacing follows `osd_snap_trim_sleep` this way), as the reference's;
+    a set to the same value calls no observer."""
+    cfg, ref = options.Config(), ref_options.Config()
+    heard = {"port": [], "ref": []}
+    cfg.observe("osd_snap_trim_sleep",
+                lambda k, v: heard["port"].append((k, v)))
+    ref.observe("osd_snap_trim_sleep",
+                lambda k, v: heard["ref"].append((k, v)))
+    for c in (cfg, ref):
+        c.set("osd_snap_trim_sleep", "0.5")
+        c.set("osd_snap_trim_sleep", 0.5)          # no change: no call
+        c.set("osd_snap_trim_sleep", 0)
+        c.set("osd_pg_max_concurrent_snap_trims", "4")
+    assert heard["port"] == heard["ref"] == [
+        ("osd_snap_trim_sleep", 0.5), ("osd_snap_trim_sleep", 0.0)]
+    with pytest.raises(KeyError):
+        cfg.observe("no_such_option", lambda k, v: None)

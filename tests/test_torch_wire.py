@@ -88,7 +88,9 @@ def test_port_registers_the_data_plane_structs():
         "MMonElection", "MMonLease", "MMonLeaseAck", "MMonForward",
         "MPaxosSyncReq",
         # centralized config and the cluster log
-        "MConfig", "MLog", "MLogAck"}
+        "MConfig", "MLog", "MLogAck",
+        # the snap trimmer and watch/notify
+        "SnapTrim", "SnapTrimReply", "SnapTrimPurged", "MWatchNotify"}
     ref_schema = ref_wire.registered_schema()
     for name, schema in wire.registered_schema().items():
         assert schema == ref_schema[name], name
