@@ -15,7 +15,11 @@ or a reset, the rescan of
 parked ops, op timeouts, mon commands, cephx (the MAuthRequest
 handshake, message signing and ticket renewal) and the linger of
 watch/notify (a watch registers again when its object's primary moves
-or resets).
+or resets).  One thing is the port's own: the objecter keeps the raw
+CRUSH result of each placement seed while its pool's CRUSH inputs stay
+the same (`_pg_mapping`, the daemon's cache), where the reference maps
+every op's PG and every watched object again with the scalar CRUSH;
+the targets are the same.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from ..msg.messages import (MAuthReply, MGR_UNAVAILABLE_EAGAIN, MMap,
                             MWatchNotify, OSDOp, OSDOpReply)
 from ..msg.mon_client import MonHunter
 from ..msg.messenger import Dispatcher, LocalNetwork, Message, Messenger
-from ..osd.osdmap import OSDMap
+from ..osd.osdmap import OSDMap, RawCrushCache
 from ..osd.types import PG
 
 _client_ids = itertools.count(4100)
@@ -109,6 +113,8 @@ class Objecter(Dispatcher, MonHunter):
             self._cephx = CephxClient(self.name, auth_secret)
         self._init_mons(mon)
         self.osdmap = OSDMap()
+        # raw CRUSH results by (pool, pps) (see _pg_mapping)
+        self._raw = RawCrushCache()
         self._map_ev = threading.Event()
         self._lock = make_lock(f"objecter.{self.name}")
         self._tid = itertools.count(1)
@@ -315,9 +321,20 @@ class Objecter(Dispatcher, MonHunter):
             return
         pool = self.osdmap.pools[op.pool]
         op.pg = pool.raw_pg_to_pg(raw)
-        _, _, _, acting_primary = self.osdmap.pg_to_up_acting_osds(raw)
+        _, _, _, acting_primary = self._pg_mapping(raw)
         op.target_osd = acting_primary if acting_primary >= 0 and \
             self.osdmap.is_up(acting_primary) else -1
+
+    def _pg_mapping(self, pg: PG) -> tuple[list[int], int, list[int], int]:
+        """`self.osdmap.pg_to_up_acting_osds(pg)` (lock held), keeping
+        the raw CRUSH result of each placement seed while its pool's
+        CRUSH inputs stay the same, as the OSD daemon's `_pg_mapping`
+        does (`RawCrushCache`): the scalar CRUSH is most of a small op's
+        host time, and every watched object is mapped again on each
+        epoch."""
+        m = self.osdmap
+        return m.pg_to_up_acting_osds(
+            pg, raw_cache=self._raw.for_pool(m, pg.pool))
 
     # -------------------------------------------------------- op submit
     def submit(self, pool: int, oid: str, op: str, offset: int = 0,
@@ -487,7 +504,7 @@ class Objecter(Dispatcher, MonHunter):
             try:
                 raw = self.osdmap.object_locator_to_pg(w["oid"],
                                                        w["pool"])
-                _, _, _, primary = self.osdmap.pg_to_up_acting_osds(raw)
+                _, _, _, primary = self._pg_mapping(raw)
             except KeyError:
                 continue
             if primary < 0 or not self.osdmap.is_up(primary):

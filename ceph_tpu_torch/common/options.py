@@ -23,6 +23,8 @@ configures both packages:
   `osd_op_history_size`) and `blkin_trace_all`;
 * the snap trimmer's (`osd_max_trimming_pgs`,
   `osd_pg_max_concurrent_snap_trims`, `osd_snap_trim_sleep`);
+* librbd's object cache (`rbd_cache`, `rbd_cache_size`,
+  `rbd_cache_max_dirty`);
 * the scrub scheduler's (`osd_scrub_auto`, `osd_scrub_min_interval`,
   `osd_deep_scrub_interval`, `osd_max_scrubs`,
   `osd_scrub_auto_repair`);
@@ -221,6 +223,12 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
     Option("osd_snap_trim_sleep", T.SECS, L.ADVANCED, 0.0,
            "seconds between clone trims (throttles trim against "
            "client IO; 0 = unthrottled)", runtime=True),
+    # librbd's object cache (ref: options.cc rbd_cache*)
+    Option("rbd_cache", T.BOOL, L.ADVANCED, True,
+           "librbd write-back object cache (flushed on lock "
+           "release, snap create, close)"),
+    Option("rbd_cache_size", T.SIZE, L.ADVANCED, 32 << 20),
+    Option("rbd_cache_max_dirty", T.SIZE, L.ADVANCED, 8 << 20),
     Option("osd_op_complaint_time", T.SECS, L.ADVANCED, 30.0,
            "in-flight op age that counts as slow: feeds each "
            "daemon's dump_blocked_ops and the cluster SLOW_OPS "

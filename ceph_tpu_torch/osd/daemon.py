@@ -35,14 +35,14 @@ entries and snap index move to the child collections in one transaction
 per parent), and a later pgp_num growth reseeds placement, which the
 peering statecharts chase from the prior interval's holders.  One thing
 is the port's own: the daemon keeps each placement seed's raw CRUSH
-result across epochs that leave the CRUSH inputs alone (`_pg_mapping`),
-where the reference maps every PG again on every epoch; the mappings
-are the same.  The cluster-log client (`clog`, flushed on every
-heartbeat tick and trimmed by the mon's MLogAck) carries the scrub
-result lines to the mon; the daemon subscribes to its centralized
-config at boot and on a mon hunt, and applies each MConfig view,
-reverting a name that left the view to its default; the pg-stat report
-carries the store's media error counters (`bluestore_csum_errors`,
+result across epochs that leave its pool's CRUSH inputs alone
+(`_pg_mapping`), where the reference maps every PG again on every epoch;
+the mappings are the same.  The cluster-log client (`clog`, flushed on
+every heartbeat tick and trimmed by the mon's MLogAck) carries the scrub
+result lines to the mon; the daemon subscribes to its centralized config
+at boot and on a mon hunt, and applies each MConfig view, reverting a
+name that left the view to its default; the pg-stat report carries the
+store's media error counters (`bluestore_csum_errors`,
 `bluestore_read_errors`) for the mgr's devicehealth module.  On a
 replicated pool the daemon also runs the snap trimmer (the SnapTrimmer
 statechart on the heartbeat tick: `osd_max_trimming_pgs` reservations,
@@ -123,7 +123,7 @@ from .ec_backend import (ECBackend, ECPGShard, ec_store_inventory,
 from .ec_peering import ECPGPeering, ECRollbacker
 from .mutations import MutationError
 from .op_queue import MClockQueue
-from .osdmap import CEPH_OSD_EXISTS, OSDMap
+from .osdmap import OSDMap, RawCrushCache
 from .peering import (CLEAN, GETINFO, GETLOG, GETMISSING, PGPeering,
                       StoreRollbacker, _ev)
 from .pg_log import IndexedLog, LogEntryHandler
@@ -251,10 +251,8 @@ class OSDDaemon(Dispatcher, MonHunter):
         self._acting_hist: dict[PG, list[int]] = {}
         self._acting_hist_pgnum: dict[int, int] = {}
         self._pool_pg_num: dict[int, int] = {}   # split detection
-        # raw CRUSH results by (pool, pps) and the inputs they hold for
-        # (see _pg_mapping)
-        self._raw_cache: dict = {}
-        self._raw_inputs: tuple = ()
+        # raw CRUSH results by (pool, pps) (see _pg_mapping)
+        self._raw = RawCrushCache()
         self._ecs: dict[str, object] = {}     # profile name -> plugin
         # shared across backend rebuilds: stale sub-replies must never
         # alias a new op's tid
@@ -908,20 +906,15 @@ class OSDDaemon(Dispatcher, MonHunter):
     def _pg_mapping(self, pg: PG) -> tuple[list[int], int, list[int], int]:
         """`self.osdmap.pg_to_up_acting_osds(pg)`, keeping the raw CRUSH
         result of each placement seed across epochs that leave the CRUSH
-        inputs alone.  A pgp_num reseed, a balancer round or a thrash
-        brings a burst of pg_temp, upmap and up/down epochs, on each of
-        which every PG of the map is mapped again, and the scalar CRUSH
-        is nearly all of that cost.  `OSDMap.ingest` changes the weights
-        and states in place, so the inputs are copied and compared by
-        value: the CRUSH map, the pools, the OSD weights and which OSDs
-        exist."""
+        inputs alone (`RawCrushCache`: the CRUSH map, the OSD weights,
+        which OSDs exist, and the pool's rule, type and size).  A pgp_num
+        reseed, a balancer round or a thrash brings a burst of pg_temp,
+        upmap and up/down epochs, and a snapshot or a pool created or
+        deleted one more epoch, on each of which every PG of the map is
+        mapped again; the scalar CRUSH is nearly all of that cost."""
         m = self.osdmap
-        inputs = (m.crush, tuple(m.pools.items()), tuple(m.osd_weight),
-                  tuple(s & CEPH_OSD_EXISTS for s in m.osd_state))
-        if inputs != self._raw_inputs:
-            self._raw_inputs = inputs
-            self._raw_cache = {}
-        return m.pg_to_up_acting_osds(pg, raw_cache=self._raw_cache)
+        return m.pg_to_up_acting_osds(
+            pg, raw_cache=self._raw.for_pool(m, pg.pool))
 
     def _prior_acting_for(self, pg: PG) -> list[int]:
         """The previous interval's acting set for `pg` from the

@@ -472,6 +472,46 @@ class OSDMap:
         self.epoch = 1
 
 
+class RawCrushCache:
+    """Raw CRUSH results of `OSDMap._pg_to_raw_osds`, kept per pool
+    while the inputs that made them stay the same: the CRUSH map, the
+    OSDs' weights and existence, and the pool's rule, type and size
+    (the placement seed in the key already holds the pool id, pgp_num
+    and the hashpspool flag).  So a change to one pool (a snapshot, its
+    pg_num) or a pool created or deleted keeps every other pool's
+    results.  `for_pool(m, pool_id)` is the `raw_cache` to hand
+    `m.pg_to_up_acting_osds`; the map-wide inputs are read again only
+    when the map object or its epoch changes (`ingest` replaces the
+    object or applies an incremental, which moves the epoch)."""
+
+    def __init__(self):
+        self._seen: tuple = ()
+        self._inputs: tuple = ()
+        self._pools: dict[int, tuple] = {}    # pool id -> (key, results)
+
+    def __len__(self) -> int:
+        """Cached results over every pool."""
+        return sum(len(res) for _key, res in self._pools.values())
+
+    def for_pool(self, m: OSDMap, pool_id: int) -> dict:
+        if self._seen != (id(m), m.epoch):
+            self._seen = (id(m), m.epoch)
+            # the weights and states change in place (OSDMap.ingest):
+            # copied, and compared by value
+            inputs = (m.crush, tuple(m.osd_weight),
+                      tuple(st & CEPH_OSD_EXISTS for st in m.osd_state))
+            if inputs != self._inputs:
+                self._inputs = inputs
+                self._pools = {}
+        pool = m.pools.get(pool_id)
+        key = None if pool is None else \
+            (pool.crush_rule, pool.type, pool.size)
+        ent = self._pools.get(pool_id)
+        if ent is None or ent[0] != key:
+            ent = self._pools[pool_id] = (key, {})
+        return ent[1]
+
+
 # ------------------------------------------------- wire registration
 # OSDMap encodes as a versioned wire struct like the reference's
 # OSDMap::encode (ref: src/osd/OSDMap.cc encode w/ ENCODE_START).

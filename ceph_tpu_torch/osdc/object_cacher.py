@@ -1,9 +1,9 @@
 """ObjectCacher: a write-back object extent cache shared by librbd
 images and CephFS file handles (ref: src/osdc/ObjectCacher.{h,cc} —
 the BufferHead extent cache both libraries mount on top of the
-Objecter).  The port's copy of `ceph_tpu.osdc.object_cacher`; its one
-user in the port is the paged artifact store (serve/store.py), as the
-rbd and cephfs clients are not ported yet.
+Objecter).  The port's copy of `ceph_tpu.osdc.object_cacher`; its users
+in the port are the paged artifact store (serve/store.py) and rbd
+images (rbd/image.py), as the cephfs client is not ported yet.
 
 Model (page-granular BufferHeads):
 

@@ -208,7 +208,27 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    the heartbeat tick on the sim clock (osd_snap_trim_sleep 0; the
    replicas' trim acks dropped for the first tick, so `df` shows the
    trimming PGs) until every PG's snap index is empty, `df` shows no
-   trimming PG and `reppool`'s store bytes equal its bytes.  (g) Elastic pools, after the
+   trimming PG and `reppool`'s store bytes equal its bytes.  Block images
+   on `reppool` (the port's rbd, through the main client and the first
+   watcher client), before the victim dies: vm0 (1 GiB, order 22,
+   rbd_cache on) gets 64 x 4 MiB written in order and 512 seeded 4 KiB
+   writes, reads back equal to the host model and `du` reports 64
+   objects; snapshot `base`, protected, cloned to vm0c, whose 256 seeded
+   4 KiB writes copy up every object they touch; vm0c and vm0@base equal
+   their models; the second client's writes take vm0's exclusive lock
+   by cooperative hand-off and `diff` since base lists exactly their
+   objects; `jvm` (64 MiB, journaling, mirrored) takes 256 writes of
+   4-64 KiB and ImageMirror replays all 256 to `rbdbak` (replicated,
+   pg_num 8, made beside `reppool`), both copies equal to the model; a
+   64 MiB image migrates to `rbdbak` while another client writes 64
+   seeded 4 KiB blocks during `migration_execute`, then commits and
+   reads back equal to the model.  After the recovery: the holder
+   answers a ping on vm0's header and still holds the lock (none broken),
+   vm0, vm0c and vm0@base equal their models, 64 more jvm writes replay,
+   an orderly failback (demote, sync, promote on `rbdbak`), vm0c is
+   flattened, then the images and `rbdbak` are removed; K1 launches in
+   the leg, swallowed rbd and journal errors and broken locks all 0.
+   (g) Elastic pools, after the
    recovery below, with the victim out: the mgr (MgrDaemon on the card)
    with its pg_autoscaler and progress; one autoscale tick with the EC
    pool's bytes splits `ecpool` 32 -> 128 (next_pow2(15 in x 100 / 12);
@@ -279,8 +299,10 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    read against the first), then `mkpool reppool 32` (replicated),
    `bench reppool 2 write -t 16 --no-cleanup`, `bench reppool 2 seq -t
    16`, `ls`, `setxattr` / `getxattr` / `listxattr`, `setomapval` /
-   `listomapvals` and `rmpool`, each output equal to the reference's
-   text; the write bench's client traces its ops (blkin_trace_all), and
+   `listomapvals`, the `rbd_cli` processes `create --size 1G img`,
+   `snap create img@s`, `du img` and `info img` on `reppool`, then
+   `rmpool`, each output equal to the reference's text; the write
+   bench's client traces its ops (blkin_trace_all), and
    `rados_cli trace <id> --asok-dir <dir>` assembles one of its EC
    writes from the 17 admin sockets into one span tree: the primary's
    osd_op with its ec_encode_kernel span (K1) and the 11 ec_sub_write
@@ -2983,6 +3005,8 @@ class RepLeg:
     def create(self) -> None:
         t0 = time.monotonic()
         self.r.pool_create("reppool", pg_num=REP_PG_NUM)
+        # the rbd leg's mirror and migration target
+        self.r.pool_create("rbdbak", pg_num=RBD_BAK_PG_NUM)
         self.pid = self.r.pool_lookup("reppool")
         pool = self.c.mon.osdmap.pools[self.pid]
         if (pool.type, pool.size, pool.min_size) != (1, REP_SIZE,
@@ -2990,7 +3014,7 @@ class RepLeg:
             raise AssertionError(f"phase 19 (f): reppool is type {pool.type} "
                                  f"size {pool.size}/{pool.min_size}")
         _wait(self.c, lambda: _all_clean(self.c, self.r),
-              "reppool's PGs peered", tag="phase 19 (f)")
+              "reppool's and rbdbak's PGs peered", tag="phase 19 (f)")
         self.io = self.r.open_ioctx("reppool")
         self.out["create_s"] = time.monotonic() - t0
 
@@ -3515,13 +3539,17 @@ class SnapLeg:
         if not ok or timeouts != [f"{dead.objecter.name}/w19.{dead_i}.{oid}"]:
             raise AssertionError(f"{tag}: the dead watcher's notify: "
                                  f"timeouts {timeouts}")
+        self.out["moved"] = {"objects": len(moved),
+                             "watches": len(moved) * WATCH_CLIENTS,
+                             "replies": replies, "timed_out": timeouts}
+
+    def close_clients(self) -> None:
+        """Unwatch and shut the live watcher clients down (after the rbd
+        leg, which holds vm0's lock through the second)."""
         for i, cl in enumerate(self.clients[1:], 1):
             for p, o in self.watched:
                 cl.open_ioctx(p).unwatch(o, f"w19.{i}.{o}")
             cl.shutdown()
-        self.out["moved"] = {"objects": len(moved),
-                             "watches": len(moved) * WATCH_CLIENTS,
-                             "replies": replies, "timed_out": timeouts}
 
     def trim(self) -> None:
         """snap_remove("s19"), then the heartbeat tick on a sim clock
@@ -3583,6 +3611,359 @@ class SnapLeg:
                             "wall_s": wall, "index_entries": entries,
                             "snaptrim_pgs_seen": seen, "df": df()}
         _faults(c, tag)
+
+
+# -- phase 19 (f): block images and the journal on reppool -----------------
+
+RBD_IMAGE_B = 1 << 30            # vm0: 1 GiB
+RBD_ORDER = 22                   # 4 MiB objects (rbd_default_order)
+RBD_OBJ = 1 << RBD_ORDER
+RBD_SEQ_OBJECTS = 64             # 64 x 4 MiB written in order: 256 MiB
+RBD_RANDOM_WRITES = 512          # seeded 4 KiB writes inside those 256 MiB,
+                                 # cut from 1,024 (the leg's 20 s, PERF.md 4)
+RBD_CLONE_WRITES = 256           # seeded 4 KiB writes to the clone (copyups)
+RBD_HANDOFF_WRITES = 16          # the second client's 4 KiB writes after base
+RBD_SMALL_B = 64 << 20           # jvm and the migrated image: 64 MiB
+RBD_JOURNAL_WRITES = 256         # jvm's writes of 4-64 KiB before the kill
+RBD_MIRROR_MORE = 64             # and after the recovery
+RBD_MIGRATE_WRITES = 64          # 4 KiB writes while migration_execute runs
+RBD_BAK_PG_NUM = 8               # rbdbak: the mirror's and migration's target
+
+
+def _rbd_counts() -> dict:
+    from ceph_tpu_torch import journal
+    from ceph_tpu_torch.rbd import image
+
+    return {"swallowed": sum(image.SWALLOWED.values()) +
+            sum(journal.SWALLOWED.values()),
+            "locks_broken": image.LOCKS["broken"],
+            "released_on_request": image.LOCKS["released_on_request"]}
+
+
+class RbdLeg:
+    """Phase 19 (f)'s block images on `reppool` (and `rbdbak`, which
+    RepLeg.create makes beside it), through the phase's librados clients:
+    the main one and SnapLeg's second.  `before_kill` runs after
+    SnapLeg.before_kill; `after_clean` after the recovery to clean that
+    `osd out` starts, while SnapLeg's clients still live.  Every read is
+    held to a host model byte for byte."""
+
+    def __init__(self, c, r, rep, snap):
+        self.c, self.r, self.rep, self.snap = c, r, rep, snap
+        self.rng = np.random.default_rng(SEED + 199)
+        self.out: dict = {}
+
+    def _writes(self, n: int, span: int, lo: int = 4096,
+                hi: int = 4096) -> list:
+        """n seeded (offset, bytes): 4 KiB-aligned offsets inside `span`,
+        lengths from lo to hi in 4 KiB steps."""
+        out = []
+        for _ in range(n):
+            length = int(self.rng.integers(lo // 4096, hi // 4096 + 1)) * 4096
+            off = int(self.rng.integers(0, (span - length) // 4096 + 1)) * 4096
+            out.append((off, self.rng.bytes(length)))
+        return out
+
+    @staticmethod
+    def _apply(model: bytearray, writes) -> None:
+        for off, data in writes:
+            model[off:off + len(data)] = data
+
+    def _check(self, img, model, what: str) -> float:
+        """Read the image's first len(model) bytes, 16 objects at a time
+        (an uncached read sends their ops together), and hold each
+        chunk to the model byte for byte; returns the wall."""
+        step = 16 * RBD_OBJ
+        t0 = time.monotonic()
+        for off in range(0, len(model), step):
+            n = min(step, len(model) - off)
+            if img.read(off, n) != model[off:off + n]:
+                raise AssertionError(f"phase 19 (f): {what} differs from "
+                                     f"the model in [{off}, {off + n})")
+        return time.monotonic() - t0
+
+    def _verify(self, ioctx, name: str, model, what: str,
+                snapshot: str | None = None) -> float:
+        """Open `name` (at `snapshot`) with rbd_cache off, so every byte
+        comes from the OSDs, and hold it to `model`."""
+        from ceph_tpu_torch.common.options import global_config
+        from ceph_tpu_torch.rbd import Image
+
+        global_config().set("rbd_cache", False)
+        try:
+            img = Image(ioctx, name, snapshot=snapshot)
+        finally:
+            global_config().set("rbd_cache", True)
+        try:
+            return self._check(img, model, what)
+        finally:
+            img.close()
+
+    # -- before the kill ----------------------------------------------------
+    def before_kill(self) -> None:
+        from ceph_tpu_torch.common.options import global_config
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+        from ceph_tpu_torch.rbd import RBD, Image
+
+        tag, io, out = "phase 19 (f)", self.rep.io, self.out
+        global_config().set("rbd_cache", True)
+        self.counts0 = _rbd_counts()
+        l0 = bm.LAUNCHES["gf_matmul"]
+        t_leg = time.monotonic()
+        # -- vm0: sequential then random writes through the cache ------------
+        span = RBD_SEQ_OBJECTS * RBD_OBJ
+        self.model = bytearray(self.rng.bytes(span))
+        RBD().create(io, "vm0", RBD_IMAGE_B, order=RBD_ORDER)
+        img = Image(io, "vm0")
+        t0 = time.monotonic()
+        for i in range(RBD_SEQ_OBJECTS):
+            img.write(i * RBD_OBJ, bytes(self.model[i * RBD_OBJ:
+                                                    (i + 1) * RBD_OBJ]))
+        img.flush()
+        wall = time.monotonic() - t0
+        out["seq_write"] = {"MBps": span / wall / 1e6, "wall_s": wall}
+        writes = self._writes(RBD_RANDOM_WRITES, span)
+        t0 = time.monotonic()
+        for off, data in writes:
+            img.write(off, data)
+        img.flush()
+        wall = time.monotonic() - t0
+        out["random_write"] = {"per_s": len(writes) / wall, "wall_s": wall}
+        self._apply(self.model, writes)
+        wall = self._check(img, self.model, "vm0's read-back")
+        out["read"] = {"MBps": span / wall / 1e6, "wall_s": wall}
+        used = img.du()
+        if used != span or img.stat()["num_objs"] != RBD_IMAGE_B // RBD_OBJ:
+            raise AssertionError(f"{tag}: vm0 du {used} B, not {span}")
+        out["du_objects"] = used // RBD_OBJ
+        # -- snapshot, protect, clone, copyups --------------------------------
+        t0 = time.monotonic()
+        img.snap_create("base")
+        img.snap_protect("base")
+        RBD().clone(io, "vm0", "base", io, "vm0c")
+        out["snap_clone_s"] = time.monotonic() - t0
+        self.base = bytes(self.model)
+        self.child = bytearray(self.base)
+        child = Image(io, "vm0c")
+        writes = self._writes(RBD_CLONE_WRITES, span)
+        t0 = time.monotonic()
+        for off, data in writes:
+            child.write(off, data)
+        child.flush()
+        wall = time.monotonic() - t0
+        copyups = len(child.object_map.existing())
+        out["copyup"] = {"objects": copyups, "wall_s": wall,
+                         "writes": len(writes)}
+        if copyups != len({off // RBD_OBJ for off, _ in writes}):
+            raise AssertionError(f"{tag}: {copyups} objects copied up")
+        self._apply(self.child, writes)
+        child.close()
+        out["child_read_s"] = self._verify(io, "vm0c", self.child, "vm0c")
+        out["base_read_s"] = self._verify(io, "vm0", self.base, "vm0@base",
+                                          snapshot="base")
+        # -- the exclusive lock: the second client's writes hand it over ------
+        other = self.snap.clients[1].open_ioctx("reppool")
+        self.holder = Image(other, "vm0")
+        writes = self._writes(RBD_HANDOFF_WRITES, span)
+        t0 = time.monotonic()
+        self.holder.write(*writes[0])
+        out["handoff_s"] = time.monotonic() - t0
+        for w in writes[1:]:
+            self.holder.write(*w)
+        if img.lock_owner or not self.holder.lock_owner:
+            raise AssertionError(f"{tag}: the lock was not handed over")
+        self._apply(self.model, writes)
+        diff = self.holder.diff_since("base")
+        want = sorted({off // RBD_OBJ for off, _ in writes})
+        if [d["objectno"] for d in diff] != want:
+            raise AssertionError(f"{tag}: diff since base "
+                                 f"{[d['objectno'] for d in diff]}, not {want}")
+        out["diff_objects"] = len(diff)
+        img.close()
+        # -- the journaled, mirrored image ------------------------------------
+        self.bak = self.r.open_ioctx("rbdbak")
+        self.jmodel = bytearray(RBD_SMALL_B)
+        RBD().create(io, "jvm", RBD_SMALL_B, order=RBD_ORDER, journaling=True)
+        from ceph_tpu_torch.rbd.mirror import ImageMirror, mirror_enable
+
+        mirror_enable(io, "jvm")
+        writes = self._writes(RBD_JOURNAL_WRITES, RBD_SMALL_B, 4096,
+                              64 << 10)
+        jvm = Image(io, "jvm")
+        t0 = time.monotonic()
+        for off, data in writes:
+            jvm.write(off, data)
+        jvm.close()
+        out["journal_write_s"] = time.monotonic() - t0
+        self._apply(self.jmodel, writes)
+        self.mirror = ImageMirror(io, self.bak, "jvm")
+        out["mirror"] = [self._sync(len(writes))]
+        # -- migration with writes during execute -----------------------------
+        out["migration"] = self.migrate()
+        out["launches"] = bm.LAUNCHES["gf_matmul"] - l0
+        out["before_s"] = time.monotonic() - t_leg
+        self._counts(tag)
+
+    def _sync(self, want: int) -> dict:
+        t0 = time.monotonic()
+        applied = self.mirror.sync()
+        wall = time.monotonic() - t0
+        if applied != want:
+            raise AssertionError(f"phase 19 (f): the mirror sync applied "
+                                 f"{applied} entries, not {want}")
+        for ioctx, what in ((self.rep.io, "jvm"), (self.bak, "jvm on rbdbak")):
+            self._verify(ioctx, "jvm", self.jmodel, what)
+        return {"entries": applied, "wall_s": wall}
+
+    def migrate(self) -> dict:
+        import threading
+
+        from ceph_tpu_torch.rbd import RBD, Image
+
+        tag, io = "phase 19 (f)", self.rep.io
+        model = bytearray(self.rng.bytes(RBD_SMALL_B))
+        RBD().create(io, "mig", RBD_SMALL_B, order=RBD_ORDER)
+        img = Image(io, "mig")
+        for off in range(0, RBD_SMALL_B, RBD_OBJ):
+            img.write(off, bytes(model[off:off + RBD_OBJ]))
+        img.close()
+        writes = self._writes(RBD_MIGRATE_WRITES, RBD_SMALL_B)
+        t0 = time.monotonic()
+        RBD().migration_prepare(io, "mig", self.bak, "mig")
+        writer = Image(self.snap.clients[1].open_ioctx("rbdbak"), "mig")
+        errors: list = []
+
+        def write_all():
+            try:
+                for off, data in writes:
+                    writer.write(off, data)
+                writer.flush()
+            except Exception as e:      # reported below: the leg fails
+                errors.append(repr(e))
+        th = threading.Thread(target=write_all)
+        th.start()
+        t1 = time.monotonic()
+        RBD().migration_execute(self.bak, "mig")
+        execute_s = time.monotonic() - t1
+        th.join()
+        writer.close()
+        if errors:
+            raise AssertionError(f"{tag}: writes during the migration: "
+                                 f"{errors[0]}")
+        RBD().migration_commit(self.bak, "mig")
+        wall = time.monotonic() - t0
+        self._apply(model, writes)
+        dst = Image(self.bak, "mig")
+        parent = dst.parent
+        dst.close()
+        if parent is not None:
+            raise AssertionError(f"{tag}: the migrated image has a parent")
+        self._verify(self.bak, "mig", model, "the migrated image")
+        if "mig" in RBD().list(io):
+            raise AssertionError(f"{tag}: the migration source is listed")
+        return {"wall_s": wall, "execute_s": execute_s,
+                "writes": len(writes)}
+
+    def _counts(self, tag: str) -> None:
+        got = _rbd_counts()
+        if got["swallowed"] != self.counts0["swallowed"] or \
+                got["locks_broken"] != self.counts0["locks_broken"]:
+            raise AssertionError(f"{tag}: rbd counts {self.counts0} -> {got}")
+
+    # -- after the recovery to clean -----------------------------------------
+    def after_clean(self) -> None:
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+        from ceph_tpu_torch.rbd import RBD, Image
+        from ceph_tpu_torch.rbd.image import RBD_LOCK_NAME, header_name
+        from ceph_tpu_torch.rbd.mirror import demote, mirror_state, promote
+
+        tag, io, out = "phase 19 (f)", self.rep.io, self.out
+        l0 = bm.LAUNCHES["gf_matmul"]
+        t_leg = time.monotonic()
+        # the holder still holds the lock and still answers on the header
+        hdr = header_name("vm0")
+        key = f"{self.snap.clients[1].objecter.name}/"
+        t0 = time.monotonic()
+        end = t0 + CLUSTER_TIMEOUT_S
+        while True:
+            replies, _ = io.notify(hdr, payload={"op": "ping"}, timeout=2.0)
+            if [v for k, v in replies.items() if k.startswith(key)] == \
+                    [{"owner": True}]:
+                break
+            if time.monotonic() > end:
+                raise AssertionError(f"{tag}: the lock holder's header watch "
+                                     f"answered {replies}")
+            time.sleep(0.05)
+        out["holder_answer_s"] = time.monotonic() - t0
+        lockers = io.exec(hdr, "lock", "get_info",
+                          {"name": RBD_LOCK_NAME})["lockers"]
+        if not self.holder.lock_owner or [lk["client"] for lk in lockers] != \
+                [self.snap.clients[1].objecter.name]:
+            raise AssertionError(f"{tag}: the lock after the recovery: "
+                                 f"{lockers}")
+        # every image and the snapshot read back equal to the model
+        reads = {}
+        for name, snap, model in (("vm0", None, self.model),
+                                  ("vm0c", None, self.child),
+                                  ("vm0", "base", self.base)):
+            key = f"{name}@{snap}" if snap else name
+            reads[key] = self._verify(io, name, model,
+                                      f"{key} after the recovery", snap)
+        out["reads_after_s"] = reads
+        # the mirror replays 64 more writes, then an orderly failback
+        writes = self._writes(RBD_MIRROR_MORE, RBD_SMALL_B, 4096, 64 << 10)
+        jvm = Image(io, "jvm")
+        for off, data in writes:
+            jvm.write(off, data)
+        jvm.close()
+        self._apply(self.jmodel, writes)
+        out["mirror"].append(self._sync(len(writes)))
+        t0 = time.monotonic()
+        demote(io, "jvm")
+        drained = self.mirror.sync()
+        promote(self.bak, "jvm")
+        out["failback_s"] = time.monotonic() - t0
+        if drained or mirror_state(io, "jvm")["primary"] or \
+                not mirror_state(self.bak, "jvm")["primary"]:
+            raise AssertionError(f"{tag}: the failback: drained {drained}, "
+                                 f"{mirror_state(io, 'jvm')}, "
+                                 f"{mirror_state(self.bak, 'jvm')}")
+        # flatten the clone, then the images go (so (g) moves none of them)
+        child = Image(io, "vm0c")
+        t0 = time.monotonic()
+        child.flatten()
+        out["flatten_s"] = time.monotonic() - t0
+        if child.parent is not None or self.holder.children():
+            raise AssertionError(f"{tag}: vm0c still has its parent")
+        child.close()
+        self.holder.snap_unprotect("base")
+        self.holder.snap_remove("base")
+        self.holder.close()
+        t0 = time.monotonic()
+        for name in ("vm0c", "vm0", "jvm"):
+            RBD().remove(io, name)
+        rc, outs, _ = self.r.mon_command({
+            "prefix": "osd pool delete", "pool": "rbdbak",
+            "yes_i_really_really_mean_it": True})
+        if rc != 0:
+            raise AssertionError(f"{tag}: rbdbak delete: {outs}")
+        _wait(self.c, lambda: "rbdbak" not in
+              self.c.mon.osdmap.pool_names.values() and
+              _all_clean(self.c, self.r), "the PGs after rbdbak's delete",
+              tag=tag)
+        out["cleanup_s"] = time.monotonic() - t0
+        listed = [o for o in io.list_objects() if o.startswith(("rbd_",
+                                                                "journal"))]
+        if listed:
+            raise AssertionError(f"{tag}: {len(listed)} rbd objects left, "
+                                 f"{listed[:4]}")
+        out["launches_after"] = bm.LAUNCHES["gf_matmul"] - l0
+        out["after_s"] = time.monotonic() - t_leg
+        self._counts(tag)
+        if out["launches"] or out["launches_after"]:
+            raise AssertionError(f"{tag}: K1 launched {out['launches']} / "
+                                 f"{out['launches_after']} times in the rbd leg")
+        out["counts"] = _rbd_counts()
 
 
 # -- phase 19 (g): elastic pools -- the split, the reseed, the mgr, thrash ---
@@ -4186,6 +4567,7 @@ def cluster_phase(name_power: str, dev) -> dict:
             snap.before_kill(_victim(acting_sets(
                 c.mon.osdmap, r.pool_lookup("ecpool"), CLUSTER_PG_NUM,
                 PG)[1]))
+            rbd.before_kill()
             serve.healthy()
             return scrub
 
@@ -4193,11 +4575,14 @@ def cluster_phase(name_power: str, dev) -> dict:
             rep.degraded()
             serve.degraded()
         snap = SnapLeg(c, r, rep, objs)
+        rbd = RbdLeg(c, r, rep, snap)
         res = drive_cluster(c, r, io, objs, "phase 19", dev,
                             healthy=healthy, degraded=degraded)
         legs = res["legs"]
         scrub, served = res["healthy"], serve.out
         snap.after_clean()
+        rbd.after_clean()
+        snap.close_clients()
         rep.verify(res["victim"])
         if not rep.out["recovery"]["push_in_clone_bytes"]:
             raise AssertionError("phase 19 (f): the recovery pushed no clone")
@@ -4385,11 +4770,56 @@ def cluster_phase(name_power: str, dev) -> dict:
           f"{tr['df']['snaptrim_pgs']}; reppool store_bytes "
           f"{tr['df']['store_bytes']} vs bytes {tr['df']['bytes']} on "
           f"{name_power}")
+    print_rbd(rbd.out, name_power)
     return {"legs": legs, "recover_s": recover_s, "rebuilt": rebuilt,
             "ratio": read / rebuilt, "messages": messages,
             "compiles": compiles, "serve": served, "scrub": scrub,
-            "replicated": ro, "snapshots": so, "clean_s": res["clean_s"],
+            "replicated": ro, "snapshots": so, "rbd": rbd.out,
+            "clean_s": res["clean_s"],
             "fabric_stats": stats, "elastic": elastic, "phase_s": wall}
+
+
+def print_rbd(ro: dict, name_power: str) -> None:
+    tag = "phase 19 (f) rbd"
+    sw, rw, rd, cu = (ro["seq_write"], ro["random_write"], ro["read"],
+                      ro["copyup"])
+    print(f"{tag}: vm0 ({RBD_IMAGE_B} B, order {RBD_ORDER}, rbd_cache on) "
+          f"{RBD_SEQ_OBJECTS} x {RBD_OBJ} B written in order at "
+          f"{sw['MBps']:.1f} MB/s ({sw['wall_s']:.3f} s), "
+          f"{RBD_RANDOM_WRITES} seeded 4 KiB writes at {rw['per_s']:.1f} "
+          f"writes/s ({rw['wall_s']:.3f} s), {RBD_SEQ_OBJECTS * RBD_OBJ} B "
+          f"read back == the model at {rd['MBps']:.1f} MB/s "
+          f"({rd['wall_s']:.3f} s), du {ro['du_objects']} objects on the "
+          f"host clock on {name_power}")
+    print(f"{tag}: snap base, protect and clone vm0c in "
+          f"{ro['snap_clone_s']:.3f} s; {cu['writes']} seeded 4 KiB writes "
+          f"to vm0c copied up {cu['objects']} objects in {cu['wall_s']:.3f} "
+          f"s; vm0c == its model ({ro['child_read_s']:.3f} s), vm0@base == "
+          f"its model ({ro['base_read_s']:.3f} s); the exclusive lock handed "
+          f"to the second client in {ro['handoff_s']:.3f} s (its first "
+          f"write), {RBD_HANDOFF_WRITES} writes, diff since base "
+          f"{ro['diff_objects']} objects on {name_power}")
+    m0, mig = ro["mirror"][0], ro["migration"]
+    print(f"{tag}: jvm ({RBD_SMALL_B} B, journaling, mirrored) "
+          f"{RBD_JOURNAL_WRITES} writes of 4-64 KiB in "
+          f"{ro['journal_write_s']:.3f} s; ImageMirror.sync to rbdbak "
+          f"replayed {m0['entries']} entries in {m0['wall_s']:.3f} s, the "
+          f"copy == the source; migration of a {RBD_SMALL_B} B image "
+          f"reppool -> rbdbak with {mig['writes']} concurrent 4 KiB writes: "
+          f"execute {mig['execute_s']:.3f} s, prepare to commit "
+          f"{mig['wall_s']:.3f} s, == the model; K1 launches in the leg "
+          f"{ro['launches']}; {ro['before_s']:.3f} s before the kill on "
+          f"{name_power}")
+    m1, reads = ro["mirror"][1], ro["reads_after_s"]
+    print(f"{tag}: after the kill, out and clean: the holder answered on "
+          f"vm0's header in {ro['holder_answer_s']:.3f} s and still holds "
+          f"the lock; " + ", ".join(f"{k} {v:.3f} s" for k, v in reads.items())
+          + f" == their models; the mirror replayed {m1['entries']} entries "
+          f"in {m1['wall_s']:.3f} s; failback (demote, sync, promote on "
+          f"rbdbak) {ro['failback_s']:.3f} s; flatten {ro['flatten_s']:.3f} "
+          f"s; images and rbdbak removed in {ro['cleanup_s']:.3f} s; K1 "
+          f"launches {ro['launches_after']}; counts {ro['counts']}; "
+          f"{ro['after_s']:.3f} s after the recovery on {name_power}")
 
 
 def print_legs(tag: str, legs: dict, name_power: str) -> None:
@@ -4636,11 +5066,12 @@ def _proc_clean(ds: Daemons, names, osdmap) -> bool:
             sum(s["primary_clean"] for s in st) == pgs)
 
 
-def _cli(ds: Daemons, *argv, env: dict | None = None) -> tuple[str, float]:
-    """One `rados_cli` process with the cluster's monmap and keyring;
-    its stdout and wall.  A non-zero exit fails the phase.  `env` adds
-    to the process's environment."""
-    cmd = [sys.executable, "-m", "ceph_tpu_torch.tools.rados_cli",
+def _cli(ds: Daemons, *argv, env: dict | None = None,
+         tool: str = "rados_cli") -> tuple[str, float]:
+    """One `rados_cli` (or `tool`) process with the cluster's monmap and
+    keyring; its stdout and wall.  A non-zero exit fails the phase.
+    `env` adds to the process's environment."""
+    cmd = [sys.executable, "-m", f"ceph_tpu_torch.tools.{tool}",
            "--monmap", str(ds.monmap), "--keyring", str(ds.keyring_path),
            "--timeout", "120", *argv]
     t0 = time.monotonic()
@@ -4649,7 +5080,7 @@ def _cli(ds: Daemons, *argv, env: dict | None = None) -> tuple[str, float]:
                        capture_output=True, text=True, timeout=300)
     wall = time.monotonic() - t0
     if p.returncode != 0:
-        raise AssertionError(f"{ds.tag}: rados {' '.join(argv)} rc "
+        raise AssertionError(f"{ds.tag}: {tool} {' '.join(argv)} rc "
                              f"{p.returncode}:\n{p.stdout}\n{p.stderr[-3000:]}")
     return p.stdout, wall
 
@@ -4706,6 +5137,16 @@ def trace_bench_write(ds: Daemons, osds: list) -> dict:
             "sub_writes": len(subs), "wall_s": wall, "tree": tree}
 
 
+# phase 20 (c)'s `rbd` verbs on reppool and their text, which
+# tests/test_torch_rbd.py holds to the reference CLI's
+RBD_CLI_STEPS = [
+    (("create", "--size", "1G", "img"), "created image img\n"),
+    (("snap", "create", "img@s"), "created snapshot img@s\n"),
+    (("du", "img"), "img provisioned 1 GiB used 0 B\n"),
+    (("info", "img"), "rbd image 'img':\n\tsize 1 GiB in 256 objects\n"
+                      "\torder 22 (4 MiB objects)\n")]
+
+
 def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
     """Phase 20 (c)'s replicated verbs, each a `rados_cli` process:
     `mkpool reppool 32` (a replicated pool), `bench reppool 2 write -t 16
@@ -4748,13 +5189,23 @@ def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
              (("listxattr", "reppool", obj), "smoke_key\n"),
              (("setomapval", "reppool", obj, "smoke_omap", "omap_value"), ""),
              (("listomapvals", "reppool", obj),
-              "smoke_omap\n value (10 bytes) :\nomap_value\n"),
-             (("rmpool", "reppool"), "successfully deleted pool reppool\n")]
+              "smoke_omap\n value (10 bytes) :\nomap_value\n")]
     for argv, want in steps:
         out, walls[argv[0]] = _cli(ds, *argv)
         if out != want:
             raise AssertionError(f"{tag}: rados {' '.join(argv)} printed "
                                  f"{out!r}, not {want!r}")
+    # the rbd CLI on the same pool, each verb a process
+    rbd_walls = {}
+    for argv, want in RBD_CLI_STEPS:
+        out, rbd_walls[" ".join(argv[:2])] = _cli(
+            ds, "-p", "reppool", *argv, tool="rbd_cli")
+        if out != want:
+            raise AssertionError(f"{tag}: rbd {' '.join(argv)} printed "
+                                 f"{out!r}, not {want!r}")
+    out, walls["rmpool"] = _cli(ds, "rmpool", "reppool")
+    if out != "successfully deleted pool reppool\n":
+        raise AssertionError(f"{tag}: rados rmpool printed {out!r}")
     await_pool(False)
     wait_clean("the PGs after rmpool")
     for mode, b in bench.items():
@@ -4768,7 +5219,12 @@ def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
           f"setomapval, listomapvals, rmpool: text == the reference's; "
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()) +
           f" s on {name_power}")
-    return {"bench": bench, "walls": walls, "listed": len(listed)}
+    print(f"phase 20 (c): rbd_cli processes on reppool: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in rbd_walls.items()) + f" s "
+          f"({sum(rbd_walls.values()):.2f} s in all), text == the "
+          f"reference's, on {name_power}")
+    return {"bench": bench, "walls": walls, "listed": len(listed),
+            "rbd_walls": rbd_walls}
 
 
 def process_leg(name_power: str, work: Path) -> dict:

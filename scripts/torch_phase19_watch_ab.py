@@ -6,7 +6,8 @@ without them: what the four watcher clients cost the recovery.
 Builds the kernels and runs `chip_smoke.cluster_phase` as the smoke
 does; with `nowatch`, 19 (f)'s snapshot, refusals and object classes run
 with one extra client (the lock needs two) and no watcher clients, and
-the after-clean leg checks only the s19 reads and the clones.  Prints
+the after-clean leg checks only the s19 reads and the clones, and the
+rbd leg (which holds a lock through a watcher client) is left out.  Prints
 the phase's lines, among them the time from `osd out` to clean.
 """
 import os
@@ -54,6 +55,9 @@ def main(argv) -> int:
     if argv == ["nowatch"]:
         cs.SnapLeg.before_kill = before_kill_nowatch
         cs.SnapLeg.after_clean = after_clean_nowatch
+        cs.SnapLeg.close_clients = lambda self: None
+        cs.RbdLeg.before_kill = cs.RbdLeg.after_clean = lambda self: None
+        cs.print_rbd = lambda *a: None
     t0 = time.monotonic()
     cs.cluster_phase(name, "cuda")
     print(f"phase 19 {argv or ['with watches']} done in "

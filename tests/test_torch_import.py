@@ -130,7 +130,12 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.cls", "ceph_tpu_torch.cls.lock",
                  "ceph_tpu_torch.cls.refcount", "ceph_tpu_torch.cls.version",
                  "ceph_tpu_torch.cls.log", "ceph_tpu_torch.cls.numops",
-                 "ceph_tpu_torch.cls.queue"):
+                 "ceph_tpu_torch.cls.queue",
+                 # block images and the journal
+                 "ceph_tpu_torch.journal", "ceph_tpu_torch.rbd",
+                 "ceph_tpu_torch.rbd.image", "ceph_tpu_torch.rbd.migration",
+                 "ceph_tpu_torch.rbd.mirror",
+                 "ceph_tpu_torch.tools.rbd_cli"):
         assert name in out["modules"], name
 
 
@@ -231,3 +236,51 @@ def test_cls_classes_load_without_jax_or_reference():
         if cls != "rgw":
             want.setdefault(cls, []).append(method)
     assert out["methods"] == want
+
+
+RBD_PROBE = textwrap.dedent("""
+    import io, json, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    from ceph_tpu_torch.journal import Journaler
+    from ceph_tpu_torch.rbd import RBD, Image
+    from ceph_tpu_torch.rbd.mirror import ImageMirror, mirror_enable
+    from ceph_tpu_torch.rbd.migration import migration_prepare
+    from ceph_tpu_torch.testing import MiniCluster
+    from ceph_tpu_torch.tools import rbd_cli
+    c = MiniCluster(n_osd=3, threaded=False, device="cpu")
+    c.pump()
+    c.wait_all_up()
+    r = c.rados()
+    r.pool_create("rbd", pg_num=8)
+    ioctx = r.open_ioctx("rbd")
+    RBD().create(ioctx, "img", 1 << 20, order=16, journaling=True)
+    img = Image(ioctx, "img")
+    img.write(4096, b"block")
+    got = img.read(4096, 5).decode()
+    img.close()
+    entries = []
+    Journaler(ioctx, "rbd.img", "probe").replay(
+        lambda tag, data: entries.append(tag), from_pos=(0, 0))
+    out = io.StringIO()
+    rc = rbd_cli.main(["-p", "rbd", "du", "img"], rados=r, out=out)
+    c.shutdown()
+    leaked = sorted(n for n in sys.modules
+                    if n == "ceph_tpu" or n.startswith("ceph_tpu.")
+                    or n == "jaxlib" or n.startswith("jaxlib."))
+    print(json.dumps({"leaked": leaked, "read": got, "journal": entries,
+                      "du": [rc, out.getvalue()]}))
+""")
+
+
+def test_rbd_and_journal_import_without_jax_or_reference():
+    """The journal, rbd (image, mirror, migration) and the rbd CLI import
+    with jax blocked, and a journaled image on the port's cluster writes,
+    reads, journals and answers `rbd du`, loading nothing of the
+    reference."""
+    import json
+    proc = subprocess.run([sys.executable, "-c", RBD_PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"leaked": [], "read": "block", "journal": ["write"],
+                   "du": [0, "img provisioned 1 MiB used 64 KiB\n"]}

@@ -15,7 +15,9 @@ object's bytes (object 0's layout and size ride xattrs, which EC pools
 keep too).
 
 ObjectCacher: every case of tests/test_object_cacher.py except the two
-that mount it under rbd and cephfs (neither client is ported).  Each
+that mount it under rbd and cephfs.  The rbd case has its counterpart
+in tests/test_torch_rbd.py (`test_rbd_sequential_write_ops_reduction`);
+the cephfs client is not ported.  Each
 case runs against a recording in-memory backing, once over each
 package's cacher: the test compares the bytes every call returned, the
 backing's log of reads, writes and batched waves (in order, with their

@@ -82,11 +82,13 @@ PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
                 "errcheck", "mgr_telemetry_url", "mgr_insights_window",
                 # the snap trimmer's
                 "osd_max_trimming_pgs", "osd_pg_max_concurrent_snap_trims",
-                "osd_snap_trim_sleep"}
+                "osd_snap_trim_sleep",
+                # librbd's object cache
+                "rbd_cache", "rbd_cache_size", "rbd_cache_max_dirty"}
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads 39 options; each is the reference's entry: the
+    """The port reads 42 options; each is the reference's entry: the
     same type, level, default, text, bounds, see-also and runtime
     flag."""
     assert set(options.OPTIONS) == PORT_OPTIONS

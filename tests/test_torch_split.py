@@ -10,7 +10,10 @@ store's contents with each child collection, its pgmeta log keys and
 tail marker, the snap index after a split, every shard on its acting OSD
 after the EC pgp_num reseed, EC growth under IO with an `osd out` and an
 `osd in`, and a split on BlueStore whose files have the reference's
-sha256.
+sha256.  Two cases are the port's own: its raw CRUSH caches (the
+daemons' and the objecter's) give the map's own mappings
+through a split, a reseed, out, in, a kill and an upmap, and keep a
+pool's results while another pool is created, snapshotted and deleted.
 """
 import dataclasses
 import hashlib
@@ -423,7 +426,7 @@ def test_cached_mapping_equals_the_map():
                 for ps in range(m.pools[pid].pg_num):
                     pg = PortPG(pid, ps)
                     assert d._pg_mapping(pg) == m.pg_to_up_acting_osds(pg)
-                hits.append(len(d._raw_cache))
+                hits.append(len(d._raw))
         check()
         for var in ("pg_num", "pgp_num"):
             pool_set(r, "ec", var, 8)
@@ -443,5 +446,59 @@ def test_cached_mapping_equals_the_map():
         wait_clean(c)
         check()
         assert min(hits) > 0
+    finally:
+        c.shutdown()
+
+
+def test_cached_mapping_is_kept_per_pool_and_the_objecter_agrees():
+    """The daemons' and the objecter's raw CRUSH results are kept per
+    pool: another pool created, given a self-managed snap and deleted
+    keeps the EC pool's cached results, an `osd out` drops them; every
+    cached mapping and every op target equals the map's own."""
+    c, r = make("port", 6, "ec", 4, erasure=True)
+    try:
+        pid = r.pool_lookup("ec")
+        io = r.open_ioctx("ec")
+        objs = payloads(8, seed=9)
+        ob = r.objecter
+
+        def check():
+            for d in c.osds.values():
+                m = d.osdmap
+                for ps in range(m.pools[pid].pg_num):
+                    pg = PortPG(pid, ps)
+                    assert d._pg_mapping(pg) == m.pg_to_up_acting_osds(pg)
+            with ob._lock:
+                for oid in objs:
+                    raw = ob.osdmap.object_locator_to_pg(oid, pid)
+                    assert ob._pg_mapping(raw) == \
+                        ob.osdmap.pg_to_up_acting_osds(raw)
+            for oid, data in objs.items():
+                assert io.read(oid) == data
+
+        def caches():
+            out = {d.whoami: d._raw.for_pool(d.osdmap, pid)
+                   for d in c.osds.values()}
+            with ob._lock:
+                out["client"] = ob._raw.for_pool(ob.osdmap, pid)
+            return out
+        for oid, data in objs.items():
+            io.write_full(oid, data)
+        check()
+        kept = caches()
+        assert all(kept.values())
+        r.pool_create("rp", pg_num=4)
+        wait_clean(c)
+        r.open_ioctx("rp").selfmanaged_snap_create()
+        wait_clean(c)
+        assert r.mon_command({"prefix": "osd pool delete", "pool": "rp",
+                              "yes_i_really_really_mean_it": True})[0] == 0
+        wait_clean(c)
+        check()
+        assert all(caches()[k] is kept[k] for k in kept)
+        assert r.mon_command({"prefix": "osd out", "ids": [1]})[0] == 0
+        wait_clean(c)
+        assert not any(caches()[k] is kept[k] for k in kept)
+        check()
     finally:
         c.shutdown()
