@@ -24,8 +24,8 @@ reconstructing read — the reference's cls users, rbd/rgw metadata,
 likewise live on replicated pools).
 
 The port's copy of `ceph_tpu.cls`: the registry, `MethodContext` and
-the classes `lock`, `refcount`, `version`, `log`, `numops` and `queue`.
-The `rgw` class is not ported yet; a call to it answers EOPNOTSUPP.
+the classes `lock`, `refcount`, `version`, `rgw`, `queue`, `log` and
+`numops`.
 """
 from __future__ import annotations
 
@@ -142,7 +142,8 @@ class ClassHandler:
     """Singleton method registry (ref: src/osd/ClassHandler.cc —
     open_class/dlopen replaced by lazy import of built-in modules)."""
 
-    _BUILTIN = ("lock", "refcount", "version", "queue", "log", "numops")
+    _BUILTIN = ("lock", "refcount", "version", "rgw", "queue", "log",
+                "numops")
 
     def __init__(self):
         self._methods: dict[tuple[str, str], tuple[int, Callable]] = {}
@@ -164,8 +165,6 @@ class ClassHandler:
         """-> (flags, fn); raises ClsError(EOPNOTSUPP) like the
         reference's -EOPNOTSUPP for an unknown class/method
         (PrimaryLogPG CEPH_OSD_OP_CALL)."""
-        if cls == "rgw":
-            raise ClsError("EOPNOTSUPP", "cls rgw is not ported yet")
         self._load(cls)
         entry = self._methods.get((cls, method))
         if entry is None:

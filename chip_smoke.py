@@ -228,6 +228,27 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    an orderly failback (demote, sync, promote on `rbdbak`), vm0c is
    flattened, then the images and `rbdbak` are removed; K1 launches in
    the leg, swallowed rbd and journal errors and broken locks all 0.
+   The S3/Swift gateway (the port's rgw, SigV4 on every S3 request) on
+   its own pool `rgw`, which it makes (replicated, pg_num 32; an EC pool
+   refuses the bucket index's omap), before the victim dies: 64 x 4 MiB
+   objects (radosgw's stripe size) PUT by 4 threads and read back (ETag
+   == md5), 1,024 x 4 KiB by 8 threads over all 8 index shards,
+   ListObjectsV2 at max-keys 1000 in 2 pages of the model's 1,088 keys;
+   one 64 MiB multipart upload of 8 x 8 MiB parts (the AWS CLI's chunk;
+   ETag the md5 of the part md5s, -8); a versioned bucket with 2 keys of
+   3 versions and a delete marker each (?versions and every versionId
+   equal to the model), then NoncurrentDays 1 on one key's prefix and
+   `lc_tick(now + 2 days)` removing its 3 noncurrent versions; a Swift
+   TempAuth token and the Swift listing of the S3 bucket equal to it; an
+   STS role, AssumeRole and a PUT and GET with the temporary keys, the
+   untrusted caller refused; a topic whose endpoint is an HTTP receiver
+   here gets 16 PUT/DELETE events in order (delivery p50/p99).  While
+   the victim is down every 4 MiB object and 64 small ones read back
+   equal to the model; after the recovery every object, the multipart
+   object and every version, every listing and every index shard's
+   keys equal the model, then every object, version and bucket is
+   deleted, the gateway shut down and `rgw` removed; K1 launches in the
+   leg and swallowed rgw errors 0.
    (g) Elastic pools, after the
    recovery below, with the victim out: the mgr (MgrDaemon on the card)
    with its pg_autoscaler and progress; one autoscale tick with the EC
@@ -301,7 +322,11 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    16`, `ls`, `setxattr` / `getxattr` / `listxattr`, `setomapval` /
    `listomapvals`, the `rbd_cli` processes `create --size 1G img`,
    `snap create img@s`, `du img` and `info img` on `reppool`, then
-   `rmpool`, each output equal to the reference's text; the write
+   `rmpool`, each output equal to the reference's text; a radosgw
+   process (`python -m ceph_tpu_torch.rgw.gateway`, cephx as client.rgw)
+   that makes its pool `rgw` and serves 8 x 4 MiB PUT, GET and a
+   listing over HTTP, then exits 0 on SIGTERM (its start-up printed),
+   and `rmpool rgw`; the write
    bench's client traces its ops (blkin_trace_all), and
    `rados_cli trace <id> --asok-dir <dir>` assembles one of its EC
    writes from the 17 admin sockets into one span tree: the primary's
@@ -393,17 +418,21 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import http.client
 import io
 import itertools
 import json
 import os
+import random
 import re
 import shutil
 import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -3966,6 +3995,607 @@ class RbdLeg:
         out["counts"] = _rbd_counts()
 
 
+# -- phase 19 (f): the S3/Swift gateway on its own replicated pool -----------
+
+RGW_POOL = "rgw"                 # made by the gateway itself (pg_num 32)
+RGW_OBJ = 4 << 20                # radosgw's stripe size (rgw_obj_stripe_size)
+RGW_LARGE = 64                   # 4 MiB objects in bk0: 256 MiB
+RGW_LARGE_THREADS = 4
+RGW_SMALL = 960                  # 4 KiB objects in bk0, over all 8 shards:
+                                 # cut from 1,024 for the smoke's wall, and
+                                 # with the 64 large ones still 2 pages
+RGW_SMALL_B = 4 << 10
+RGW_SMALL_THREADS = 8
+RGW_PART_B = 8 << 20             # the AWS CLI's multipart_chunksize
+RGW_PARTS = 8                    # one 64 MiB upload
+RGW_MAX_KEYS = 1000              # S3's default page
+RGW_VERSION_B = 64 << 10         # bkv's versions
+RGW_EVENTS = 16                  # notification events, PUT then DELETE
+RGW_DEGRADED_SMALL = 64          # small objects read while the victim is down
+RGW_USER = "client.s3"           # the S3 user (SigV4 on every request)
+RGW_OTHER = "client.s3other"     # a user the STS role does not trust
+RGW_VERS_ON = (b"<VersioningConfiguration><Status>Enabled</Status>"
+               b"</VersioningConfiguration>")
+RGW_LC = (b"<LifecycleConfiguration><Rule><ID>nc</ID><Prefix>lc/</Prefix>"
+          b"<Status>Enabled</Status><NoncurrentVersionExpiration>"
+          b"<NoncurrentDays>1</NoncurrentDays></NoncurrentVersionExpiration>"
+          b"</Rule></LifecycleConfiguration>")
+RGW_NOTIF = (b"<NotificationConfiguration><TopicConfiguration><Id>n</Id>"
+             b"<Topic>arn:aws:sns:::t0</Topic>"
+             b"<Event>s3:ObjectCreated:*</Event>"
+             b"<Event>s3:ObjectRemoved:*</Event>"
+             b"</TopicConfiguration></NotificationConfiguration>")
+
+
+class S3Client:
+    """SigV4-signed requests to one gateway (the port's `sign_request`),
+    one keep-alive connection per thread; `token` adds an STS session
+    token; no `access`: unsigned.  Returns (status, headers, body).
+    `close` ends every connection: a gateway's shutdown waits for its
+    connections' handler threads."""
+
+    def __init__(self, port: int, access: str, secret: str,
+                 token: str | None = None):
+        self.port, self.access, self.secret = port, access, secret
+        self.extra = {"x-amz-security-token": token} if token else {}
+        self._local = threading.local()
+        self._conns: list = []
+        self._lock = threading.Lock()
+
+    def close(self) -> None:
+        with self._lock:
+            conns, self._conns = self._conns, []
+        for conn in conns:
+            conn.close()
+
+    def __call__(self, method: str, path: str, body: bytes = b"",
+                 headers: dict | None = None):
+        from ceph_tpu_torch.rgw.auth import sign_request
+
+        hdrs = dict(self.extra, **(headers or {}))
+        hdrs["host"] = f"127.0.0.1:{self.port}"
+        if self.access:
+            hdrs = sign_request(method, path, hdrs, body, self.access,
+                                self.secret)
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = self._local.conn = http.client.HTTPConnection(
+                "127.0.0.1", self.port, timeout=CLUSTER_TIMEOUT_S)
+            # a body of 2 KiB or more leaves after its headers: send it
+            # without waiting for the gateway's delayed ACK
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._lock:
+                self._conns.append(conn)
+        # no resend: the gateway closes a keep-alive connection only when
+        # a handler dies, and that must fail the leg
+        conn.request(method, path, body, hdrs)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+
+
+def _s3_ok(res, want: int, what: str, tag: str = "phase 19 (f) rgw"):
+    if res[0] != want:
+        raise AssertionError(f"{tag}: {what}: HTTP {res[0]}, not {want}: "
+                             f"{res[2][:300]!r}")
+    return res
+
+
+def _pmap(fn, items, threads: int) -> list:
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        return list(ex.map(fn, items))
+
+
+def _pcts(values) -> tuple:
+    vals = sorted(values)
+    return (vals[len(vals) // 2], vals[min(len(vals) - 1,
+                                           int(len(vals) * 0.99))])
+
+
+class _Receiver:
+    """The notification endpoint: records each event with its arrival on
+    the host clock."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.events: list = []
+        rec = self
+
+        class H(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                rec.events.append((time.monotonic(), json.loads(body)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+class RgwLeg:
+    """Phase 19 (f)'s S3/Swift gateway (the port's `rgw`) on its own
+    replicated pool `rgw`, which the gateway makes (pg_num 32) on phase
+    19's cluster: a bucket index in omap, which an EC pool refuses, so K1
+    runs beside it (`ecpool`), not under it.  SigV4 on every S3 request.
+    `before_kill` after RbdLeg.before_kill, `degraded` while the victim
+    is down, `after_clean` after RbdLeg.after_clean.  Every byte read is
+    held to a host model.  The counts default to the smoke's: `large` 4
+    MiB and `small` 4 KiB objects in bk0, `parts` 8 MiB multipart parts,
+    `degraded_small` small objects read while the victim is down, and a
+    listing page of `max_keys`."""
+
+    def __init__(self, c, r, large: int = RGW_LARGE, small: int = RGW_SMALL,
+                 parts: int = RGW_PARTS,
+                 degraded_small: int = RGW_DEGRADED_SMALL,
+                 max_keys: int = RGW_MAX_KEYS):
+        self.c, self.r = c, r
+        self.depth = {"large": large, "small": small, "parts": parts,
+                      "degraded_small": degraded_small, "max_keys": max_keys}
+        self.rng = np.random.default_rng(SEED + 200)
+        self.out: dict = {"depth": self.depth}
+        # bucket -> {key: bytes} of what must read back; bkv's versions
+        # are kept by version id beside it
+        self.model: dict = {}
+        self.versions: dict = {}
+        # bucket -> keys whose index entry is a tombstone
+        self.gone: dict = {}
+        self.etags: dict = {}    # (bucket, key) -> ETag where it is not md5
+        self.gw = None
+        self.clients: list = []
+
+    def client(self, access: str, secret: str, token=None) -> S3Client:
+        cl = S3Client(self.gw.port, access, secret, token)
+        self.clients.append(cl)
+        return cl
+
+    def close(self) -> None:
+        """Close every client connection and shut the gateway down (a
+        no-op for a gateway already shut down)."""
+        for cl in self.clients:
+            cl.close()
+        if self.gw is not None:
+            self.gw.shutdown()
+            self.gw = None
+
+    def _index_keys(self, bucket: str) -> dict:
+        """shard -> sorted omap keys of each index shard object."""
+        from ceph_tpu_torch.rgw.gateway import _index_obj
+
+        n = self.gw._nshards(bucket)
+        return {s: sorted(self.gw.io.get_omap_vals(_index_obj(bucket, s))[0])
+                for s in range(n)}
+
+    def _model_index(self, bucket: str) -> dict:
+        from ceph_tpu_torch.rgw.gateway import _shard_of
+
+        keys = set(self.model.get(bucket, {})) | \
+            set(self.versions.get(bucket, {})) | \
+            set(self.gone.get(bucket, ()))
+        n = self.gw._nshards(bucket)
+        return {s: sorted(k for k in keys if _shard_of(k, n) == s)
+                for s in range(n)}
+
+    def _get_all(self, bucket: str, keys, threads: int, what: str) -> float:
+        """GET every key, each equal to the model; returns the wall."""
+        s3, model = self.s3, self.model[bucket]
+
+        def get(key):
+            st, hdrs, body = _s3_ok(s3("GET", f"/{bucket}/{key}"), 200,
+                                    f"{what} GET {bucket}/{key}")
+            etag = self.etags.get((bucket, key)) or \
+                hashlib.md5(model[key]).hexdigest()
+            if body != model[key] or hdrs["ETag"] != f'"{etag}"':
+                raise AssertionError(f"phase 19 (f) rgw: {what} GET "
+                                     f"{bucket}/{key} differs from the model")
+        t0 = time.monotonic()
+        _pmap(get, list(keys), threads)
+        return time.monotonic() - t0
+
+    def _list(self, bucket: str, what: str) -> tuple:
+        """ListObjectsV2 page by page at `max_keys`; the keys must be the
+        model's, in order.  -> (pages, seconds per page)."""
+        keys, token, pages, t0 = [], "", 0, time.monotonic()
+        while True:
+            path = (f"/{bucket}?list-type=2&max-keys="
+                    f"{self.depth['max_keys']}")
+            if token:
+                path += f"&continuation-token={token}"
+            body = _s3_ok(self.s3("GET", path), 200, f"{what} list")[2]
+            pages += 1
+            keys += re.findall(r"<Key>([^<]+)</Key>", body.decode())
+            m = re.search(r"<NextContinuationToken>([^<]+)<", body.decode())
+            if not m:
+                break
+            token = m.group(1)
+        wall = time.monotonic() - t0
+        if keys != sorted(self.model[bucket]):
+            raise AssertionError(f"phase 19 (f) rgw: {what} listing of "
+                                 f"{bucket}: {len(keys)} keys, not the "
+                                 f"model's {len(self.model[bucket])}")
+        return pages, wall / pages
+
+    def _versions(self, what: str) -> None:
+        """bkv's ?versions equals the model's stacks; every version reads
+        back by versionId."""
+        body = _s3_ok(self.s3("GET", "/bkv?versions"), 200,
+                      f"{what} ?versions")[2].decode()
+        got = re.findall(r"<(Version|DeleteMarker)><Key>([^<]+)</Key>"
+                         r"<VersionId>([^<]+)</VersionId>", body)
+        want = [("DeleteMarker" if data is None else "Version", key, vid)
+                for key, stack in sorted(self.versions["bkv"].items())
+                for vid, data in stack]
+        if got != want:
+            raise AssertionError(f"phase 19 (f) rgw: {what} ?versions "
+                                 f"{got}, not {want}")
+        for key, stack in self.versions["bkv"].items():
+            for vid, data in stack:
+                if data is None:
+                    continue
+                body = _s3_ok(self.s3("GET", f"/bkv/{key}?versionId={vid}"),
+                              200, f"{what} GET {key}@{vid}")[2]
+                if body != data:
+                    raise AssertionError(f"phase 19 (f) rgw: {what} {key}@"
+                                         f"{vid} differs from the model")
+            _s3_ok(self.s3("GET", f"/bkv/{key}"), 404,
+                   f"{what} GET {key} behind its delete marker")
+
+    def _check_index(self, what: str, buckets=None) -> dict:
+        """Every bucket's (or each of `buckets`') index shards hold
+        exactly the model's keys."""
+        counts = {}
+        for bucket in buckets or sorted(set(self.model) | set(self.versions)):
+            got, want = self._index_keys(bucket), self._model_index(bucket)
+            if got != want:
+                raise AssertionError(f"phase 19 (f) rgw: {what}: {bucket}'s "
+                                     f"index shards hold "
+                                     f"{[len(v) for v in got.values()]} "
+                                     f"keys, the model "
+                                     f"{[len(v) for v in want.values()]}")
+            counts[bucket] = [len(v) for v in got.values()]
+        return counts
+
+    def _counts(self, tag: str) -> None:
+        from ceph_tpu_torch.rgw.gateway import SWALLOWED
+
+        if sum(SWALLOWED.values()) != self.swallowed0:
+            raise AssertionError(f"{tag}: rgw swallowed {dict(SWALLOWED)}")
+
+    # -- before the kill ----------------------------------------------------
+    def before_kill(self) -> None:
+        from ceph_tpu_torch.auth import KeyRing, generate_key
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+        from ceph_tpu_torch.rgw import SWALLOWED, RGWGateway
+
+        tag, out, d = "phase 19 (f) rgw", self.out, self.depth
+        l0 = bm.LAUNCHES["gf_matmul"]
+        self.swallowed0 = sum(SWALLOWED.values())
+        t_leg = time.monotonic()
+        self.keys = {RGW_USER: generate_key(), RGW_OTHER: generate_key()}
+        t0 = time.monotonic()
+        self.gw = RGWGateway(self.r, pool=RGW_POOL,
+                             keyring=KeyRing(self.keys))
+        self.gw.start()
+        out["gateway_s"] = time.monotonic() - t0
+        pool = self.r.objecter.osdmap.pools[self.r.pool_lookup(RGW_POOL)]
+        if (pool.type, pool.size, pool.pg_num) != (1, REP_SIZE, 32):
+            raise AssertionError(f"{tag}: the gateway's pool is type "
+                                 f"{pool.type} size {pool.size} pg_num "
+                                 f"{pool.pg_num}")
+        self.s3 = s3 = self.client(RGW_USER, self.keys[RGW_USER])
+        # -- bk0: large objects, then small ones over every index shard ------
+        _s3_ok(s3("PUT", "/bk0"), 200, "PUT bk0")
+        large = {f"l/{i:02d}": self.rng.bytes(RGW_OBJ)
+                 for i in range(d["large"])}
+        small = {f"s/{i:04d}": self.rng.bytes(RGW_SMALL_B)
+                 for i in range(d["small"])}
+        self.model["bk0"] = {**large, **small}
+
+        def put(key):
+            data = self.model["bk0"][key]
+            hdrs = _s3_ok(s3("PUT", f"/bk0/{key}", data), 200,
+                          f"PUT bk0/{key}")[1]
+            if hdrs["ETag"] != f'"{hashlib.md5(data).hexdigest()}"':
+                raise AssertionError(f"{tag}: PUT bk0/{key}'s ETag "
+                                     f"{hdrs['ETag']}")
+        t0 = time.monotonic()
+        _pmap(put, list(large), RGW_LARGE_THREADS)
+        wall = time.monotonic() - t0
+        out["large_put"] = {"MBps": d["large"] * RGW_OBJ / wall / 1e6,
+                            "wall_s": wall}
+        wall = self._get_all("bk0", large, RGW_LARGE_THREADS, "healthy")
+        out["large_get"] = {"MBps": d["large"] * RGW_OBJ / wall / 1e6,
+                            "wall_s": wall}
+        t0 = time.monotonic()
+        _pmap(put, list(small), RGW_SMALL_THREADS)
+        wall = time.monotonic() - t0
+        out["small_put"] = {"per_s": d["small"] / wall, "wall_s": wall}
+        pages, per_page = self._list("bk0", "healthy")
+        if pages != 2:
+            raise AssertionError(f"{tag}: bk0 listed in {pages} pages")
+        out["list"] = {"pages": pages, "s_per_page": per_page,
+                       "keys": len(self.model["bk0"])}
+        # -- multipart: 8 x 8 MiB parts ---------------------------------------
+        _s3_ok(s3("PUT", "/bkmp"), 200, "PUT bkmp")
+        parts = [self.rng.bytes(RGW_PART_B) for _ in range(d["parts"])]
+        t0 = time.monotonic()
+        body = _s3_ok(s3("POST", "/bkmp/big?uploads"), 200, "initiate")[2]
+        uid = re.search(rb"<UploadId>([^<]+)<", body).group(1).decode()
+        for n, part in enumerate(parts, start=1):
+            _s3_ok(s3("PUT", f"/bkmp/big?partNumber={n}&uploadId={uid}",
+                      part), 200, f"part {n}")
+        body = _s3_ok(s3("POST", f"/bkmp/big?uploadId={uid}", (
+            "<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{n}</PartNumber></Part>"
+                for n in range(1, len(parts) + 1)) +
+            "</CompleteMultipartUpload>").encode()), 200, "complete")[2]
+        out["multipart_s"] = time.monotonic() - t0
+        etag = hashlib.md5(b"".join(hashlib.md5(p).digest()
+                                    for p in parts)).hexdigest()
+        if f"&quot;{etag}-{len(parts)}&quot;".encode() not in body:
+            raise AssertionError(f"{tag}: multipart ETag {body[:300]!r}")
+        self.model["bkmp"] = {"big": b"".join(parts)}
+        self.etags[("bkmp", "big")] = f"{etag}-{len(parts)}"
+        self._get_all("bkmp", ["big"], 1, "healthy")
+        # -- bkv: versions, delete markers, then lifecycle on lc/ -------------
+        _s3_ok(s3("PUT", "/bkv"), 200, "PUT bkv")
+        _s3_ok(s3("PUT", "/bkv?versioning", RGW_VERS_ON), 200, "versioning")
+        self.model["bkv"] = {}
+        self.versions["bkv"] = {}
+        for key in ("doc", "lc/doc"):
+            stack = []
+            for _ in range(3):
+                data = self.rng.bytes(RGW_VERSION_B)
+                vid = _s3_ok(s3("PUT", f"/bkv/{key}", data), 200,
+                             f"PUT bkv/{key}")[1]["x-amz-version-id"]
+                stack.insert(0, (vid, data))
+            hdrs = _s3_ok(s3("DELETE", f"/bkv/{key}"), 204,
+                          f"DELETE bkv/{key}")[1]
+            if hdrs.get("x-amz-delete-marker") != "true":
+                raise AssertionError(f"{tag}: DELETE bkv/{key}: {hdrs}")
+            stack.insert(0, (hdrs["x-amz-version-id"], None))
+            self.versions["bkv"][key] = stack
+        self._versions("healthy")
+        _s3_ok(s3("PUT", "/bkv?lifecycle", RGW_LC), 200, "lifecycle")
+        t0 = time.monotonic()
+        acted = self.gw.lc_tick(time.time() + 2 * 86400)
+        out["lc_tick_s"] = time.monotonic() - t0
+        if acted != 3:
+            raise AssertionError(f"{tag}: lc_tick acted {acted} times")
+        self.versions["bkv"]["lc/doc"] = self.versions["bkv"]["lc/doc"][:1]
+        self._versions("after lc_tick")
+        # -- Swift: TempAuth, then bk0's listing ------------------------------
+        anon = self.client("", "")
+        hdrs = _s3_ok(anon("GET", "/auth/v1.0", headers={
+            "X-Auth-User": RGW_USER, "X-Auth-Key": self.keys[RGW_USER]}),
+            204, "TempAuth")[1]
+        t0 = time.monotonic()
+        rows = json.loads(_s3_ok(anon(
+            "GET", "/swift/v1/bk0?format=json",
+            headers={"X-Auth-Token": hdrs["X-Auth-Token"]}), 200,
+            "Swift listing")[2])
+        out["swift_list_s"] = time.monotonic() - t0
+        want = [{"name": k, "bytes": len(v),
+                 "hash": hashlib.md5(v).hexdigest()}
+                for k, v in sorted(self.model["bk0"].items())]
+        if [{k: r[k] for k in ("name", "bytes", "hash")} for r in rows] != \
+                want:
+            raise AssertionError(f"{tag}: the Swift listing of bk0 differs "
+                                 "from the S3 listing")
+        # -- STS: a role, AssumeRole, a PUT with the temporary keys -----------
+        self.gw.sts.create_role("smoke", [RGW_USER])
+        arn = "arn%3Aaws%3Aiam%3A%3A%3Arole%2Fsmoke"
+        body = _s3_ok(s3("POST", f"/?Action=AssumeRole&RoleArn={arn}&"
+                         "DurationSeconds=900"), 200, "AssumeRole")[2]
+        akid, secret, token = (re.search(rf"<{f}>([^<]+)<".encode(),
+                                         body).group(1).decode()
+                               for f in ("AccessKeyId", "SecretAccessKey",
+                                         "SessionToken"))
+        tmp = self.client(akid, secret, token)
+        self.model["bksts"] = {"obj": self.rng.bytes(RGW_SMALL_B)}
+        _s3_ok(tmp("PUT", "/bksts"), 200, "STS PUT bksts")
+        _s3_ok(tmp("PUT", "/bksts/obj", self.model["bksts"]["obj"]), 200,
+               "STS PUT bksts/obj")
+        if _s3_ok(tmp("GET", "/bksts/obj"), 200, "STS GET")[2] != \
+                self.model["bksts"]["obj"]:
+            raise AssertionError(f"{tag}: STS GET differs")
+        other = self.client(RGW_OTHER, self.keys[RGW_OTHER])
+        _s3_ok(other("POST", f"/?Action=AssumeRole&RoleArn={arn}"), 403,
+               "the untrusted caller's AssumeRole")
+        # -- notifications: 16 events in order to the smoke's receiver --------
+        out["notify"] = self.notifications()
+        out["launches"] = bm.LAUNCHES["gf_matmul"] - l0
+        out["index"] = self._check_index("healthy")
+        out["before_s"] = time.monotonic() - t_leg
+        self._counts(tag)
+
+    def notifications(self) -> dict:
+        tag, s3 = "phase 19 (f) rgw", self.s3
+        rcv = _Receiver()
+        try:
+            _s3_ok(s3("POST", "/?Action=CreateTopic&Name=t0&push-endpoint="
+                      f"http%3A%2F%2F127.0.0.1%3A{rcv.port}%2F"), 200,
+                   "CreateTopic")
+            _s3_ok(s3("PUT", "/bkn"), 200, "PUT bkn")
+            _s3_ok(s3("PUT", "/bkn?notification", RGW_NOTIF), 200,
+                   "notification config")
+            keys = [f"n{i}" for i in range(RGW_EVENTS // 2)]
+            want, sent = [], []
+            for method in ("PUT", "DELETE"):
+                for key in keys:
+                    data = self.rng.bytes(RGW_SMALL_B) if method == "PUT" \
+                        else b""
+                    sent.append(time.monotonic())
+                    _s3_ok(s3(method, f"/bkn/{key}", data),
+                           200 if method == "PUT" else 204,
+                           f"{method} bkn/{key}")
+                    want.append((key, "s3:ObjectCreated:Put" if method ==
+                                 "PUT" else "s3:ObjectRemoved:Delete"))
+            end = time.monotonic() + 30.0
+            while len(rcv.events) < len(want) and time.monotonic() < end:
+                time.sleep(0.005)
+            got = [(e["Records"][0]["s3"]["object"]["key"],
+                    e["Records"][0]["eventName"]) for _, e in rcv.events]
+            if got != want:
+                raise AssertionError(f"{tag}: events {got}, not {want}")
+            lat = [(t - s) * 1e3 for (t, _), s in zip(rcv.events, sent)]
+        finally:
+            rcv.close()
+        self.model["bkn"] = {}
+        self.gone["bkn"] = keys
+        p50, p99 = _pcts(lat)
+        return {"events": len(got), "p50_ms": p50, "p99_ms": p99}
+
+    # -- while the victim is down --------------------------------------------
+    def degraded(self) -> None:
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+
+        l0 = bm.LAUNCHES["gf_matmul"]
+        large = [k for k in self.model["bk0"] if k.startswith("l/")]
+        small = [k for k in self.model["bk0"]
+                 if k.startswith("s/")][:self.depth["degraded_small"]]
+        wall = self._get_all("bk0", large, RGW_LARGE_THREADS, "degraded")
+        self.out["degraded_get"] = {"MBps": len(large) * RGW_OBJ / wall / 1e6,
+                                    "wall_s": wall}
+        wall = self._get_all("bk0", small, RGW_SMALL_THREADS, "degraded")
+        self.out["degraded_small_get"] = {"per_s": len(small) / wall,
+                                          "wall_s": wall}
+        self.out["launches_degraded"] = bm.LAUNCHES["gf_matmul"] - l0
+
+    # -- after the recovery to clean ------------------------------------------
+    def after_clean(self) -> None:
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+        from ceph_tpu_torch.rgw import SWALLOWED
+
+        tag, out, s3 = "phase 19 (f) rgw", self.out, self.s3
+        l0 = bm.LAUNCHES["gf_matmul"]
+        t_leg = time.monotonic()
+        large = [k for k in self.model["bk0"] if k.startswith("l/")]
+        small = [k for k in self.model["bk0"] if k.startswith("s/")]
+        wall = self._get_all("bk0", large, RGW_LARGE_THREADS, "after clean")
+        out["clean_get"] = {"MBps": len(large) * RGW_OBJ / wall / 1e6,
+                            "wall_s": wall}
+        wall = self._get_all("bk0", small, RGW_SMALL_THREADS, "after clean")
+        out["clean_small_get"] = {"per_s": len(small) / wall, "wall_s": wall}
+        self._get_all("bkmp", ["big"], 1, "after clean")
+        self._get_all("bksts", ["obj"], 1, "after clean")
+        self._versions("after clean")
+        for bucket in ("bk0", "bkmp", "bksts", "bkn"):
+            self._list(bucket, "after clean")
+        out["index_after"] = self._check_index("after clean")
+        parts = [o for o in self.gw.io.list_objects()
+                 if o.startswith(".part.")]
+        if parts:
+            raise AssertionError(f"{tag}: {len(parts)} multipart parts left")
+        self._counts(tag)
+        # -- then bk0's large objects and every other bucket go through S3;
+        # bk0's small objects go with the pool ----------------------------
+        t0 = time.monotonic()
+        _pmap(lambda k: _s3_ok(s3("DELETE", f"/bk0/{k}"), 204,
+                               f"DELETE bk0/{k}"), large, RGW_LARGE_THREADS)
+        paths = [f"/{b}/{k}" for b in ("bkmp", "bksts")
+                 for k in self.model[b]]
+        paths += [f"/bkv/{key}?versionId={vid}"
+                  for key, stack in self.versions["bkv"].items()
+                  for vid, _ in stack]
+        paths += ["/bkmp", "/bksts", "/bkv", "/bkn"]
+        for path in paths:
+            _s3_ok(s3("DELETE", path), 204, f"DELETE {path}")
+        _s3_ok(s3("DELETE", "/bk0"), 409, "DELETE bk0 with its small objects")
+        body = _s3_ok(s3("GET", "/"), 200, "ListBuckets")[2]
+        if re.findall(rb"<Bucket><Name>([^<]+)<", body) != [b"bk0"]:
+            raise AssertionError(f"{tag}: buckets left: {body[:300]!r}")
+        for key in large:
+            del self.model["bk0"][key]
+        self.gone["bk0"] = large
+        self._list("bk0", "after the deletes")
+        out["index_deleted"] = self._check_index("after the deletes",
+                                                 ["bk0"])
+        out["deleted"] = len(large) + len(paths)
+        out["delete_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        self.close()
+        self._counts(tag)
+        rc, outs, _ = self.r.mon_command({
+            "prefix": "osd pool delete", "pool": RGW_POOL,
+            "yes_i_really_really_mean_it": True})
+        if rc != 0:
+            raise AssertionError(f"{tag}: {RGW_POOL} delete: {outs}")
+        _wait(self.c, lambda: RGW_POOL not in
+              self.c.mon.osdmap.pool_names.values() and
+              _all_clean(self.c, self.r), f"the PGs after {RGW_POOL}'s "
+              "delete", tag=tag)
+        out["shutdown_s"] = time.monotonic() - t0
+        out["launches_after"] = bm.LAUNCHES["gf_matmul"] - l0
+        out["after_s"] = time.monotonic() - t_leg
+        out["swallowed"] = sum(SWALLOWED.values()) - self.swallowed0
+        launches = (out["launches"], out["launches_degraded"],
+                    out["launches_after"])
+        if any(launches):
+            raise AssertionError(f"{tag}: K1 launched {launches} times in "
+                                 "the rgw leg")
+
+
+def print_rgw(ro: dict, name_power: str) -> None:
+    tag, d = "phase 19 (f) rgw", ro["depth"]
+    lp, lg, sp, ls = (ro["large_put"], ro["large_get"], ro["small_put"],
+                      ro["list"])
+    print(f"{tag}: gateway gw0 (SigV4, pool {RGW_POOL} made by it: "
+          f"replicated, size {REP_SIZE}, pg_num 32, 8 index shards) up in "
+          f"{ro['gateway_s']:.3f} s; bk0: {d['large']} x {RGW_OBJ} B PUT by "
+          f"{RGW_LARGE_THREADS} threads at {lp['MBps']:.1f} MB/s "
+          f"({lp['wall_s']:.3f} s), GET == the model (ETag == md5) at "
+          f"{lg['MBps']:.1f} MB/s ({lg['wall_s']:.3f} s); {d['small']} x "
+          f"{RGW_SMALL_B} B PUT by {RGW_SMALL_THREADS} threads at "
+          f"{sp['per_s']:.1f} PUTs/s ({sp['wall_s']:.3f} s); ListObjectsV2 "
+          f"max-keys {d['max_keys']}: {ls['keys']} keys in {ls['pages']} "
+          f"pages == the model, {ls['s_per_page']:.3f} s per page on the "
+          f"host clock on {name_power}")
+    nt = ro["notify"]
+    print(f"{tag}: multipart {d['parts']} x {RGW_PART_B} B in "
+          f"{ro['multipart_s']:.3f} s (ETag md5 of the part md5s -"
+          f"{d['parts']}); bkv: 2 keys x 3 versions + a delete marker, "
+          f"?versions and every versionId == the model; NoncurrentDays 1 "
+          f"on lc/, lc_tick(now + 2 days) removed 3 versions in "
+          f"{ro['lc_tick_s']:.3f} s; Swift TempAuth listing of bk0 == the "
+          f"S3 listing ({ro['swift_list_s']:.3f} s); STS AssumeRole + PUT/GET "
+          f"with the temporary keys, the untrusted caller 403; "
+          f"{nt['events']} notification events in order: delivery p50 "
+          f"{nt['p50_ms']:.3f} ms, p99 {nt['p99_ms']:.3f} ms; index shards "
+          f"== the model {ro['index']}; K1 launches {ro['launches']}; "
+          f"{ro['before_s']:.3f} s before the kill on {name_power}")
+    dg, ds = ro["degraded_get"], ro["degraded_small_get"]
+    print(f"{tag}: victim down: {d['large']} x {RGW_OBJ} B GET == the model "
+          f"at {dg['MBps']:.1f} MB/s ({dg['wall_s']:.3f} s), "
+          f"{d['degraded_small']} small at {ds['per_s']:.1f} GETs/s; K1 "
+          f"launches {ro['launches_degraded']} on {name_power}")
+    cg, cs = ro["clean_get"], ro["clean_small_get"]
+    print(f"{tag}: after the kill, out and clean: {d['large']} x {RGW_OBJ} B "
+          f"GET == the model at {cg['MBps']:.1f} MB/s ({cg['wall_s']:.3f} "
+          f"s), {d['small']} small at {cs['per_s']:.1f} GETs/s, the "
+          f"multipart object, every version, listings and index shards == "
+          f"the model {ro['index_after']}; {ro['deleted']} DELETEs (bk0's "
+          f"large objects, then every other object, version and bucket; "
+          f"bk0's listing and index shards == the model "
+          f"{ro['index_deleted']}) in {ro['delete_s']:.3f} s, the gateway "
+          f"shut down and {RGW_POOL} removed with bk0's small objects in "
+          f"{ro['shutdown_s']:.3f} s; K1 launches {ro['launches_after']}; "
+          f"swallowed {ro['swallowed']}; {ro['after_s']:.3f} s after the "
+          f"recovery on {name_power}")
+
+
 # -- phase 19 (g): elastic pools -- the split, the reseed, the mgr, thrash ---
 
 # the autoscaler's pool_bytes, weighted to the EC data pool as the
@@ -4553,6 +5183,7 @@ def cluster_phase(name_power: str, dev) -> dict:
                                     dtype=np.uint8).tobytes()
             for i in range(CLUSTER_OBJECTS)}
     c, r, io = _cluster()
+    rgw = None
     try:
         from ceph_tpu_torch.osd.types import PG
 
@@ -4568,20 +5199,24 @@ def cluster_phase(name_power: str, dev) -> dict:
                 c.mon.osdmap, r.pool_lookup("ecpool"), CLUSTER_PG_NUM,
                 PG)[1]))
             rbd.before_kill()
+            rgw.before_kill()
             serve.healthy()
             return scrub
 
         def degraded():
             rep.degraded()
+            rgw.degraded()
             serve.degraded()
         snap = SnapLeg(c, r, rep, objs)
         rbd = RbdLeg(c, r, rep, snap)
+        rgw = RgwLeg(c, r)
         res = drive_cluster(c, r, io, objs, "phase 19", dev,
                             healthy=healthy, degraded=degraded)
         legs = res["legs"]
         scrub, served = res["healthy"], serve.out
         snap.after_clean()
         rbd.after_clean()
+        rgw.after_clean()
         snap.close_clients()
         rep.verify(res["victim"])
         if not rep.out["recovery"]["push_in_clone_bytes"]:
@@ -4611,6 +5246,8 @@ def cluster_phase(name_power: str, dev) -> dict:
         elastic = elastic_leg(c, r, io, objs, rep.ec_writeop, res["victim"],
                               name_power)
     finally:
+        if rgw is not None:
+            rgw.close()
         c.shutdown()
     # -- the fabric leg -------------------------------------------------------
     fab = ICIFabric(devices=[dev] * 8)
@@ -4771,10 +5408,12 @@ def cluster_phase(name_power: str, dev) -> dict:
           f"{tr['df']['store_bytes']} vs bytes {tr['df']['bytes']} on "
           f"{name_power}")
     print_rbd(rbd.out, name_power)
+    print_rgw(rgw.out, name_power)
     return {"legs": legs, "recover_s": recover_s, "rebuilt": rebuilt,
             "ratio": read / rebuilt, "messages": messages,
             "compiles": compiles, "serve": served, "scrub": scrub,
             "replicated": ro, "snapshots": so, "rbd": rbd.out,
+            "rgw": rgw.out,
             "clean_s": res["clean_s"],
             "fabric_stats": stats, "elastic": elastic, "phase_s": wall}
 
@@ -4924,6 +5563,32 @@ def dryrun_leg(name_power: str, dev) -> dict:
     return {"wall_s": wall, "launches": launches, "fabric": res["fabric"]}
 
 
+# Ports for daemons that bind only after their imports (about 20 s):
+# below Linux's ephemeral range (32768 and up by default), which the
+# kernel draws outgoing connections' ports from.  A port picked inside
+# that range (bind to 0, then close) can be handed to another daemon's
+# outgoing connection in that time, and the daemon then fails to bind
+# it with EADDRINUSE; phase 21 once did.
+DAEMON_PORTS = range(20000, 32768)
+
+
+def _daemon_ports(n: int) -> list[int]:
+    """`n` distinct ports of DAEMON_PORTS that bind now, in random order
+    (two runs on one machine seldom draw the same)."""
+    ports = []
+    for port in random.sample(DAEMON_PORTS, len(DAEMON_PORTS)):
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        ports.append(port)
+        if len(ports) == n:
+            return ports
+    raise AssertionError(f"only {len(ports)} of {n} ports free in "
+                         f"{DAEMON_PORTS}")
+
+
 class Daemons:
     """`daemon_main` processes of one cluster (a mon and OSDs), each on
     the card with a keyring and an admin socket; stopped on exit.  With
@@ -4934,11 +5599,10 @@ class Daemons:
     def __init__(self, work: Path, n_osd: int, tag: str = "phase 20 (c)",
                  data: Path | None = None):
         from ceph_tpu_torch.auth import KeyRing
-        from ceph_tpu_torch.msg.tcp import pick_free_ports
 
         self.work, self.n_osd, self.tag, self.data = work, n_osd, tag, data
         names = ["mon.0"] + [f"osd.{i}" for i in range(n_osd)]
-        ports = pick_free_ports(len(names))
+        ports = _daemon_ports(len(names))
         self.addrs = {n: ["127.0.0.1", p] for n, p in zip(names, ports)}
         self.monmap = work / "monmap.json"
         self.monmap.write_text(json.dumps({
@@ -4946,8 +5610,10 @@ class Daemons:
             "osds_per_host": 1}))
         self.keyring_path = work / "keyring.json"
         # mgr.0: phase 21's devicehealth mgr, in the smoke's process
+        # client.rgw: 20 (c)'s radosgw process
         self.keyring = KeyRing.generate(names + ["client.admin",
-                                                 "client.smoke", "mgr.0"])
+                                                 "client.smoke", "mgr.0",
+                                                 "client.rgw"])
         self.keyring.save(str(self.keyring_path))
         self.env = dict(os.environ,
                         PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
@@ -5147,6 +5813,17 @@ RBD_CLI_STEPS = [
                       "\torder 22 (4 MiB objects)\n")]
 
 
+def _await_pool(r, pool: str, present: bool, tag: str) -> None:
+    """Wait until the client's map has (or no longer has) `pool`."""
+    end = time.monotonic() + CLUSTER_TIMEOUT_S
+    while (pool in r.objecter.osdmap.pool_names.values()) != present:
+        if time.monotonic() > end:
+            raise AssertionError(f"{tag}: {pool} never "
+                                 f"{'in' if present else 'out of'} the map")
+        with contextlib.suppress(TimeoutError):
+            r.objecter.wait_for_map(r.objecter.osdmap.epoch + 1, 1.0)
+
+
 def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
     """Phase 20 (c)'s replicated verbs, each a `rados_cli` process:
     `mkpool reppool 32` (a replicated pool), `bench reppool 2 write -t 16
@@ -5156,20 +5833,10 @@ def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
     every output held to the reference's text."""
     tag = ds.tag
     walls = {}
-
-    def await_pool(present: bool) -> None:
-        end = time.monotonic() + CLUSTER_TIMEOUT_S
-        while ("reppool" in r.objecter.osdmap.pool_names.values()) != present:
-            if time.monotonic() > end:
-                raise AssertionError(f"{tag}: reppool never "
-                                     f"{'in' if present else 'out of'} the map")
-            with contextlib.suppress(TimeoutError):
-                r.objecter.wait_for_map(r.objecter.osdmap.epoch + 1, 1.0)
-
     out, walls["mkpool"] = _cli(ds, "mkpool", "reppool", str(REP_PG_NUM))
     if out != "successfully created pool reppool\n":
         raise AssertionError(f"{tag}: mkpool printed {out!r}")
-    await_pool(True)
+    _await_pool(r, "reppool", True, tag)
     pool = r.objecter.osdmap.pools[r.pool_lookup("reppool")]
     if (pool.type, pool.size, pool.min_size) != (1, REP_SIZE, REP_MIN_SIZE):
         raise AssertionError(f"{tag}: mkpool made type {pool.type} size "
@@ -5206,7 +5873,7 @@ def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
     out, walls["rmpool"] = _cli(ds, "rmpool", "reppool")
     if out != "successfully deleted pool reppool\n":
         raise AssertionError(f"{tag}: rados rmpool printed {out!r}")
-    await_pool(False)
+    _await_pool(r, "reppool", False, tag)
     wait_clean("the PGs after rmpool")
     for mode, b in bench.items():
         print(f"phase 20 (c): rados bench reppool (replicated, size "
@@ -5225,6 +5892,94 @@ def rep_cli(ds: Daemons, r, wait_clean, name_power: str) -> dict:
           f"reference's, on {name_power}")
     return {"bench": bench, "walls": walls, "listed": len(listed),
             "rbd_walls": rbd_walls}
+
+
+RGW_PROC_OBJECTS = 8             # 4 MiB objects through the radosgw process
+
+
+def rgw_process(ds: Daemons, r, wait_clean, name_power: str) -> dict:
+    """Phase 20 (c)'s radosgw: `python -m ceph_tpu_torch.rgw.gateway` over
+    the daemon processes, authenticated as client.rgw with the cluster's
+    keyring (an anonymous S3 gateway, as the reference's `main` makes
+    it); it makes its pool `rgw`; 8 x 4 MiB PUT, GET == the payloads and
+    a listing over HTTP; SIGTERM, rc 0; then `rmpool rgw`."""
+    import select
+    import signal
+
+    tag = ds.tag
+    rng = np.random.default_rng(SEED + 201)
+    objs = {f"o{i}": rng.bytes(RGW_OBJ) for i in range(RGW_PROC_OBJECTS)}
+    log = open(ds.work / "radosgw.log", "w")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ceph_tpu_torch.rgw.gateway", "--monmap",
+         str(ds.monmap), "--keyring", str(ds.keyring_path), "--port", "0",
+         "--pool", RGW_POOL, "--name", "client.rgw"],
+        env=ds.env, cwd=ds.env["PYTHONPATH"], stdout=subprocess.PIPE,
+        stderr=log, text=True)
+    log.close()
+    s3 = None
+    try:
+        line, end = "", time.monotonic() + PROC_BOOT_S
+        while not line:
+            if proc.poll() is not None or time.monotonic() > end:
+                raise AssertionError(
+                    f"{tag}: radosgw not serving (rc {proc.poll()}): "
+                    f"{(ds.work / 'radosgw.log').read_text()[-2000:]}")
+            if select.select([proc.stdout], [], [], 0.1)[0]:
+                line = proc.stdout.readline()
+        m = re.match(rf"rgw: serving S3 on :(\d+) pool={RGW_POOL}$",
+                     line.strip())
+        if not m:
+            raise AssertionError(f"{tag}: radosgw printed {line!r}")
+        startup_s = time.monotonic() - t0
+        s3 = S3Client(int(m.group(1)), "", "")
+        _s3_ok(s3("PUT", "/pb"), 200, "PUT pb", tag)
+        t0 = time.monotonic()
+        for key, data in objs.items():
+            hdrs = _s3_ok(s3("PUT", f"/pb/{key}", data), 200,
+                          f"PUT pb/{key}", tag)[1]
+            if hdrs["ETag"] != f'"{hashlib.md5(data).hexdigest()}"':
+                raise AssertionError(f"{tag}: radosgw ETag {hdrs['ETag']}")
+        put_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        for key, data in objs.items():
+            if _s3_ok(s3("GET", f"/pb/{key}"), 200, f"GET pb/{key}",
+                      tag)[2] != data:
+                raise AssertionError(f"{tag}: radosgw GET pb/{key} differs")
+        get_s = time.monotonic() - t0
+        body = _s3_ok(s3("GET", "/pb?list-type=2"), 200, "list pb", tag)[2]
+        if re.findall(rb"<Key>([^<]+)</Key>", body) != \
+                [k.encode() for k in sorted(objs)]:
+            raise AssertionError(f"{tag}: radosgw listed {body[:300]!r}")
+        s3.close()
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+        stop_s = time.monotonic() - t0
+        if rc != 0:
+            raise AssertionError(f"{tag}: radosgw exited {rc} on SIGTERM")
+    finally:
+        if s3 is not None:
+            s3.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        proc.stdout.close()
+    out, _ = _cli(ds, "rmpool", RGW_POOL)
+    if out != f"successfully deleted pool {RGW_POOL}\n":
+        raise AssertionError(f"{tag}: rados rmpool printed {out!r}")
+    _await_pool(r, RGW_POOL, False, tag)
+    wait_clean("the PGs after rmpool rgw")
+    nbytes = RGW_PROC_OBJECTS * RGW_OBJ
+    res = {"startup_s": startup_s, "put_MBps": nbytes / put_s / 1e6,
+           "get_MBps": nbytes / get_s / 1e6, "stop_s": stop_s}
+    print(f"{tag}: radosgw process (client.rgw, cephx) serving in "
+          f"{startup_s:.2f} s from its spawn; {RGW_PROC_OBJECTS} x {RGW_OBJ} "
+          f"B PUT at {res['put_MBps']:.1f} MB/s, GET == the payloads at "
+          f"{res['get_MBps']:.1f} MB/s, listed; SIGTERM -> rc 0 in "
+          f"{stop_s:.2f} s; pool {RGW_POOL} removed, on {name_power}")
+    return res
 
 
 def process_leg(name_power: str, work: Path) -> dict:
@@ -5286,6 +6041,8 @@ def process_leg(name_power: str, work: Path) -> dict:
         bench["seq"] = _bench(ds, "seq")
         l2 = launches(osds)
         rep = rep_cli(ds, r, lambda what: wait_clean(osds, what), name_power)
+        rgw = rgw_process(ds, r, lambda what: wait_clean(osds, what),
+                          name_power)
         # the bench's objects, found by listing; one payload in all
         io = r.open_ioctx("ecpool")
         bench_objs = sorted(o for o in io.list_objects()
@@ -5367,7 +6124,7 @@ def process_leg(name_power: str, work: Path) -> dict:
     if not k1["write"] or not k1["degraded_read"]:
         raise AssertionError(f"phase 20 (c): K1 launches {k1}")
     return {"bench": bench, "degraded": degraded, "startup": startup,
-            "launches": k1, "replicated": rep,
+            "launches": k1, "replicated": rep, "rgw": rgw,
             "trace": {k: v for k, v in trace.items() if k != "tree"},
             "faults": faults, "wall_s": wall, "boot_s": boot_s}
 

@@ -12,7 +12,10 @@ must equal the reference's at tolerance 0.  The racing adds of
 every ported class is called directly on a `MethodContext` of each
 package over one in-memory object, through a scenario of good and bad
 inputs, and each call's output, errno and queued mutations must be
-equal; and `rgw`, the class not ported yet, is refused in one line.
+equal; and the bucket-index class `rgw` runs `obj_store` through
+`exec` on both clusters with equal output and replicas.
+(tests/test_torch_cls_rgw.py holds every `rgw` method to the reference
+over many more inputs.)
 """
 import json
 
@@ -527,6 +530,27 @@ SCENARIOS = {
               ("list", {}), ("enqueue", {"entries": [{"d": 1}]}),
               ("list", {"start": 2}), ("remove", {"upto": 9}),
               ("list", {}), ("remove", {})],
+    "rgw": [(None, "create"),
+            ("obj_store", {"key": "k", "mode": "enabled", "vid": "v1",
+                           "obj": "b/k@v1", "size": 2, "etag": "e",
+                           "mtime": "2026-01-01T00:00:01.000Z"}),
+            ("obj_store", {"key": "p", "obj": "b/p#1", "size": 1,
+                           "etag": "f", "mtime": "2026-01-01T00:00:02.000Z",
+                           "log": {"trace": ["z"]}}),
+            ("obj_delete_marker", {"key": "k", "vid": "m1",
+                                   "mtime": "2026-01-01T00:00:03.000Z"}),
+            ("obj_delete_version", {"key": "k", "vid": "m1"}),
+            ("obj_delete_version", {"key": "k", "vid": "nope"}),
+            ("obj_delete_plain", {"key": "p",
+                                  "mtime": "2026-01-01T00:00:04.000Z"}),
+            ("obj_sync_apply", {"key": "p", "op": "put", "mode": "plain",
+                                "obj": "b/p#2", "size": 1, "etag": "g",
+                                "mtime": "2026-01-01T00:00:05.000Z"}),
+            ("obj_sync_apply", {"key": "p", "op": "bogus", "mtime": ""}),
+            ("obj_trim_noncurrent", {"key": "k", "now": 1.8e9,
+                                     "max_age_s": 0}),
+            ("dl_list", {"marker": 0}), ("dl_trim", {"upto": 1}),
+            ("dl_list", {}), ("obj_store", {})],
 }
 
 
@@ -567,11 +591,31 @@ def test_methods_equal_on_a_method_context(cls_name):
             if c == cls_name} == methods
 
 
+def c_rgw_obj_store(side):
+    steps = [("idx", "rgw", "obj_store",
+              {"key": "k", "mode": mode, "vid": vid, "obj": f"b/k{n}",
+               "size": n, "etag": f"e{n}",
+               "mtime": f"2026-01-01T00:00:0{n}.000Z"})
+             for n, (mode, vid) in enumerate([("plain", ""),
+                                              ("plain", ""),
+                                              ("enabled", "v2")])]
+    side.io.create("idx")
+    out = calls(side, steps)
+    out += calls(side, [("idx", "rgw", "bucket_list", {})])
+    out.append(side.io.get_omap_vals("idx")[0])
+    out.append(side.replicas("idx"))
+    return out
+
+
 def test_rgw_class_refused_in_one_line(sides):
-    with pytest.raises(port_cls.ClsError) as ei:
-        port_cls.class_handler.resolve("rgw", "bucket_list")
-    assert ei.value.errno_name == "EOPNOTSUPP"
-    msg = str(ei.value)
-    assert "rgw" in msg and "not ported yet" in msg and "\n" not in msg
-    assert attempt(sides["port"].io.exec, "o", "rgw", "bucket_list",
-                   {}) == ("err", "EOPNOTSUPP")
+    """Kept under its first name: `rgw` was refused here until the class
+    was ported.  Now it resolves, and `obj_store` (plain, an overwrite,
+    then a version) runs through `exec` equal to the reference: outputs,
+    omap and every replica; a method the class lacks is EOPNOTSUPP."""
+    _, fn = port_cls.class_handler.resolve("rgw", "obj_store")
+    assert fn.__module__ == "ceph_tpu_torch.cls.rgw"
+    got = run_both(sides, c_rgw_obj_store)
+    assert got[:4] == [("ok", {"vid": None, "removed": []}),
+                       ("ok", {"vid": None, "removed": ["b/k0"]}),
+                       ("ok", {"vid": "v2", "removed": []}),
+                       ("err", "EOPNOTSUPP")]

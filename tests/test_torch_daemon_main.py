@@ -387,3 +387,27 @@ def test_sigkilled_osd_restarts_and_serves_its_data(durable):
         assert not any(c.counters(n).values()), n
     c.spawn("osd.0")
     c.wait_serving("osd.0")
+
+
+def test_smoke_daemon_ports_lie_below_the_ephemeral_range():
+    """chip_smoke.py's `Daemons` gives its mon and OSD processes ports
+    below Linux's ephemeral range (32768 and up by default), which the
+    kernel draws outgoing connections' ports from: a port picked inside
+    it can be taken by another daemon's connection in the 20 s before
+    its own daemon binds it, which then fails with EADDRINUSE.  The 17
+    ports of phase 21's cluster are distinct, below that range, and each
+    binds."""
+    import importlib.util
+    import socket
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_ports", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ports = smoke._daemon_ports(17)
+    assert len(set(ports)) == 17
+    assert all(1024 <= p < 32768 for p in ports)
+    for p in ports:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", p))

@@ -203,12 +203,13 @@ CLS_PROBE = textwrap.dedent("""
     sys.modules["jax"] = None          # any `import jax` now raises
     from ceph_tpu_torch.cls import ClsError, class_handler
     methods = {}
-    for name in ("lock", "refcount", "version", "log", "numops", "queue"):
+    for name in ("lock", "refcount", "version", "log", "numops", "queue",
+                 "rgw"):
         class_handler._load(name)
     for cls, method in sorted(class_handler._methods):
         methods.setdefault(cls, []).append(method)
     try:
-        class_handler.resolve("rgw", "bucket_list")
+        class_handler.resolve("rgw", "obj_store")
         rgw = "resolved"
     except ClsError as e:
         rgw = e.errno_name
@@ -219,8 +220,8 @@ CLS_PROBE = textwrap.dedent("""
 
 
 def test_cls_classes_load_without_jax_or_reference():
-    """Every object class the port carries loads with jax blocked and
-    registers the reference's methods; `rgw` is refused."""
+    """Every object class the port carries, `rgw` with them, loads with
+    jax blocked and registers the reference's methods; `rgw` resolves."""
     import json
 
     from ceph_tpu import cls as ref_cls
@@ -228,13 +229,13 @@ def test_cls_classes_load_without_jax_or_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["leaked"] == [] and out["rgw"] == "EOPNOTSUPP"
+    assert out["leaked"] == [] and out["rgw"] == "resolved"
+    assert "rgw" in out["methods"]
     for name in out["methods"]:
         ref_cls.class_handler._load(name)
     want = {}
     for cls, method in sorted(ref_cls.class_handler._methods):
-        if cls != "rgw":
-            want.setdefault(cls, []).append(method)
+        want.setdefault(cls, []).append(method)
     assert out["methods"] == want
 
 
@@ -284,3 +285,45 @@ def test_rbd_and_journal_import_without_jax_or_reference():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"leaked": [], "read": "block", "journal": ["write"],
                    "du": [0, "img provisioned 1 MiB used 64 KiB\n"]}
+
+
+RGW_PROBE = textwrap.dedent("""
+    import json, sys, urllib.request
+    sys.modules["jax"] = None          # any `import jax` now raises
+    import ceph_tpu_torch.cls.rgw
+    from ceph_tpu_torch.rgw import RGWGateway, SWALLOWED
+    from ceph_tpu_torch.rgw import auth, datalog, notify, sts, swift
+    from ceph_tpu_torch.testing import MiniCluster
+    c = MiniCluster(n_osd=3, threaded=True, device="cpu")
+    c.wait_all_up()
+    gw = RGWGateway(c.rados(), pool="rgw")
+    gw.start()
+    def req(method, path, data=None):
+        r = urllib.request.Request(f"http://127.0.0.1:{gw.port}{path}",
+                                   data=data, method=method)
+        with urllib.request.urlopen(r, timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    got = [req("PUT", "/b"), req("PUT", "/b/k", b"object"),
+           req("GET", "/b/k")]
+    gw.shutdown()
+    c.shutdown()
+    leaked = sorted(n for n in sys.modules
+                    if n == "ceph_tpu" or n.startswith("ceph_tpu.")
+                    or n == "jaxlib" or n.startswith("jaxlib."))
+    print(json.dumps({"leaked": leaked, "got": got,
+                      "swallowed": sum(SWALLOWED.values())}))
+""")
+
+
+def test_rgw_imports_without_jax_or_reference():
+    """The gateway, its auth, STS, Swift, notification and datalog
+    modules and the `rgw` object class import with jax blocked, and a
+    gateway on the port's cluster serves a bucket, a PUT and a GET,
+    loading nothing of the reference."""
+    import json
+    proc = subprocess.run([sys.executable, "-c", RGW_PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"leaked": [], "swallowed": 0,
+                   "got": [[200, ""], [200, ""], [200, "object"]]}
