@@ -23,8 +23,9 @@ RECENT_CRASH slice rides the merged module-health report), the
 telemetry and insights modules (`start_telemetry`, `start_insights`;
 `observability_tick` ticks them after crash, and the mon proxies their
 commands here), devicehealth (`start_devicehealth`, driven by
-`devicehealth_tick`), the hbmap slice of `observability_tick` and the
-admin socket.  Left out: prometheus and restful.
+`devicehealth_tick`), the hbmap slice of `observability_tick`, the
+admin socket, the prometheus exporter (`start_prometheus`) and the
+restful API (`start_restful`).
 """
 from __future__ import annotations
 
@@ -68,6 +69,9 @@ class MgrDaemon(Dispatcher, MonHunter):
         self._tid = itertools.count(1)
         self._pending: set[int] = set()       # unacked command tids
         self._sync_cmds: dict = {}            # tid -> (Event, slot)
+        self.prometheus = None
+        #: restful admin API (ref: pybind/mgr/restful); start_restful
+        self.restful = None
         self.failed_commands = 0
         #: pg_autoscaler module (ref: pybind/mgr/pg_autoscaler);
         #: enable with start_pg_autoscaler(), driven by autoscale_tick
@@ -142,6 +146,10 @@ class MgrDaemon(Dispatcher, MonHunter):
         self._command({"prefix": "crash post", "meta": meta})
 
     def shutdown(self) -> None:
+        if self.prometheus is not None:
+            self.prometheus.shutdown()
+        if self.restful is not None:
+            self.restful.shutdown()
         if self.asok is not None:
             self.asok.shutdown()
             self.asok = None
@@ -225,7 +233,8 @@ class MgrDaemon(Dispatcher, MonHunter):
     def mon_command(self, cmd: dict,
                     timeout: float = 30.0) -> tuple[int, str, object]:
         """Synchronous round-trip (the command channel of the progress,
-        devicehealth, telemetry and insights modules)."""
+        devicehealth, telemetry, insights, prometheus and restful
+        modules)."""
         tid = next(self._tid)
         ev, slot = threading.Event(), {}
         with self._lock:
@@ -355,6 +364,28 @@ class MgrDaemon(Dispatcher, MonHunter):
                                      "at e%d", self.name, sent,
                                      self.osdmap.epoch)
             return sent
+
+    def start_prometheus(self, port: int = 0):
+        """Serve /metrics (ref: pybind/mgr/prometheus).  Exports
+        progress events too when the progress module is running."""
+        from .prometheus import PrometheusExporter
+        # late-bound: progress may start before OR after the exporter
+        self.prometheus = PrometheusExporter(
+            self.mon_command, port=port,
+            progress_ls=lambda: (self.progress.ls()
+                                 if self.progress is not None else []),
+            device_ls=lambda: (self.devicehealth.ls()
+                               if self.devicehealth is not None
+                               else []))
+        self.prometheus.start()
+        return self.prometheus
+
+    def start_restful(self, port: int = 0):
+        """Serve the JSON admin API (ref: pybind/mgr/restful)."""
+        from .restful import RestfulServer
+        self.restful = RestfulServer(self, port=port)
+        self.restful.start()
+        return self.restful
 
     def _command(self, cmd: dict) -> None:
         tid = next(self._tid)

@@ -2,8 +2,8 @@
 (ref: src/rgw — radosgw's REST frontend + bucket-index-on-omap
 data layout, radically reduced).
 
-The port's copy of `ceph_tpu.rgw` without `multisite`: a gateway
-built with `zone=` is refused (`RGWGateway.__init__`).
+The port's copy of `ceph_tpu.rgw`; `multisite` counts its own
+swallowed errors (`rgw.multisite.SWALLOWED`, `SYNC_TICK_ERRORS`).
 
 Where the reference swallows a `RadosError` (a best-effort create or
 removal, a lost notification, a pusher lock that could not be renewed

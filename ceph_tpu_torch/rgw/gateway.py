@@ -41,19 +41,19 @@ set, S3 requests may instead carry an OpenStack token in
 `X-Auth-Token`, validated against the keystone endpoint (ref:
 rgw_auth_keystone.cc; config-gated the same way).
 
-**Multisite** (ref: src/rgw/rgw_data_sync.cc): the reference's
-gateway constructed with `zone=` becomes a zone member (datalog
-records in the same OSD transaction, a `SyncAgent` pulling peer
-zones' datalogs, `/admin/*` REST ops for the period, index dumps,
-datalog cursors and sync status).
+**Multisite** (ref: src/rgw/rgw_data_sync.cc; model in
+rgw/multisite.py): a gateway constructed with `zone=` becomes a zone
+member — every index mutation also appends a datalog record in the
+same OSD transaction, a `SyncAgent` thread pulls peer zones' datalogs
+and applies them idempotently, `/admin/*` REST ops expose the period,
+bucket index dumps, datalog cursors and sync status, and replicated
+writes carry an `x-rgw-zone-trace` so they neither loop nor re-fire
+bucket notifications.
 
 The port's copy of `ceph_tpu.rgw.gateway`: the same REST surface,
-index entries, object names, XML and headers.  `rgw.multisite` is not
-ported yet, so `zone=` raises; the gateway keeps the reference's
-multisite-facing methods (`sync_*`, `_admin_op`, the zone-trace
-guard), answering as a standalone reference gateway does.  Swallowed
-RadosErrors are counted in `SWALLOWED` (see the package docstring).
-Three differences:
+index entries, object names, XML and headers.  Swallowed RadosErrors
+are counted in `SWALLOWED` (see the package docstring).  Three
+differences:
 
 * a request on a keep-alive connection reads its own body: the
   reference's handler keeps the first request's body (and user) for
@@ -132,9 +132,6 @@ class RGWGateway:
                  zone: str | None = None, sync_interval: float = 0.1,
                  system_key: tuple[str, str] | None = None,
                  keystone_url: str | None = None):
-        if zone is not None:
-            raise NotImplementedError(
-                f"rgw multisite is not ported yet (zone={zone!r})")
         self.rados = rados
         self.pool = pool
         #: cephx keyring doubling as the S3 credential store
@@ -344,9 +341,13 @@ class RGWGateway:
         self.pusher = EventPusher(self.io, self.topics)
         self.sts = STSEngine(self.io)
         self.datalog = DataLog(self.io)
-        #: period view + sync agent, only for zone members (refused above)
+        #: period view + sync agent, only for zone members
         self.multisite = None
         self.sync = None
+        if zone is not None:
+            from .multisite import MultisiteState, SyncAgent
+            self.multisite = MultisiteState(self.io, zone)
+            self.sync = SyncAgent(self, interval=sync_interval)
         from .swift import SwiftFrontend
         self.swift = SwiftFrontend(self)
         #: deferred GC of data objects orphaned by index commits —

@@ -30,7 +30,10 @@ whose `heartbeat_tick` raises, as the reference does, and also records
 the reap in `reaped` (osd id, exception type, traceback), so a kernel
 fault raised from a ticked peering retry shows (the OSD has already
 captured the crash into the mon's crash table, as the reference's
-does).  Left out: the MDS and RGW helpers.  `revive_mon` also hands the
+does).  The RGW helpers are the reference's: `rgw_multisite` (one
+gateway per zone, each on its own replicated `rgw-<zone>` pool),
+`kill_rgw_zone` and `restart_rgw_zone`.  Left out: the MDS helpers.
+`revive_mon` also hands the
 revived mon the cluster's keyring (the reference's starts it without
 one), and makes it `self.mon` again when `self.mon` is not alive.
 """
@@ -266,6 +269,85 @@ class MiniCluster:
         if not self.threaded:
             self.pump()
 
+    # ------------------------------------------------------------- rgw
+    def rgw_multisite(self, zones=("z1", "z2"), zonegroup: str = "zg1",
+                      realm: str = "gold", index_shards: int = 4,
+                      sync_interval: float = 0.05, **kw) -> list:
+        """Spin one RGW gateway per zone (first zone = metadata
+        master), each over its own `rgw-<zone>` pool, commit the
+        realm/zonegroup/zone period into EVERY zone's pool (the
+        `realm pull` bootstrap), and start the sync agents.  Returns
+        the gateways in zone order (ref: the two-cluster multisite
+        topology of qa/tasks/rgw-multisite; collapsed onto one RADOS
+        cluster with per-zone pools)."""
+        from ..rgw import RGWGateway
+        gws = []
+        for z in zones:
+            gws.append(RGWGateway(
+                self.rados(), pool=f"rgw-{z}", zone=z,
+                index_shards=index_shards,
+                sync_interval=sync_interval, **kw))
+        for gw in gws:
+            adm = gw.multisite.admin
+            adm.realm_create(realm)
+            adm.zonegroup_create(zonegroup)
+            for i, z in enumerate(zones):
+                adm.zone_create(
+                    z, zonegroup,
+                    endpoint=f"http://127.0.0.1:{gws[i].port}",
+                    master=(i == 0))
+            adm.period_commit()
+            gw.multisite.refresh(force=True)
+        self.rgws = getattr(self, "rgws", [])
+        self.rgws.extend(gws)
+        for i, z in enumerate(zones):
+            # HTTP fault coverage: peer pulls to this zone's endpoint
+            # resolve to the entity "rgw.<zone>" in partition rules
+            self.network.faults.bind_alias(
+                f"http://127.0.0.1:{gws[i].port}", f"rgw.{z}")
+            gws[i].faults = self.network.faults
+        for gw in gws:
+            gw.start()
+        return gws
+
+    def kill_rgw_zone(self, gw) -> None:
+        """Stop a zone's gateway the unclean way a kill -9 looks to
+        the rest of the site: the sync agent abandons its in-flight
+        batch (markers for it never persist), the HTTP port closes,
+        and NO final GC pass runs — exactly the state a restart must
+        recover from via the durable sync markers."""
+        gw.sync._stop.set()
+        if gw.sync._thread is not None:
+            gw.sync._thread.join(timeout=10.0)
+        gw.pusher.stop()
+        gw._gc_stop.set()
+        gw.httpd.shutdown()
+        gw.httpd.server_close()
+        if gw in getattr(self, "rgws", []):
+            self.rgws.remove(gw)
+
+    def restart_rgw_zone(self, gw, **kw):
+        """Bring a killed zone's gateway back on the SAME port (its
+        endpoint is baked into every peer's period) and pool — the
+        restarted sync agent resumes from the durable markers.  The
+        old gateway's security config rides along by default: a
+        secured zone restarted anonymous would have its signed pulls
+        refused by every peer (and stop gating its own surface)."""
+        from ..rgw import RGWGateway
+        kw.setdefault("keyring", gw.keyring)
+        kw.setdefault("system_key", gw.system_key)
+        if gw.keystone is not None:
+            kw.setdefault("keystone_url", gw.keystone.url)
+        g2 = RGWGateway(
+            self.rados(), pool=gw.pool, zone=gw.zone, port=gw.port,
+            index_shards=gw.index_shards,
+            sync_interval=gw.sync.interval, **kw)
+        self.rgws = getattr(self, "rgws", [])
+        self.rgws.append(g2)
+        g2.faults = gw.faults
+        g2.start()
+        return g2
+
     def wait_all_up(self, timeout: float = 30.0) -> None:
         end = time.monotonic() + timeout
         want = set(self.osds)
@@ -279,6 +361,8 @@ class MiniCluster:
         raise TimeoutError("osds never came up")
 
     def shutdown(self) -> None:
+        for gw in list(getattr(self, "rgws", [])):
+            gw.shutdown()
         for c in self.clients:
             c.shutdown()
         if self.mgr is not None:

@@ -23,7 +23,10 @@ store's `serve put|get|stat|pages`, the mon's crash table (`crash
 ls|ls-new|stat|info|archive|archive-all|prune`), the mgr modules the
 mon proxies (`telemetry [show|status|on|off|channel]`, `insights`) and
 `trace <id> --asok-dir D`, which needs no cluster: it asks every admin
-socket under D for the trace's spans and prints one span tree; with
+socket under D for the trace's spans and prints one span tree; the
+multisite admin verbs (`rgw realm|zonegroup|zone|period|datalog` on a
+zone's pool, `rgw sync-status --endpoint` against a running gateway,
+signed with `--access/--secret`); with
 `--monmap`, `--keyring` and `--timeout`; the output text and return
 codes are the reference's.  Two rules differ:
 
@@ -32,8 +35,6 @@ codes are the reference's.  Two rules differ:
   object), and a read that differs fails the run;
 * with a keyring that holds `client.admin`, the client authenticates
   (cephx) as `client.admin`.
-
-Not ported yet: `rgw`.
 """
 from __future__ import annotations
 
@@ -255,6 +256,110 @@ def cmd_trace(r, a, out):
     return 0
 
 
+# ------------------------------------------------- rgw multisite admin
+# (ref: src/rgw/rgw_admin.cc realm/zonegroup/zone/period/datalog verbs
+#  + `radosgw-admin sync status`)
+
+def cmd_rgw(r, a, out):
+    import json
+    import urllib.error
+    import urllib.request
+    from ..rgw.multisite import (MultisiteAdmin, MultisiteError,
+                                 render_sync_status)
+    from ..rgw.datalog import DataLog
+
+    def usage(msg):
+        print(f"error: {msg}", file=sys.stderr)
+        return 1
+
+    if a.verb == "sync-status":
+        # live agent state lives in the gateway process, not RADOS:
+        # ask its /admin REST surface (ref: radosgw-admin asking the
+        # running gateway over the admin socket/REST)
+        if not a.endpoint:
+            return usage("rgw sync-status wants --endpoint http://gw")
+        url = a.endpoint.rstrip("/") + "/admin/sync-status"
+        hdrs = {}
+        if a.access and a.secret:
+            # secured gateways gate /admin to the system user: sign
+            # like the sync agents do (gateway.peer_request)
+            from urllib.parse import urlparse as _up
+            from ..rgw.auth import sign_request
+            u = _up(url)
+            hdrs = sign_request("GET", u.path, {"host": u.netloc},
+                                b"", a.access, a.secret)
+        try:
+            with urllib.request.urlopen(
+                    urllib.request.Request(url, headers=hdrs),
+                    timeout=a.timeout) as resp:
+                st = json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            # the gateway answered and REFUSED — saying "unreachable"
+            # would send the operator chasing a network problem
+            hint = " (secured gateway: pass the system user's " \
+                   "--access/--secret)" if e.code == 403 else ""
+            return usage(f"gateway refused: HTTP {e.code}"
+                         f" {e.reason}{hint}")
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            # a down gateway is an operator-readable error, not a
+            # traceback
+            return usage(f"gateway unreachable: {e}")
+        for line in render_sync_status(st):
+            print(line, file=out)
+        return 0
+    io = r.open_ioctx(a.pool)
+    adm = MultisiteAdmin(io)
+    args = a.args
+    try:
+        if a.verb == "realm":
+            if args[:1] != ["create"] or len(args) != 2:
+                return usage("rgw realm create <name>")
+            adm.realm_create(args[1])
+        elif a.verb == "zonegroup":
+            if args[:1] != ["create"] or len(args) != 2:
+                return usage("rgw zonegroup create <name>")
+            adm.zonegroup_create(args[1])
+        elif a.verb == "zone":
+            if len(args) != 2 or args[0] not in ("create", "modify"):
+                return usage("rgw zone create|modify <name> "
+                             "--zonegroup <zg> [--endpoint url] "
+                             "[--master]")
+            if args[0] == "create":
+                adm.zone_create(args[1], a.zonegroup,
+                                endpoint=a.endpoint or "",
+                                master=a.master)
+            else:
+                adm.zone_modify(args[1], a.zonegroup,
+                                endpoint=a.endpoint or None,
+                                master=True if a.master else None)
+        elif a.verb == "period":
+            if args[:1] == ["get"]:
+                print(json.dumps(adm.period_get(), indent=1,
+                                 sort_keys=True), file=out)
+            elif args[:1] == ["commit"]:
+                print(f"period epoch {adm.period_commit()}", file=out)
+            else:
+                return usage("rgw period get|commit")
+        elif a.verb == "datalog":
+            dl = DataLog(io)
+            if args[:1] == ["status"] and len(args) == 2:
+                for s, head in sorted(
+                        dl.heads(args[1], a.shards).items()):
+                    print(f"shard {s}: head {head}", file=out)
+            elif args[:1] == ["trim"] and len(args) == 4:
+                n = dl.trim(args[1], int(args[2]), int(args[3]))
+                print(f"trimmed {n} entries", file=out)
+            else:
+                return usage("rgw datalog status <bucket> | "
+                             "trim <bucket> <shard> <upto>")
+        else:
+            return usage(f"unknown rgw verb {a.verb}")
+    except MultisiteError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def cmd_serve(r, a, out):
     """Paged artifact store verbs (serve/): put a checkpoint shard,
     stream it back through a readahead policy, stat the manifest, or
@@ -445,6 +550,30 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--asok-dir", default="",
                    help="directory of daemon admin sockets (*.asok) "
                         "to query dump_traces on")
+    p = sub.add_parser("rgw")
+    p.add_argument("verb", choices=["realm", "zonegroup", "zone",
+                                    "period", "datalog",
+                                    "sync-status"])
+    p.add_argument("args", nargs="*")
+    p.add_argument("--pool", default="rgw",
+                   help="the zone's rgw pool (period + datalog live "
+                        "there)")
+    p.add_argument("--zonegroup", default="",
+                   help="zonegroup for zone create/modify")
+    p.add_argument("--endpoint", default="",
+                   help="zone endpoint URL (zone create/modify) or "
+                        "gateway URL (sync-status)")
+    p.add_argument("--master", action="store_true",
+                   help="make the zone the zonegroup's metadata "
+                        "master")
+    p.add_argument("--shards", type=int, default=8,
+                   help="index shards to report (datalog status)")
+    p.add_argument("--access", default="",
+                   help="system-user access key: secured gateways "
+                        "gate /admin to the multisite system user "
+                        "(sync-status)")
+    p.add_argument("--secret", default="",
+                   help="system-user secret key (sync-status)")
     p = sub.add_parser("serve")
     p.add_argument("verb", choices=["put", "get", "stat", "pages"])
     p.add_argument("pool")
@@ -494,6 +623,7 @@ def main(argv=None, rados=None, out=None) -> int:
                   "listomapvals": cmd_listomapvals,
                   "crash": cmd_crash, "telemetry": cmd_telemetry,
                   "insights": cmd_insights,
+                  "rgw": cmd_rgw,
                   "serve": cmd_serve}[a.cmd](rados, a, out)
             return rc or 0
         except RadosError as e:

@@ -271,7 +271,23 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    writes it to a file:// target under ceph_tpu_torch/_build/smoke,
    `insights` reports the cluster log's counts over its window (sampled
    from the start of (g)); with the mgr killed, `insights` is answered
-   EAGAIN.
+   EAGAIN.  Then (g4), rgw multisite: two zones (z1 the metadata
+   master, z2), each a gateway on its own replicated pool (pg_num 32, 8
+   index shards, SigV4, the peers' pulls signed as the system user),
+   syncing every 0.05 s: 16 x 4 MiB and 256 x 4 KiB PUT to z1, a bucket
+   made on z2 (forwarded to the master) with 64 x 4 KiB, 4 versions and
+   a delete marker, 16 DELETEs; both zones converge (every index shard's
+   object entries and every object's sha256 equal across the zones and
+   to the model); z2 killed under 64 PUTs to z1 and restarted from its
+   durable markers (no full sync); z2 partitioned from z1 on the fault
+   plane (backoff, markers unmoved) and healed; a new mgr's /metrics
+   over HTTP (lag gauges 0, the apply-latency counts equal the entries
+   applied, the zone pools' objects equal `df`, the osdmap epoch the
+   mon's) and its restful API (`/health`, `/df`, `/osd`, `/pool` equal
+   the mon commands behind them, 401 without the key, the dashboard
+   listing both zones); `rados rgw sync-status` equal to
+   `render_sync_status`; swallowed errors, failed sync rounds, error
+   lists and K1 launches 0; both pools removed.
    Every fault count 0 (queued items, dropped pulls, tick and dispatch
    errors, reaps, compiled repairs that raised, the mgr's failed
    commands); the sim clock of (e) goes on, each tick waiting for the
@@ -374,7 +390,9 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    checksum mismatch), and a MgrDaemon with devicehealth, in this
    process on the cluster's TCP network with its own cephx key (mgr.0
    in keyring.json), raises DEVICE_HEALTH for exactly that device in the
-   mon's `health` and its warn line in `log last`; `config set osd
+   mon's `health` and its warn line in `log last`, and its prometheus
+   exporter, scraped over HTTP, carries that device's health and media
+   error gauges equal to devicehealth's record; `config set osd
    osd_max_backfills 2` reaches all 16 OSD processes (each admin
    socket's `config get`) and `config rm` takes it back; that restarted
    OSD's process alone runs with errcheck armed (CEPH_TPU_ERRCHECK=1,
@@ -5082,11 +5100,522 @@ def mgr_proxy(c, r) -> dict:
             "samples": len(samples), "dead": second, "dead_s": second_s}
 
 
+# -- phase 19 (g4): rgw multisite, the mgr's prometheus and restful ----------
+
+MS_ZONES = ("z1", "z2")          # z1 is the metadata master
+MS_SHARDS = 8                    # radosgw's index shards, as in (f)
+MS_INTERVAL_S = 0.05             # the sync agents' poll (MiniCluster's)
+MS_LARGE = 16                    # 4 MiB objects PUT to z1
+MS_LARGE_THREADS = 4
+MS_SMALL = 256                   # 4 KiB objects PUT to z1
+MS_SMALL_THREADS = 8
+MS_Z2_SMALL = 64                 # 4 KiB objects in a bucket made on z2
+MS_VERSIONS = 4                  # versions of one key, then a delete marker
+MS_DELETES = 16                  # DELETEs on z1
+MS_KILL_SMALL = 64               # 4 KiB PUTs to z1 while z2 is killed
+MS_SYS = "client.rgwsync"        # the multisite system user
+
+
+def _http_get(port: int, path: str, headers: dict | None = None):
+    """GET over loopback -> the body as text; an HTTP error raises."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 headers=headers or {})
+    with urllib.request.urlopen(req, timeout=CLUSTER_TIMEOUT_S) as resp:
+        return resp.read().decode()
+
+
+def _samples(text: str) -> dict:
+    """A prometheus exposition text's samples: name{labels} -> value."""
+    return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+            for ln in text.splitlines() if ln and not ln.startswith("#")}
+
+
+class MultisiteLeg:
+    """Phase 19 (g4), after (g3): two zones (`z1` the metadata master,
+    `z2`) on phase 19's cluster, each a gateway on its own replicated
+    pool `rgw-<zone>` (pg_num 32, 8 index shards, SigV4, the peers' pulls
+    signed as the multisite system user), syncing every 0.05 s.  Writes
+    to both zones, a kill and restart of z2, a partition of z2 from z1
+    on the fault plane and its heal; after each, both zones converge:
+    every index shard's object entries and every object's sha256 equal
+    across the zones and to the leg's model.  Then the mgr's /metrics
+    and restful API over HTTP, and `rados rgw sync-status` in process.
+    No zone's data meets K1 (an EC pool refuses omap).  The counts
+    default to the smoke's: `large` 4 MiB and `small` 4 KiB objects on
+    z1, `z2_small` on z2, `versions` of one key, `deletes`, and
+    `kill_small` PUTs while z2 is down."""
+
+    def __init__(self, c, r, large: int = MS_LARGE, small: int = MS_SMALL,
+                 z2_small: int = MS_Z2_SMALL, versions: int = MS_VERSIONS,
+                 deletes: int = MS_DELETES, kill_small: int = MS_KILL_SMALL):
+        self.c, self.r = c, r
+        self.depth = {"large": large, "small": small, "z2_small": z2_small,
+                      "versions": versions, "deletes": deletes,
+                      "kill_small": kill_small}
+        self.rng = np.random.default_rng(SEED + 194)
+        self.out: dict = {"depth": self.depth}
+        #: bucket -> {key: bytes} of what must read back on both zones
+        self.model: dict = {}
+        #: bucket -> keys deleted (their index entries are tombstones)
+        self.gone: dict = {}
+        #: bucket -> keys with a version stack (checked on their own)
+        self.versioned: dict = {}
+        self.clients: list = []
+        self.gws: list = []
+
+    # -- helpers ------------------------------------------------------------
+    def _client(self, gw) -> S3Client:
+        cl = S3Client(gw.port, RGW_USER, self.keys[RGW_USER])
+        self.clients.append(cl)
+        return cl
+
+    def _put_all(self, s3, bucket: str, items: dict, threads: int,
+                 what: str) -> float:
+        def put(kv):
+            _s3_ok(s3("PUT", f"/{bucket}/{kv[0]}", kv[1]), 200,
+                   f"{what} PUT {bucket}/{kv[0]}", tag=self.tag)
+        t0 = time.monotonic()
+        _pmap(put, list(items.items()), threads)
+        self.model.setdefault(bucket, {}).update(items)
+        return time.monotonic() - t0
+
+    def _settled(self, gws, since: float | None = None) -> float:
+        """Wait until every agent has run two rounds past now and each
+        reports caught up; -> seconds from `since` (or from now)."""
+        t0 = time.monotonic() if since is None else since
+        start = {id(g): g.sync._rounds for g in gws}
+        _wait(self.c, lambda: all(g.sync._rounds >= start[id(g)] + 2
+                                  for g in gws) and
+              all(g.sync.caught_up() for g in gws),
+              f"zones {[g.zone for g in gws]} caught up", tag=self.tag)
+        return time.monotonic() - t0
+
+    def _index(self, gw, bucket: str) -> dict:
+        """shard -> {key: entry} of the bucket's object entries on `gw`
+        (datalog records and in-flight uploads apart), each entry's data
+        object replaced by its bytes' sha256."""
+        from ceph_tpu_torch.cls.rgw import DL_META
+        from ceph_tpu_torch.rgw.datalog import is_dl_key
+        from ceph_tpu_torch.rgw.gateway import _index_obj
+
+        out = {}
+        for s in range(gw._nshards(bucket)):
+            ents = {}
+            for k, v in gw.io.get_omap_vals(_index_obj(bucket, s))[0].items():
+                if is_dl_key(k) or k == DL_META or k.startswith(".upload."):
+                    continue
+                ent = json.loads(v)
+                for ver in [ent] + list(ent.get("versions") or ()):
+                    if ver.get("obj"):
+                        ver["obj"] = hashlib.sha256(
+                            gw.io.read(ver.pop("obj"))).hexdigest()
+                ents[k] = ent
+            out[s] = ents
+        return out
+
+    def _converged(self, what: str, get: bool = True) -> dict:
+        """Every bucket's index shards equal on both zones, their live
+        keys the model's (the deleted ones tombstones), every data
+        object's sha256 the model's, and with `get` every object read
+        back through the replica's (z2's) S3 equal to the model."""
+        from ceph_tpu_torch.cls.rgw import is_tomb
+
+        counts = {"shards": 0, "entries": 0, "objects": 0, "gets": 0}
+        for bucket in sorted(set(self.model) | set(self.gone) |
+                             set(self.versioned)):
+            views = [self._index(gw, bucket) for gw in self.gws]
+            if views[0] != views[1]:
+                bad = [s for s in views[0] if views[0][s] != views[1][s]]
+                raise AssertionError(f"{self.tag}: {what}: {bucket}'s index "
+                                     f"shards {bad} differ between the zones")
+            live = {k for ents in views[0].values() for k, e in ents.items()
+                    if not is_tomb(e) and e.get("versions") is None}
+            stacks = {k for ents in views[0].values() for k, e in ents.items()
+                      if e.get("versions") is not None}
+            if stacks != self.versioned.get(bucket, set()):
+                raise AssertionError(f"{self.tag}: {what}: {bucket}'s "
+                                     f"version stacks {sorted(stacks)}")
+            dead = {k for ents in views[0].values() for k, e in ents.items()
+                    if is_tomb(e)}
+            if live != set(self.model.get(bucket, {})) or \
+                    not dead <= set(self.gone.get(bucket, ())):
+                raise AssertionError(f"{self.tag}: {what}: {bucket} holds "
+                                     f"{len(live)} live keys and "
+                                     f"{len(dead)} tombstones, the model "
+                                     f"{len(self.model.get(bucket, {}))} "
+                                     f"and {len(self.gone.get(bucket, ()))}")
+            counts["shards"] += len(views[0])
+            counts["entries"] += sum(map(len, views[0].values()))
+            for ents in views[0].values():
+                for k, e in ents.items():
+                    if is_tomb(e) or e.get("versions") is not None:
+                        continue
+                    want = hashlib.sha256(self.model[bucket][k]).hexdigest()
+                    if e["obj"] != want:
+                        raise AssertionError(f"{self.tag}: {what}: "
+                                             f"{bucket}/{k} differs from the "
+                                             "model")
+                    counts["objects"] += 1
+            for s3 in self.s3s[1:] if get else ():
+                def get(key, s3=s3, bucket=bucket):
+                    body = _s3_ok(s3("GET", f"/{bucket}/{key}"), 200,
+                                  f"{what} GET {bucket}/{key}",
+                                  tag=self.tag)[2]
+                    if body != self.model[bucket][key]:
+                        raise AssertionError(f"{self.tag}: {what}: GET "
+                                             f"{bucket}/{key} differs")
+                _pmap(get, sorted(self.model.get(bucket, {})),
+                      MS_SMALL_THREADS)
+                counts["gets"] += len(self.model.get(bucket, {}))
+        return counts
+
+    def _faultless(self, what: str) -> dict:
+        from ceph_tpu_torch import rgw
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+        from ceph_tpu_torch.rgw import multisite
+
+        got = {"swallowed": sum(multisite.SWALLOWED.values()) +
+               sum(rgw.SWALLOWED.values()) - self.swallowed0,
+               "tick_errors": sum(multisite.SYNC_TICK_ERRORS.values()) -
+               self.tick_errors0,
+               "error_lists": sum(len(gw.sync.error_list())
+                                  for gw in self.gws),
+               "k1": bm.LAUNCHES["gf_matmul"] - self.l0}
+        if any(got.values()):
+            raise AssertionError(f"{self.tag}: {what}: {got} (swallowed "
+                                 f"{dict(multisite.SWALLOWED)}, "
+                                 f"{dict(rgw.SWALLOWED)}; tick errors "
+                                 f"{dict(multisite.SYNC_TICK_ERRORS)})")
+        return got
+
+    # -- the leg ------------------------------------------------------------
+    def run(self, clock=None) -> dict:
+        from ceph_tpu_torch import rgw
+        from ceph_tpu_torch.auth import KeyRing, generate_key
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+        from ceph_tpu_torch.rgw import multisite
+
+        self.tag = tag = "phase 19 (g4)"
+        out, d = self.out, self.depth
+        t_leg = time.monotonic()
+        self.l0 = bm.LAUNCHES["gf_matmul"]
+        self.swallowed0 = sum(multisite.SWALLOWED.values()) + \
+            sum(rgw.SWALLOWED.values())
+        self.tick_errors0 = sum(multisite.SYNC_TICK_ERRORS.values())
+        c = self.c
+        self.keys = {RGW_USER: generate_key(), MS_SYS: generate_key()}
+        try:
+            # -- 1. two zones, the period in both pools, the agents ------
+            t0 = time.monotonic()
+            self.gws = c.rgw_multisite(
+                zones=MS_ZONES, index_shards=MS_SHARDS,
+                sync_interval=MS_INTERVAL_S, keyring=KeyRing(self.keys),
+                system_key=(MS_SYS, self.keys[MS_SYS]))
+            out["zones_s"] = time.monotonic() - t0
+            z1, z2 = self.gws
+            for gw in self.gws:
+                pool = self.r.objecter.osdmap.pools[
+                    self.r.pool_lookup(gw.pool)]
+                if (pool.type, pool.size, pool.pg_num) != (1, REP_SIZE, 32):
+                    raise AssertionError(f"{tag}: {gw.pool} is type "
+                                         f"{pool.type} size {pool.size} "
+                                         f"pg_num {pool.pg_num}")
+            s1, s2 = self._client(z1), self._client(z2)
+            self.s3s = [s1, s2]
+            # -- 2. traffic on both zones --------------------------------
+            _s3_ok(s1("PUT", "/ms1"), 200, "PUT ms1", tag=tag)
+            large = {f"l/{i:02d}": self.rng.bytes(RGW_OBJ)
+                     for i in range(d["large"])}
+            small = {f"s/{i:04d}": self.rng.bytes(RGW_SMALL_B)
+                     for i in range(d["small"])}
+            t_z1 = time.monotonic()
+            out["large_s"] = self._put_all(s1, "ms1", large,
+                                           MS_LARGE_THREADS, "z1")
+            out["small_s"] = self._put_all(s1, "ms1", small,
+                                           MS_SMALL_THREADS, "z1")
+            _s3_ok(s2("PUT", "/ms2"), 200, "PUT ms2 on z2", tag=tag)
+            if "ms2" not in z1._buckets():
+                raise AssertionError(f"{tag}: ms2 made on z2 is not on the "
+                                     "master in the same request")
+            z2small = {f"t/{i:03d}": self.rng.bytes(RGW_SMALL_B)
+                       for i in range(d["z2_small"])}
+            out["z2_small_s"] = self._put_all(s2, "ms2", z2small,
+                                              MS_SMALL_THREADS, "z2")
+            out["lag_z2_z1_s"] = self._settled([z1])
+            _s3_ok(s1("PUT", "/msv"), 200, "PUT msv", tag=tag)
+            _s3_ok(s1("PUT", "/msv?versioning", RGW_VERS_ON), 200,
+                   "versioning msv", tag=tag)
+            vids = []
+            for i in range(d["versions"]):
+                data = self.rng.bytes(RGW_SMALL_B)
+                res = _s3_ok(s1("PUT", "/msv/v", data), 200,
+                             f"PUT msv/v #{i}", tag=tag)
+                vids.append((res[1]["x-amz-version-id"], data))
+            dm = _s3_ok(s1("DELETE", "/msv/v"), 204, "DELETE msv/v",
+                        tag=tag)[1]["x-amz-version-id"]
+            doomed = sorted(small)[:d["deletes"]]
+            for key in doomed:
+                _s3_ok(s1("DELETE", f"/ms1/{key}"), 204,
+                       f"DELETE ms1/{key}", tag=tag)
+                del self.model["ms1"][key]
+            self.gone["ms1"] = set(doomed)
+            self.model.setdefault("msv", {})
+            self.versioned["msv"] = {"v"}
+            out["lag_z1_z2_s"] = self._settled([z2])
+            out["replicated_MBps"] = (d["large"] * RGW_OBJ + d["small"] *
+                                      RGW_SMALL_B) / 1e6 / \
+                (time.monotonic() - t_z1)
+            self._settled(self.gws)
+            t0 = time.monotonic()
+            out["index"] = self._converged("after the writes")
+            out["check_s"] = time.monotonic() - t0
+            for gw in self.gws:
+                stack = [(v["vid"], v.get("dm", False)) for v in
+                         gw._index_entry("msv", "v")["versions"]]
+                want = [(dm, True)] + [(v, False) for v, _ in
+                                       reversed(vids)]
+                if stack != want:
+                    raise AssertionError(f"{tag}: msv/v's versions on "
+                                         f"{gw.zone}: {stack}")
+                for vid, data in vids:
+                    body = _s3_ok(self.s3s[self.gws.index(gw)](
+                        "GET", f"/msv/v?versionId={vid}"), 200,
+                        f"GET msv/v@{vid}", tag=tag)[2]
+                    if body != data:
+                        raise AssertionError(f"{tag}: msv/v@{vid} on "
+                                             f"{gw.zone} differs")
+            out["applied"] = {gw.zone: gw.sync.entries_applied
+                              for gw in self.gws}
+            out["skipped"] = {gw.zone: gw.sync.entries_skipped
+                              for gw in self.gws}
+            out["full_syncs"] = {gw.zone: gw.sync.full_syncs
+                                 for gw in self.gws}
+            out["quarantined"] = sum(len(gw.sync.error_list())
+                                     for gw in self.gws)
+            self._faultless("after the writes")
+            # -- 3. kill z2 under PUTs to z1, restart from its markers ---
+            more = {f"k/{i:03d}": self.rng.bytes(RGW_SMALL_B)
+                    for i in range(d["kill_small"])}
+            s2.close()
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                writer = ex.submit(self._put_all, s1, "ms1", more,
+                                   MS_SMALL_THREADS, "z1")
+                c.kill_rgw_zone(z2)
+                writer.result()
+            t0 = time.monotonic()
+            z2 = c.restart_rgw_zone(z2)
+            self.gws[1] = z2
+            s2 = self._client(z2)
+            self.s3s[1] = s2
+            out["restart_s"] = self._settled(self.gws, since=t0)
+            out["restart_full_syncs"] = z2.sync.full_syncs
+            if z2.sync.full_syncs:
+                raise AssertionError(f"{tag}: the restarted z2 ran "
+                                     f"{z2.sync.full_syncs} full syncs")
+            out["index_restart"] = self._converged("after the restart",
+                                                   get=False)
+            # -- 4. partition z2 from z1, then heal ----------------------
+            before = z2.sync.markers_for("z1")
+            ids = c.network.faults.partition(["rgw.z2"], ["rgw.z1"])
+            key, data = "p/0", self.rng.bytes(RGW_SMALL_B)
+            self._put_all(s1, "ms1", {key: data}, 1, "partitioned z1")
+            _wait(c, lambda: (bo := z2.sync._backoff.get("z1")) is not None
+                  and bo.failures >= 2, "z2's backoff", tag=tag)
+            rows = {s["source"]: s for s in z2.sync.status()["sources"]}
+            out["backoff_failures"] = z2.sync._backoff["z1"].failures
+            if rows["z1"]["state"] != "backoff" or \
+                    z2.sync.markers_for("z1") != before:
+                raise AssertionError(f"{tag}: partitioned: z2's source row "
+                                     f"{rows['z1']}, markers moved: "
+                                     f"{z2.sync.markers_for('z1') != before}")
+            t0 = time.monotonic()
+            c.network.faults.heal(ids)
+            out["heal_s"] = self._settled(self.gws, since=t0)
+            if z2.sync._backoff["z1"].failures:
+                raise AssertionError(f"{tag}: z2's backoff not reset")
+            out["index_heal"] = self._converged("after the heal", get=False)
+            self._faultless("after the heal")
+            # -- 5. the mgr's /metrics --------------------------------------
+            # the killed z2's agent is stopped: drop every reference to
+            # its gateway so the agents' weak set forgets it
+            import gc
+            gc.collect()
+            mgr = c.mgr or c.start_mgr()
+            if clock is not None:
+                clock.step()            # stat reports for the zone pools
+                clock.step()
+            self.mgr = mgr
+            exp = mgr.start_prometheus(port=0)
+            t0 = time.monotonic()
+            scrape = _samples(_http_get(exp.port, "/metrics"))
+            out["scrape_s"] = time.monotonic() - t0
+            df = self.r.mon_command({"prefix": "df"})[2]
+            epoch = c.mon.osdmap.epoch
+            bad = []
+            for zone, src in (("z1", "z2"), ("z2", "z1")):
+                lbl = f'{{source="{src}",zone="{zone}"}}'
+                for fam in ("ceph_rgw_sync_lag_entries",
+                            "ceph_rgw_sync_behind_shards"):
+                    if scrape.get(fam + lbl) != 0.0:
+                        bad.append((fam + lbl, scrape.get(fam + lbl)))
+            for gw in self.gws:
+                got = scrape.get("ceph_rgw_sync_apply_latency_seconds_count"
+                                 f'{{zone="{gw.zone}"}}')
+                if got != float(gw.sync.entries_applied):
+                    bad.append((gw.zone, got, gw.sync.entries_applied))
+                lbl = f'ceph_pool_objects{{pool="{gw.pool}"}}'
+                if scrape.get(lbl) != float(
+                        df["pools"].get(gw.pool, {}).get("objects", -1)):
+                    bad.append((lbl, scrape.get(lbl),
+                                df["pools"].get(gw.pool)))
+            if scrape.get("ceph_osdmap_epoch") != float(epoch):
+                bad.append(("ceph_osdmap_epoch",
+                            scrape.get("ceph_osdmap_epoch"), epoch))
+            if bad:
+                raise AssertionError(f"{tag}: /metrics: {bad}")
+            out["pool_objects"] = {gw.pool: scrape[
+                f'ceph_pool_objects{{pool="{gw.pool}"}}'] for gw in self.gws}
+            out["applied_end"] = {gw.zone: gw.sync.entries_applied
+                                  for gw in self.gws}
+            # -- 6. the restful API ----------------------------------------
+            srv = mgr.start_restful(port=0)
+            rkey = srv.create_key("admin")
+            auth = {"Authorization": f"Bearer {rkey}"}
+            routes = {"/health": {"prefix": "health detail"},
+                      "/df": {"prefix": "df"},
+                      "/osd": {"prefix": "osd dump"},
+                      "/pool": {"prefix": "osd pool ls"}}
+            out["restful_ms"] = {}
+            for path, cmd in routes.items():
+                t0 = time.monotonic()
+                got = json.loads(_http_get(srv.port, path, auth))
+                out["restful_ms"][path] = (time.monotonic() - t0) * 1e3
+                want = mgr.mon_command(cmd)[2]
+                if path == "/osd":
+                    want = want.get("osds", want)
+                elif path == "/pool":
+                    got = [p["pool_name"] for p in got]
+                if got != want:
+                    raise AssertionError(f"{tag}: restful GET {path} != "
+                                         f"the mon's {cmd['prefix']}")
+            try:
+                _http_get(srv.port, "/health")
+                raise AssertionError(f"{tag}: restful answered without "
+                                     "the key")
+            except Exception as ex:   # noqa: BLE001 — the 401 we want
+                if getattr(ex, "code", None) != 401:
+                    raise
+            dash = json.loads(_http_get(srv.port, "/dashboard", auth))
+            zones = sorted({row["zone"] for row in dash["sync"]})
+            if zones != list(MS_ZONES):
+                raise AssertionError(f"{tag}: the dashboard's sync rows "
+                                     f"list {zones}")
+            # -- 7. rados rgw sync-status, in process --------------------
+            from ceph_tpu_torch.rgw.multisite import render_sync_status
+            from ceph_tpu_torch.tools import rados_cli
+
+            for gw in self.gws:
+                buf = io.StringIO()
+                rc = rados_cli.main(
+                    ["rgw", "sync-status", "--endpoint",
+                     f"http://127.0.0.1:{gw.port}", "--access", MS_SYS,
+                     "--secret", self.keys[MS_SYS]], rados=self.r, out=buf)
+                want = render_sync_status(gw.sync.status())
+                if rc != 0 or buf.getvalue().splitlines() != want:
+                    raise AssertionError(f"{tag}: rados rgw sync-status "
+                                         f"{gw.zone}: rc {rc}, "
+                                         f"{buf.getvalue()!r} != {want}")
+            out["sync_status"] = want
+            out["faults"] = self._faultless("at the end")
+        finally:
+            self.close()
+        # -- 8. the zones' pools go -------------------------------------
+        t0 = time.monotonic()
+        for zone in MS_ZONES:
+            pool = f"rgw-{zone}"
+            rc, outs, _ = self.r.mon_command({
+                "prefix": "osd pool delete", "pool": pool,
+                "yes_i_really_really_mean_it": True})
+            if rc != 0:
+                raise AssertionError(f"{tag}: {pool} delete: {outs}")
+        _wait(c, lambda: not {f"rgw-{z}" for z in MS_ZONES} &
+              set(c.mon.osdmap.pool_names.values()) and
+              _all_clean(c, self.r), "the PGs after the zone pools' delete",
+              tag=tag)
+        out["teardown_s"] = time.monotonic() - t0
+        out["k1"] = bm.LAUNCHES["gf_matmul"] - self.l0
+        if out["k1"]:
+            raise AssertionError(f"{tag}: K1 launched {out['k1']} times")
+        out["wall_s"] = time.monotonic() - t_leg
+        return out
+
+    def close(self) -> None:
+        """Close every client, shut both gateways and the mgr's HTTP
+        faces down (a no-op for what is already down)."""
+        for cl in self.clients:
+            cl.close()
+        for gw in self.gws:
+            gw.shutdown()
+            if gw in self.c.rgws:
+                self.c.rgws.remove(gw)
+        self.gws = []
+        mgr = getattr(self, "mgr", None)
+        for face in ("prometheus", "restful"):
+            if mgr is not None and getattr(mgr, face) is not None:
+                getattr(mgr, face).shutdown()
+                setattr(mgr, face, None)
+
+
+def print_multisite(mo: dict, name_power: str) -> None:
+    tag, d = "phase 19 (g4)", mo["depth"]
+    print(f"{tag}: zones z1 (master), z2 on rgw-z1 / rgw-z2 (replicated, "
+          f"size {REP_SIZE}, pg_num 32, {MS_SHARDS} index shards, SigV4, "
+          f"sync every {MS_INTERVAL_S} s) up in {mo['zones_s']:.3f} s; z1: "
+          f"{d['large']} x {RGW_OBJ} B PUT by {MS_LARGE_THREADS} threads in "
+          f"{mo['large_s']:.3f} s, {d['small']} x {RGW_SMALL_B} B by "
+          f"{MS_SMALL_THREADS} in {mo['small_s']:.3f} s; z2: bucket ms2 "
+          f"(forwarded to the master) and {d['z2_small']} x {RGW_SMALL_B} B "
+          f"in {mo['z2_small_s']:.3f} s; msv: {d['versions']} versions and "
+          f"a delete marker; {d['deletes']} DELETEs on {name_power}")
+    print(f"{tag}: replicated z1 -> z2 at {mo['replicated_MBps']:.1f} MB/s "
+          f"(first PUT to caught up); lag from the last write to caught up "
+          f"z1 -> z2 {mo['lag_z1_z2_s']:.3f} s, z2 -> z1 "
+          f"{mo['lag_z2_z1_s']:.3f} s; entries applied {mo['applied']}, "
+          f"skipped {mo['skipped']}, quarantined {mo['quarantined']}, full "
+          f"syncs {mo['full_syncs']}; converged: {mo['index']} (index "
+          f"shards equal on both zones and to the model, every data "
+          f"object's sha256 == the model on both zones, every object read "
+          f"back through z2's S3) checked in {mo['check_s']:.3f} s on "
+          f"{name_power}")
+    print(f"{tag}: z2 killed under {d['kill_small']} PUTs to z1 and "
+          f"restarted on its port: caught up in {mo['restart_s']:.3f} s "
+          f"from its durable markers ({mo['restart_full_syncs']} full "
+          f"syncs), converged {mo['index_restart']}; partition rgw.z2 | "
+          f"rgw.z1: backoff after {mo['backoff_failures']} failures, "
+          f"markers unmoved; heal to caught up in {mo['heal_s']:.3f} s, "
+          f"converged {mo['index_heal']} (index shards and data objects' "
+          f"sha256) on {name_power}")
+    print(f"{tag}: the mgr's /metrics over HTTP in "
+          f"{mo['scrape_s'] * 1e3:.1f} ms: lag and behind shards 0 for both "
+          f"zones, the apply-latency counts == entries applied "
+          f"{mo['applied_end']}, ceph_pool_objects {mo['pool_objects']} == "
+          f"df, ceph_osdmap_epoch == the mon's; restful " + ", ".join(
+              f"{p} {ms:.1f} ms" for p, ms in mo["restful_ms"].items()) +
+          f" == the mon's commands, 401 without the key, the dashboard "
+          f"lists both zones; rados rgw sync-status == render_sync_status "
+          f"for both zones ({mo['sync_status'][1].strip()!r}); "
+          f"{mo['faults']}; pools removed in {mo['teardown_s']:.3f} s; leg "
+          f"{mo['wall_s']:.1f} s on {name_power}")
+
+
 def elastic_leg(c, r, io, objs: dict, ec_writeop: bytes, victim: int,
                 name_power: str) -> dict:
     """Phase 19 (g) on phase 19's cluster after its recovery: (g1) split
     and reseed through the mgr, one balancer round on K3; (g2) the
-    thrasher; (g3) the mgr's command proxy."""
+    thrasher; (g3) the mgr's command proxy; (g4) rgw multisite with the
+    mgr's prometheus exporter and restful API (`MultisiteLeg`)."""
     t_leg = time.monotonic()
     objs = {**objs, "ec_writeop": ec_writeop}
     want: dict = {}
@@ -5099,6 +5628,7 @@ def elastic_leg(c, r, io, objs: dict, ec_writeop: bytes, victim: int,
     g2["full_rebuilds"] = {k: paths[k] - full_g1[k] for k in paths}
     g3 = mgr_proxy(c, r)
     wall = time.monotonic() - t_leg
+    g4 = MultisiteLeg(c, r).run(clock)
     print(f"phase 19 (g1): pg_autoscaler plan " + "; ".join(
         f"{p['pool_name']} pg_num {p['pg_num']} -> target {p['target']}"
         f"{' (adjust)' if p['would_adjust'] else ''}" for p in g1["plan"]) +
@@ -5162,11 +5692,12 @@ def elastic_leg(c, r, io, objs: dict, ec_writeop: bytes, victim: int,
           f"{g3['log_counts']}); mgr killed, insights -> "
           f"{g3['dead'][:2]} in {g3['dead_s']:.3f} s; leg (g) {wall:.1f} s "
           f"on {name_power}")
+    print_multisite(g4, name_power)
     return {"g1": {k: v for k, v in g1.items() if k != "update_s"},
             "update_s": {"calls": len(upd), "sum": sum(allsec),
                          "median": statistics.median(allsec),
                          "max": max(allsec)},
-            "g2": g2, "g3": g3, "wall_s": wall}
+            "g2": g2, "g3": g3, "g4": g4, "wall_s": wall}
 
 
 def cluster_phase(name_power: str, dev) -> dict:
@@ -6195,7 +6726,9 @@ def device_health_leg(ds: Daemons, r, rot: int, osds: list) -> dict:
     shows the bitrotted OSD's checksum mismatches and no other's; then
     a MgrDaemon with devicehealth, in this process on the cluster's TCP
     network with its own cephx key, raises DEVICE_HEALTH for exactly
-    that device and logs the warn line."""
+    that device and logs the warn line; its prometheus exporter, scraped
+    over HTTP, carries that device's `ceph_device_health` and
+    `ceph_device_media_errors` equal to devicehealth's record."""
     from ceph_tpu_torch.auth import attach_cephx
     from ceph_tpu_torch.mgr import MgrDaemon
     from ceph_tpu_torch.msg.tcp import TcpNet
@@ -6237,9 +6770,25 @@ def device_health_leg(ds: Daemons, r, rot: int, osds: list) -> dict:
         logged = [e["text"] for e in r.mon_command(
             {"prefix": "log last", "num": 50, "level": "warn"})[2]
             if e["name"] == "mgr.devicehealth"]
+        mgr_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        text = _http_get(mgr.start_prometheus(port=0).port, "/metrics")
+        scrape_s = time.monotonic() - t0
+        rec = dh.get_health(f"osd.{rot}-dev")
     finally:
         mgr.shutdown()
-    mgr_s = time.monotonic() - t0
+    lbl = f'{{daemon="osd.{rot}",device="osd.{rot}-dev"}}'
+    gauges = {k: v for k, v in _samples(text).items()
+              if k.startswith("ceph_device_")}
+    want = {f"ceph_device_health{lbl}":
+            float({"GOOD": 0, "WARNING": 1, "FAILING": 2}[rec["health"]]),
+            f"ceph_device_media_errors{lbl}":
+            float(rec["csum_errors"] + rec["read_errors"])}
+    if any(gauges.get(k) != v for k, v in want.items()) or \
+            sum(1 for k in gauges if k.startswith("ceph_device_health{")) \
+            != len(osds):
+        raise AssertionError(f"{tag}: the scrape's device gauges "
+                             f"{gauges}, devicehealth's record {rec}")
     if unhealthy != [f"osd.{rot}-dev"] or check is None or \
             check.get("summary") != "1 devices reporting media errors" or \
             len(logged) != 1 or not logged[0].startswith(line):
@@ -6248,7 +6797,8 @@ def device_health_leg(ds: Daemons, r, rot: int, osds: list) -> dict:
     return {"csum": {n: v for n, v in feed.items() if v} or feed,
             "feed_s": feed_s, "unhealthy": unhealthy,
             "check": check["summary"], "ticks": ticks, "mgr_s": mgr_s,
-            "line": logged[0]}
+            "line": logged[0], "scrape_s": scrape_s,
+            "gauges": {k.split("{")[0]: v for k, v in want.items()}}
 
 
 def config_leg(ds: Daemons, r, osds: list) -> dict:
@@ -6772,7 +7322,9 @@ def durable_phase(name_power: str, work: Path) -> dict:
           f"devicehealth in this process (TCP, cephx as mgr.0): "
           f"DEVICE_HEALTH {dh['check']} for {dh['unhealthy']} after "
           f"{dh['ticks']} tick(s) ({dh['mgr_s']:.3f} s), log last: "
-          f"{dh['line']!r}")
+          f"{dh['line']!r}; its /metrics scraped over HTTP in "
+          f"{dh['scrape_s']:.3f} s: {dh['gauges']} for osd.{rot}-dev == "
+          f"devicehealth's record")
     cf = res["config"]
     print(f"phase 21: config set osd osd_max_backfills 2 over TCP: all "
           f"{cf['osds']} OSD processes' `config get` show {cf['applied']} "

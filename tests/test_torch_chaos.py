@@ -1,14 +1,17 @@
 """The port's ChaosRunner and the quorum's behaviour under faults, held
 to the reference's.
 
-tests/test_chaos.py's four cases that need no RGW gateway (the half-blind
-mon, the late ack, the ChaosRunner schedule with its replayed digest,
-the isolated primary) run on `ceph_tpu` and on `ceph_tpu_torch` (with
-`device="cpu"`) and compare at tolerance 0: the leader and quorum after
-every tick, the election epochs, the health checks, and `report()`'s
-acked and total ops, fault digest, fault counts, per-phase op counts and
-events (the per-phase latencies are host-clock times, compared to
-nothing).  Smoke phase 22's schedule runs the same way at the smallest
+tests/test_chaos.py's five cases (the half-blind mon, the late ack, the
+ChaosRunner schedule with its replayed digest, the isolated primary, the
+rgw zone partitioned mid-sync) run on `ceph_tpu` and on `ceph_tpu_torch`
+(with `device="cpu"`) and compare at tolerance 0: the leader and quorum
+after every tick, the election epochs, the health checks, and
+`report()`'s acked and total ops, fault digest, fault counts, per-phase
+op counts and events (the per-phase latencies are host-clock times,
+compared to nothing); for the zones, the durable cursors before, during
+and after the partition, the source's state, and the converged index
+(stamps ranked and ids numbered as tests/test_torch_rgw_multisite.py
+does).  Smoke phase 22's schedule runs the same way at the smallest
 width that places its `tpu` pool (5 OSDs, k=2 m=1, failure domain osd):
 the same report and the same bytes back in both packages, and each of
 the three mons answering `log last` with the same mon-originated lines,
@@ -19,6 +22,8 @@ loopback alike in both packages.  The last case pins the port's one
 rule that differs: an OSD that a new map wrongly shows down boots again.
 """
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -364,3 +369,58 @@ def test_quorum_cluster_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PortCluster(n_osd=3, threaded=False, n_mon=3, fault_seed=7)
+
+
+# --------------------------------------------- rgw multisite partition
+def _zone_partition(ns):
+    """tests/test_chaos.py:158: the secondary's pulls from the master
+    cut on the fault plane mid-sync; backoff engages, its durable
+    cursors stay put, and the lag drains after the heal."""
+    from types import SimpleNamespace
+
+    from test_torch_rgw_multisite import PKG as MS_PKG
+    from test_torch_rgw_multisite import _wait, canon, req, settle, state
+
+    kind = "ref" if ns is NS["ref"] else "port"
+    c = ns["cluster"](n_osd=4, threaded=True, **ns["kw"])
+    c.wait_all_up()
+    try:
+        gw1, gw2 = c.rgw_multisite(zones=("c1", "c2"))
+        masks = {f":{g.port}": f":<{g.zone}>" for g in (gw1, gw2)}
+        req(gw1, "PUT", "/pb")
+        req(gw1, "PUT", "/pb/before", b"pre-partition" * 10)
+        assert _wait(gw2.sync.caught_up), gw2.sync.status()
+        markers_before = gw2.sync.markers_for("c1")
+        ids = c.network.faults.partition(["rgw.c2"], ["rgw.c1"])
+        req(gw1, "PUT", "/pb/during", b"mid-partition" * 20)
+        assert _wait(lambda: (bo := gw2.sync._backoff.get("c1"))
+                     is not None and bo.failures >= 2), gw2.sync.status()
+        src_rows = {r["source"]: r for r in gw2.sync.status()["sources"]}
+        assert src_rows["c1"]["state"] == "backoff", src_rows
+        markers_during = gw2.sync.markers_for("c1")
+        assert markers_during == markers_before
+        with pytest.raises(urllib.error.HTTPError):
+            req(gw2, "GET", "/pb/during")
+        c.network.faults.heal(ids)
+        assert _wait(gw2.sync.caught_up), gw2.sync.status()
+        assert req(gw2, "GET", "/pb/during")[2] == b"mid-partition" * 20
+        settle(gw1, gw2)
+        assert gw2.sync._backoff["c1"].failures == 0
+        return canon({"before": markers_before, "during": markers_during,
+                      "state": src_rows["c1"]["state"],
+                      "after": gw2.sync.markers_for("c1"),
+                      "index": state(SimpleNamespace(p=MS_PKG[kind]),
+                                     [gw1, gw2], ["pb"])}, masks)
+    finally:
+        c.shutdown()
+
+
+def test_rgw_multisite_mid_sync_partition():
+    from ceph_tpu_torch.rgw import multisite as port_multisite
+
+    before = sum(port_multisite.SWALLOWED.values()), \
+        sum(port_multisite.SYNC_TICK_ERRORS.values())
+    got = both(_zone_partition)
+    assert got["state"] == "backoff"
+    assert (sum(port_multisite.SWALLOWED.values()),
+            sum(port_multisite.SYNC_TICK_ERRORS.values())) == before

@@ -607,11 +607,11 @@ def c_rgw_obj_store(side):
     return out
 
 
-def test_rgw_class_refused_in_one_line(sides):
-    """Kept under its first name: `rgw` was refused here until the class
-    was ported.  Now it resolves, and `obj_store` (plain, an overwrite,
-    then a version) runs through `exec` equal to the reference: outputs,
-    omap and every replica; a method the class lacks is EOPNOTSUPP."""
+def test_rgw_class_runs_obj_store_like_the_reference(sides):
+    """`rgw` resolves to the port's class, and `obj_store` (plain, an
+    overwrite, then a version) runs through `exec` equal to the
+    reference: outputs, omap and every replica; a method the class lacks
+    is EOPNOTSUPP."""
     _, fn = port_cls.class_handler.resolve("rgw", "obj_store")
     assert fn.__module__ == "ceph_tpu_torch.cls.rgw"
     got = run_both(sides, c_rgw_obj_store)

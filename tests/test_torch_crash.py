@@ -10,7 +10,8 @@ wall clock (a crash's own time, an archive's time) are the only fields
 masked.  The crash half of the end-to-end case (an OSD crashed under
 IO, one report from the live post and the spool, RECENT_CRASH through
 the mgr's crash module, archived away) runs on both threaded clusters;
-its telemetry and prometheus halves wait for those modules.  The
+telemetry's report carries the crash summary, and the mgr's prometheus
+scrape the archive-state gauge.  The
 `rados crash` verbs print the reference's text and return its codes,
 and `daemon_main` picks the reference's spool directory.
 """
@@ -316,6 +317,7 @@ def _osd_crash_e2e(ns, crash_dir):
             io.write_full(f"o{i}", b"x" * 64)
         mgr = c.start_mgr()
         mgr.start_crash()
+        mgr.start_telemetry()
         mgr.observability_tick()
         out["before"] = "RECENT_CRASH" in r.mon_command(
             {"prefix": "health"})[2]["checks"]
@@ -342,11 +344,19 @@ def _osd_crash_e2e(ns, crash_dir):
         out["count"] = len(r.mon_command({"prefix": "crash ls"})[2])
         out["summary"] = (mgr.observability_tick(),
                           mgr.crash.summary())[1]
+        rc, outs, rep = r.mon_command({"prefix": "telemetry show"})
+        out["telemetry"] = (rc, rep["crash"]["summary"],
+                            [x["entity_type"] for x in
+                             rep["crash"]["reports"]])
         out["archive"] = r.mon_command({"prefix": "crash archive-all"})[0]
         mgr.observability_tick()
         out["after"] = "RECENT_CRASH" in r.mon_command(
             {"prefix": "health"})[2]["checks"]
         out["summary_after"] = mgr.crash.summary()
+        text = mgr.start_prometheus(port=0).collect()
+        mgr.prometheus.shutdown()
+        out["gauge"] = [ln for ln in text.splitlines()
+                        if "ceph_crash_reports" in ln]
         return out
     finally:
         c.shutdown()
@@ -356,7 +366,8 @@ def test_osd_crash_e2e_recent_crash_and_dedup(tmp_path):
     """The crash half of the reference's acceptance path: an OSD under
     IO takes an injected fault; exactly one report lands (live post plus
     the spool drained on revive), RECENT_CRASH rises through the mgr's
-    crash module and clears when archived."""
+    crash module, telemetry carries the summary, the alert clears when
+    archived, and prometheus exports the archive-state gauge."""
     ref = _osd_crash_e2e(NS["ref"], str(tmp_path / "ref-osd1-crash"))
     port = _osd_crash_e2e(NS["port"], str(tmp_path / "port-osd1-crash"))
     assert port == ref
@@ -371,6 +382,10 @@ def test_osd_crash_e2e_recent_crash_and_dedup(tmp_path):
                                "by_entity_type": {"osd": 1}}
     assert port["archive"] == 0 and port["after"] is False
     assert port["summary_after"]["new"] == 0
+    assert port["telemetry"][0] == 0 and \
+        port["telemetry"][1]["total"] == 1 and port["telemetry"][2] == ["osd"]
+    assert 'ceph_crash_reports{status="archived"} 1' in port["gauge"]
+    assert 'ceph_crash_reports{status="new"} 0' in port["gauge"]
 
 
 class _StubMgr:

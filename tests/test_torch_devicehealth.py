@@ -7,8 +7,9 @@ on `device="cpu"`) and compared at tolerance 0:
   `media_errors` (tests/test_devicehealth.py's first case);
 * the module end to end on a threaded cluster: healthy devices first,
   then media errors on osd.1's store raise DEVICE_HEALTH in `health`, a
-  completed progress event and a warn line in `log last` (the second
-  case, without its prometheus lines: that module is not ported);
+  completed progress event, a warn line in `log last`, and the
+  per-device gauges `ceph_device_health` and `ceph_device_media_errors`
+  in the mgr's prometheus scrape (the second case);
 * the OSD's stat report carrying the feed (`bluestore_csum_errors`,
   `bluestore_read_errors` in `osd perf dump` through the mon) after a
   real checksum mismatch: a pump-mode cluster of BlueStore OSDs writes
@@ -112,11 +113,16 @@ def test_devicehealth_module_end_to_end():
             warn = [(e["name"], e["level"], e["text"]) for e in
                     r.mon_command({"prefix": "log last", "num": 20,
                                    "level": "warn"})[2]]
+            text = mgr.start_prometheus(port=0).collect()
+            mgr.prometheus.shutdown()
+            gauges = [ln for ln in text.splitlines()
+                      if ln.startswith(("ceph_device_", "# HELP ceph_device",
+                                        "# TYPE ceph_device"))]
             return (healthy, checks0, rec, health["checks"].get(
-                "DEVICE_HEALTH"), events, warn)
+                "DEVICE_HEALTH"), events, warn, gauges)
         finally:
             c.shutdown()
-    healthy, checks0, rec, check, events, warn = both(s)
+    healthy, checks0, rec, check, events, warn, gauges = both(s)
     assert [d["health"] for d in healthy] == ["GOOD"] * 3
     assert "DEVICE_HEALTH" not in checks0
     assert rec["health"] == "WARNING" and rec["csum_errors"] == 3 \
@@ -126,6 +132,10 @@ def test_devicehealth_module_end_to_end():
     assert any("devicehealth" in e for e in events)
     assert ("mgr.devicehealth", "warn", "device osd.1-dev on osd.1 reports "
             "4 media errors, life expectancy <6w") in warn
+    assert 'ceph_device_health{daemon="osd.1",device="osd.1-dev"} 1' \
+        in gauges
+    assert 'ceph_device_media_errors{daemon="osd.1",device="osd.1-dev"} 4' \
+        in gauges
 
 
 class _MonMgr:

@@ -327,3 +327,60 @@ def test_rgw_imports_without_jax_or_reference():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"leaked": [], "swallowed": 0,
                    "got": [[200, ""], [200, ""], [200, "object"]]}
+
+
+MULTISITE_PROBE = textwrap.dedent("""
+    import json, sys, time, urllib.request
+    sys.modules["jax"] = None          # any `import jax` now raises
+    from ceph_tpu_torch.mgr import prometheus, restful
+    from ceph_tpu_torch.rgw import multisite
+    from ceph_tpu_torch.testing import MiniCluster
+    c = MiniCluster(n_osd=3, threaded=True, device="cpu")
+    c.wait_all_up()
+    g1, g2 = c.rgw_multisite(zones=("z1", "z2"))
+    for path, data in (("/b", None), ("/b/k", b"object")):
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{g1.port}{path}", data=data, method="PUT"),
+            timeout=30).read()
+    end = time.monotonic() + 60
+    while not (g1.sync.caught_up() and g2.sync.caught_up()) and \\
+            time.monotonic() < end:
+        time.sleep(0.02)
+    got = urllib.request.urlopen(f"http://127.0.0.1:{g2.port}/b/k",
+                                 timeout=30).read().decode()
+    mgr = c.start_mgr()
+    text = urllib.request.urlopen(
+        f"http://127.0.0.1:{mgr.start_prometheus().port}/metrics",
+        timeout=30).read().decode()
+    srv = mgr.start_restful()
+    key = srv.create_key()
+    health = json.loads(urllib.request.urlopen(urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}/health",
+        headers={"Authorization": f"Bearer {key}"}), timeout=30).read())
+    c.shutdown()
+    leaked = sorted(n for n in sys.modules
+                    if n == "ceph_tpu" or n.startswith("ceph_tpu.")
+                    or n == "jaxlib" or n.startswith("jaxlib."))
+    print(json.dumps({"leaked": leaked, "got": got,
+                      "lag": sorted(ln for ln in text.splitlines()
+                                    if ln.startswith("ceph_rgw_sync_lag")),
+                      "health": "status" in health,
+                      "swallowed": sum(multisite.SWALLOWED.values()) +
+                      sum(multisite.SYNC_TICK_ERRORS.values())}))
+""")
+
+
+def test_multisite_prometheus_restful_import_without_jax_or_reference():
+    """`rgw.multisite`, `mgr.prometheus` and `mgr.restful` import with
+    jax blocked; two zones on the port's cluster replicate an object,
+    the mgr's scrape carries both zones' lag gauges at 0 and the restful
+    API answers a keyed request, loading nothing of the reference."""
+    import json
+    proc = subprocess.run([sys.executable, "-c", MULTISITE_PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"leaked": [], "got": "object", "health": True,
+                   "swallowed": 0,
+                   "lag": ['ceph_rgw_sync_lag_entries{source="z1",zone="z2"} 0',
+                           'ceph_rgw_sync_lag_entries{source="z2",zone="z1"} 0']}

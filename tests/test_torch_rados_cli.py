@@ -12,8 +12,12 @@ objects by listing), `test_pool_delete` (`rmpool`) and
 `test_trace_verb_assembles_cross_daemon_tree` (`trace` over the
 daemons' admin sockets; on an EC pool too, where the tree holds the
 primary's encode span and one sub-write span per peer shard, and its
-shape equals the reference's).  `rgw` is not ported: the verb is refused
-here as unknown.  The `crash` verbs are held to the reference's text in
+shape equals the reference's) and tests/test_rgw_multisite.py's
+`test_rados_cli_rgw_verbs` (`rgw period get`, `sync-status --endpoint`
+against a running zone, `datalog status`, and a usage error), held to
+the reference's text and codes together with the rest of the `rgw`
+verbs (`realm`, `zonegroup`, `zone create|modify`, `period commit`,
+`datalog trim`).  A verb neither package has is refused.  The `crash` verbs are held to the reference's text in
 tests/test_torch_crash.py, `telemetry` and `insights` in
 tests/test_torch_telemetry.py."""
 import io as iomod
@@ -147,7 +151,7 @@ def test_seq_without_a_write_bench_says_so(cluster):
     assert rc == 1 and "no benchmark objects" in out
 
 
-@pytest.mark.parametrize("argv", [["rgw", "realm", "create", "x"]])
+@pytest.mark.parametrize("argv", [["rgw", "frob", "x"], ["fs", "ls"]])
 def test_verbs_left_out_are_refused(argv):
     with pytest.raises(SystemExit) as ei:
         main(argv, rados=object())
@@ -295,6 +299,82 @@ def test_text_and_codes_equal_the_references(tmp_path):
     assert got["port"][13][1] == ("a\n value (3 bytes) :\none\n"
                                   "b\n value (1 bytes) :\n2\n")
     assert got["port"][19] == (0, "")       # rmpool of no such pool
+
+
+def _rgw_verbs(kind, capsys):
+    """tests/test_rgw_multisite.py:890 and the other `rgw` verbs on a
+    two-zone site: (rc, stdout, stderr) of each, ports named."""
+    import urllib.request
+
+    from test_torch_rgw_multisite import canon
+
+    c = RefCluster(n_osd=4, threaded=True) if kind == "ref" else \
+        MiniCluster(n_osd=4, threaded=True, device="cpu")
+    cli = ref_cli.main if kind == "ref" else main
+    try:
+        c.wait_all_up()
+        m1, m2 = c.rgw_multisite(zones=("m1", "m2"))
+        masks = {f":{g.port}": f":<{g.zone}>" for g in (m1, m2)}
+        for path, data in [("/dlc", None)] + [("/dlc/same", b"v%d" % i)
+                                               for i in range(6)]:
+            urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{m1.port}{path}", data=data,
+                method="PUT"), timeout=30).read()
+        end = time.monotonic() + 90
+        while not (m1.sync.caught_up() and m2.sync.caught_up()) and \
+                time.monotonic() < end:
+            time.sleep(0.02)
+        ep = f"http://127.0.0.1:{m2.port}"
+        verbs = [["rgw", "period", "get", "--pool", "rgw-m1"],
+                 ["rgw", "sync-status", "--endpoint", ep],
+                 ["rgw", "datalog", "status", "dlc", "--pool", "rgw-m1",
+                  "--shards", "4"],
+                 ["rgw", "realm", "frob"],
+                 ["mkpool", "rgwadm", "8"],
+                 ["rgw", "zonegroup", "create", "zg", "--pool", "rgwadm"],
+                 ["rgw", "realm", "create", "gold", "--pool", "rgwadm"],
+                 ["rgw", "zonegroup", "create", "zg", "--pool", "rgwadm"],
+                 ["rgw", "zone", "create", "z1", "--zonegroup", "zg",
+                  "--endpoint", "http://a", "--master", "--pool", "rgwadm"],
+                 ["rgw", "zone", "create", "z2", "--zonegroup", "nope",
+                  "--pool", "rgwadm"],
+                 ["rgw", "zone", "modify", "z1", "--zonegroup", "zg",
+                  "--endpoint", "http://b", "--pool", "rgwadm"],
+                 ["rgw", "period", "commit", "--pool", "rgwadm"],
+                 ["rgw", "period", "commit", "--pool", "rgwadm"],
+                 ["rgw", "period", "get", "--pool", "rgwadm"],
+                 ["rgw", "period", "frob", "--pool", "rgwadm"],
+                 ["rgw", "datalog", "trim", "dlc", "0", "3",
+                  "--pool", "rgw-m1"],
+                 ["rgw", "datalog", "status", "dlc", "--pool", "rgw-m1",
+                  "--shards", "4"],
+                 ["rgw", "datalog", "frob", "--pool", "rgw-m1"],
+                 ["rgw", "sync-status"]]
+        out = []
+        capsys.readouterr()
+        for v in verbs:
+            rc, text = run(c.rados(), *v, cli=cli)
+            out.append([rc, text, capsys.readouterr().err])
+        return canon(out, masks)
+    finally:
+        c.shutdown()
+
+
+def test_rgw_verbs_equal_the_references(capsys):
+    """The `rgw` verbs print the reference's text and return its codes,
+    stdout and stderr alike (stamps ranked, ports named)."""
+    got = {kind: _rgw_verbs(kind, capsys) for kind in ("ref", "port")}
+    assert got["port"] == got["ref"]
+    period = json.loads(got["port"][0][1])
+    assert got["port"][0][0] == 0 and period["realm"] == "gold"
+    assert period["epoch"] >= 1
+    assert got["port"][1][0] == 0
+    assert "zone m2" in got["port"][1][1] and "source m1:" in \
+        got["port"][1][1]
+    assert got["port"][2][0] == 0 and "head" in got["port"][2][1]
+    assert got["port"][3][0] == 1
+    assert [o[0] for o in got["port"][5:]] == \
+        [1, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0, 1, 1]
 
 
 def test_cli_process_against_a_cephx_cluster_over_tcp(tmp_path):

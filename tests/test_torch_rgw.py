@@ -30,7 +30,8 @@ Two gateways racing on one pool are not deterministic: there each
 side's record is what the race must keep (every version id, every key),
 and the sides must agree on it.
 
-The port's own pins: `zone=` is refused in one line, the gateway's
+The port's own pins: `zone=` builds a zone member whose datalog is the
+reference's (tests/test_torch_rgw_multisite.py holds the rest), the gateway's
 admin socket serves the five obs commands and tracks a request as the
 reference's does (tests/test_slow_ops.py's rgw case), and the radosgw
 process (`python -m ceph_tpu_torch.rgw.gateway`) joins a cephx cluster
@@ -640,12 +641,27 @@ def test_delete_vs_put_race_stays_consistent(sides):
 
 # ------------------------------------------------- the port's own pins
 
-def test_zone_is_refused_in_one_line(sides):
-    with pytest.raises(NotImplementedError) as ei:
-        port_gateway.RGWGateway(sides["port"].r, pool="rgwzone", zone="z1")
-    msg = str(ei.value)
-    assert "rgw multisite" in msg and "not ported yet" in msg and \
-        "\n" not in msg
+def c_zone_member_datalog(s):
+    gw = s.gateway("rgwzone", zone="z1")
+    out = [req(s, gw, "PUT", "/zb")]
+    out += [req(s, gw, "PUT", f"/zb/k{i}", b"z%d" % i) for i in range(3)]
+    out.append(req(s, gw, "DELETE", "/zb/k1"))
+    dl = s.p.gateway.DataLog(gw.io)
+    ents = [e for sh in range(gw._nshards("zb"))
+            for e in dl.list("zb", sh, 0, 100)[0]]
+    assert [e["op"] for e in ents if e["key"] == "k1"] == ["put", "del"]
+    assert all(e["trace"] == ["z1"] for e in ents)
+    assert gw.multisite.peers() == [] and gw.sync is not None
+    out.append(ents)
+    return out
+
+
+def test_zone_member_writes_its_datalog_like_the_reference(sides):
+    """`RGWGateway(..., zone=)` builds a zone member in both packages:
+    each index mutation appends its datalog record in the same `exec`
+    on the index shard, and the records, the replies and the whole pool
+    are equal to the reference's."""
+    run_both(sides, c_zone_member_datalog, ["rgwzone"])
 
 
 def c_admin_socket_obs(s, tmp):

@@ -11,15 +11,18 @@ gauges, the progress module's trim event, the SnapTrim messages a
 promoted primary sends after the old one dies, the index carried
 through a PG split, a replica that slept through the round and trims
 its leftovers on revival, and a whole-cluster restart that resumes from
-the durable index.  The observability case leaves out the reference's
-prometheus leg: the port has no prometheus module yet.
+the durable index.  The observability case scrapes the pool gauges
+(`ceph_pool_snaptrim_pgs`, `ceph_pool_store_bytes`, `ceph_pool_bytes`)
+from each package's prometheus exporter over HTTP mid-trim.
 """
 import random
+import urllib.request
 
 import pytest
 
 from ceph_tpu.common.options import global_config as ref_config
 from ceph_tpu.mgr.progress import ProgressModule as RefProgress
+from ceph_tpu.mgr.prometheus import PrometheusExporter as RefExporter
 from ceph_tpu.msg.messages import SnapTrim as RefSnapTrim
 from ceph_tpu.msg.messages import SnapTrimReply as RefSnapTrimReply
 from ceph_tpu.osd.snap_mapper import IntervalSet as RefIntervalSet
@@ -29,6 +32,7 @@ from ceph_tpu.testing import MiniCluster as RefCluster
 from ceph_tpu.testing import OSDThrasher as RefThrasher
 from ceph_tpu_torch.common.options import global_config as port_config
 from ceph_tpu_torch.mgr.progress import ProgressModule as PortProgress
+from ceph_tpu_torch.mgr.prometheus import PrometheusExporter as PortExporter
 from ceph_tpu_torch.msg.messages import SnapTrim as PortSnapTrim
 from ceph_tpu_torch.msg.messages import SnapTrimReply as PortSnapTrimReply
 from ceph_tpu_torch.osd.snap_mapper import IntervalSet as PortIntervalSet
@@ -40,11 +44,13 @@ from ceph_tpu_torch.testing import OSDThrasher as PortThrasher
 PKG = {"ref": {"cluster": RefCluster, "config": ref_config,
                "SnapMapper": RefSnapMapper, "SnapTrim": RefSnapTrim,
                "SnapTrimReply": RefSnapTrimReply, "PG": RefPG,
-               "Thrasher": RefThrasher, "Progress": RefProgress},
+               "Thrasher": RefThrasher, "Progress": RefProgress,
+               "Exporter": RefExporter},
        "port": {"cluster": PortCluster, "config": port_config,
                 "SnapMapper": PortSnapMapper, "SnapTrim": PortSnapTrim,
                 "SnapTrimReply": PortSnapTrimReply, "PG": PortPG,
-                "Thrasher": PortThrasher, "Progress": PortProgress}}
+                "Thrasher": PortThrasher, "Progress": PortProgress,
+                "Exporter": PortExporter}}
 KINDS = ("ref", "port")
 
 
@@ -254,6 +260,18 @@ def c_observability(kind):
         states = status["pgmap"]["pgs_by_state"]
         _, _, df = c.mon.handle_command({"prefix": "df"})
         pool_df = dict(df["pools"]["op"])
+        exp = P["Exporter"](c.mon.handle_command)
+        exp.start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{exp.port}/metrics",
+                    timeout=30) as resp:
+                text = resp.read().decode()
+        finally:
+            exp.shutdown()
+        gauges = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+                  for ln in text.splitlines()
+                  if ln.startswith("ceph_pool_") and '{pool="op"}' in ln}
 
         class Mgr:
             mon_command = staticmethod(c.mon.handle_command)
@@ -268,14 +286,17 @@ def c_observability(kind):
         return (rc, states, pool_df, opened, open_msgs,
                 index_entries(kind, c), pool_df2,
                 sorted(e["message"] for e in prog.ls()),
-                sorted(e["message"] for e in prog.history()))
+                sorted(e["message"] for e in prog.history()), gauges)
     finally:
         c.shutdown()
 
 
 def test_snaptrim_observability_status_df_progress():
     (rc, states, pool_df, opened, open_msgs, left, pool_df2, still,
-     hist) = both(c_observability)
+     hist, gauges) = both(c_observability)
+    assert gauges['ceph_pool_snaptrim_pgs{pool="op"}'] > 0
+    assert gauges['ceph_pool_store_bytes{pool="op"}'] > \
+        gauges['ceph_pool_bytes{pool="op"}']
     assert rc == 0 and any("snaptrim" in s for s in states), states
     assert pool_df["snaptrim_pgs"] > 0, pool_df
     assert pool_df["store_bytes"] > pool_df["bytes"], pool_df
