@@ -24,7 +24,12 @@ configures both packages:
 * the snap trimmer's (`osd_max_trimming_pgs`,
   `osd_pg_max_concurrent_snap_trims`, `osd_snap_trim_sleep`);
 * librbd's object cache (`rbd_cache`, `rbd_cache_size`,
-  `rbd_cache_max_dirty`);
+  `rbd_cache_max_dirty`) and the cephfs client's (`client_oc`,
+  `client_oc_size`, `client_oc_max_dirty`);
+* the MDS's: beacons and failover (`mds_beacon_interval`,
+  `mds_beacon_grace`, `mds_standby_replay`), the balancer
+  (`mds_bal_interval`, `mds_bal_min_load`, `mds_bal_ratio`) and
+  dirfrag split and merge (`mds_bal_split_size`, `mds_bal_merge_size`);
 * the scrub scheduler's (`osd_scrub_auto`, `osd_scrub_min_interval`,
   `osd_deep_scrub_interval`, `osd_max_scrubs`,
   `osd_scrub_auto_repair`);
@@ -229,6 +234,37 @@ OPTIONS: dict[str, Option] = {opt.name: opt for opt in [
            "release, snap create, close)"),
     Option("rbd_cache_size", T.SIZE, L.ADVANCED, 32 << 20),
     Option("rbd_cache_max_dirty", T.SIZE, L.ADVANCED, 8 << 20),
+    # the cephfs client's object cache (ref: options.cc client_oc*)
+    Option("client_oc", T.BOOL, L.ADVANCED, True,
+           "cephfs write-back object cache under CAP_EXCL/CAP_CACHE"),
+    Option("client_oc_size", T.SIZE, L.ADVANCED, 32 << 20),
+    Option("client_oc_max_dirty", T.SIZE, L.ADVANCED, 8 << 20),
+    # MDS beacons / failover (ref: options.cc mds_beacon_interval,
+    # mds_beacon_grace, mds_standby_replay)
+    Option("mds_beacon_interval", T.SECS, L.ADVANCED, 4.0,
+           "seconds between MDS beacons to the monitor", runtime=True),
+    Option("mds_beacon_grace", T.SECS, L.ADVANCED, 15.0,
+           "beacon silence before the monitor marks a rank failed "
+           "and promotes a standby", runtime=True),
+    Option("mds_standby_replay", T.BOOL, L.ADVANCED, False,
+           "standby daemons warm-tail their target rank's journal "
+           "so takeover replay starts from a warm cursor"),
+    # MDS balancer (ref: options.cc mds_bal_* family)
+    Option("mds_bal_interval", T.FLOAT, L.ADVANCED, 5.0,
+           "seconds between MDS balancer passes", runtime=True),
+    Option("mds_bal_min_load", T.FLOAT, L.ADVANCED, 20.0,
+           "minimum decayed op load before a rank exports",
+           runtime=True),
+    Option("mds_bal_ratio", T.FLOAT, L.ADVANCED, 1.5,
+           "load multiple over the coldest rank that triggers an "
+           "export", runtime=True),
+    Option("mds_bal_split_size", T.UINT, L.ADVANCED, 10000,
+           "dentries per directory fragment before it splits "
+           "(ref: options.cc mds_bal_split_size)", runtime=True),
+    Option("mds_bal_merge_size", T.UINT, L.ADVANCED, 50,
+           "total dentries under which a fragmented directory "
+           "merges back (ref: options.cc mds_bal_merge_size)",
+           runtime=True),
     Option("osd_op_complaint_time", T.SECS, L.ADVANCED, 30.0,
            "in-flight op age that counts as slow: feeds each "
            "daemon's dump_blocked_ops and the cluster SLOW_OPS "

@@ -34,7 +34,11 @@ leader, the ConfigMonitor (`config set|rm|get|dump`, `config`
 subscriptions answered with MConfig and pushed again on every commit)
 and the LogMonitor (daemons' MLog batches committed through paxos and
 acked with MLogAck, the mon's own cluster-log lines, `log`, `log last`
-and `log counts`).  Left out: the MDSMonitor.  The mon's side of the
+and `log counts`), and the MDSMonitor (MMDSBeacon dispatch and the
+fsmap committed through paxos, `fs status`, `mds stat`, `fs dump` and
+`mds fail`, beacon-lapse detection and standby promotion in the tick,
+`fsmap` subscriptions pushed on every commit, and the MDS half of the
+SLOW_OPS feed off the beacons).  The mon's side of the
 mgr is here: `mgr register` names the active mgr, module commands
 (telemetry, insights) are proxied to it as `MMgrCommand` and its reply
 relayed (EAGAIN when none is registered or its connection resets),
@@ -74,7 +78,8 @@ from ..common.tracked_op import OpTracker
 from ..crush.wrapper import CrushWrapper
 from ..common.perf_counters import PerfCounters
 from ..msg.messages import (MGR_UNAVAILABLE_EAGAIN, MAuthRequest,
-                            MConfig, MLog, MLogAck, MMap,
+                            MConfig, MFSMap, MLog, MLogAck, MMap,
+                            MMDSBeacon,
                             MMgrCommand, MMgrCommandReply, MMonCommand,
                             MMonCommandAck, MMonElection, MMonForward,
                             MMonLease, MMonLeaseAck, MMonSubscribe,
@@ -87,6 +92,7 @@ from ..osd.osdmap import (CEPH_OSD_AUTOOUT, CEPH_OSD_EXISTS, CEPH_OSD_IN,
 from .config_monitor import ConfigMonitor
 from .crash_service import CrashService
 from .elector import Elector
+from .mds_monitor import MDSMonitor
 from .log_monitor import LogMonitor
 from .osd_monitor import OSDMonitor
 from .paxos import Paxos
@@ -120,11 +126,11 @@ def build_initial(n_osd: int, osds_per_host: int = 1
     return m, w
 
 
-# the down-out table is shared between the dispatch thread (failure
-# reports) and the tick thread (auto-out) — racecheck asserts both
-# sides hold self._lock
-@shared_state(only=("_down_stamp", "_module_health"),
-              mutating=("_down_stamp", "_module_health"))
+# health tables shared between the dispatch thread (beacons, mgr
+# health reports, failure reports) and the tick thread (auto-out) —
+# racecheck asserts both sides hold self._lock
+@shared_state(only=("_down_stamp", "_module_health", "_mds_slow"),
+              mutating=("_down_stamp", "_module_health", "_mds_slow"))
 class Monitor(Dispatcher):
     """mon.<rank> (ref: src/mon/Monitor.h:201)."""
 
@@ -151,6 +157,7 @@ class Monitor(Dispatcher):
         self.configmon = ConfigMonitor(self.paxos)
         self.logmon = LogMonitor(self.paxos)
         self.crashmon = CrashService(self.paxos)
+        self.mdsmon = MDSMonitor(self.paxos)
         self.ms = Messenger.create(network, self.name, threaded=threaded)
         # own-crash capture: a mon IS the crash sink, so its reports
         # stage straight into the local crash table (spool covers the
@@ -174,6 +181,12 @@ class Monitor(Dispatcher):
         self._subs: dict[str, int] = {}
         # config subscribers: entity -> last version sent
         self._config_subs: dict[str, int] = {}
+        # fsmap subscribers: entity -> last epoch sent
+        self._fsmap_subs: dict[str, int] = {}
+        #: per-MDS slow-op summaries off beacons: name -> {stamp,
+        #: count, oldest_age} (volatile; cleared when a beacon reports
+        #: count 0)
+        self._mds_slow: dict[str, dict] = {}
         # failure reports: target osd -> {reporter: stamp}
         self._failure_reports: dict[int, dict[int, float]] = {}
         # active mgr (volatile, re-registered every mgr tick): the
@@ -239,6 +252,7 @@ class Monitor(Dispatcher):
         self.configmon.init()
         self.logmon.init()
         self.crashmon.init()
+        self.mdsmon.init()
         self.ms.start()
         if not self.standalone:
             # quorum members drain once the election settles (_on_win/
@@ -349,6 +363,8 @@ class Monitor(Dispatcher):
         self.logmon.create_pending()
         self.crashmon.update_from_paxos()
         self.crashmon.create_pending()
+        self.mdsmon.update_from_paxos()
+        self.mdsmon.create_pending()
         self._persist_elector()
         self._broadcast_lease()
         self._publish()
@@ -402,6 +418,7 @@ class Monitor(Dispatcher):
         self.configmon.update_from_paxos()
         self.logmon.update_from_paxos()
         self.crashmon.update_from_paxos()
+        self.mdsmon.update_from_paxos()
         self._publish()
 
     # -------------------------------------------------------- dispatch
@@ -438,6 +455,11 @@ class Monitor(Dispatcher):
                 if self._relay_if_peon(msg):
                     return True
                 self._handle_log(msg)
+                return True
+            if isinstance(msg, MMDSBeacon):
+                if self._relay_if_peon(msg):
+                    return True
+                self._handle_mds_beacon(msg)
                 return True
             if isinstance(msg, MPGStats):
                 self._adopt_subscriber(msg.src, msg.epoch)
@@ -618,6 +640,8 @@ class Monitor(Dispatcher):
             return self.logmon
         if pfx == "crash" or pfx.startswith("crash "):
             return self.crashmon
+        if pfx.startswith(("fs ", "mds ")) or pfx in ("fs", "mds"):
+            return self.mdsmon
         return self.osdmon
 
     def _dispatch_command(self, cmdmap: dict, reply_cb,
@@ -723,7 +747,12 @@ class Monitor(Dispatcher):
         up = {o for o in range(self.osdmap.max_osd)
               if self.osdmap.is_up(o)}
         pgs = self.pgmap.primary_pgs(up)    # one digest per command
-        slow = {}
+        # non-OSD slow-op feeds: MDS beacons (expired with the beacon
+        # grace so a dead daemon's last report doesn't warn forever)
+        # and the mon's own command tracker
+        grace_mds = global_config()["mds_beacon_grace"]
+        slow = {name: s for name, s in self._mds_slow.items()
+                if now - s.get("stamp", now) <= grace_mds}
         own = self.op_tracker.slow_summary()
         if own["count"]:
             slow[self.name] = own
@@ -895,10 +924,25 @@ class Monitor(Dispatcher):
             self._config_subs[msg.src] = 0
             self._send_config(msg.src)
             return
+        if msg.what == "fsmap":
+            self._fsmap_subs[msg.src] = 0
+            self._send_fsmap(msg.src)
+            return
         if msg.what != "osdmap":
-            return      # the fsmap service is not ported
+            return
         self._subs[msg.src] = msg.start or 1
         self._send_maps(msg.src)
+
+    def _send_fsmap(self, entity: str) -> None:
+        """Push the current fsmap when the subscriber hasn't seen this
+        epoch (ref: Monitor handle_subscribe "fsmap" / MDSMonitor
+        check_subs)."""
+        m = self.mdsmon.fsmap
+        if self._fsmap_subs.get(entity, 0) >= m.epoch:
+            return
+        self._fsmap_subs[entity] = m.epoch
+        self.ms.connect(entity).send_message(
+            MFSMap(epoch=m.epoch, fsmap=m))
 
     def _send_config(self, entity: str) -> None:
         """Push the entity's merged config when it changed since the
@@ -959,6 +1003,36 @@ class Monitor(Dispatcher):
             self._send_maps(entity)
         for entity in list(self._config_subs):
             self._send_config(entity)
+        for entity in list(self._fsmap_subs):
+            self._send_fsmap(entity)
+
+    def _handle_mds_beacon(self, msg: MMDSBeacon) -> None:
+        """(ref: MDSMonitor::preprocess_beacon/prepare_beacon): stamp
+        the gid, stage any fsmap change, and answer the sender with
+        the current map so it learns assignments/standdowns without a
+        separate subscription."""
+        self.mdsmon.note_beacon(msg.gid, self.clock())
+        # SLOW_OPS feed, MDS half: the beacon piggybacks the daemon's
+        # op-tracker summary; count 0 clears the entry (drained)
+        sl = dict(msg.slow_ops or {})
+        if msg.name:
+            if int(sl.get("count", 0)) > 0:
+                self._mds_slow[msg.name] = dict(sl, stamp=self.clock())
+            else:
+                self._mds_slow.pop(msg.name, None)
+        # reply to the daemon's ENTITY name, not msg.src: a beacon
+        # relayed through a peon arrives with the peon's src
+        src = msg.name or msg.src
+
+        def reply(_r, _outs, _outb):
+            m = self.mdsmon.fsmap
+            self.ms.connect(src).send_message(
+                MFSMap(epoch=m.epoch, fsmap=m))
+
+        now = self.clock()
+        self._submit_change(
+            lambda: self.mdsmon.stage_beacon(msg, now),
+            reply_cb=reply, svc=self.mdsmon)
 
     # ------------------------------------------------------------- boot
     def _handle_boot(self, msg: MOSDBoot) -> None:
@@ -1148,6 +1222,13 @@ class Monitor(Dispatcher):
                     self._persist_elector()
             if not self.is_leader:
                 return
+            # MDS beacon-lapse detection + standby promotion
+            # (ref: MDSMonitor::tick)
+            m = self.mdsmon.fsmap
+            if m.ranks or m.standbys:
+                self._submit_change(
+                    lambda now=now: self.mdsmon.stage_failures(now),
+                    svc=self.mdsmon)
             interval = global_config()["mon_osd_down_out_interval"]
             to_out = []
             for osd, stamp in list(self._down_stamp.items()):

@@ -231,6 +231,7 @@ def ensure_registered() -> None:
     decoding never depends on what the caller happened to import."""
     from ..crush import types as _ct          # noqa: F401
     from ..crush import wrapper as _cw        # noqa: F401
+    from ..mon import fsmap as _fm            # noqa: F401
     from ..osd import osdmap as _om           # noqa: F401
     from ..osd import pg_types as _pt         # noqa: F401
     from ..osd import types as _ot            # noqa: F401

@@ -19,8 +19,11 @@ multi-mon quorum's election, leases, forwarded commands and catch-up;
 `MLog` and `MLogAck` a daemon's cluster-log batches and their acks;
 `SnapTrim`, `SnapTrimReply` and `SnapTrimPurged` carry the snap
 trimmer's clone trims, their acks and the purged-snaps cursor, and
-`MWatchNotify` a notify to a watching client.  Left out with the
-service that sends them: the MDS/fs messages.
+`MWatchNotify` a notify to a watching client; `MClientRequest`,
+`MClientReply` and `MClientCaps` carry the file system's metadata ops,
+their replies and capability traffic, `MMDSBeacon` an MDS's liveness
+and state, and `MFSMap` the mon's fsmap push.  That is every message
+type of the reference.
 """
 from __future__ import annotations
 
@@ -674,6 +677,76 @@ class MAuthReply(Message):
 
 
 @dataclass
+class MClientRequest(Message):
+    """client -> mds metadata op (ref: src/messages/MClientRequest.h;
+    op codes CEPH_MDS_OP_* src/include/ceph_fs.h)."""
+    tid: int = 0
+    op: str = ""
+    args: dict = field(default_factory=dict)
+
+
+@dataclass
+class MClientReply(Message):
+    """(ref: src/messages/MClientReply.h)."""
+    tid: int = 0
+    result: int = 0
+    errno_name: str = ""
+    out: Any = None
+    # --- v2 ---
+    #: >= 0: the request belongs to another rank's subtree — retry
+    #: there (ref: the MDS forward/mdsmap redirection)
+    forward: int = -1
+
+
+@dataclass
+class MClientCaps(Message):
+    """Capability traffic between MDS and fs clients
+    (ref: src/messages/MClientCaps.h).  op: "revoke" (mds -> client:
+    give the listed caps back after flushing dirty state) | "flush"
+    (client -> mds: dirty size/mtime riding a cap return) | "ack"
+    (client -> mds: revoke complete)."""
+    op: str = ""
+    ino: int = 0
+    caps: int = 0                    # cap bits affected
+    seq: int = 0
+    size: int = -1                   # flushed size (-1 = clean)
+    mtime: float = 0.0
+    # --- v2 ---
+    #: op="snapc": the realm's widened write snap context pushed to
+    #: open handles after a mksnap (ref: SnapRealm update broadcast)
+    snapc: Any = None
+
+
+@dataclass
+class MMDSBeacon(Message):
+    """mds -> mon liveness + state beacon (ref:
+    src/messages/MMDSBeacon.h; MDSMonitor::preprocess_beacon).
+    `state` walks standby -> replay -> resolve -> active; the monitor
+    answers every beacon with the current MFSMap so the daemon learns
+    assignments and standdowns without a separate subscription."""
+    gid: int = 0
+    name: str = ""
+    rank: int = -1
+    state: str = "standby"
+    seq: int = 0
+    #: standby-replay target rank (-1 = plain standby; ref:
+    #: mds_standby_replay / MDSMap::DAEMON_STATE standby-replay)
+    standby_replay_rank: int = -1
+    # --- v2: slow-op summary {count, oldest_age} riding the beacon —
+    # the MDS half of the SLOW_OPS health feed (the OSD's rides
+    # MPGStats)
+    slow_ops: dict = field(default_factory=dict)
+
+
+@dataclass
+class MFSMap(Message):
+    """mon -> subscriber/daemon FSMap publish (ref:
+    src/messages/MFSMap.h; Monitor handle_subscribe "fsmap")."""
+    epoch: int = 0
+    fsmap: Any = None
+
+
+@dataclass
 class Ping(Message):
     """Heartbeat (ref: src/messages/MOSDPing.h PING)."""
     epoch: int = 0
@@ -698,10 +771,13 @@ _VERSIONS: dict[str, tuple[int, int]] = {
     "PGScan": (2, 1),           # v2: ranged backfill walk
     "PGScanReply": (2, 1),      # v2: ranged/begin/end echo fields
     "PGPush": (2, 1),           # v2: authoritative backfill flag
+    "MClientCaps": (2, 1),      # v2: snapc broadcast leg
+    "MClientReply": (2, 1),     # v2: cross-rank forward
     "PGQuery": (2, 1),          # v2: EC pool-type flag
     "PGNotify": (2, 1),         # v2: held EC shard indexes
     "PGLogReq": (2, 1),         # v2: EC shard-log view flag
     "MPGStats": (2, 1),         # v2: slow-op summary (SLOW_OPS feed)
+    "MMDSBeacon": (2, 1),       # v2: slow-op summary (SLOW_OPS feed)
     "MMonLease": (2, 1),        # v2: reigning quorum rides the lease
 }
 

@@ -2,8 +2,11 @@
 images and CephFS file handles (ref: src/osdc/ObjectCacher.{h,cc} —
 the BufferHead extent cache both libraries mount on top of the
 Objecter).  The port's copy of `ceph_tpu.osdc.object_cacher`; its users
-in the port are the paged artifact store (serve/store.py) and rbd
-images (rbd/image.py), as the cephfs client is not ported yet.
+in the port are the paged artifact store (serve/store.py), rbd images
+(rbd/image.py) and the cephfs client (fs/client.py: one cache per
+inode, whose coherence protocol is the MDS's caps: writes buffer under
+CAP_EXCL, reads are served under CAP_CACHE, and a revoke flushes and
+invalidates it).
 
 Model (page-granular BufferHeads):
 

@@ -32,8 +32,10 @@ fault raised from a ticked peering retry shows (the OSD has already
 captured the crash into the mon's crash table, as the reference's
 does).  The RGW helpers are the reference's: `rgw_multisite` (one
 gateway per zone, each on its own replicated `rgw-<zone>` pool),
-`kill_rgw_zone` and `restart_rgw_zone`.  Left out: the MDS helpers.
-`revive_mon` also hands the
+`kill_rgw_zone` and `restart_rgw_zone`, and so are the MDS helpers
+(`start_mds`, `start_mds_standby`, `kill_mds`, `adopt_promoted`,
+`fsmap`, `wait_mds_active`; threaded clusters only, as the
+reference's).  `revive_mon` also hands the
 revived mon the cluster's keyring (the reference's starts it without
 one), and makes it `self.mon` again when `self.mon` is not alive.
 """
@@ -82,6 +84,12 @@ class MiniCluster:
         self.mgr = None
         #: (osd, exception type, traceback) of every OSD `tick` reaped
         self.reaped: list[tuple[int, str, str]] = []
+        # MDS fleet (ref: vstart's mds spawning): rank -> daemon (or
+        # the MDSStandby wrapper that promoted into it), plus the
+        # waiting standby pool
+        self.mdss: dict[int, object] = {}
+        self.standbys: dict[str, object] = {}
+        self._standby_seq = 0
         # cephx: one cluster keyring; daemons get it whole, clients get
         # per-entity secrets minted on demand (ref: ceph-authtool
         # provisioning + AuthMonitor key server)
@@ -180,6 +188,68 @@ class MiniCluster:
         (store kept for revive_osd)."""
         self.osds[osd].inject_crash_tick = True
         self.tick(now)
+
+    # ------------------------------------------------------------- mds
+    def start_mds(self, rank: int = 0, **kw):
+        """Spawn a beaconing rank daemon (threaded mode only)."""
+        from ..fs import MDSDaemon
+        d = MDSDaemon(self.network, self.rados(), rank=rank,
+                      mon=self.mon_names, keyring=self.keyring, **kw)
+        d.init()
+        self.mdss[rank] = d
+        return d
+
+    def start_mds_standby(self, name: str | None = None,
+                          standby_replay_rank: int | None = None):
+        """Add a standby to the promotion pool."""
+        from ..fs import MDSStandby
+        if name is None:
+            self._standby_seq += 1
+            name = f"sb{self._standby_seq}"
+        s = MDSStandby(self.network, self.rados(), name=name,
+                       mon=self.mon_names, keyring=self.keyring,
+                       standby_replay_rank=standby_replay_rank)
+        s.init()
+        self.standbys[name] = s
+        return s
+
+    def kill_mds(self, rank: int) -> None:
+        """Hard-kill a rank daemon: beacons stop, the endpoint
+        vanishes, the journal tail is left unflushed for the
+        successor's replay (qa mds thrasher kill model)."""
+        d = self.mdss.pop(rank, None)
+        if d is not None:
+            d.kill()
+        # a standby that promoted INTO this rank is now dead too
+        for name, s in list(self.standbys.items()):
+            if getattr(s, "rank", None) == rank:
+                del self.standbys[name]
+
+    def adopt_promoted(self) -> None:
+        """Move promoted standbys into the rank table so kill_mds /
+        fs status style helpers see them."""
+        for name, s in list(self.standbys.items()):
+            if getattr(s, "active", None) is not None:
+                self.mdss[s.rank] = s
+                del self.standbys[name]
+
+    def fsmap(self):
+        ldr = self.leader() or self.mon
+        return ldr.mdsmon.fsmap
+
+    def wait_mds_active(self, rank: int = 0,
+                        timeout: float = 30.0) -> None:
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            m = self.fsmap()
+            info = m.ranks.get(rank)
+            if info is not None and info.state == "active":
+                self.adopt_promoted()
+                return
+            time.sleep(0.05)
+        raise TimeoutError(
+            f"mds.{rank} never went active (fsmap e{self.fsmap().epoch}"
+            f" ranks={ {r: i.state for r, i in self.fsmap().ranks.items()} })")
 
     # ------------------------------------------------------------- mgr
     def start_mgr(self, **kw):
@@ -363,6 +433,10 @@ class MiniCluster:
     def shutdown(self) -> None:
         for gw in list(getattr(self, "rgws", [])):
             gw.shutdown()
+        for sb in list(self.standbys.values()):
+            sb.shutdown()
+        for d in list(self.mdss.values()):
+            d.shutdown()
         for c in self.clients:
             c.shutdown()
         if self.mgr is not None:

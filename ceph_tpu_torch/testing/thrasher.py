@@ -6,13 +6,14 @@ interleaved with client IO, then heal and verify).  Deterministic: a
 seeded RNG picks actions, the harness pumps the network and drives
 heartbeat/mon ticks on simulated time.
 
-The port's copy of `ceph_tpu.testing.thrasher` in part: `OSDThrasher`
-whole, with its shard-EIO leg.  `MDSThrasher` waits for the MDS.
+The port's copy of `ceph_tpu.testing.thrasher`: `OSDThrasher` with its
+shard-EIO leg, and `MDSThrasher` (kill a rank, drive the mon's sim clock
+past the beacon grace until a standby has taken over).
 """
 from __future__ import annotations
 
 import random
-import time
+import time as _time
 
 from ..common.options import global_config
 from .cluster import MiniCluster
@@ -199,7 +200,7 @@ class OSDThrasher:
             self.in_osd(osd)
         for _ in range(timeout_rounds):
             if self.c.threaded:
-                time.sleep(0.02)   # let messenger threads drain
+                _time.sleep(0.02)   # let messenger threads drain
             else:
                 self.c.pump()
             if all(d.pgs_recovering() == 0
@@ -208,3 +209,90 @@ class OSDThrasher:
             self._tick_rounds(1)   # unwedge map-waiting recoveries
         raise TimeoutError(
             f"cluster never went clean; log: {self.log}")
+
+
+class MDSThrasher:
+    """Kill/revive MDS ranks under live metadata load (ref:
+    qa/tasks/mds_thrash.py MDSThrasher): each round hard-kills an
+    active rank, backfills the standby pool, drives mon ticks past
+    ``mds_beacon_grace`` on simulated time until the monitor promotes
+    a standby through replay to active, and verifies clients keep
+    serving.  Requires a threaded MiniCluster with beaconing MDS
+    daemons (cluster.start_mds / start_mds_standby)."""
+
+    def __init__(self, cluster: MiniCluster, seed: int = 0,
+                 now: float = 50_000.0):
+        self.c = cluster
+        self.rng = random.Random(seed)
+        # beacons sent BEFORE the first simulated tick are stamped
+        # with the mon's real clock (_time.monotonic() = host uptime);
+        # a sim seed behind that runs mon time backward, so a dead
+        # gid's last stamp stays "fresh" forever and failover never
+        # fires (bit at host uptime > 50000s).  Only forward jumps
+        # are safe: seed at whichever clock is further along.
+        self.now = max(now, _time.monotonic() + 1.0)
+        self.log: list[str] = []
+
+    def _active_ranks(self) -> list[int]:
+        return [r for r, i in self.c.fsmap().ranks.items()
+                if i.state == "active"]
+
+    def tick_grace(self, rounds: int = 3) -> None:
+        """Advance simulated time past the beacon grace in sub-grace
+        steps with real sleeps between jumps: live daemons' beacons
+        (stamped with the mon's sim clock) land inside every window,
+        so only genuinely dead gids fall past the grace — the OSD
+        thrasher's grace/2 cadence applied to beacons."""
+        grace = global_config()["mds_beacon_grace"]
+        interval = global_config()["mds_beacon_interval"]
+        for _ in range(rounds):
+            self.now += grace / 2 + 0.1
+            self.c.tick(self.now)
+            _time.sleep(max(0.05, 2 * interval))
+            self.c.tick(self.now)
+
+    def kill_rank(self, rank: int | None = None) -> int:
+        active = self._active_ranks()
+        if not active:
+            raise RuntimeError("no active rank to kill")
+        rank = rank if rank is not None else self.rng.choice(active)
+        self.log.append(f"kill mds.{rank}")
+        self._killed_gid = self.c.fsmap().ranks[rank].gid
+        self.c.adopt_promoted()
+        self.c.kill_mds(rank)
+        return rank
+
+    def backfill_standby(self) -> None:
+        self.log.append("add standby")
+        self.c.start_mds_standby()
+
+    def wait_takeover(self, rank: int, timeout_rounds: int = 40,
+                      old_gid: int | None = None) -> None:
+        """Drive ticks until the rank is active under a NEW gid (the
+        dead holder's entry stays `active` until its beacon lapses,
+        so plain active-ness is not takeover)."""
+        if old_gid is None:
+            old_gid = getattr(self, "_killed_gid", None)
+        interval = global_config()["mds_beacon_interval"]
+        for _ in range(timeout_rounds):
+            info = self.c.fsmap().ranks.get(rank)
+            if info is not None and info.state == "active" and \
+                    (old_gid is None or info.gid != old_gid):
+                self.c.adopt_promoted()
+                return
+            self.tick_grace(1)
+            _time.sleep(max(0.05, interval))
+        raise TimeoutError(
+            f"mds.{rank} takeover never completed; log: {self.log}")
+
+    def do_thrash(self, rounds: int, between=None) -> None:
+        """`between(i)` runs client metadata IO between kills."""
+        for i in range(rounds):
+            if not self.c.standbys:
+                self.backfill_standby()
+                _time.sleep(2 * global_config()
+                            ["mds_beacon_interval"])
+            rank = self.kill_rank()
+            self.wait_takeover(rank)
+            if between is not None:
+                between(i)

@@ -46,8 +46,18 @@ CEPH_TPU_RACECHECK) before any daemon module is imported; with
 CEPH_TPU_ERRCHECK_DIR set, the process writes its fired handler counts
 there at exit (`errcheck-<pid>.json`).  One rule
 differs: a tick error the loop logs and survives also counts in the
-daemon's perf counters as `tick_errors` (`perf dump`).  Not ported yet,
-and refused with a one-line error: the `mds` role.
+daemon's perf counters as `tick_errors` (`perf dump`).  The `mds` role
+runs a metadata server rank over TCP as the reference's does (`--rank`,
+`--monmap`, `--keyring`, `--crash-dir`): a standalone rank (no beacons,
+no fsmap) whose embedded RADOS client signs as the daemon, whose crash
+reports post to the monmap's mons, and whose loop ticks the balancer
+once a second; like an OSD it waits until a mon accepts connections
+before it joins.  It runs no kernel, so it takes no `--device`; the port
+adds `--asok`, which serves the MDS's status and obs commands, `perf
+dump` (its `tick_errors`), `startup` and `msgr`.
+
+    python -m ceph_tpu_torch.tools.daemon_main mds --rank 0 \\
+        --monmap m.json [--keyring k.json] [--asok mds.0.asok]
 """
 from __future__ import annotations
 
@@ -233,6 +243,61 @@ def run_osd(args, stamps: dict) -> int:
     return 0
 
 
+def run_mds(args, stamps: dict) -> int:
+    """(ref: src/ceph_mds.cc)."""
+    import os
+
+    from ..client import Rados
+    from ..fs.mds import MDSDaemon
+    mm = load_monmap(args.monmap)
+    keyring = _keyring(args)
+    stamps["imported"] = time.time()
+    net = make_net(mm, keyring)
+    r = Rados(make_net(mm, keyring),
+              name=f"client.mds{os.getpid() % 10000}")
+    if keyring is not None:
+        # the MDS's embedded RADOS client signs as the daemon itself:
+        # it holds the service secret, so it self-mints (a wire
+        # handshake would fail — the mon has no key for the ephemeral
+        # client name)
+        from ..auth import attach_cephx
+        attach_cephx(r.objecter.ms, f"mds.{args.rank}", keyring,
+                     verifier=False)
+    mons = [f"mon.{k}" for k in mm.get("mon_ranks", [0])]
+    wait_for_mon(mm, mons)
+    r.connect()
+    mds = MDSDaemon(net, r, rank=args.rank, keyring=keyring,
+                    crash_dir=_crash_dir(args))
+    # crash posts go to the mons even though this MDS runs standalone
+    # (no beacons/fsmap — crash_mons is independent of `mon=`)
+    mds.crash_mons = mons
+    rep = mds.crash_reporter
+    rep.install_excepthook()
+    mds.init()
+    # next-boot spool drain: crashes captured while the mons were
+    # unreachable post now (the table dedups by crash_id; the ack
+    # retires each spool copy)
+    rep.drain()
+    stamps["serving"] = time.time()
+    _admin(mds, args, stamps)
+    print(f"mds.{args.rank}: serving on "
+          f"{mm['addrs'][f'mds.{args.rank}']}", flush=True)
+
+    def _tick():
+        # the tick drives the load balancer (heat decay, load
+        # publication, hot-subtree export); crash-capture wraps it
+        # like the osd/mon tick entries
+        try:
+            mds.tick()
+        except Exception as exc:
+            rep.capture(exc)
+            raise
+    _serve(_tick, interval=1.0, perf=mds.perf)
+    mds.shutdown()
+    r.shutdown()
+    return 0
+
+
 def _serve(tick, interval: float, perf) -> None:
     stop = {"flag": False}
 
@@ -283,6 +348,8 @@ def parser() -> argparse.ArgumentParser:
     pd.add_argument("--monmap", required=True)
     pd.add_argument("--keyring", default="")
     pd.add_argument("--crash-dir", default="")
+    pd.add_argument("--asok", default="",
+                    help="admin socket path (`ceph daemon` endpoint)")
     return ap
 
 
@@ -298,9 +365,8 @@ def main(argv=None) -> int:
     # environment at import), before the daemon modules are imported
     from ..common import devguard, racecheck  # noqa: F401
     args = parser().parse_args(argv)
-    if args.role == "mds":
-        raise SystemExit("daemon_main: the mds role is not ported yet")
-    return {"mon": run_mon, "osd": run_osd}[args.role](args, stamps)
+    return {"mon": run_mon, "osd": run_osd,
+            "mds": run_mds}[args.role](args, stamps)
 
 
 if __name__ == "__main__":

@@ -249,6 +249,27 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    keys equal the model, then every object, version and bucket is
    deleted, the gateway shut down and `rgw` removed; K1 launches in the
    leg and swallowed rgw errors 0.
+   The file system (the port's `fs`: an MDS rank, a standby, the mon's
+   MDSMonitor) laid out as Ceph documents CephFS on EC: `cephfs_data`,
+   an EC pool on the cluster's `tpu` k=8 m=4 profile (pg_num 32), made
+   before the first MDS starts, and `cephfs_metadata`, which the MDS
+   makes (replicated, size 3, pg_num 32); beacons every 0.2 s, grace 1
+   s; Ceph's default file layout (4 MiB objects).  Before the victim
+   dies: two clients write 16 x 4 MiB files into two directories and
+   64 x 4 KiB files into one, every file read back equal to the model
+   (sha256); a 4 KiB overwrite mid-file (a read-modify-write on the EC
+   pool), a hardlink, a rename, and a reader's open revoking a writer's
+   CAP_EXCL (the reader sees the buffered bytes).  With the victim down
+   every file read again (K1 decodes), then mds.0 killed while a create
+   is in flight (its reply dropped) and the standby driven to active on
+   phase 19's sim clock by MDSThrasher (tick_grace / wait_takeover,
+   forward jumps only); the create lands once (its ino, and the next
+   create takes the next).  After the recovery every file read again,
+   `fs status` and the fsmap epochs checked, every `cephfs_data`
+   object's shards on their acting OSDs equal to the plain version's
+   encode; K1's launches for `cephfs_data` by encode, decode and repair
+   (the recovery's included) each above 0; swallowed fs errors and
+   dispatch errors 0; then the daemons shut down and both pools removed.
    (g) Elastic pools, after the
    recovery below, with the victim out: the mgr (MgrDaemon on the card)
    with its pg_autoscaler and progress; one autoscale tick with the EC
@@ -405,8 +426,8 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    encode (tolerance 0), the replicas the restarted OSD pulled equal to
    their payloads on its disk, and `monstore_tool show-versions` on the mon's
    dir at the client's last epoch (its paxos holds one commit per map
-   epoch, the crash table's first and one per commit of the config and
-   the cluster log).  MB/s of the writes, seq and the
+   epoch, the crash table's first and one per commit of the config, the
+   cluster log and the fsmap).  MB/s of the writes, seq and the
    degraded read, the restart-to-clean seconds of the OSD and the mon,
    every daemon's start-up split (its store's open included), the WAL
    sizes and statfs per daemon, and every fault count (0);
@@ -4614,6 +4635,396 @@ def print_rgw(ro: dict, name_power: str) -> None:
           f"recovery on {name_power}")
 
 
+# -- phase 19 (f): CephFS with its file data on the EC pool ----------------
+FS_META = "cephfs_metadata"      # Ceph's default pool names: the MDS makes
+FS_DATA = "cephfs_data"          # the metadata pool; the data pool is EC
+#: Ceph's default file layout (file_layout_t: 4 MiB objects, no striping)
+FS_LAYOUT = {"stripe_unit": 4 << 20, "stripe_count": 1,
+             "object_size": 4 << 20}
+FS_LARGE = 16                    # 4 MiB files, 8 in each of two directories
+FS_LARGE_B = 4 << 20
+FS_SMALL = 64                    # 4 KiB files in one directory, two writers;
+#                                  cut from 256 (the smoke's wall, PERF.md 4)
+FS_SMALL_B = 4 << 10
+FS_EXCL_B = 1 << 20              # the file of the cap revoke
+#: tests/test_mds_failover.py:17's beacons
+FS_BEACON = {"mds_beacon_interval": 0.2, "mds_beacon_grace": 1.0}
+FS_TAKEOVER_ROUNDS = 40          # MDSThrasher.wait_takeover's default
+FS_ATTEMPT_S = 1.0               # the in-flight create's reply slice
+
+
+class FsLeg:
+    """Phase 19 (f)'s file system (the port's `fs`): CephFS on EC as the
+    Ceph documentation lays it out (`doc/cephfs/createfs.rst`): the
+    metadata on a replicated pool the MDS makes (`cephfs_metadata`, size
+    3, pg_num 32), the file data on an EC pool made before the first MDS
+    starts (`cephfs_data`, phase 19's `tpu` k=8 m=4 profile, pg_num 32).
+    One active rank and one standby, beaconing every 0.2 s with a 1 s
+    grace; two clients; every file in Ceph's default layout (4 MiB
+    objects).  `before_kill` after RgwLeg's, `degraded` while the victim
+    is down, `after_clean` after RgwLeg's; every byte read is held to a
+    host model by sha256.  K1 is counted by kind (encode, decode, repair)
+    for `cephfs_data` from `before_kill` to `after_clean`, the recovery
+    between included.  `profile`, `pg_num`, `large` and `small` take a
+    rehearsal's smaller cluster and counts."""
+
+    def __init__(self, c, r, large: int = FS_LARGE, small: int = FS_SMALL,
+                 profile: str = "tpu_k8m4", pg_num: int = CLUSTER_PG_NUM):
+        self.c, self.r = c, r
+        self.profile, self.pg_num = profile, pg_num
+        self.depth = {"large": large, "small": small}
+        self.rng = np.random.default_rng(SEED + 300)
+        self.out: dict = {"depth": self.depth}
+        self.model: dict = {}            # path -> bytes
+        self.clients: list = []
+        self.sb = None
+        self._split_cm = self.split = None
+        self._cfg: dict = {}
+
+    # -- helpers --------------------------------------------------------------
+    def _write(self, fs, path: str, data: bytes) -> None:
+        fh = fs.open(path, "w", layout=FS_LAYOUT)
+        fh.write(0, data)
+        fh.close()
+
+    def _read(self, fs, path: str) -> bytes:
+        fh = fs.open(path, "r")
+        try:
+            return fh.read(0)
+        finally:
+            fh.close()
+
+    def _pwrite(self, lists) -> float:
+        """Each client writes its list of paths in a thread of its own."""
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(lists)) as ex:
+            for f in [ex.submit(lambda fs=fs, ps=ps: [
+                    self._write(fs, p, self.model[p]) for p in ps])
+                      for fs, ps in zip(self.clients, lists)]:
+                f.result()
+        return time.monotonic() - t0
+
+    def _check_all(self, what: str) -> dict:
+        """Every file read back equal to the model (sha256), the large
+        ones and the small ones each split over the two clients."""
+        tag = "phase 19 (f) fs"
+        out = {}
+        large = [p for p in self.model if len(self.model[p]) >= FS_EXCL_B]
+        small = [p for p in self.model if p not in large]
+        for kind, paths in (("large", large), ("small", small)):
+            halves = [paths[0::2], paths[1::2]]
+
+            def check(fs, ps):
+                for p in ps:
+                    got = self._read(fs, p)
+                    if _sha(got) != _sha(self.model[p]):
+                        raise AssertionError(f"{tag}: {what} read of {p} "
+                                             "differs from the model")
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(2) as ex:
+                for f in [ex.submit(check, fs, ps)
+                          for fs, ps in zip(self.clients, halves)]:
+                    f.result()
+            wall = time.monotonic() - t0
+            nbytes = sum(len(self.model[p]) for p in paths)
+            out[kind] = {"files": len(paths), "wall_s": wall,
+                         "MBps": nbytes / wall / 1e6,
+                         "per_s": len(paths) / wall}
+        return out
+
+    def _k1(self) -> dict:
+        pid = self.r.pool_lookup(FS_DATA)
+        return dict(self.split["pools"].get(pid, {}))
+
+    def close(self) -> None:
+        """Take K1's counting wrappers off and the beacon settings back
+        (a no-op after after_clean)."""
+        from ceph_tpu_torch.common.options import global_config
+
+        if self._split_cm is not None:
+            self._split_cm.__exit__(None, None, None)
+            self._split_cm = None
+        for k, v in self._cfg.items():
+            global_config().set(k, v)
+        self._cfg = {}
+
+    # -- the hooks --------------------------------------------------------------
+    def before_kill(self) -> None:
+        from ceph_tpu_torch.common.options import global_config
+        from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+        from ceph_tpu_torch.fs import SWALLOWED, CephFS
+        from ceph_tpu_torch.fs.mds import CAP_EXCL
+
+        tag, out, d = "phase 19 (f) fs", self.out, self.depth
+        t_leg = time.monotonic()
+        cfg = global_config()
+        self._cfg = {k: cfg[k] for k in FS_BEACON}
+        for k, v in FS_BEACON.items():
+            cfg.set(k, v)
+        self.swallowed0 = sum(SWALLOWED.values())
+        # K1 by kind and pool from here to after_clean
+        self._split_cm = k1_by_caller(bm)
+        self.split = self._split_cm.__enter__()
+        c, r = self.c, self.r
+        t0 = time.monotonic()
+        r.pool_create(FS_DATA, pg_num=self.pg_num, pool_type="erasure",
+                      erasure_code_profile=self.profile)
+        _wait(c, lambda: _all_clean(c, r), f"{FS_DATA}'s PGs peered",
+              tag=tag)
+        out["pool_s"] = time.monotonic() - t0
+        c.start_mds(0)
+        self.sb = c.start_mds_standby()
+        c.wait_mds_active(0)
+        _wait(c, lambda: bool(c.fsmap().standbys) and _all_clean(c, r),
+              "the standby registered and the file system's pools peered",
+              tag=tag)
+        m = r.objecter.osdmap
+        meta = m.pools[r.pool_lookup(FS_META)]
+        data = m.pools[r.pool_lookup(FS_DATA)]
+        if not meta.is_replicated() or meta.size != 3 or \
+                meta.pg_num != 32 or data.is_replicated() or \
+                data.pg_num != self.pg_num:
+            raise AssertionError(f"{tag}: pools {meta} / {data}")
+        out["up_s"] = time.monotonic() - t0
+        out["mds_s"] = out["up_s"] - out["pool_s"]
+        out["epoch_up"] = c.fsmap().epoch
+        self.clients = [CephFS(c.rados()), CephFS(c.rados())]
+        fa, fb = self.clients
+        for dname in ("/fs/d0", "/fs/d1", "/fs/small"):
+            fa.mkdirs(dname)
+        # -- two clients write: the large files, then the small ones -----
+        large = [f"/fs/d{i % 2}/f{i:02d}" for i in range(d["large"])]
+        for p in large:
+            self.model[p] = self.rng.bytes(FS_LARGE_B)
+        wall = self._pwrite([large[0::2], large[1::2]])
+        out["write"] = {"MBps": len(large) * FS_LARGE_B / wall / 1e6,
+                        "wall_s": wall}
+        small = [f"/fs/small/s{i:04d}" for i in range(d["small"])]
+        for p in small:
+            self.model[p] = self.rng.bytes(FS_SMALL_B)
+        wall = self._pwrite([small[0::2], small[1::2]])
+        out["creates"] = {"per_s": len(small) / wall, "wall_s": wall}
+        out["healthy"] = self._check_all("healthy")
+        # -- a 4 KiB overwrite mid-file: a read-modify-write on the pool ---
+        p, off = large[0], FS_LARGE_B // 2 + 1000
+        patch = self.rng.bytes(4096)
+        t0 = time.monotonic()
+        fh = fa.open(p, "r+")
+        fh.write(off, patch)
+        fh.close()
+        out["rmw_s"] = time.monotonic() - t0
+        self.model[p] = self.model[p][:off] + patch + \
+            self.model[p][off + len(patch):]
+        if self._read(fb, p) != self.model[p]:
+            raise AssertionError(f"{tag}: the overwritten {p} differs")
+        # -- a hardlink and a rename ---------------------------------------
+        fa.link(large[-1], "/fs/d1/hard")
+        self.model["/fs/d1/hard"] = self.model[large[-1]]
+        st1, st2 = fa.stat(large[-1]), fb.stat("/fs/d1/hard")
+        if st1["ino"] != st2["ino"] or st2.get("nlink") != 2:
+            raise AssertionError(f"{tag}: the hardlink {st1} / {st2}")
+        fb.rename(small[0], "/fs/d1/moved")
+        self.model["/fs/d1/moved"] = self.model.pop(small[0])
+        if fa.exists(small[0]):
+            raise AssertionError(f"{tag}: {small[0]} still there")
+        # -- a cap revoke: a writer holds CAP_EXCL, a reader opens ---------
+        w = fa.open("/fs/excl", "w", layout=FS_LAYOUT)
+        if not w.caps & CAP_EXCL:
+            raise AssertionError(f"{tag}: the writer got caps {w.caps}")
+        self.model["/fs/excl"] = self.rng.bytes(FS_EXCL_B)
+        w.write(0, self.model["/fs/excl"])          # buffered under EXCL
+        t0 = time.monotonic()
+        rd = fb.open("/fs/excl", "r")               # revokes the EXCL
+        out["revoke_s"] = time.monotonic() - t0
+        if rd.size != FS_EXCL_B or w.caps & CAP_EXCL:
+            raise AssertionError(f"{tag}: after the revoke the reader saw "
+                                 f"{rd.size} B, the writer holds {w.caps}")
+        if rd.read(0) != self.model["/fs/excl"]:
+            raise AssertionError(f"{tag}: the reader read other bytes")
+        rd.close()
+        w.close()
+        out["k1_before"] = self._k1()
+        out["before_s"] = time.monotonic() - t_leg
+
+    def degraded(self) -> None:
+        from ceph_tpu_torch.fs.mds import dir_obj
+        from ceph_tpu_torch.msg.messages import MClientReply
+        from ceph_tpu_torch.testing.thrasher import MDSThrasher
+
+        tag, out, c = "phase 19 (f) fs", self.out, self.c
+        t_leg = time.monotonic()
+        k1_0 = self._k1()
+        out["degraded"] = self._check_all("degraded")
+        k1_1 = self._k1()
+        out["degraded_decodes"] = k1_1.get("decode", 0) - \
+            k1_0.get("decode", 0)
+        # -- the active MDS dies under a create in flight ------------------
+        fa = self.clients[0]
+        parent = fa.stat("/fs")["ino"]
+        meta = self.r.open_ioctx(FS_META)
+        fa._session.ATTEMPT_SLICE = FS_ATTEMPT_S
+        c.network.filter = lambda src, dst, msg: not (
+            src == "mds.0" and isinstance(msg, MClientReply))
+        result, errors = [], []
+
+        def create():
+            try:
+                result.append(fa._session.call("create", {
+                    "path": "/fs/inflight", "layout": FS_LAYOUT,
+                    "truncate": True}, timeout=60.0))
+            except Exception as ex:      # noqa: BLE001
+                errors.append(ex)
+
+        t = threading.Thread(target=create, daemon=True)
+        t.start()
+        try:
+            _wait(c, lambda: "inflight" in meta.get_omap_vals(
+                dir_obj(parent))[0], "the in-flight create's dentry",
+                timeout=30.0, tag=tag)
+        finally:
+            gid_dead = c.fsmap().ranks[0].gid
+            th = MDSThrasher(SimClock(c, 0.0))
+            if c._sim_now is not None:
+                # phase 19's sim clock, forward only: the beacons are
+                # stamped with it, so the thrasher goes on from where it
+                # stands (without one it seeds past the host clock)
+                th.now = c._sim_now
+            sim0 = th.now
+            t0 = time.monotonic()
+            th.kill_rank(0)
+            c.network.filter = None
+        th.wait_takeover(0, timeout_rounds=FS_TAKEOVER_ROUNDS)
+        out["takeover_s"] = time.monotonic() - t0
+        out["takeover_sim_s"] = th.now - sim0
+        t.join(60.0)
+        if t.is_alive() or errors or not result:
+            raise AssertionError(f"{tag}: the in-flight create never "
+                                 f"completed ({errors})")
+        info = c.fsmap().ranks[0]
+        if info.gid == gid_dead or info.gid != self.sb.gid or \
+                info.state != "active":
+            raise AssertionError(f"{tag}: rank 0 after the kill: {info}")
+        # exactly once: the replayed create answered from the table, and
+        # the next create takes the next ino
+        fh = fa.open("/fs/after", "w", layout=FS_LAYOUT)
+        fh.close()
+        ino, ino_after = result[0]["ino"], fa.stat("/fs/after")["ino"]
+        if fa.stat("/fs/inflight")["ino"] != ino or ino_after != ino + 1 \
+                or fa.listdir("/fs").count("inflight") != 1:
+            raise AssertionError(f"{tag}: the create landed as ino {ino}, "
+                                 f"the next as {ino_after}")
+        self.model["/fs/inflight"] = self.model["/fs/after"] = b""
+        out["inflight_ino"] = ino
+        out["epoch_takeover"] = c.fsmap().epoch
+        out["k1_degraded"] = self._k1()
+        out["degraded_s"] = time.monotonic() - t_leg
+
+    def after_clean(self, clean_s: dict | None = None) -> None:
+        from ceph_tpu_torch.fs import SWALLOWED
+        from ceph_tpu_torch.fs.client import fs_data_obj
+
+        tag, out, c, r = "phase 19 (f) fs", self.out, self.c, self.r
+        t_leg = time.monotonic()
+        out["after"] = self._check_all("after clean")
+        rc, outs, st = r.mon_command({"prefix": "fs status"})
+        ranks = {int(k): v for k, v in (st or {}).get("ranks", {}).items()}
+        if rc != 0 or ranks.get(0, {}).get("state") != "active" or \
+                ranks[0].get("gid") != self.sb.gid or st["standbys"]:
+            raise AssertionError(f"{tag}: fs status {rc} {outs} {st}")
+        out["fs_status"] = outs
+        out["epoch_after"] = st["epoch"]
+        if not out["epoch_up"] < out["epoch_takeover"] <= st["epoch"]:
+            raise AssertionError(f"{tag}: fsmap epochs {out['epoch_up']}, "
+                                 f"{out['epoch_takeover']}, {st['epoch']}")
+        # -- every data object's shards == the plain version's encode -------
+        pid = r.pool_lookup(FS_DATA)
+        width = K * STRIPE_UNIT          # the OSD pads to a full stripe
+        objs = {}
+        for p, data in self.model.items():
+            if data:
+                objs[fs_data_obj(self.clients[0].stat(p)["ino"], 0)] = \
+                    data + bytes(-len(data) % width)
+        listed = set(r.open_ioctx(FS_DATA).list_objects())
+        if listed != set(objs):
+            raise AssertionError(f"{tag}: {FS_DATA} holds {len(listed)} "
+                                 f"objects, the model {len(objs)}")
+        t0 = time.monotonic()
+        out["shards_checked"] = _ec_shards_plain(c, pid, objs, {}, tag)
+        out["shards_s"] = time.monotonic() - t0
+        out["clean_s"] = (clean_s or {}).get(FS_DATA)
+        # -- the file system goes: its daemons, then both pools -------------
+        out["k1"] = self._k1()
+        self.close()
+        for sb in list(c.standbys.values()):
+            sb.shutdown()
+        for mds in list(c.mdss.values()):
+            mds.shutdown()
+        c.standbys.clear()
+        c.mdss.clear()
+        for pool in (FS_DATA, FS_META):
+            rc, outs, _ = r.mon_command({
+                "prefix": "osd pool delete", "pool": pool,
+                "yes_i_really_really_mean_it": True})
+            if rc != 0:
+                raise AssertionError(f"{tag}: {pool} delete: {outs}")
+        _wait(c, lambda: not {FS_DATA, FS_META} &
+              set(c.mon.osdmap.pool_names.values()) and _all_clean(c, r),
+              "the PGs after the file system's pools went", tag=tag)
+        out["faults"] = {"swallowed": sum(SWALLOWED.values()) -
+                         self.swallowed0,
+                         "dispatch_errors": c.network.dispatch_errors}
+        if any(out["faults"].values()):
+            raise AssertionError(f"{tag}: fault counts {out['faults']}")
+        k1 = out["k1"]
+        if not (k1.get("encode") and k1.get("decode") and k1.get("repair")):
+            raise AssertionError(f"{tag}: K1 launches for {FS_DATA} {k1}")
+        out["after_s"] = time.monotonic() - t_leg
+        out["leg_s"] = out["before_s"] + out["degraded_s"] + out["after_s"]
+
+
+def print_fs(fo: dict, name_power: str) -> None:
+    tag, d = "phase 19 (f) fs", fo["depth"]
+    w, cr = fo["write"], fo["creates"]
+    print(f"{tag}: {FS_META} (replicated, size 3, pg_num 32, made by the "
+          f"MDS) and {FS_DATA} (EC, phase 19's profile, made first and "
+          f"peered in {fo['pool_s']:.3f} s); mds.0 active and a standby "
+          f"registered {fo['mds_s']:.3f} s later; "
+          f"{d['large']} x {FS_LARGE_B} B files (Ceph's default layout, "
+          f"4 MiB objects) by two clients at {w['MBps']:.1f} MB/s "
+          f"({w['wall_s']:.3f} s); {d['small']} x {FS_SMALL_B} B files "
+          f"created at {cr['per_s']:.1f} files/s ({cr['wall_s']:.3f} s) "
+          f"on {name_power}")
+    for half in ("healthy", "degraded", "after"):
+        h = fo[half]
+        print(f"{tag}: {half}: every file == the model (sha256): large "
+              f"{h['large']['files']} at {h['large']['MBps']:.1f} MB/s "
+              f"({h['large']['wall_s']:.3f} s), small {h['small']['files']} "
+              f"at {h['small']['per_s']:.1f} files/s "
+              f"({h['small']['wall_s']:.3f} s) on {name_power}")
+    print(f"{tag}: a 4 KiB overwrite mid-file (EC read-modify-write) "
+          f"{fo['rmw_s']:.3f} s; a hardlink and a rename; a reader's open "
+          f"revoked the writer's CAP_EXCL and read its buffered bytes in "
+          f"{fo['revoke_s']:.3f} s on {name_power}")
+    print(f"{tag}: mds.0 killed under an in-flight create: the standby "
+          f"active {fo['takeover_s']:.3f} s after the kill "
+          f"({fo['takeover_sim_s']:.1f} s of phase 19's sim clock); the "
+          f"create landed once (ino {fo['inflight_ino']:#x}, the next "
+          f"create's the next ino); fsmap epochs {fo['epoch_up']} -> "
+          f"{fo['epoch_takeover']} -> {fo['epoch_after']}; fs status "
+          f"{fo['fs_status']!r} on {name_power}")
+    k1 = fo["k1"]
+    clean = fo["clean_s"]
+    print(f"{tag}: K1 launches for {FS_DATA}: encode {k1.get('encode', 0)}, "
+          f"decode {k1.get('decode', 0)} ({fo['degraded_decodes']} in the "
+          f"degraded reads), repair {k1.get('repair', 0)}; {FS_DATA} osd out "
+          f"to clean " + (f"{clean:.3f} s" if clean is not None else "n/a") +
+          f"; {fo['shards_checked']} shards == the plain version's encode "
+          f"({fo['shards_s']:.3f} s); faults {fo['faults']}; the leg "
+          f"{fo['leg_s']:.1f} s (before {fo['before_s']:.1f}, degraded "
+          f"{fo['degraded_s']:.1f}, after {fo['after_s']:.1f}) on "
+          f"{name_power}")
+
+
 # -- phase 19 (g): elastic pools -- the split, the reseed, the mgr, thrash ---
 
 # the autoscaler's pool_bytes, weighted to the EC data pool as the
@@ -5714,7 +6125,7 @@ def cluster_phase(name_power: str, dev) -> dict:
                                     dtype=np.uint8).tobytes()
             for i in range(CLUSTER_OBJECTS)}
     c, r, io = _cluster()
-    rgw = None
+    rgw = fsl = None
     try:
         from ceph_tpu_torch.osd.types import PG
 
@@ -5731,16 +6142,19 @@ def cluster_phase(name_power: str, dev) -> dict:
                 PG)[1]))
             rbd.before_kill()
             rgw.before_kill()
+            fsl.before_kill()
             serve.healthy()
             return scrub
 
         def degraded():
             rep.degraded()
             rgw.degraded()
+            fsl.degraded()
             serve.degraded()
         snap = SnapLeg(c, r, rep, objs)
         rbd = RbdLeg(c, r, rep, snap)
         rgw = RgwLeg(c, r)
+        fsl = FsLeg(c, r)
         res = drive_cluster(c, r, io, objs, "phase 19", dev,
                             healthy=healthy, degraded=degraded)
         legs = res["legs"]
@@ -5748,6 +6162,7 @@ def cluster_phase(name_power: str, dev) -> dict:
         snap.after_clean()
         rbd.after_clean()
         rgw.after_clean()
+        fsl.after_clean(res["clean_s"])
         snap.close_clients()
         rep.verify(res["victim"])
         if not rep.out["recovery"]["push_in_clone_bytes"]:
@@ -5779,6 +6194,8 @@ def cluster_phase(name_power: str, dev) -> dict:
     finally:
         if rgw is not None:
             rgw.close()
+        if fsl is not None:
+            fsl.close()
         c.shutdown()
     # -- the fabric leg -------------------------------------------------------
     fab = ICIFabric(devices=[dev] * 8)
@@ -5940,11 +6357,12 @@ def cluster_phase(name_power: str, dev) -> dict:
           f"{name_power}")
     print_rbd(rbd.out, name_power)
     print_rgw(rgw.out, name_power)
+    print_fs(fsl.out, name_power)
     return {"legs": legs, "recover_s": recover_s, "rebuilt": rebuilt,
             "ratio": read / rebuilt, "messages": messages,
             "compiles": compiles, "serve": served, "scrub": scrub,
             "replicated": ro, "snapshots": so, "rbd": rbd.out,
-            "rgw": rgw.out,
+            "rgw": rgw.out, "fs": fsl.out,
             "clean_s": res["clean_s"],
             "fabric_stats": stats, "elastic": elastic, "phase_s": wall}
 
@@ -7253,11 +7671,11 @@ def durable_phase(name_power: str, work: Path) -> dict:
     shown = json.loads(vers.stdout)
     paxos = shown["paxos"]
     # one paxos commit per map epoch, the crash table's bootstrap
-    # (phase 21 posts no crash) and one per commit of the config and
-    # the cluster log, each of which keeps v_<n>, last_ and
-    # first_committed
+    # (phase 21 posts no crash) and one per commit of the config, the
+    # cluster log and the fsmap (its bootstrap: phase 21 runs no MDS),
+    # each of which keeps one key per version, last_ and first_committed
     commits = {svc: shown.get(svc, {}).get("keys", 2) - 2
-               for svc in ("config", "logm")}
+               for svc in ("config", "logm", "fsmap")}
     if vers.returncode or paxos["last_version"] != \
             epoch + 1 + sum(commits.values()):
         raise AssertionError(f"phase 21: monstore_tool show-versions "
@@ -7313,8 +7731,8 @@ def durable_phase(name_power: str, work: Path) -> dict:
           f"osd.{victim}, osd.{rot}, " + ", ".join(f"osd.{o}" for o in others) +
           f" == the plain version's encode (tolerance 0); monstore_tool "
           f"show-versions paxos {paxos} == the client's last epoch {epoch} "
-          f"+ the crash table's first commit + the commits of config and "
-          f"the cluster log {commits}")
+          f"+ the crash table's first commit + the commits of config, "
+          f"the cluster log and the fsmap {commits}")
     dh = res["device_health"]
     print(f"phase 21: osd perf dump through the mon: "
           f"bluestore_csum_errors {dh['csum']} (osd.{rot} alone, a real "
@@ -7376,17 +7794,39 @@ CHAOS_SCHEDULE = [               # tests/test_chaos.py:84-92, then :120-137
 ]
 
 
+def _caller_pool():
+    """The pool of the ECBackend whose call reached ECUtil: the first
+    frame up the stack holding one (as `self` in ec_backend.py, as `b`
+    in ec_peering.py); None when there is none."""
+    f = sys._getframe(2)
+    for _ in range(8):
+        if f is None:
+            return None
+        for name in ("self", "b"):
+            pgid = getattr(f.f_locals.get(name), "pgid", None)
+            if pgid is not None and hasattr(pgid, "pool"):
+                return pgid.pool
+        f = f.f_back
+    return None
+
+
 @contextlib.contextmanager
 def k1_by_caller(bm):
     """Within the block, count K1's launches by the ECUtil entry point
     that made them: `encode` (client writes and the re-encode of a full
     rebuild), `decode` (degraded reads and full rebuilds) and `repair`
     (compiled repairs and their compile probes); `other` is the rest.
-    The count itself stays the wrapper's."""
+    `counts["pools"][pool id]` splits the same counts by the pool whose
+    ECBackend made the call.  The label rides each thread's own stack,
+    so the OSDs' threads may launch at once.  The count itself stays the
+    wrapper's."""
     from ceph_tpu_torch.osd import ecutil
 
-    counts = {"encode": 0, "decode": 0, "repair": 0, "other": 0}
-    where: list = []
+    kinds = ("encode", "decode", "repair", "other")
+    counts: dict = {k: 0 for k in kinds}
+    counts["pools"] = {}
+    local = threading.local()
+    lock = threading.Lock()
     launch = bm.gf_matmul_cuda
     saved = {name: getattr(ecutil, name) for name in
              ("encode", "decode_concat", "compiled_repair_streams")}
@@ -7394,18 +7834,24 @@ def k1_by_caller(bm):
               "compiled_repair_streams": "repair"}
 
     def counted(*args, **kwargs):
-        counts[where[-1] if where else "other"] += 1
+        where = getattr(local, "where", None)
+        kind, pool = where[-1] if where else ("other", None)
+        with lock:
+            counts[kind] += 1
+            per = counts["pools"].setdefault(pool, {k: 0 for k in kinds})
+            per[kind] += 1
         return launch(*args, **kwargs)
 
     def labelled(name):
         fn = saved[name]
 
         def call(*args, **kwargs):
-            where.append(labels[name])
+            stack = local.__dict__.setdefault("where", [])
+            stack.append((labels[name], _caller_pool()))
             try:
                 return fn(*args, **kwargs)
             finally:
-                where.pop()
+                stack.pop()
         return call
 
     bm.gf_matmul_cuda = counted

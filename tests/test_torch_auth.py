@@ -8,10 +8,11 @@ by step, the MAuthRequest/MAuthReply handshake included.
 Mirrored with substitutions: `test_entity_class_gating` checks
 ECSubWrite beside the reference's RepOpWrite, and
 `test_client_ticket_bound_to_src` uses OSDOp where the reference uses
-MClientCaps (the port does not carry the MDS's messages yet);
-`test_cephx_cluster_io` runs an EC k=2 m=1 pool over 4 OSDs, with the
-reference's xattr round trip.  Not mirrored: `test_cephx_mds_gate`,
-which needs the MDS and CephFS client the port does not have yet.
+MClientCaps; `test_cephx_cluster_io` runs an EC k=2 m=1 pool over 4
+OSDs, with the reference's xattr round trip.  `test_cephx_mds_gate` runs
+on both packages' cephx clusters (the harness of
+tests/test_torch_cephfs.py) and compares what the clients saw and both
+file system pools.
 """
 import time
 
@@ -27,6 +28,7 @@ from ceph_tpu_torch.msg.messages import (ECSubWrite, MAuthRequest,
                                          RepOpWrite)
 from ceph_tpu_torch.msg.messenger import Message
 from ceph_tpu_torch.testing import MiniCluster
+from test_torch_cephfs import bare_sides, fs_state, run_both  # noqa: F401
 
 
 def _stamp(msg, src, seq=1):
@@ -312,3 +314,52 @@ def test_cephx_pump_cluster_equals_reference(monkeypatch):
     first = dict(port)["written"]["trace"]
     assert ("client", "mon.0", "MAuthRequest") in first
     assert ("mon.0", "client", "MAuthReply") in first
+
+
+def c_cephx_mds_gate(s):
+    """tests/test_auth.py's MDS case on one package's cephx cluster."""
+    CAP_EXCL = s.p.mds.CAP_EXCL
+    c = s.cluster(n_osd=2, auth="cephx")
+    mds = s.p.MDSDaemon(c.network, c.rados(), keyring=c.keyring)
+    mds.init()
+    try:
+        assert mds.ms.auth_verifier is not None
+        fs_w, fs_r = s.new_fs(c), s.new_fs(c)
+        fs_w.mkdirs("/sec")
+        w = fs_w.open("/sec/f", "w")
+        assert w.caps & CAP_EXCL
+        w.write(0, b"X" * 2048)
+        r = fs_r.open("/sec/f", "r")
+        assert r.size == 2048
+        assert not (w.caps & CAP_EXCL)
+        w.close()
+        r.close()
+        rogue = s.p.messenger.Messenger.create(c.network, "client.rogue",
+                                               threaded=True)
+        got = []
+
+        class _Sink:
+            def ms_dispatch(self, msg):
+                got.append(msg)
+                return True
+
+        rogue.add_dispatcher(_Sink())
+        rogue.start()
+        rogue.connect("mds.0").send_message(s.p.messages.MClientRequest(
+            tid=1, op="mkdir", args={"path": "/evil", "mode": 0o755}))
+        time.sleep(0.5)
+        assert not got, "unauthenticated mds request must get no reply"
+        assert not s.new_fs(c).exists("/evil")
+        rogue.shutdown()
+        return {"size": r.size, "got": len(got),
+                "state": fs_state(s, fs_w.rados)}
+    finally:
+        mds.shutdown()
+
+
+def test_cephx_mds_gate(bare_sides):  # noqa: F811
+    """In a cephx cluster the MDS verifies inbound traffic: a signed
+    client's open revokes the writer's EXCL through the signed
+    MClientCaps ack, and an unauthenticated endpoint's request gets no
+    reply; the port's MDS and client equal the reference's."""
+    run_both(bare_sides, c_cephx_mds_gate, state=False)

@@ -375,7 +375,9 @@ def test_quorum_cluster_defaults_to_the_card():
 def _zone_partition(ns):
     """tests/test_chaos.py:158: the secondary's pulls from the master
     cut on the fault plane mid-sync; backoff engages, its durable
-    cursors stay put, and the lag drains after the heal."""
+    cursors stay put, and the lag drains after the heal.  Each wait
+    before reading the cursors waits for gw2's durable cursor to reach
+    the write, where the reference's waits on caught_up()."""
     from types import SimpleNamespace
 
     from test_torch_rgw_multisite import PKG as MS_PKG
@@ -389,7 +391,19 @@ def _zone_partition(ns):
         masks = {f":{g.port}": f":<{g.zone}>" for g in (gw1, gw2)}
         req(gw1, "PUT", "/pb")
         req(gw1, "PUT", "/pb/before", b"pre-partition" * 10)
-        assert _wait(gw2.sync.caught_up), gw2.sync.status()
+
+        def pulled(key):
+            # gw2's durable cursor for c1's log of the key's shard has
+            # reached the head c1 holds now (caught_up() reads the heads
+            # of the agent's last round, which may predate the write)
+            sh = gw1.shard_of("pb", key)
+            head = gw1.datalog.head("pb", sh)
+            cur = gw2.sync.markers_for("c1").get("pb", {}).get("cursors",
+                                                               {})
+            return cur.get(sh, cur.get(str(sh), -1)) >= head
+
+        assert _wait(lambda: pulled("before") and gw2.sync.caught_up()), \
+            gw2.sync.status()
         markers_before = gw2.sync.markers_for("c1")
         ids = c.network.faults.partition(["rgw.c2"], ["rgw.c1"])
         req(gw1, "PUT", "/pb/during", b"mid-partition" * 20)
@@ -402,7 +416,8 @@ def _zone_partition(ns):
         with pytest.raises(urllib.error.HTTPError):
             req(gw2, "GET", "/pb/during")
         c.network.faults.heal(ids)
-        assert _wait(gw2.sync.caught_up), gw2.sync.status()
+        assert _wait(lambda: pulled("during") and gw2.sync.caught_up()), \
+            gw2.sync.status()
         assert req(gw2, "GET", "/pb/during")[2] == b"mid-partition" * 20
         settle(gw1, gw2)
         assert gw2.sync._backoff["c1"].failures == 0

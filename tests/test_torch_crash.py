@@ -13,7 +13,10 @@ the mgr's crash module, archived away) runs on both threaded clusters;
 telemetry's report carries the crash summary, and the mgr's prometheus
 scrape the archive-state gauge.  The
 `rados crash` verbs print the reference's text and return its codes,
-and `daemon_main` picks the reference's spool directory.
+and `daemon_main` picks the reference's spool directory.  The MDS case
+(a crash captured by an MDS rank, posted with a real tid, its spool
+copy retired by the mon's ack) runs on both packages' threaded
+clusters (the harness of tests/test_torch_cephfs.py).
 """
 import io as iomod
 import time
@@ -36,6 +39,7 @@ from ceph_tpu_torch.msg.messenger import LocalNetwork as PortNet
 from ceph_tpu_torch.testing import MiniCluster as PortCluster
 from ceph_tpu_torch.tools import daemon_main as port_daemon_main
 from ceph_tpu_torch.tools import rados_cli as port_cli
+from test_torch_cephfs import bare_sides  # noqa: F401
 
 NS = {
     "ref": dict(crash=ref_crash, mgr_crash=ref_mgr_crash, mon=RefMonitor,
@@ -463,3 +467,30 @@ def test_daemon_crash_dir_equals_reference(argv):
     args = port_daemon_main.parser().parse_args(argv)
     assert port_daemon_main._crash_dir(args) == \
         ref_daemon_main._crash_dir(args)
+
+
+def c_mds_crash_spool_retired_on_ack(s, tmp_path):
+    """tests/test_crash_telemetry.py's MDS case on one package."""
+    c = s.cluster(n_osd=2)
+    spool = tmp_path / s.kind / "mds-crash"
+    mds = c.start_mds(0, crash_dir=str(spool))
+    mds.crash_reporter.capture(RuntimeError("mds fault"))
+    r = c.rados()
+    end = time.monotonic() + 10
+    while time.monotonic() < end and list(spool.rglob("meta.json")):
+        time.sleep(0.05)
+    assert not list(spool.rglob("meta.json")), \
+        "MDS spool copy never retired by the ack"
+    _, _, crashes = r.mon_command({"prefix": "crash ls"})
+    assert [m["entity_name"] for m in crashes] == ["mds.0"]
+    return [[m["entity_name"], m.get("backtrace", [])[-1:]]
+            for m in crashes]
+
+
+def test_mds_crash_spool_retired_on_ack(bare_sides, tmp_path):  # noqa: F811
+    """An MDS crash post carries a real tid and the mon's ack retires the
+    spool copy; the crash table lists the same entity and fault in both
+    packages."""
+    got = {kind: s.norm(c_mds_crash_spool_retired_on_ack(s, tmp_path))
+           for kind, s in bare_sides.items()}
+    assert got["port"] == got["ref"]

@@ -1,13 +1,16 @@
 """The port's daemon entry point (ceph_tpu_torch.tools.daemon_main):
 its arguments, the `--device` default (cuda, which raises without a
-card), the one-line refusals of what is not ported yet, the monmap's
+card), the `mds` role's arguments (nothing is refused any more), the
+monmap's
 secure mode and compression, the `tick_errors` count of the serve
 loop read through the admin socket, and `--data-dir`: a mon (on a
 LogDB) and OSDs (on BlueStore, and one on `--objectstore journaled`)
 as OS processes with `--device cpu` and cephx, each SIGKILLed and
 started again on its directory, resuming from it; and an OSD SIGKILLed,
 written around while down and started again, which then serves its
-data.  The multi-process cluster (the
+data; and an `mds` process (the reference's TCP MDS) serving a file
+system to a client in the test over cephx, with its tick errors and
+dispatch errors at 0.  The multi-process cluster (the
 reference's tests/test_tcp.py::test_cluster_multiprocess: a mon and
 OSD daemons as OS processes, the client in the test) is marked slow,
 as the reference's is, and runs with `--device cpu` and cephx."""
@@ -54,16 +57,22 @@ def test_arguments_and_device_default():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["mds", "--monmap", "m.json"], "the mds role"),
-    (["mds", "--monmap", "m.json", "--crash-dir", "c"], "the mds role"),
+    (["mds", "--monmap", "m.json"], (0, "m.json", "", "")),
+    (["mds", "--monmap", "m.json", "--crash-dir", "c"],
+     (0, "m.json", "", "c")),
     (["mds", "--rank", "1", "--monmap", "m.json", "--keyring", "k.json"],
-     "the mds role"),
+     (1, "m.json", "k.json", "")),
 ])
-def test_not_ported_yet_is_refused_in_one_line(argv, what):
-    with pytest.raises(SystemExit) as ei:
+def test_not_ported_yet_is_refused_in_one_line(argv, what, tmp_path,
+                                               monkeypatch):
+    """Nothing is refused as not ported any more: the `mds` role, the
+    last one refused, parses the reference's arguments and goes on to
+    load its monmap."""
+    a = daemon_main.parser().parse_args(argv)
+    assert (a.rank, a.monmap, a.keyring, a.crash_dir) == what
+    monkeypatch.chdir(tmp_path)          # no m.json here
+    with pytest.raises(FileNotFoundError, match="m.json"):
         daemon_main.main(argv)
-    msg = str(ei.value.code)
-    assert what in msg and "not ported yet" in msg and "\n" not in msg
 
 
 def test_default_device_raises_without_a_card(tmp_path):
@@ -411,3 +420,61 @@ def test_smoke_daemon_ports_lie_below_the_ephemeral_range():
     for p in ports:
         with socket.socket() as s:
             s.bind(("127.0.0.1", p))
+
+
+def test_mds_process_serves_a_file_system_over_tcp(tmp_path):
+    """`daemon_main mds` beside a mon and 3 OSDs, each its own process
+    with cephx: the rank creates its pools, a client in this process
+    makes a directory and writes and reads files through it, and the
+    MDS's admin socket reports it active with no tick or dispatch
+    errors."""
+    from ceph_tpu_torch.client import Rados
+    from ceph_tpu_torch.fs import CephFS
+    from ceph_tpu_torch.msg.tcp import TcpNet, pick_free_ports
+
+    c = DurableCluster(tmp_path)
+    mds_log = open(tmp_path / "mds.log", "w")
+    proc = None
+    r = None
+    try:
+        addrs = dict(c.addrs, **{"mds.0": ["127.0.0.1",
+                                            pick_free_ports(1)[0]]})
+        (tmp_path / "mm_mds.json").write_text(json.dumps(
+            {"addrs": addrs, "mon_ranks": [0], "n_osd": 3,
+             "osds_per_host": 1}))
+        asok = str(tmp_path / "mds.0.asok")
+        proc = _spawn(["mds", "--rank", "0", "--monmap",
+                       str(tmp_path / "mm_mds.json"), "--keyring",
+                       str(tmp_path / "kr.json"), "--asok", asok,
+                       "--crash-dir", str(tmp_path / "mds-crash")],
+                      c.env, mds_log)
+        c.wait(lambda: os.path.exists(asok) or proc.poll() is not None,
+               "mds.0 not serving")
+        assert proc.poll() is None, (tmp_path / "mds.log").read_text()
+        net = TcpNet({k: tuple(v) for k, v in addrs.items()})
+        r = Rados(net, name="client.902", op_timeout=60.0,
+                  auth_secret=c.kr.get("client.902")).connect(60.0)
+        fs = CephFS(r)
+        fs.mkdirs("/proc/dir")
+        payload = np.random.default_rng(7).bytes(300_000)
+        fs.write_file("/proc/dir/big", payload)
+        fs.write_file("/proc/small", b"over tcp")
+        assert fs.read_file("/proc/dir/big") == payload
+        assert fs.read_file("/proc/small") == b"over tcp"
+        assert fs.listdir("/proc") == ["dir", "small"]
+        rc, st = admin_command(asok, "status")
+        assert rc == 0 and st["whoami"] == 0 and st["state"] == "active"
+        rc, perf = admin_command(asok, "perf dump")
+        assert rc == 0 and perf["tick_errors"] == 0
+        rc, ms = admin_command(asok, "msgr")
+        assert rc == 0 and ms["dispatch_errors"] == 0
+    finally:
+        if r is not None:
+            r.shutdown()
+        if proc is not None:
+            proc.terminate()
+            try:
+                assert proc.wait(timeout=20) == 0
+            finally:
+                mds_log.close()
+        c.stop()

@@ -135,7 +135,12 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.journal", "ceph_tpu_torch.rbd",
                  "ceph_tpu_torch.rbd.image", "ceph_tpu_torch.rbd.migration",
                  "ceph_tpu_torch.rbd.mirror",
-                 "ceph_tpu_torch.tools.rbd_cli"):
+                 "ceph_tpu_torch.tools.rbd_cli",
+                 # the file system, the MDSMonitor and the dencoder
+                 "ceph_tpu_torch.fs", "ceph_tpu_torch.fs.mds",
+                 "ceph_tpu_torch.fs.client", "ceph_tpu_torch.mon.fsmap",
+                 "ceph_tpu_torch.mon.mds_monitor",
+                 "ceph_tpu_torch.tools.dencoder"):
         assert name in out["modules"], name
 
 
@@ -330,7 +335,7 @@ def test_rgw_imports_without_jax_or_reference():
 
 
 MULTISITE_PROBE = textwrap.dedent("""
-    import json, sys, time, urllib.request
+    import json, sys, time, urllib.error, urllib.request
     sys.modules["jax"] = None          # any `import jax` now raises
     from ceph_tpu_torch.mgr import prometheus, restful
     from ceph_tpu_torch.rgw import multisite
@@ -342,12 +347,29 @@ MULTISITE_PROBE = textwrap.dedent("""
         urllib.request.urlopen(urllib.request.Request(
             f"http://127.0.0.1:{g1.port}{path}", data=data, method="PUT"),
             timeout=30).read()
+    def synced_past(dst, src):
+        # dst's cursor for src's log of /b/k's shard has reached the
+        # head src holds now: dst has pulled every record of it
+        sh = src.shard_of("b", "k")
+        head = src.datalog.head("b", sh)
+        with dst.sync._lock:
+            have = dst.sync._markers.get((src.zone, "b", sh), -1)
+        return have >= head
+    def z2_serves():
+        try:
+            return urllib.request.urlopen(
+                f"http://127.0.0.1:{g2.port}/b/k",
+                timeout=30).read().decode()
+        except urllib.error.HTTPError:
+            return None
     end = time.monotonic() + 60
-    while not (g1.sync.caught_up() and g2.sync.caught_up()) and \\
-            time.monotonic() < end:
+    got = z2_serves()
+    while not (got is not None and synced_past(g2, g1) and
+               synced_past(g1, g2)):
+        if time.monotonic() > end:
+            raise TimeoutError("zones never synced past each other")
         time.sleep(0.02)
-    got = urllib.request.urlopen(f"http://127.0.0.1:{g2.port}/b/k",
-                                 timeout=30).read().decode()
+        got = z2_serves()
     mgr = c.start_mgr()
     text = urllib.request.urlopen(
         f"http://127.0.0.1:{mgr.start_prometheus().port}/metrics",
@@ -374,7 +396,11 @@ def test_multisite_prometheus_restful_import_without_jax_or_reference():
     """`rgw.multisite`, `mgr.prometheus` and `mgr.restful` import with
     jax blocked; two zones on the port's cluster replicate an object,
     the mgr's scrape carries both zones' lag gauges at 0 and the restful
-    API answers a keyed request, loading nothing of the reference."""
+    API answers a keyed request, loading nothing of the reference.  The
+    scrape waits on state with a deadline: z2 serves the object and each
+    zone's cursor has reached the other's datalog head for its shard
+    (`caught_up()` reads the heads of the agent's last round, so it may
+    answer before a round has pulled the write)."""
     import json
     proc = subprocess.run([sys.executable, "-c", MULTISITE_PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=180)
@@ -384,3 +410,42 @@ def test_multisite_prometheus_restful_import_without_jax_or_reference():
                    "swallowed": 0,
                    "lag": ['ceph_rgw_sync_lag_entries{source="z1",zone="z2"} 0',
                            'ceph_rgw_sync_lag_entries{source="z2",zone="z1"} 0']}
+
+
+FS_PROBE = textwrap.dedent("""
+    import json, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    import ceph_tpu_torch.fs, ceph_tpu_torch.mon.fsmap
+    import ceph_tpu_torch.mon.mds_monitor, ceph_tpu_torch.tools.dencoder
+    from ceph_tpu_torch.fs import SWALLOWED, CephFS
+    from ceph_tpu_torch.testing import MiniCluster
+    c = MiniCluster(n_osd=3, threaded=True, device="cpu")
+    c.wait_all_up()
+    mds = c.start_mds(0)
+    c.wait_mds_active(0)
+    fs = CephFS(c.rados())
+    fs.mkdirs("/d")
+    fs.write_file("/d/f", b"file bytes")
+    got = [fs.read_file("/d/f").decode(), fs.listdir("/d"),
+           c.fsmap().ranks[0].state]
+    c.shutdown()
+    leaked = sorted(n for n in sys.modules
+                    if n == "ceph_tpu" or n.startswith("ceph_tpu.")
+                    or n == "jaxlib" or n.startswith("jaxlib."))
+    print(json.dumps({"leaked": leaked, "got": got,
+                      "swallowed": sum(SWALLOWED.values())}))
+""")
+
+
+def test_fs_imports_without_jax_or_reference():
+    """`fs`, `mon.fsmap`, `mon.mds_monitor` and `tools.dencoder` import
+    with jax blocked; an MDS on the port's cluster goes active in the
+    fsmap and a client creates, writes and reads a file through it,
+    loading nothing of the reference or of jaxlib."""
+    import json
+    proc = subprocess.run([sys.executable, "-c", FS_PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"leaked": [], "swallowed": 0,
+                   "got": ["file bytes", ["f"], "active"]}

@@ -7,9 +7,7 @@ leader rank, election quorum and election epoch, the OSD monitor's
 committed versions and map epochs, the pools each mon holds, the
 command results, and every mon's osdmap store after the sync (its keys
 and each value's wire bytes).  Paxos version numbers are compared
-within each package (every mon converges on one) but not across them:
-the reference's mon also bootstraps a ConfigMonitor, LogMonitor and
-MDSMonitor, three commits the port's does not make.
+within each package (every mon converges on one).
 
 The last cases pin what a quorum changes for a restarted mon: the
 reference's remedy (MonHunter hunting to another mon) holds, so an

@@ -17,7 +17,9 @@ keep too).
 ObjectCacher: every case of tests/test_object_cacher.py except the two
 that mount it under rbd and cephfs.  The rbd case has its counterpart
 in tests/test_torch_rbd.py (`test_rbd_sequential_write_ops_reduction`);
-the cephfs client is not ported.  Each
+the cephfs case runs here on both packages' threaded clusters (the
+harness of tests/test_torch_cephfs.py, which compares the replies and
+both file system pools).  Each
 case runs against a recording in-memory backing, once over each
 package's cacher: the test compares the bytes every call returned, the
 backing's log of reads, writes and batched waves (in order, with their
@@ -32,6 +34,7 @@ import ceph_tpu.osdc.object_cacher as ref_oc
 import ceph_tpu.osdc.striper as ref_striper
 import ceph_tpu_torch.osdc.object_cacher as port_oc
 import ceph_tpu_torch.osdc.striper as port_striper
+from test_torch_cephfs import bare_sides, fs_state, run_both  # noqa: F401
 
 OC = {"ref": ref_oc, "port": port_oc}
 STRIPER = {"ref": ref_striper, "port": port_striper}
@@ -532,3 +535,33 @@ def test_rados_striper_counts_swallowed_errors():
     with pytest.raises(RadosError):
         st.read("obj")
     assert st.swallowed == 0
+
+
+def c_cephfs_cap_revoke_flushes_cached_writes(s):
+    """tests/test_object_cacher.py's cephfs case on one package."""
+    c = s.cluster(n_osd=3)
+    mds = s.p.MDSDaemon(c.network, c.rados())
+    mds.init()
+    try:
+        fs_w, fs_r = s.new_fs(c), s.new_fs(c)
+        fs_w.mkdirs("/oc")
+        w = fs_w.open("/oc/buffered", "w")
+        w.write(0, b"write-back bytes " * 256)
+        dirty = w._oc.dirty_bytes()
+        assert w._oc is not None and dirty > 0
+        rd = fs_r.open("/oc/buffered", "r")
+        assert rd.read(0) == b"write-back bytes " * 256
+        assert w._oc.dirty_bytes() == 0
+        w.close()
+        rd.close()
+        return {"dirty": dirty, "state": fs_state(s, fs_w.rados)}
+    finally:
+        mds.shutdown()
+
+
+def test_cephfs_cap_revoke_flushes_cached_writes(bare_sides):  # noqa: F811
+    """The cephfs client's per-inode cacher under the MDS's caps: the
+    writer's buffered data reaches RADOS on the revoke a reader's open
+    triggers, and the reader sees it; the port equals the reference."""
+    run_both(bare_sides, c_cephfs_cap_revoke_flushes_cached_writes,
+             state=False)

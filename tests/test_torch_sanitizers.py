@@ -84,11 +84,17 @@ PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
                 "osd_max_trimming_pgs", "osd_pg_max_concurrent_snap_trims",
                 "osd_snap_trim_sleep",
                 # librbd's object cache
-                "rbd_cache", "rbd_cache_size", "rbd_cache_max_dirty"}
+                "rbd_cache", "rbd_cache_size", "rbd_cache_max_dirty",
+                # the cephfs client's object cache
+                "client_oc", "client_oc_size", "client_oc_max_dirty",
+                # the MDS's beacons, failover, balancer and dirfrags
+                "mds_beacon_interval", "mds_beacon_grace",
+                "mds_standby_replay", "mds_bal_interval", "mds_bal_min_load",
+                "mds_bal_ratio", "mds_bal_split_size", "mds_bal_merge_size"}
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads 42 options; each is the reference's entry: the
+    """The port reads 53 options; each is the reference's entry: the
     same type, level, default, text, bounds, see-also and runtime
     flag."""
     assert set(options.OPTIONS) == PORT_OPTIONS

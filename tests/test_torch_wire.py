@@ -6,8 +6,11 @@ dencoder samples).  For each: the reference's sample carried across to
 the port's classes by attribute encodes to the corpus bytes; the port
 decodes the corpus bytes into its own classes and re-encodes them
 unchanged; and each package decodes the other's bytes to an equal
-value.  The port also frames messages as the reference does, and holds
-the codec's guards (compat, truncation, depth, unknown names).
+value.  The port registers all 78 of the reference's wire types.  The
+port's dencoder lists the same types and makes the same samples, so
+its `encode` prints the corpus bytes.  The port also frames messages as
+the reference does, and holds the codec's guards (compat, truncation,
+depth, unknown names).
 """
 import dataclasses
 import json
@@ -18,6 +21,7 @@ import pytest
 
 from ceph_tpu.msg import encoding as ref_wire
 from ceph_tpu.tools import dencoder
+from ceph_tpu_torch.tools import dencoder as port_dencoder
 from ceph_tpu_torch.msg import encoding as wire
 from ceph_tpu_torch.msg import messages
 from ceph_tpu_torch.osd import pg_types
@@ -90,7 +94,11 @@ def test_port_registers_the_data_plane_structs():
         # centralized config and the cluster log
         "MConfig", "MLog", "MLogAck",
         # the snap trimmer and watch/notify
-        "SnapTrim", "SnapTrimReply", "SnapTrimPurged", "MWatchNotify"}
+        "SnapTrim", "SnapTrimReply", "SnapTrimPurged", "MWatchNotify",
+        # the file system: metadata ops, caps, beacons and the fsmap
+        "MClientRequest", "MClientReply", "MClientCaps", "MMDSBeacon",
+        "MFSMap", "FSMap", "MDSInfo"}
+    assert set(wire.registered_types()) == set(ref_wire.registered_types())
     ref_schema = ref_wire.registered_schema()
     for name, schema in wire.registered_schema().items():
         assert schema == ref_schema[name], name
@@ -203,3 +211,23 @@ def test_guards_reject_like_the_reference():
         wire.encode(deep)
     with pytest.raises(wire.WireError, match="not wire-registered"):
         wire.encode(object())
+
+
+def test_port_dencoder_lists_and_encodes_like_the_reference(capsys):
+    """`python -m ceph_tpu_torch.tools.dencoder list` names every type the
+    reference's lists (`FSMap` and `MDSInfo` included, registered before
+    the listing), and each type's `encode` prints its corpus bytes and
+    round-trips."""
+    assert port_dencoder.main(["list"]) == 0
+    names = capsys.readouterr().out.split()
+    assert names == dencoder.sample_names()
+    assert {"FSMap", "MDSInfo", "MFSMap"} <= set(names)
+    for name in names:
+        assert port_dencoder.main(["encode", name]) == 0
+        assert capsys.readouterr().out.strip() == CORPUS[name], name
+        assert port_dencoder.main(["roundtrip", name]) == 0
+        assert capsys.readouterr().out.startswith(f"{name}: ")
+    blob = CORPUS["MMDSBeacon"]
+    assert port_dencoder.main(["decode", "MMDSBeacon", blob]) == 0
+    assert capsys.readouterr().out.startswith("MMDSBeacon(")
+    assert port_dencoder.main(["decode", "FSMap", blob]) == 1
