@@ -141,6 +141,9 @@ class ProjectContext:
         #: (modname, qualname) -> {(modname, qualname), ...}
         self.call_graph: dict[tuple[str, str],
                               set[tuple[str, str]]] = {}
+        #: reverse: callee -> {caller, ...} (built by finalize)
+        self.callers: dict[tuple[str, str],
+                           set[tuple[str, str]]] = {}
         self._finalized = False
 
     def add(self, rel: str, tree: ast.Module) -> ModuleInfo:
@@ -188,7 +191,18 @@ class ProjectContext:
                         target = self.resolve(mod, dotted(node.func), qual)
                         if target is not None:
                             edges.add((target[0].name, target[1]))
+        # reverse edges (callee -> callers): caller-walking rules
+        # (guarded-by coverage) would otherwise rescan the whole graph
+        # per hop
+        self.callers = {}
+        for src, dsts in self.call_graph.items():
+            for dst in dsts:
+                self.callers.setdefault(dst, set()).add(src)
         self._finalized = True
+
+    def callees(self, mod: ModuleInfo, qual: str) -> set[tuple[str, str]]:
+        self.finalize()
+        return self.call_graph.get((mod.name, qual), set())
 
     def reachable(self, mod: ModuleInfo, qual: str,
                   max_depth: int = 3) -> Iterator[tuple[str, str]]:

@@ -18,16 +18,17 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
+
+from .lockdep import make_lock
 
 _PORT = Path(__file__).resolve().parents[1]
 _SRC = _PORT.parent / "native" / "crc32c.c"
 _LIB = _PORT / "_build" / "libcrc32c.so"
 
-_lock = threading.Lock()
+_lock = make_lock("crc32c.native")
 _native = None
 _native_tried = False
 

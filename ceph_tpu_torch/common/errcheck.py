@@ -208,8 +208,13 @@ def enable_if_configured() -> bool:
     """Arm when the `errcheck` option (env ``CEPH_TPU_ERRCHECK``) is
     on — the daemon_main/smoke entry point.  One parser for the
     option, same as lockdep/racecheck: off/0/false/no all disable."""
-    from .options import global_config
-    if global_config()["errcheck"]:
+    from . import options
+    # before the process's global config is built, read the option
+    # through a fresh Config (the same env layer and parser): building
+    # the global one installs the log_level observer, which imports
+    # common.log and lockdep before the hook could instrument them
+    cfg = options._global_config
+    if (cfg if cfg is not None else options.Config())["errcheck"]:
         enable()
     return _enabled
 

@@ -65,6 +65,20 @@ def crush_ln(xin: int) -> int:
     return result + LH
 
 
+def _div64_s64(a: int, b: int) -> int:
+    """C truncating signed 64-bit division."""
+    q = abs(a) // abs(b)
+    return -q if (a < 0) != (b < 0) else q
+
+
+def generate_exponential_distribution(hash_type: int, x: int, y: int, z: int,
+                                      weight: int) -> int:
+    """One straw2 draw: ln(u) / weight (ref: mapper.c:334-357)."""
+    u = int(hash32_3(x, y, z)) & _U16
+    ln = crush_ln(u) - 0x1000000000000
+    return _div64_s64(ln, weight)
+
+
 class CrushWork:
     """Per-computation workspace for permutation buckets
     (ref: mapper.c crush_init_workspace / crush_work_bucket)."""

@@ -23,10 +23,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 from ...common import devguard
+from ...common.lockdep import make_lock
 
 PORT = Path(__file__).resolve().parents[2]
 CSRC = PORT / "ec" / "kernels" / "csrc"
@@ -35,7 +35,7 @@ BUILD_DIR = PORT / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = make_lock("ec.kernels.build")
 _libs: dict[str, ctypes.CDLL] = {}
 
 

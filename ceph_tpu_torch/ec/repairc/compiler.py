@@ -26,7 +26,6 @@ The port's copy of `ceph_tpu.ec.repairc.compiler`.
 """
 from __future__ import annotations
 
-import threading
 from typing import Mapping
 
 import numpy as np
@@ -34,6 +33,7 @@ import torch
 
 from ... import device as _device
 from ...common import devguard
+from ...common.lockdep import make_lock
 from .. import gf
 from ..interface import ErasureCodeError
 from ..kernels import bitmatmul
@@ -44,7 +44,7 @@ from .plan import RepairPlan
 #: decodes through the plugin, on the card when the plugin is there),
 #: kept apart from the launches of the repairs themselves
 COMPILES = {"programs": 0, "probe_launches": 0}
-_COMPILES_LOCK = threading.Lock()
+_COMPILES_LOCK = make_lock("ec.repairc.compiles")
 
 
 class RepairPlanError(ValueError):

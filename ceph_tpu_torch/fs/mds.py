@@ -964,7 +964,9 @@ class MDSDaemon(Dispatcher):
                 if snapc is None:
                     snapc = self._snapc_for_chain(prefix + chain)
                 for client in self._opens[d["ino"]]:
-                    # every _op_* runs under handle_op's self._lock
+                    # the getattr dispatch in handle_op hides its caller
+                    # from the call graph
+                    # cephck: ignore[guarded-by] every _op_* runs under handle_op's self._lock
                     self._pending_revokes.append((client, MClientCaps(
                         op="snapc", ino=d["ino"], snapc=snapc)))
         return {"id": snapid, "name": name}
@@ -1057,8 +1059,10 @@ class MDSDaemon(Dispatcher):
                 self._opens.get(ino, {}).pop(c, None)
                 self._revoking.pop(key, None)
                 continue
-            # callers (handle_op's _op_* dispatch, the tick's session
-            # reaper) all hold self._lock
+            # callers: the _op_* dispatch of handle_op (a getattr the
+            # call graph cannot follow), _revoke_and_wait and the moves'
+            # _evict_moved, each under the lock
+            # cephck: ignore[guarded-by] every caller holds self._lock
             self._pending_revokes.append((c, MClientCaps(
                 op="revoke", ino=ino,
                 caps=self._caps.get(ino, {}).get(c, 0))))

@@ -113,9 +113,11 @@ class Messenger:
         from .tcp import TcpNet
         if isinstance(network, TcpNet):
             return network.messenger(name)
+        if ms_type is None:
+            ms_type = global_config()["ms_type"]
         # ici carries bulk arrays on the device mesh; its control
         # endpoint is identical to local
-        if ms_type not in (None, "local", "ici"):
+        if ms_type not in ("local", "ici"):
             raise ValueError(f"unsupported ms_type {ms_type!r}")
         return network.register(Messenger(network, name, threaded))
 

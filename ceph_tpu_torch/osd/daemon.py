@@ -316,8 +316,9 @@ class OSDDaemon(Dispatcher, MonHunter):
             grace=4 * global_config()["osd_heartbeat_interval"])
         # mClock op-class QoS (ref: src/osd/mClockOpClassQueue.h):
         # client ops execute inline and are ACCOUNTED; recovery work is
-        # queued and paced by the two-phase scheduler (a scrub runs in
-        # dispatch; the reference's "scrub" class is never fed)
+        # queued and paced by the two-phase scheduler.  The "scrub"
+        # class is set up as the reference's and, as there, never fed:
+        # a scrub runs in dispatch
         cfg = global_config()
         self.op_queue = MClockQueue()
         self.op_queue.set_class("client",
@@ -327,6 +328,9 @@ class OSDDaemon(Dispatcher, MonHunter):
             "recovery", reservation=cfg["osd_mclock_recovery_res"],
             weight=cfg["osd_mclock_recovery_wgt"], limit=rec_lim,
             burst=max(8.0, rec_lim / 4) if rec_lim > 0 else 64.0)
+        self.op_queue.set_class(
+            "scrub", weight=cfg["osd_mclock_scrub_wgt"],
+            limit=cfg["osd_mclock_scrub_lim"])
         # snaptrim rides the QoS queue too: osd_snap_trim_sleep maps
         # to a rate limit (1/sleep trims per second, burst 1) so trim
         # storms are paced against client IO instead of racing it
@@ -426,6 +430,8 @@ class OSDDaemon(Dispatcher, MonHunter):
         a.register("perf dump", "dump perf counters", _perf_dump)
         a.register("config show", "dump live config values",
                    lambda c: (0, global_config().dump()))
+        a.register("config diff", "values changed from defaults",
+                   lambda c: (0, global_config().diff()))
         a.register("config get", "get one option",
                    lambda c: (0, global_config()[c["var"]]))
 

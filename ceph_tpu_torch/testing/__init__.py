@@ -1,8 +1,9 @@
 """Test/QA harnesses (the qa/ tier analogues): the port's MiniCluster,
-OSDThrasher and ChaosRunner."""
+OSDThrasher and ChaosRunner, and the fault plane they drive."""
+from ..msg.faults import FaultPlane
 from .chaos import ChaosRunner, InvariantViolation
 from .cluster import MiniCluster
 from .thrasher import OSDThrasher
 
-__all__ = ["ChaosRunner", "InvariantViolation", "MiniCluster",
-           "OSDThrasher"]
+__all__ = ["ChaosRunner", "FaultPlane", "InvariantViolation",
+           "MiniCluster", "OSDThrasher"]

@@ -211,9 +211,9 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    trimming PG and `reppool`'s store bytes equal its bytes.  Block images
    on `reppool` (the port's rbd, through the main client and the first
    watcher client), before the victim dies: vm0 (1 GiB, order 22,
-   rbd_cache on) gets 64 x 4 MiB written in order and 512 seeded 4 KiB
+   rbd_cache on) gets 64 x 4 MiB written in order and 256 seeded 4 KiB
    writes, reads back equal to the host model and `du` reports 64
-   objects; snapshot `base`, protected, cloned to vm0c, whose 256 seeded
+   objects; snapshot `base`, protected, cloned to vm0c, whose 128 seeded
    4 KiB writes copy up every object they touch; vm0c and vm0@base equal
    their models; the second client's writes take vm0's exclusive lock
    by cooperative hand-off and `diff` since base lists exactly their
@@ -251,12 +251,13 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    leg and swallowed rgw errors 0.
    The file system (the port's `fs`: an MDS rank, a standby, the mon's
    MDSMonitor) laid out as Ceph documents CephFS on EC: `cephfs_data`,
-   an EC pool on the cluster's `tpu` k=8 m=4 profile (pg_num 32), made
+   an EC pool on the cluster's `tpu` k=8 m=4 profile (pg_num 8, cut
+   from 32 for the smoke's wall), made
    before the first MDS starts, and `cephfs_metadata`, which the MDS
    makes (replicated, size 3, pg_num 32); beacons every 0.2 s, grace 1
    s; Ceph's default file layout (4 MiB objects).  Before the victim
    dies: two clients write 16 x 4 MiB files into two directories and
-   64 x 4 KiB files into one, every file read back equal to the model
+   32 x 4 KiB files into one, every file read back equal to the model
    (sha256); a 4 KiB overwrite mid-file (a read-modify-write on the EC
    pool), a hardlink, a rename, and a reader's open revoking a writer's
    CAP_EXCL (the reader sees the buffered bytes).  With the victim down
@@ -339,7 +340,8 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    repair launches, (g)'s walls and launches, and the phase's wall.
    K1's and K3's launch counts are zeroed before and read after the
    phase;
-20. the cluster on its real transport, in three legs.  (a) phase 19's
+20. the cluster on its real transport, in three legs, and the vstart
+   shell (d).  (a) phase 19's
    cell over TCP (ceph_tpu_torch.dryrun.TcpCluster): the mon, 16 OSDs
    and the client each on its own socket on 127.0.0.1, cephx on and
    secure mode off (Octopus's defaults), 8 x 4 MiB writes (cut from 64),
@@ -375,7 +377,26 @@ Phases, each failing the run (non-zero exit) on any error or mismatch:
    and, through each admin socket, its K1 launches, tick errors, failed
    queued items, full rebuilds and dispatch errors, all of which must
    be 0.  K1's launch count in this process is zeroed before and read
-   after the phase;
+   after legs (a) and (b).  (d) the vstart shell in this process:
+   `ceph_tpu_torch.tools.vstart.main(["--osds", "12", "-c", <the k=8
+   m=4 host-domain profile>, "-c", "osd pool create ecp 8 erasure
+   ..."])` (pg_num 8, cut from phase 19's 32) with the rest of the tour
+   on its standard input and its standard output captured: 8 seeded
+   4 MiB objects `put` and `get` back equal by sha256 and every shard
+   on its acting OSD equal to the plain version's encode; `trace on`,
+   one more `put`, `trace ls` and `trace <id>`, whose tree holds the
+   ec_encode_kernel span; `pg scrub` of obj0's PG (`"inconsistent":
+   []`); `balance` (K3) and `balancer status`; `serve put`, `stat` and
+   `pages` on `ecp`; `kill-osd` of obj0's primary, `osd down`, a
+   degraded `get` equal by sha256 that launched K1 decodes, and
+   `revive-osd`; `crash-osd`, `crash ls`, `health` (HEALTH_WARN) and
+   `status` (the crash's health summary), `crash archive-all`, `health`
+   (HEALTH_OK), `telemetry show`, `insights`, `perf dump`, `status` and
+   `quit`.  Every command's status, host seconds and K1 and K3
+   launches are printed (`balance` must launch K3), and K1's launches
+   by encode, decode and repair and K3's, each zeroed before and read
+   after the leg; the fault counts stay 0 and the only OSD reaped is
+   the crashed one;
 21. the durable cluster: phase 20 (c)'s mon and 16 OSD processes, each
    with `--data-dir` under ceph_tpu_torch/_build/smoke/phase21/data on
    this machine's disk (`df -T` printed): the mon on a LogDB, every OSD
@@ -542,6 +563,14 @@ MESH_PATTERN_S = 16              # stripes per two-erasure pattern
 FABRIC_OBJECTS = 64              # 4 MiB objects through the fabric
 BENCH_ITERATIONS = 64            # ec_bench --iterations
 SPIN_CYCLES = 4_000_000          # about 2 ms at the H100's 1980 MHz
+
+
+def make_lock(name: str):
+    """The port's lock factory, so the lock-order sanitizer sees the
+    smoke's locks too (imported at the call: a checkout without the
+    package fails at its first phase, not at import)."""
+    from ceph_tpu_torch.common.lockdep import make_lock as port_make_lock
+    return port_make_lock(name)
 
 
 def card() -> str:
@@ -1960,7 +1989,7 @@ def fabric_phase(ec, ecutil, name_power: str, dev) -> dict:
     if not fab.supports(ec):
         raise AssertionError("the fabric refuses the tpu plugin")
     stage_s, fetch_s, results, errors = [], [], {}, []
-    lock = threading.Lock()
+    lock = make_lock("smoke.fabric")
 
     def stage(i):
         t0 = time.monotonic()
@@ -3687,9 +3716,11 @@ RBD_IMAGE_B = 1 << 30            # vm0: 1 GiB
 RBD_ORDER = 22                   # 4 MiB objects (rbd_default_order)
 RBD_OBJ = 1 << RBD_ORDER
 RBD_SEQ_OBJECTS = 64             # 64 x 4 MiB written in order: 256 MiB
-RBD_RANDOM_WRITES = 512          # seeded 4 KiB writes inside those 256 MiB,
-                                 # cut from 1,024 (the leg's 20 s, PERF.md 4)
-RBD_CLONE_WRITES = 256           # seeded 4 KiB writes to the clone (copyups)
+RBD_RANDOM_WRITES = 256          # seeded 4 KiB writes inside those 256 MiB,
+                                 # cut from 1,024, then 512 (the smoke's
+                                 # wall, PERF.md 4)
+RBD_CLONE_WRITES = 128           # seeded 4 KiB writes to the clone (copyups),
+                                 # cut from 256 (the smoke's wall)
 RBD_HANDOFF_WRITES = 16          # the second client's 4 KiB writes after base
 RBD_SMALL_B = 64 << 20           # jvm and the migrated image: 64 MiB
 RBD_JOURNAL_WRITES = 256         # jvm's writes of 4-64 KiB before the kill
@@ -4079,7 +4110,7 @@ class S3Client:
         self.extra = {"x-amz-security-token": token} if token else {}
         self._local = threading.local()
         self._conns: list = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("smoke.s3client")
 
     def close(self) -> None:
         with self._lock:
@@ -4641,10 +4672,13 @@ FS_DATA = "cephfs_data"          # the metadata pool; the data pool is EC
 #: Ceph's default file layout (file_layout_t: 4 MiB objects, no striping)
 FS_LAYOUT = {"stripe_unit": 4 << 20, "stripe_count": 1,
              "object_size": 4 << 20}
+FS_PG_NUM = 8                    # cephfs_data's PGs: cut from phase 19's 32
+                                 # (the smoke's wall, PERF.md 4)
 FS_LARGE = 16                    # 4 MiB files, 8 in each of two directories
 FS_LARGE_B = 4 << 20
-FS_SMALL = 64                    # 4 KiB files in one directory, two writers;
-#                                  cut from 256 (the smoke's wall, PERF.md 4)
+FS_SMALL = 32                    # 4 KiB files in one directory, two writers;
+#                                  cut from 256, then 64 (the smoke's wall,
+#                                  PERF.md 4)
 FS_SMALL_B = 4 << 10
 FS_EXCL_B = 1 << 20              # the file of the cap revoke
 #: tests/test_mds_failover.py:17's beacons
@@ -4658,7 +4692,8 @@ class FsLeg:
     Ceph documentation lays it out (`doc/cephfs/createfs.rst`): the
     metadata on a replicated pool the MDS makes (`cephfs_metadata`, size
     3, pg_num 32), the file data on an EC pool made before the first MDS
-    starts (`cephfs_data`, phase 19's `tpu` k=8 m=4 profile, pg_num 32).
+    starts (`cephfs_data`, phase 19's `tpu` k=8 m=4 profile, pg_num
+    `FS_PG_NUM`).
     One active rank and one standby, beaconing every 0.2 s with a 1 s
     grace; two clients; every file in Ceph's default layout (4 MiB
     objects).  `before_kill` after RgwLeg's, `degraded` while the victim
@@ -6154,7 +6189,7 @@ def cluster_phase(name_power: str, dev) -> dict:
         snap = SnapLeg(c, r, rep, objs)
         rbd = RbdLeg(c, r, rep, snap)
         rgw = RgwLeg(c, r)
-        fsl = FsLeg(c, r)
+        fsl = FsLeg(c, r, pg_num=FS_PG_NUM)
         res = drive_cluster(c, r, io, objs, "phase 19", dev,
                             healthy=healthy, degraded=degraded)
         legs = res["legs"]
@@ -7091,6 +7126,253 @@ def tcp_phase(name_power: str, dev, work: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The vstart shell: phase 20 (d)
+
+VSTART_OSDS = 12                 # one OSD per host: k + m hosts
+VSTART_PG_NUM = 8                # cut from phase 19's 32 (the smoke's wall)
+VSTART_OBJECTS = 8               # seeded 4 MiB objects put and got back
+VSTART_SEED = SEED + 24
+
+
+class TourScript:
+    """The vstart shell's standard input: each item is a command line,
+    or a callable given the shell that returns a line (one that reads
+    what the shell printed so far) or None (a check between commands).
+    It is not a terminal, so `main` reads it after its -c commands."""
+
+    def __init__(self, items: list, shells: list):
+        self.items, self.shells = items, shells
+
+    def isatty(self) -> bool:
+        return False
+
+    def __iter__(self):
+        for item in self.items:
+            line = item(self.shells[0]) if callable(item) else item
+            if line is not None:
+                yield line + "\n"
+
+
+def _recording_shell(vstart, shells: list, log: list):
+    """vstart's shell class, recording each instance and each command's
+    text, status, host seconds and K1 and K3 launches (the wrappers'
+    counts before and after it)."""
+    from ceph_tpu_torch.crush import batch as cb
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+
+    class Recorded(vstart.VstartShell):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            shells.append(self)
+
+        def run_line(self, line: str) -> bool:
+            start = len(self.out.getvalue())
+            k0 = (bm.LAUNCHES["gf_matmul"], cb.LAUNCHES["crush_do_rule"])
+            t0 = time.monotonic()
+            alive = super().run_line(line)
+            text = self.out.getvalue()[start:]
+            if line.strip():
+                log.append({"cmd": line.strip(), "text": text,
+                            "ok": not text.startswith("Error:"),
+                            "s": time.monotonic() - t0,
+                            "k1": bm.LAUNCHES["gf_matmul"] - k0[0],
+                            "k3": cb.LAUNCHES["crush_do_rule"] - k0[1]})
+            return alive
+    return Recorded
+
+
+def vstart_leg(name_power: str, work: Path, args: tuple = ()) -> dict:
+    """Phase 20 (d) (see the module docstring): the vstart tour through
+    `ceph_tpu_torch.tools.vstart.main`, in this process, its standard
+    output captured to `work/vstart.txt`.  `args` goes before the tour's
+    own arguments (a rehearsal passes `--device cpu`)."""
+    from ceph_tpu_torch.crush import batch as cb
+    from ceph_tpu_torch.ec.kernels import bitmatmul as bm
+    from ceph_tpu_torch.osd.types import PG
+    from ceph_tpu_torch.tools import vstart
+
+    tag = "phase 20 (d)"
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(VSTART_SEED)
+    objs, paths = {}, {}
+    for i in range(VSTART_OBJECTS):
+        oid = f"obj{i}"
+        objs[oid] = rng.integers(0, 256, REPAIR_OBJECT,
+                                 dtype=np.uint8).tobytes()
+        paths[oid] = work / f"{oid}.in"
+        paths[oid].write_bytes(objs[oid])
+    art = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    (work / "art.in").write_bytes(art)
+    shells: list = []
+    log: list = []
+    seen: dict = {}
+
+    def last(prefix: str) -> str:
+        return next(e["text"] for e in reversed(log)
+                    if e["cmd"].startswith(prefix))
+
+    def pgid_of(sh, oid: str) -> str:
+        m = sh.cluster.mon.osdmap
+        pid = sh.rados.pool_lookup("ecp")
+        pg = m.pools[pid].raw_pg_to_pg(m.object_locator_to_pg(oid, pid))
+        return f"{pid}.{pg.ps:x}"
+
+    def read_back(sh):
+        for oid, data in objs.items():
+            got = (work / f"{oid}.out").read_bytes()
+            if hashlib.sha256(got).digest() != \
+                    hashlib.sha256(data).digest():
+                raise AssertionError(f"{tag}: get {oid} != its put (sha256)")
+        pid = sh.rados.pool_lookup("ecp")
+        seen["shards"] = _ec_shards_plain(sh.cluster, pid, objs, {}, tag)
+
+    def trace_id(sh):
+        ids = last("trace ls").split()
+        if not ids:
+            raise AssertionError(f"{tag}: trace ls listed no trace")
+        return f"trace {ids[-1]}"
+
+    def victim(sh):
+        m = sh.cluster.mon.osdmap
+        pid = sh.rados.pool_lookup("ecp")
+        seen["victim"] = m.pg_to_up_acting_osds(
+            m.object_locator_to_pg("obj0", pid))[2][0]
+        seen["decode0"] = split["decode"]
+        return f"kill-osd {seen['victim']}"
+
+    def degraded(sh):
+        got = (work / "obj0.degraded").read_bytes()
+        if hashlib.sha256(got).digest() != \
+                hashlib.sha256(objs["obj0"]).digest():
+            raise AssertionError(f"{tag}: the degraded get of obj0 != its "
+                                 "put (sha256)")
+        seen["degraded_decodes"] = split["decode"] - seen["decode0"]
+        if not seen["degraded_decodes"]:
+            raise AssertionError(f"{tag}: the degraded get launched no "
+                                 "K1 decode")
+        return f"revive-osd {seen['victim']}"
+
+    def revived(sh):
+        c = sh.cluster
+        _wait(c, lambda: c.mon.osdmap.is_up(seen["victim"]),
+              f"osd.{seen['victim']} up again", tag=tag)
+        # another OSD than the revived one (every OSD is in every acting
+        # set at k + m = 12 of 12)
+        seen["crashed"] = (seen["victim"] + 1) % VSTART_OSDS
+        return f"crash-osd {seen['crashed']}"
+
+    items = ([f"put ecp {o} {paths[o]}" for o in objs] +
+             [f"get ecp {o} {work / (o + '.out')}" for o in objs] +
+             [read_back, "trace on", f"put ecp traced {paths['obj0']}",
+              "trace ls", trace_id, "trace off",
+              lambda sh: f"pg map {pgid_of(sh, 'obj0')}",
+              lambda sh: f"pg scrub {pgid_of(sh, 'obj0')}",
+              "balance", "balancer status",
+              f"serve put ecp art {work / 'art.in'}", "serve stat ecp art",
+              "serve pages ecp art shard0 0,1,2,3",
+              victim, lambda sh: f"osd down {seen['victim']}",
+              f"get ecp obj0 {work / 'obj0.degraded'}", degraded, revived,
+              "crash ls", "health", "status", "crash archive-all", "health",
+              "telemetry show", "insights", "perf dump", "status", "quit"])
+    argv = [*args, "--osds", str(VSTART_OSDS),
+            "-c", f"osd erasure-code-profile set tpu_k8m4 plugin=tpu "
+                  f"k={K} m={M} technique=reed_sol_van "
+                  f"crush-failure-domain=host",
+            "-c", f"osd pool create ecp {VSTART_PG_NUM} erasure tpu_k8m4"]
+    saved_shell, saved_stdin = vstart.VstartShell, sys.stdin
+    captured = io.StringIO()
+    bm.reset_launches()
+    cb.reset_launches()
+    t0 = time.monotonic()
+    try:
+        vstart.VstartShell = _recording_shell(vstart, shells, log)
+        sys.stdin = TourScript(items, shells)
+        with k1_by_caller(bm) as split, \
+                contextlib.redirect_stdout(captured):
+            rc = vstart.main(argv)
+    finally:
+        vstart.VstartShell, sys.stdin = saved_shell, saved_stdin
+    wall = time.monotonic() - t0
+    launches = {**bm.LAUNCHES, **cb.LAUNCHES}
+    (work / "vstart.txt").write_text(captured.getvalue())
+    sh = shells[0]
+    cmds = [e["cmd"] for e in log]
+    bad = [e for e in log if not e["ok"]]
+    if rc != 0 or bad or cmds[-1] != "quit":
+        raise AssertionError(f"{tag}: main -> {rc}; failed commands "
+                             f"{[(e['cmd'], e['text'][:200]) for e in bad]}; "
+                             f"last {cmds[-1:]}")
+    checks = {
+        "profile": log[0]["text"].strip() in ("", "profile 'tpu_k8m4' set"),
+        "pool": "pool 'ecp' created" in log[1]["text"],
+        "span": "ec_encode_kernel" in next(
+            e["text"] for e in log if e["cmd"].startswith("trace ") and
+            e["cmd"].split()[1] not in ("on", "off", "ls")),
+        "scrub": '"inconsistent": []' in last("pg scrub"),
+        "serve": "published art epoch 1" in last("serve put") and
+        last("serve pages").count("page ") == 4,
+        "down": f"marked down osd.{seen['victim']}" in last("osd down"),
+        "crash": f'"entity_name": "osd.{seen["crashed"]}"' in
+        last("crash ls"),
+        # the health checks' summaries show in `status`'s health line
+        "recent_crash": "HEALTH_WARN" in
+        [e for e in log if e["cmd"] == "health"][0]["text"] and
+        "daemon crashes recently" in
+        [e for e in log if e["cmd"] == "status"][0]["text"],
+        "health_ok": "HEALTH_OK" in
+        [e for e in log if e["cmd"] == "health"][1]["text"],
+        "telemetry": '"cluster_id"' in last("telemetry show"),
+        "insights": '"window_seconds"' in last("insights"),
+        "perf": '"op"' in last("perf dump"),
+        "status": f"{VSTART_OSDS} osds:" in last("status"),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{tag}: checks {checks}")
+    k1 = {k: split[k] for k in ("encode", "decode", "repair", "other")}
+    if not (k1["encode"] and seen["degraded_decodes"]):
+        raise AssertionError(f"{tag}: K1 launches {k1}")
+    if launches["gf_matmul"] != sum(k1.values()):
+        raise AssertionError(f"{tag}: K1 count {launches['gf_matmul']} != "
+                             f"the split {k1}")
+    balance_k3 = next(e["k3"] for e in log if e["cmd"] == "balance")
+    if balance_k3 < 1:
+        raise AssertionError(f"{tag}: balance launched no crush_do_rule")
+    c = sh.cluster
+    reaped = [(o, exc) for o, exc, _tb in c.reaped]
+    faults = {"dispatch_errors": c.network.dispatch_errors,
+              "reaped_other": len([r for r in reaped
+                                   if r[0] != seen["crashed"]]),
+              "queued_op_failures": _perf_sum(c, "queued_op_failures"),
+              "recovery_push_errors": _perf_sum(c, "recovery_push_errors"),
+              "recovery_full_rebuild": _perf_sum(c, "recovery_full_rebuild"),
+              "tick_errors": _perf_sum(c, "tick_errors")}
+    if any(faults.values()) or reaped != [(seen["crashed"], "RuntimeError")]:
+        raise AssertionError(f"{tag}: fault counts {faults}, reaped "
+                             f"{reaped}")
+    print(f"{tag}: vstart main --osds {VSTART_OSDS} in this process: "
+          f"{len(log)} commands, every one ok; tpu k={K} m={M} host "
+          f"profile, pool ecp pg_num {VSTART_PG_NUM}; {VSTART_OBJECTS} x "
+          f"{REPAIR_OBJECT} B put and got back == (sha256), "
+          f"{seen['shards']} shards on their acting OSDs == the plain "
+          f"version's encode; ec_encode_kernel in the assembled trace; "
+          f"pg scrub inconsistent []; osd.{seen['victim']} killed and "
+          f"down, the degraded get == (sha256) with "
+          f"{seen['degraded_decodes']} K1 decodes; osd.{seen['crashed']} "
+          f"crashed: RECENT_CRASH, archived, HEALTH_OK; faults {faults}; "
+          f"output in {work / 'vstart.txt'}")
+    print(f"{tag}: K1 launches {k1} (encode, decode, repair, other), K3 "
+          f"{launches['crush_do_rule']} ({balance_k3} in `balance`, the "
+          f"rest in the mgr's score for `balancer status` and `status`); "
+          f"the leg {wall:.1f} s on the host clock on {name_power}")
+    for e in log:
+        print(f"{tag}: {'ok' if e['ok'] else 'FAILED'} {e['s']:8.3f} s "
+              f"K1 {e['k1']} K3 {e['k3']} `{e['cmd'][:80]}`")
+    return {"wall_s": wall, "k1": k1, "k3": launches["crush_do_rule"],
+            "k3_balance": balance_k3, "commands": len(log),
+            "shards": seen["shards"], "faults": faults}
+
+
+# ---------------------------------------------------------------------------
 # The durable cluster: phase 21
 
 DURABLE_OBJECTS = 16             # seeded 4 MiB objects written while down
@@ -7826,7 +8108,7 @@ def k1_by_caller(bm):
     counts: dict = {k: 0 for k in kinds}
     counts["pools"] = {}
     local = threading.local()
-    lock = threading.Lock()
+    lock = make_lock("smoke.k1_by_caller")
     launch = bm.gf_matmul_cuda
     saved = {name: getattr(ecutil, name) for name in
              ("encode", "decode_concat", "compiled_repair_streams")}
@@ -8204,6 +8486,11 @@ def main() -> int:
         "legs": tcp["tcp"]["legs"], "recover_s": tcp["tcp"]["recover_s"],
         "bench": tcp["processes"]["bench"],
         "degraded_read": tcp["processes"]["degraded"]}
+    # vstart_leg zeroes K1's and K3's counts before the leg and reads them
+    # after it
+    vs = vstart_leg(name_power, work / "phase20d")
+    kernels[0]["launches_vstart"] = vs["k1"]
+    k3["launches_vstart"] = vs["k3"]
     durable = durable_phase(name_power, work / "phase21")
     kernels[0]["launches_durable"] = durable["launches"]
     kernels[0]["durable"] = {
@@ -8225,6 +8512,7 @@ def main() -> int:
           f"{mesh['phase_s']:.1f} + {fabric['phase_s']:.1f} + "
           f"{bench['phase_s']:.1f} + {ec_pg['phase_s']:.1f} + "
           f"{cluster['phase_s']:.1f} + {tcp['phase_s']:.1f} + "
+          f"{vs['wall_s']:.1f} (20 d) + "
           f"{durable['phase_s']:.1f} s; phase 22 {chaos['phase_s']:.1f} s; "
           f"{time.monotonic() - t_start:.1f} s in all on {name_power}")
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,6 @@ held to the port's in tests/test_torch_mapping.py, and
 `test_osdmaptool_upmap_cli` runs the reference tool unpatched.
 Everything is compared exactly.
 """
-import logging
 import random
 from types import SimpleNamespace
 
@@ -317,13 +316,18 @@ def test_calc_pg_upmaps_timings_are_laps_of_the_same_call(ref_scalar):
 
 def test_dout_drops_lines_above_the_gather_level(ref_scalar, caplog):
     """The balancer's dout lines (level 10) never reach logging; a line
-    at the gather level goes to the subsystem's logger."""
-    with caplog.at_level(logging.DEBUG, logger="ceph_tpu_torch"):
+    at the gather level goes to the subsystem's logger (which does not
+    propagate, so the capture listens on it)."""
+    osd_log = log._logger("osd")
+    osd_log.addHandler(caplog.handler)
+    try:
         _, m = build_maps(n_osd=16, osds_per_host=4, pg_num=128, size=3)
         calc_pg_upmaps(m, 0.01, 20, set(), Incremental(epoch=m.epoch + 1),
                        device="cpu")
         assert caplog.records == []
         log.dout("osd", log.GATHER_LEVEL).write("changed %d", 3)
+    finally:
+        osd_log.removeHandler(caplog.handler)
     assert [(r.name, r.getMessage()) for r in caplog.records] == \
         [("ceph_tpu_torch.osd", "changed 3")]
 

@@ -262,10 +262,11 @@ def c_snapc_monotone_against_reordered_delivery(s):
     fs.mksnap("/mono", "m1")
     fs.mksnap("/mono", "m2")
     # the reference sleeps 0.3 s to drain the broadcasts; here the
-    # handle has applied both
+    # handle has applied both (one lssnap, so the replies recorded do
+    # not depend on how long the broadcasts take)
+    newest = max(fs.lssnap("/mono")[n]["id"] for n in ("m1", "m2"))
     deadline = time.monotonic() + 10
-    while time.monotonic() < deadline and fh._snapc_seq < \
-            max(fs.lssnap("/mono")[n]["id"] for n in ("m1", "m2")):
+    while time.monotonic() < deadline and fh._snapc_seq < newest:
         time.sleep(0.02)
     seq = fh._snapc_seq
     assert seq >= 2

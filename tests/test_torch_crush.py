@@ -461,3 +461,13 @@ def test_compile_map_defaults_to_the_card():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pbatch.compile_map(m)
+
+
+@pytest.mark.parametrize("weight", [1, 0x8000, 0x10000, 0x34567, 1 << 30])
+def test_generate_exponential_distribution_equals_reference(weight):
+    """One straw2 draw, ln(hash) / weight, as the reference's scalar
+    mapper computes it (ref: mapper.c:334-357)."""
+    rng = np.random.default_rng(weight)
+    for x, y, z in rng.integers(-(1 << 31), 1 << 31, (64, 3)).tolist():
+        assert pmapper.generate_exponential_distribution(0, x, y, z, weight) \
+            == jmapper.generate_exponential_distribution(0, x, y, z, weight)

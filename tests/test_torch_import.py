@@ -140,7 +140,9 @@ def test_port_imports_without_jax_or_reference():
                  "ceph_tpu_torch.fs", "ceph_tpu_torch.fs.mds",
                  "ceph_tpu_torch.fs.client", "ceph_tpu_torch.mon.fsmap",
                  "ceph_tpu_torch.mon.mds_monitor",
-                 "ceph_tpu_torch.tools.dencoder"):
+                 "ceph_tpu_torch.tools.dencoder",
+                 # the last modules: vstart and the common face
+                 "ceph_tpu_torch.tools.vstart", "ceph_tpu_torch.common"):
         assert name in out["modules"], name
 
 
@@ -449,3 +451,107 @@ def test_fs_imports_without_jax_or_reference():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"leaked": [], "swallowed": 0,
                    "got": ["file bytes", ["f"], "active"]}
+
+
+#: top-level and class-level public names of the reference that the port
+#: has no counterpart of, by module: the JAX device routes whose place
+#: K1, K2, K3 and their plain versions take, and the JAX-tracing checks
+#: whose counterparts are the cuda-timing rule and devguard's recompile
+#: count (ROADMAP, Queue 1)
+JAX_ONLY = {
+    "common/jaxguard.py": "the module: common/devguard.py",
+    "analysis/engine.py": {"FileContext.imports_jax",
+                           "FileContext.inline_ignored"},
+    "analysis/project.py": {"ProjectContext.jit_statics_of",
+                            "jit_statics"},
+    "analysis/rules.py": {"JaxTimingRule", "JaxTimingRule.check",
+                          "JitRetraceChurnRule", "JitRetraceChurnRule.check",
+                          "JitStaticRule", "JitStaticRule.check",
+                          "TracerLeakRule", "TracerLeakRule.check"},
+    "crush/batch.py": {"_CmView.max_buckets", "_CmView.max_depth",
+                       "_CmView.max_devices", "_CmView.n_class_max",
+                       "_CmView.n_positions", "_CmView.use_classes",
+                       "crush_ln16", "crush_ln_vec"},
+    "ec/kernels/bitmatmul.py": {
+        "PALLAS_MIN_TILE", "PALLAS_TILE", "expand_bits",
+        "gf_decode_pallas_grouped_full", "gf_decode_xla_full",
+        "gf_matmul_pallas", "gf_matmul_pallas_grouped", "gf_matmul_xla",
+        "gf_matmul_xla_grouped", "grouped_bitmatrix",
+        "grouped_planar_bitmatrix", "pack_bits", "pack_matrix"},
+    "ec/matrix_code.py": {"MatmulFn"},
+    "osd/mapping.py": {"BATCH_CHUNK"},
+}
+
+
+def public_names(path: Path) -> set:
+    """Module-level defs, classes, assignments and methods of classes,
+    without private names and without imported names."""
+    import ast
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out.update(f"{node.name}.{m.name}" for m in node.body
+                           if isinstance(m, (ast.FunctionDef,
+                                             ast.AsyncFunctionDef)))
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets
+                       if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            out.add(node.target.id)
+    return {n for n in out if not n.split(".")[-1].startswith("_")}
+
+
+def test_every_reference_module_and_name_has_a_counterpart():
+    """The module walk: each module of the reference has a module of the
+    same path in the port, holding each of its public names, but for
+    the JAX-only names above."""
+    ref_root = ROOT / "ceph_tpu"
+    missing = {}
+    for path in sorted(ref_root.rglob("*.py")):
+        rel = path.relative_to(ref_root).as_posix()
+        mine = ROOT / "ceph_tpu_torch" / rel
+        if not mine.exists():
+            missing[rel] = "the module"
+            continue
+        gap = public_names(path) - public_names(mine)
+        if gap:
+            missing[rel] = gap
+    assert set(missing) == set(JAX_ONLY)
+    assert missing.pop("common/jaxguard.py") == "the module"
+    for rel, gap in missing.items():
+        assert gap == JAX_ONLY[rel], rel
+
+
+VSTART_PROBE = textwrap.dedent("""
+    import io, json, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    from ceph_tpu_torch.tools import vstart
+    from ceph_tpu_torch.analysis import main
+    out = io.StringIO()
+    sh = vstart.VstartShell(n_osd=3, out=out, device="cpu")
+    try:
+        sh.run_line("osd pool create p 4")
+        sh.run_line("status")
+    finally:
+        sh.close()
+    rc = main(["--list-rules"])
+    leaked = sorted(n for n in sys.modules
+                    if n == "ceph_tpu" or n.startswith("ceph_tpu."))
+    print(json.dumps({"leaked": leaked, "rc": rc,
+                      "created": "pool 'p' created" in out.getvalue()}))
+""")
+
+
+def test_vstart_and_analysis_run_without_jax():
+    """The vstart shell boots a cluster and cephck lists its rules with
+    jax blocked, loading nothing of the reference."""
+    import json
+    proc = subprocess.run([sys.executable, "-c", VSTART_PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"leaked": [], "rc": 0, "created": True}

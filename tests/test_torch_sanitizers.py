@@ -1,7 +1,7 @@
 """The port's options, lockdep and racecheck (ceph_tpu_torch.common).
 
-The option schema against the reference's (the sanitizers' two, the PG
-log trim bounds, MemStore's capacity and its injected read errors); lockdep's cycle detection
+The option schema against the reference's (all 73 entries); lockdep's
+cycle detection
 as tests/test_common.py checks the reference's; tests/test_racecheck.py's
 cases on the port's racecheck; and the port's locks and shared
 structures wired under the reference's names.  The repository conftest
@@ -54,49 +54,19 @@ def probe(code: str, **env: str | None) -> subprocess.CompletedProcess:
 
 # ------------------------------------------------------------- options
 
-PORT_OPTIONS = {"lockdep", "racecheck", "memstore_device_bytes",
-                "osd_min_pg_log_entries", "osd_max_pg_log_entries",
-                "objectstore_debug_inject_read_err",
-                # the durable store's
-                "bluestore_device_bytes",
-                # the cluster's
-                "osd_heartbeat_interval", "osd_heartbeat_grace",
-                "osd_mclock_client_wgt", "osd_mclock_recovery_res",
-                "osd_mclock_recovery_wgt", "osd_mclock_recovery_lim",
-                "mon_osd_down_out_interval", "mon_osd_min_down_reporters",
-                "mon_min_osdmap_epochs", "osd_mon_report_interval",
-                "mon_osd_stale_report_grace", "osd_max_backfills",
-                "osd_backfill_scan_max", "osd_op_complaint_time",
-                "osd_op_history_size", "blkin_trace_all",
-                # the scrub scheduler's
-                "osd_scrub_auto", "osd_scrub_min_interval",
-                "osd_deep_scrub_interval", "osd_max_scrubs",
-                "osd_scrub_auto_repair",
-                # the mgr's
-                "mon_target_pg_per_osd", "mon_mgr_health_grace",
-                # the fault plane's and crash capture's
-                "ms_inject_socket_failures", "osd_debug_inject_crash_tick",
-                "mgr_crash_warn_recent_interval",
-                # the error-path coverage sanitizer, telemetry's upload
-                # target and the insights window
-                "errcheck", "mgr_telemetry_url", "mgr_insights_window",
-                # the snap trimmer's
-                "osd_max_trimming_pgs", "osd_pg_max_concurrent_snap_trims",
-                "osd_snap_trim_sleep",
-                # librbd's object cache
-                "rbd_cache", "rbd_cache_size", "rbd_cache_max_dirty",
-                # the cephfs client's object cache
-                "client_oc", "client_oc_size", "client_oc_max_dirty",
-                # the MDS's beacons, failover, balancer and dirfrags
-                "mds_beacon_interval", "mds_beacon_grace",
-                "mds_standby_replay", "mds_bal_interval", "mds_bal_min_load",
-                "mds_bal_ratio", "mds_bal_split_size", "mds_bal_merge_size"}
+#: the port's schema is the reference's, all of it (73 options); the
+#: two that configure JAX code (ec_tpu_backend, jaxguard) are carried
+#: and read by nothing
+PORT_OPTIONS = set(ref_options.OPTIONS)
 
 
 def test_options_schema_equals_reference_but_backend():
-    """The port reads 53 options; each is the reference's entry: the
-    same type, level, default, text, bounds, see-also and runtime
-    flag."""
+    """The port's schema holds every option of the reference's, each
+    the reference's entry: the same type, level, default, text,
+    bounds, enum values, see-also and runtime flag, in the same
+    order."""
+    assert len(PORT_OPTIONS) == 73
+    assert list(options.OPTIONS) == list(ref_options.OPTIONS)
     assert set(options.OPTIONS) == PORT_OPTIONS
     for name, opt in options.OPTIONS.items():
         ref = ref_options.OPTIONS[name]
@@ -159,19 +129,27 @@ def test_options_env_layer_arms_the_port(monkeypatch):
     assert options.Config()["lockdep"] is False
     g = options.global_config()
     assert g["lockdep"] is True and g["racecheck"] is True
+    # the reference's whole schema: an option of JAX code is carried
+    # (and validated), a name outside the schema is refused
+    assert g["ec_tpu_backend"] == "pallas"
+    with pytest.raises(ValueError):
+        g.set("ec_tpu_backend", "cuda")
     with pytest.raises(KeyError):
-        g.set("ec_tpu_backend", "xla")
+        g.set("no_such_option", "xla")
 
 
 def test_options_the_port_does_not_read_cannot_stop_its_import():
-    """A malformed value for a reference option the port never reads
-    leaves the port's imports alone."""
+    """A malformed value in a variable of the env prefix that names no
+    option leaves the port's imports alone.  (The port's schema is now
+    the reference's whole one, so a malformed value of any option
+    fails the import as the reference's does:
+    tests/test_torch_common.py.)"""
     proc = probe(
         "from ceph_tpu_torch.ec import registry\n"
         "from ceph_tpu_torch.common import lockdep\n"
         "assert isinstance(registry.ErasureCodePluginRegistry"
         "._instance_lock, lockdep.DebugLock)\n",
-        CEPH_TPU_OSD_POOL_DEFAULT_SIZE="bogus", CEPH_TPU_LOG_LEVEL="-1")
+        CEPH_TPU_NO_SUCH_OPTION="bogus", CEPH_TPU_OSD_POOL_SIZE="-1")
     assert proc.returncode == 0, proc.stderr
 
 

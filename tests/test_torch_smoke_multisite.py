@@ -13,6 +13,7 @@ rounds, error lists and K1 launches 0; both zone pools removed.
 import importlib.util
 from pathlib import Path
 
+from ceph_tpu_torch.osd import snap_mapper
 from ceph_tpu_torch.testing import MiniCluster
 
 
@@ -24,8 +25,11 @@ def _smoke():
     return cs
 
 
-def test_multisite_leg_rehearsal(capsys):
+def test_multisite_leg_rehearsal(capsys, monkeypatch):
     cs = _smoke()
+    # the smoke holds this process-wide count to 0 in a fresh process;
+    # another test's pin may have counted one here
+    monkeypatch.setitem(snap_mapper.PURGED_DECODE_ERRORS, "count", 0)
     c = MiniCluster(n_osd=7, threaded=True, device="cpu")
     try:
         c.wait_all_up()
