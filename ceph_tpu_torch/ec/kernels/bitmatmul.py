@@ -26,7 +26,9 @@ survivor index vector resident on their device across calls (the
 analogue of ISA-L's table cache, ref: ErasureCodeIsaTableCache.cc),
 staged without a host sync.  The CUDA wrappers refuse a tensor that is not
 on the data's device; under the device guard (common/devguard.py) the
-dispatchers refuse one on the CPU path too.
+dispatchers refuse one on the CPU path too.  Their `launch` is an
+`ec.launch` span of the device-path span log (common/tracing.py), the
+child of the plugin call that reached it or a root of its own.
 """
 from __future__ import annotations
 
@@ -40,10 +42,14 @@ import torch
 from .. import gf
 from ... import device as _device
 from ...common import devguard
+from ...common.tracing import SPANS, span_name
 from . import _build
 
 #: launches of each CUDA kernel, counted by its wrapper at the launch
 LAUNCHES = {"gf_matmul": 0, "gf_decode_select": 0}
+#: span of one operator launch (reshape, output allocation, the kernel's
+#: launch or its plain version); its argument is the kernel, 1 or 2
+_SPAN_LAUNCH = span_name("ec.launch")
 #: K1 launches of the calling thread, counted at the same place, so a
 #: caller can split its own launches from other threads'
 _THREAD = threading.local()
@@ -293,12 +299,16 @@ class GFMatmul:
 
     def launch(self, data: torch.Tensor) -> torch.Tensor:
         """__call__ on input its caller already staged on the device."""
-        *lead, k, n = data.shape
-        if k != self.k:
-            raise ValueError(f"expected {self.k} input rows, got {k}")
-        s = int(np.prod(lead)) if lead else 1
-        out = gf_matmul(self.tables, self.mat_t, data.reshape(s, k, n))
-        return out.reshape(*lead, self.r, n)
+        span = SPANS.begin(_SPAN_LAUNCH)
+        try:
+            *lead, k, n = data.shape
+            if k != self.k:
+                raise ValueError(f"expected {self.k} input rows, got {k}")
+            s = int(np.prod(lead)) if lead else 1
+            out = gf_matmul(self.tables, self.mat_t, data.reshape(s, k, n))
+            return out.reshape(*lead, self.r, n)
+        finally:
+            SPANS.end(span, 1)
 
 
 class GFDecodeFull:
@@ -328,10 +338,14 @@ class GFDecodeFull:
 
     def launch(self, data: torch.Tensor) -> torch.Tensor:
         """__call__ on input its caller already staged on the device."""
-        *lead, n, nbytes = data.shape
-        if n != self.n:
-            raise ValueError(f"expected {self.n} chunk slots, got {n}")
-        s = int(np.prod(lead)) if lead else 1
-        out = gf_decode_select(self.tables, self.sel_t, self.mat_t,
-                               self.runs, data.reshape(s, n, nbytes))
-        return out.reshape(*lead, self.r, nbytes)
+        span = SPANS.begin(_SPAN_LAUNCH)
+        try:
+            *lead, n, nbytes = data.shape
+            if n != self.n:
+                raise ValueError(f"expected {self.n} chunk slots, got {n}")
+            s = int(np.prod(lead)) if lead else 1
+            out = gf_decode_select(self.tables, self.sel_t, self.mat_t,
+                                   self.runs, data.reshape(s, n, nbytes))
+            return out.reshape(*lead, self.r, nbytes)
+        finally:
+            SPANS.end(span, 2)

@@ -18,7 +18,10 @@ Beyond the interface, the plugin exposes a batched device-resident path
 torch input and returns tensors on the plugin's device: many stripes per
 launch, so the host<->device boundary stays off the hot path.  Each stages
 its input first and launches inside a region of the device guard
-(common/devguard.py).
+(common/devguard.py).  Each call is a root span of the device-path span
+log (common/tracing.py) over child spans for the decode-table lookup
+(`ec.decode_table`, argument 1 on a miss), the staging (`ec.stage`) and
+the launch (`ec.launch`, in the operator).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from ... import device as _device
 from ...common import devguard
+from ...common.tracing import SPANS, span_name
 from .. import gf
 from ..interface import ErasureCodeProfile, ErasureCodeError, to_int, \
     sanity_check_k_m
@@ -36,6 +40,12 @@ from ..matrix_code import DecodeTableCache, MatrixErasureCode, \
 from ..registry import ErasureCodePlugin
 
 EC_TPU_DEFAULT_ALIGNMENT = 32  # match isa (EC_ISA_ADDRESS_ALIGNMENT)
+
+_SPAN_ENCODE = span_name("ec.encode_batch")
+_SPAN_DECODE = span_name("ec.decode_batch")
+_SPAN_DECODE_FULL = span_name("ec.decode_batch_full")
+_SPAN_TABLE = span_name("ec.decode_table")
+_SPAN_STAGE = span_name("ec.stage")
 
 
 def _matrices(technique: str, k: int, m: int) -> np.ndarray:
@@ -118,9 +128,15 @@ class ErasureCodeTpu(MatrixErasureCode):
     def encode_batch(self, data) -> torch.Tensor:
         """(..., k, N) uint8 (host or device) -> (..., m, N) parity on the
         plugin's device, one launch for every stripe in the batch."""
-        data = _device.as_u8(data, self.device)
-        with devguard.guard_transfers(self.device):
-            return self._encode_mm.launch(data)
+        root = SPANS.begin(_SPAN_ENCODE)
+        try:
+            span = SPANS.begin(_SPAN_STAGE)
+            data = _device.as_u8(data, self.device)
+            SPANS.end(span)
+            with devguard.guard_transfers(self.device):
+                return self._encode_mm.launch(data)
+        finally:
+            SPANS.end(root)
 
     def decode_batch(self, decode_index: list[int], erasures: list[int],
                      data) -> torch.Tensor:
@@ -130,16 +146,25 @@ class ErasureCodeTpu(MatrixErasureCode):
         Returns (..., len(erasures), N) on the device.  The decode
         operator is cached per erasure signature (ISA-L table cache
         analogue)."""
-        sig = erasure_signature(decode_index, erasures)
-        mm = self._decode_mm.get(sig)
-        if mm is None:
-            dmat = make_decode_matrix(self.encode_matrix, self.k,
-                                      list(decode_index), list(erasures))
-            mm = GFMatmul(dmat, self.device)
-            self._decode_mm.put(sig, mm, cost=self.k)
-        data = _device.as_u8(data, self.device)
-        with devguard.guard_transfers(self.device):
-            return mm.launch(data)
+        root = SPANS.begin(_SPAN_DECODE)
+        try:
+            span = SPANS.begin(_SPAN_TABLE)
+            sig = erasure_signature(decode_index, erasures)
+            mm = self._decode_mm.get(sig)
+            miss = mm is None
+            if miss:
+                dmat = make_decode_matrix(self.encode_matrix, self.k,
+                                          list(decode_index), list(erasures))
+                mm = GFMatmul(dmat, self.device)
+                self._decode_mm.put(sig, mm, cost=self.k)
+            SPANS.end(span, miss)
+            span = SPANS.begin(_SPAN_STAGE)
+            data = _device.as_u8(data, self.device)
+            SPANS.end(span)
+            with devguard.guard_transfers(self.device):
+                return mm.launch(data)
+        finally:
+            SPANS.end(root)
 
     def decode_batch_full(self, erasures: list[int], data,
                           valid=None) -> torch.Tensor:
@@ -155,6 +180,25 @@ class ErasureCodeTpu(MatrixErasureCode):
         (..., len(erasures), N) on the device.  Operators are cached per
         signature, cost-weighted in the LRU (full-width entries are
         (k+m)/k x a dense entry)."""
+        root = SPANS.begin(_SPAN_DECODE_FULL)
+        try:
+            span = SPANS.begin(_SPAN_TABLE)
+            mm, miss = self._full_operator(erasures, valid)
+            SPANS.end(span, miss)
+            # staging-free contract: the kernel reads the survivor rows
+            # on the device, nothing inside the launch touches the host
+            span = SPANS.begin(_SPAN_STAGE)
+            data = _device.as_u8(data, self.device)
+            SPANS.end(span)
+            with devguard.guard_transfers(self.device):
+                return mm.launch(data)
+        finally:
+            SPANS.end(root)
+
+    def _full_operator(self, erasures: list[int],
+                       valid) -> tuple[GFDecodeFull, bool]:
+        """The cached full-width operator for (erasures, valid), and
+        whether this lookup missed and built it."""
         n = self.k + self.m
         erased = sorted(int(e) for e in erasures)
         if valid is None:
@@ -165,21 +209,17 @@ class ErasureCodeTpu(MatrixErasureCode):
         sig = "full" + "".join(f"-{e}" for e in erased) + \
             "+v" + "".join("1" if v else "0" for v in valid)
         mm = self._decode_mm.get(sig)
-        if mm is None:
-            decode_index = [i for i in range(n)
-                            if valid[i] and i not in set(erased)][:self.k]
-            if len(decode_index) < self.k:
-                raise ErasureCodeError(
-                    "EIO: fewer than k valid chunks available")
-            dmat = make_decode_matrix_full(self.encode_matrix, self.k,
-                                           n, decode_index, erased)
-            mm = GFDecodeFull(dmat, valid, self.device)
-            self._decode_mm.put(sig, mm, cost=n)
-        # staging-free contract: the kernel reads the survivor rows on
-        # the device, nothing inside the launch touches the host
-        data = _device.as_u8(data, self.device)
-        with devguard.guard_transfers(self.device):
-            return mm.launch(data)
+        if mm is not None:
+            return mm, False
+        decode_index = [i for i in range(n)
+                        if valid[i] and i not in set(erased)][:self.k]
+        if len(decode_index) < self.k:
+            raise ErasureCodeError("EIO: fewer than k valid chunks available")
+        dmat = make_decode_matrix_full(self.encode_matrix, self.k, n,
+                                       decode_index, erased)
+        mm = GFDecodeFull(dmat, valid, self.device)
+        self._decode_mm.put(sig, mm, cost=n)
+        return mm, True
 
     def decode_batches_full(self, erasures: list[int], batches,
                             valid=None):
