@@ -210,35 +210,44 @@ class SpanLog:
         return profiler
 
     def begin(self, name: int) -> int:
-        """Open span `name` (an id from span_name); its slot, or -1 when
-        the log is not recording."""
+        """Open span `name` (an id from span_name); the handle end()
+        takes, or -1 when the log is not recording."""
         if not (self.on or (self._profiler or
                             self._bind_profiler())._is_profiler_enabled):
             return -1
         i = next(self._seq)
         slot = i & self._mask
-        root = getattr(self._tls, "root", -1)
+        tls = self._tls
+        root = getattr(tls, "root", -1)
         if root < 0:
-            self._tls.root = slot
-            call = next(self._calls)
+            # the open root lives in the thread's state, not in the
+            # ring, which may overwrite its entry before it ends
+            tls.root = i
+            tls.call = call = next(self._calls)
+            parent = -1
         else:
-            call = self._call[root]
+            call = tls.call
+            parent = root & self._mask
         self._seqno[slot] = i
         self._name[slot] = name
         self._call[slot] = call
-        self._parent[slot] = root
+        self._parent[slot] = parent
         self._arg[slot] = 0
         self._end[slot] = 0
         self._start[slot] = time.monotonic_ns()
-        return slot
+        return i
 
-    def end(self, slot: int, arg: int = 0) -> None:
-        """Close the span begin() returned `slot` for, with `arg`."""
-        if slot < 0:
+    def end(self, handle: int, arg: int = 0) -> None:
+        """Close the span begin() returned `handle` for, with `arg`; a
+        span the ring has overwritten since is left to its new owner."""
+        if handle < 0:
             return
-        self._end[slot] = time.monotonic_ns()
-        self._arg[slot] = arg
-        if self._parent[slot] < 0:
+        now = time.monotonic_ns()
+        slot = handle & self._mask
+        if self._seqno[slot] == handle:
+            self._end[slot] = now
+            self._arg[slot] = arg
+        if getattr(self._tls, "root", -1) == handle:
             self._tls.root = -1
 
     def snapshot(self) -> dict:

@@ -18,10 +18,11 @@ Beyond the interface, the plugin exposes a batched device-resident path
 torch input and returns tensors on the plugin's device: many stripes per
 launch, so the host<->device boundary stays off the hot path.  Each stages
 its input first and launches inside a region of the device guard
-(common/devguard.py).  Each call is a root span of the device-path span
-log (common/tracing.py) over child spans for the decode-table lookup
-(`ec.decode_table`, argument 1 on a miss), the staging (`ec.stage`) and
-the launch (`ec.launch`, in the operator).
+(common/devguard.py).  `encode_batch` and `decode_batch_full` are each a
+root span of the device-path span log (common/tracing.py) over child
+spans for the decode-table lookup (`ec.decode_table`, argument 1 on a
+miss), the staging (`ec.stage`) and the launch (`ec.launch`, in the
+operator); the staged `decode_batch`'s launch is a root of its own.
 """
 from __future__ import annotations
 
@@ -42,7 +43,6 @@ from ..registry import ErasureCodePlugin
 EC_TPU_DEFAULT_ALIGNMENT = 32  # match isa (EC_ISA_ADDRESS_ALIGNMENT)
 
 _SPAN_ENCODE = span_name("ec.encode_batch")
-_SPAN_DECODE = span_name("ec.decode_batch")
 _SPAN_DECODE_FULL = span_name("ec.decode_batch_full")
 _SPAN_TABLE = span_name("ec.decode_table")
 _SPAN_STAGE = span_name("ec.stage")
@@ -146,25 +146,16 @@ class ErasureCodeTpu(MatrixErasureCode):
         Returns (..., len(erasures), N) on the device.  The decode
         operator is cached per erasure signature (ISA-L table cache
         analogue)."""
-        root = SPANS.begin(_SPAN_DECODE)
-        try:
-            span = SPANS.begin(_SPAN_TABLE)
-            sig = erasure_signature(decode_index, erasures)
-            mm = self._decode_mm.get(sig)
-            miss = mm is None
-            if miss:
-                dmat = make_decode_matrix(self.encode_matrix, self.k,
-                                          list(decode_index), list(erasures))
-                mm = GFMatmul(dmat, self.device)
-                self._decode_mm.put(sig, mm, cost=self.k)
-            SPANS.end(span, miss)
-            span = SPANS.begin(_SPAN_STAGE)
-            data = _device.as_u8(data, self.device)
-            SPANS.end(span)
-            with devguard.guard_transfers(self.device):
-                return mm.launch(data)
-        finally:
-            SPANS.end(root)
+        sig = erasure_signature(decode_index, erasures)
+        mm = self._decode_mm.get(sig)
+        if mm is None:
+            dmat = make_decode_matrix(self.encode_matrix, self.k,
+                                      list(decode_index), list(erasures))
+            mm = GFMatmul(dmat, self.device)
+            self._decode_mm.put(sig, mm, cost=self.k)
+        data = _device.as_u8(data, self.device)
+        with devguard.guard_transfers(self.device):
+            return mm.launch(data)
 
     def decode_batch_full(self, erasures: list[int], data,
                           valid=None) -> torch.Tensor:

@@ -3,7 +3,8 @@ card ran no kernel, copy or fill (the union device_idle_pct.decode leaves
 out) while the host was inside one of the program's `ec.*` root
 spans, placed on the profiler's timeline by portbench/spans.py.
 device_idle_pct.decode less this is the idle the harness or the
-interpreter outside the program caused."""
+interpreter outside the program caused.  Both read the traced stretch,
+where the program's spans record and add their cost to the host's."""
 from portbench import spans
 
 SOURCE = "device_trace"

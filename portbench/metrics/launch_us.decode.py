@@ -1,7 +1,9 @@
 """launch_us.decode: mean host microseconds of the `ec.launch` spans of
 `ec.decode_batch_full` calls inside the traced window: the operator's
 reshape, output allocation and the ctypes launch of its kernel, from the
-program's span log placed on the profiler's timeline (portbench/spans.py)."""
+program's span log placed on the profiler's timeline (portbench/spans.py).
+It reads the traced stretch's pace, under the profiler (which adds to
+each launch) with the spans recording, not the untraced window's."""
 from portbench import spans
 
 SOURCE = "program_span"

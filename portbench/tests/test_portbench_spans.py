@@ -7,7 +7,8 @@ from types import SimpleNamespace
 import pytest
 
 from ceph_tpu_torch.common import tracing
-from portbench import spans, spec, trace
+from portbench import span_cost, spans, spec, trace
+from portbench.tests.conftest import CPU, small
 
 OFFSET = -900.5          # us, trace clock less span clock
 PERIOD = 100.0           # us between calls
@@ -205,3 +206,22 @@ def test_every_new_metric_lists_the_cells_its_reader_serves():
         listed = per_layer[name]["workloads"]
         assert listed and all(w.endswith("." + cells) for w in listed)
         assert reader(name).SOURCE == per_layer[name]["source"]
+
+
+@pytest.mark.parametrize("name", ["k4m2.encode", "k4m2.decode2"])
+def test_span_cost_records_only_when_on_or_profiled(name, capsys):
+    cell = spec.resolve(name)
+    got = span_cost.measure(cell, CPU, 0.05, 2, **small(cell))
+    assert all(len(got[m]["call_us"]) == 2 for m in span_cost.MODES)
+    assert got["off"]["written"] == [0, 0]
+    root = "ec.encode_batch" if cell.op == "encode" else \
+        "ec.decode_batch_full"
+    for mode in ("on", "prof"):
+        assert all(w > 0 for w in got[mode]["written"])
+        assert all(root in m and "ec.launch" in m
+                   for m in got[mode]["span_us"])
+    assert tracing.SPANS.snapshot()["written"] == 0
+    assert not tracing.SPANS.on
+    out = capsys.readouterr().out
+    assert f"SUMMARY {name} median host us per call: off" in out
+    assert span_cost.site_ns(False, 1000) > 0
